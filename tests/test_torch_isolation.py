@@ -1,0 +1,148 @@
+"""The port stands alone: it imports nothing of JAX or of code2vec_tpu,
+its CUDA wrappers never fall back to their plain versions, and
+chip_smoke.py refuses to run without a GPU or without the repo."""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import code2vec_tpu_torch
+from code2vec_tpu_torch import kernels
+from code2vec_tpu_torch.kernels import build
+
+pytestmark = pytest.mark.torch_port
+# the shapes are tiny; one intra-op thread leaves the CPU cores to the
+# other pytest workers
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(os.path.abspath(code2vec_tpu_torch.__file__))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "orbax",
+             "code2vec_tpu")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG_DIR], prefix="code2vec_tpu_torch."))
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "scripts", "profile_torch_kernels.py")]
+    for root, _, files in os.walk(PKG_DIR):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "code2vec_tpu_torch.serving.server" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_forbidden_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def _cuda_calls():
+    """One call per CUDA wrapper, on fake CUDA tensors (no storage)."""
+    from code2vec_tpu_torch.kernels.attention import masked_attention
+    from code2vec_tpu_torch.kernels.encoder import context_encoder
+    from code2vec_tpu_torch.kernels.label_logits import label_logits
+    from code2vec_tpu_torch.kernels.topk import blockwise_topk
+
+    def t(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="cuda")
+
+    return {
+        "context_encoder": lambda: context_encoder(
+            t((50, 128), torch.int8), t((50, 1)), t((40, 128), torch.int8),
+            t((40, 1)), t((384, 384)), t((2, 3), torch.int32),
+            t((2, 3), torch.int32), t((2, 3), torch.int32)),
+        "masked_attention": lambda: masked_attention(
+            t((2, 3, 384), torch.bfloat16), t((384,)), t((2, 3))),
+        "blockwise_topk": lambda: blockwise_topk(
+            t((2, 384)), t((70, 384), torch.int8), 10, 4096,
+            scales=t((70, 1))),
+        "label_logits": lambda: label_logits(
+            t((2, 384)), t((70, 384), torch.int8), t((2,), torch.int32),
+            scales=t((70, 1))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNEL_MODULES))
+def test_cuda_wrapper_raises_without_kernel_library(name, tmp_path,
+                                                    monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "empty"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: None)
+    monkeypatch.setattr(build, "_libs", {})
+    mod = __import__(kernels.KERNEL_MODULES[name], fromlist=["_fns"])
+    monkeypatch.setattr(mod, "_fns", {})
+    before = kernels.launch_counts()
+    with FakeTensorMode():
+        call = _cuda_calls()[name]
+        with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+            call()
+    assert kernels.launch_counts() == before
+
+
+def test_mixed_devices_are_refused():
+    from code2vec_tpu_torch.kernels.attention import masked_attention
+    with pytest.raises(ValueError, match="devices"):
+        masked_attention(torch.zeros(1, 2, 16, device="meta"),
+                         torch.zeros(16), torch.ones(1, 2))
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_refuses_without_gpu_or_repo(alone, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the refusal is for hosts without")
+    script = os.path.join(REPO, "chip_smoke.py")
+    cwd = REPO
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        cwd, script = str(tmp_path), str(tmp_path / "chip_smoke.py")
+    env = _clean_env()
+    env.pop("PYTHONPATH")
+    r = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
