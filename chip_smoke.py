@@ -18,12 +18,32 @@ a C++ compiler. Phases, each fatal on failure:
    the plain version's and a library call's time, and the least time the
    card could take (bytes over 3.35 TB/s, or bf16 operations over 989
    TFLOP/s, whichever is larger).
-4. Path: a full-width int8 release artifact written from random weights
-   (seeded), served over HTTP by the port's server on the GPU; /predict
-   and /embed requests with Java source run through the real extractor;
-   every response checked, every kernel's launch count must rise, and
-   the step's outputs on one padded batch of the extracted methods must
-   agree with the same step on the CPU (plain versions).
+4. Train kernels: K1 in train mode, K2 and K5-K8 against their plain
+   versions at the flagship train shapes (1024 rows x 200 contexts x 384;
+   1024 x 261,246 logits; Adam over all 383.7M parameters with bf16
+   moments), timed the same way; K5's and K6's gradients also by the
+   share of elements that moved (check_flips). The dropout mask is drawn
+   by K1's write-out mode: its kept share must lie within 5 sigma of the
+   keep rate, the same (seed, step) must draw the same mask and the next
+   step another, and K5 must give exactly 0 to every dropped element.
+5. Serving path: a full-width int8 release artifact written from random
+   weights (seeded), served over HTTP by the port's server on the GPU;
+   /predict and /embed requests with Java source run through the real
+   extractor; every response checked, every serving kernel's launch count
+   must rise, and the step's outputs on one padded batch of the extracted
+   methods must agree with the same step on the CPU (plain versions).
+6. Train path: a synthetic corpus at full width (a `.dict.c2v` with the
+   java14m vocabulary sizes, 4 x 1024 methods whose name follows their
+   tokens) trained for 2 epochs by the `train` command of the port's CLI
+   on the GPU: every loss finite, the second epoch's mean loss below the
+   first's, every train kernel launched once per step; then the step
+   time and examples/s of a steady step.
+7. One train step at 64 rows with full vocabulary widths and an injected
+   dropout mask, on the GPU against the same step on the CPU (plain
+   versions): the loss and the five gradients within one bf16 step of
+   each tensor's largest value, the target rows that are no label within
+   one bf16 step of their own largest value, and K8's update on
+   identical inputs.
 
 Prints one line per kernel, then a JSON line {"kernels": [...]}, the
 card's name and power limit, and as the last line
@@ -65,6 +85,8 @@ TOL_F32SUM = (1e-5, 1e-4)
 # which moves one term by one bf16 step; a few such terms move an output
 # by far less than one bf16 step (2^-8) of its tensor's largest value.
 PATH_REL_TOL = 2.0 ** -8
+SERVE_KERNELS = ("context_encoder", "masked_attention", "blockwise_topk",
+                 "label_logits")
 
 SOURCES = {
     "Input.java": None,  # read from the repo
@@ -203,10 +225,59 @@ def quantize(torch, table):
     return q, scales.float()
 
 
-def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
-    from code2vec_tpu_torch.kernels import attention, encoder, label_logits
-    from code2vec_tpu_torch.kernels import topk
+def attention_case(torch, timer, t, a, mask):
+    """K2 on K1's output `t` against its plain version: the weights at
+    TOL_F32SUM, the code vectors exactly against the weighted sum of the
+    kernel's own bf16 weights and against the plain version within two
+    bf16 weight flips, zeros for the all-invalid row 0; then timed beside
+    the plain version and scaled_dot_product_attention. Returns (report
+    entry, the kernel's code vectors, its weights)."""
+    from code2vec_tpu_torch.kernels import attention
     import torch.nn.functional as F
+
+    b, m, d = t.shape
+    got_cv, got_attn = attention.masked_attention(t, a, mask)
+    want_cv, want_attn = attention.masked_attention_plain(t, a, mask)
+    torch.cuda.synchronize()
+    err_at, ok_at = max_err(got_attn, want_attn, TOL_F32SUM)
+    # the weighted sum, exact given the kernel's own weights
+    sum_cv = (got_attn.to(torch.bfloat16).float()[:, :, None]
+              * t.float()).sum(dim=1)
+    err_sum, ok_sum = max_err(got_cv, sum_cv, TOL_F32SUM)
+    del sum_cv
+    # against the plain version: a weight whose f32 value lies at a bf16
+    # rounding boundary may round the other way there, moving the sum by
+    # one bf16 step of that weight's term; allow two
+    flip = 2 * 2.0 ** -8 * float(want_attn.abs().max() * t.abs().max())
+    tol_cv = (flip + TOL_F32SUM[0], TOL_F32SUM[1])
+    err_cv, ok_cv = max_err(got_cv, want_cv, tol_cv)
+    if not (ok_cv and ok_at and ok_sum):
+        fail(f"masked_attention B={b} m={m}: max errors cv {err_cv} (tol "
+             f"{tol_cv}) attn {err_at} weighted sum {err_sum}")
+    if got_cv[0].abs().max() != 0 or got_attn[0].abs().max() != 0:
+        fail("masked_attention: an all-invalid row must give zeros")
+    nbytes = t.numel() * 2 + mask.numel() * 4 * 2 + d * 4 + b * d * 4
+    bms, by = bound(nbytes, 4.0 * t.numel())
+    ms = timer(lambda: attention.masked_attention(t, a, mask))
+    plain_ms = timer(lambda: attention.masked_attention_plain(t, a, mask),
+                     spin_ms=20)
+    q = a.to(torch.bfloat16).view(1, 1, 1, d).expand(b, 1, 1, d).contiguous()
+    kv = t.view(b, 1, m, d)
+    keep = (mask > 0).view(b, 1, 1, m)
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q, kv, kv, attn_mask=keep, scale=1.0))
+    log(f"K2 masked_attention B={b} m={m}: max_abs_err cv "
+        f"{err_cv:.3g} (tol {tol_cv[0]:.3g}, {tol_cv[1]}) weighted sum "
+        f"{err_sum:.3g} attn {err_at:.3g} (tol {TOL_F32SUM}) max|cv| "
+        f"{float(want_cv.abs().max()):.3g} ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+    entry = dict(max_abs_err=max(err_cv, err_at), ms=ms, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    return entry, got_cv, got_attn
+
+
+def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
+    from code2vec_tpu_torch.kernels import encoder, label_logits, topk
 
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -276,47 +347,9 @@ def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
         mask = (torch.rand((fs.rows, m), generator=g, device=dev)
                 > 0.3).float()
         mask[0] = 0.0  # an all-invalid row
-        got_cv, got_attn = attention.masked_attention(t, a, mask)
-        want_cv, want_attn = attention.masked_attention_plain(t, a, mask)
-        torch.cuda.synchronize()
-        err_at, ok_at = max_err(got_attn, want_attn, TOL_F32SUM)
-        # the weighted sum, exact given the kernel's own weights
-        sum_cv = (got_attn.to(torch.bfloat16).float()[:, :, None]
-                  * t.float()).sum(dim=1)
-        err_sum, ok_sum = max_err(got_cv, sum_cv, TOL_F32SUM)
-        # against the plain version: a weight whose f32 value lies at a
-        # bf16 rounding boundary may round the other way there, moving
-        # the sum by one bf16 step of that weight's term; allow two
-        flip = 2 * 2.0 ** -8 * float(want_attn.abs().max() * t.abs().max())
-        tol_cv = (flip + TOL_F32SUM[0], TOL_F32SUM[1])
-        err_cv, ok_cv = max_err(got_cv, want_cv, tol_cv)
-        if not (ok_cv and ok_at and ok_sum):
-            fail(f"masked_attention m={m}: max errors cv {err_cv} (tol "
-                 f"{tol_cv}) attn {err_at} weighted sum {err_sum}")
-        if got_cv[0].abs().max() != 0 or got_attn[0].abs().max() != 0:
-            fail("masked_attention: an all-invalid row must give zeros")
-        nbytes = (t.numel() * 2 + mask.numel() * 4 * 2 + d * 4
-                  + fs.rows * d * 4)
-        bms, by = bound(nbytes, 4.0 * t.numel())
-        ms = timer(lambda: attention.masked_attention(t, a, mask))
-        plain_ms = timer(lambda: attention.masked_attention_plain(t, a, mask),
-                         spin_ms=20)
-        q = a.to(torch.bfloat16).view(1, 1, 1, d).expand(
-            fs.rows, 1, 1, d).contiguous()
-        kv = t.view(fs.rows, 1, m, d)
-        keep = (mask > 0).view(fs.rows, 1, 1, m)
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            q, kv, kv, attn_mask=keep, scale=1.0))
-        log(f"K2 masked_attention B={fs.rows} m={m}: max_abs_err cv "
-            f"{err_cv:.3g} (tol {tol_cv[0]:.3g}, {tol_cv[1]}) weighted sum "
-            f"{err_sum:.3g} attn {err_at:.3g} (tol {TOL_F32SUM}) max|cv| "
-            f"{float(want_cv.abs().max()):.3g} ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} "
-            f"library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+        r, got_cv, _ = attention_case(torch, timer, t, a, mask)
         if m == fs.contexts:
-            report["masked_attention"] = dict(
-                max_abs_err=max(err_cv, err_at), ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            report["masked_attention"] = r
             cv = got_cv.contiguous()
 
     valid = fs.vocab["target"] + 1
@@ -539,7 +572,7 @@ def path_phase(torch, seed: int, work_dir: str, fs, dev: str = "cuda"):
     if health["kernel_launches"] != counts:
         fail(f"/healthz launch counts {health['kernel_launches']} != "
              f"{counts}")
-    missing = [k for k, n in counts.items() if n <= 0]
+    missing = [k for k in SERVE_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"the path launched no {missing}")
 
@@ -596,6 +629,614 @@ def path_phase(torch, seed: int, work_dir: str, fs, dev: str = "cuda"):
     return counts
 
 
+# ------------------------------------------------------- train kernel phase
+
+# Tolerances of the train kernels against their plain versions, and why:
+# - One bf16 step at the compared tensor's largest value (bf16_step: the
+#   spacing of bf16 numbers there, between 2^-8 and 2^-7 of it): K1's
+#   output, K5's table and W gradients and K6's dT and da are values the
+#   reference rounds to bf16, computed from f32 sums taken in another
+#   order (K5: its bf16 hi/lo split of the f32 tanh gradient, and
+#   atomics in any order), so a rounding may land one bf16 step away,
+#   the largest value's included; a table gradient adds such terms.
+# - Beside it, a check that tells the precisions apart (check_flips):
+#   where both sides round the same f32 value, an element moves only
+#   where the f32 sums' order (or K5's hi/lo split of dpre, 2^-16
+#   relative) carries it across a bf16 rounding boundary. On an H100 that
+#   moved 0.22% of the elements of K5's table gradients, 0.74% of its
+#   d_transform (sums over 204,800 rows) and 0.002% of K6's dT, while a
+#   K5 built without dpre's lo plane (dpre in bf16 alone, 2^-8
+#   relative) moved 41%. An element counts as moved past FLIP_REL
+#   relative (a bf16 step is at least 2^-8); at most FLIP_SHARE of the
+#   elements that are nonzero on either side may move (at least
+#   FLIP_MIN, for tensors of a few hundred elements).
+# - TOL_XENT (atol 1e-7, rtol 1e-5): K7's loss is an f32 sum per row and
+#   one over the rows, taken in another order. K7's gradient is held as
+#   hi + lo per element (both planes summed), at TOL_XENT_GRAD's rtol
+#   4e-5: each side's two bf16 planes carry its f32 g to 2^-16 relative,
+#   and where the two sides' g (~1e-6 relative apart: expf and the f32
+#   row sum) round lo or hi the other way the sums differ by up to 2^-15
+#   (3.05e-5) of g; atol 1e-3 x the median |g|, so that every element is
+#   held, the smallest too.
+# - TOL_ADAM (atol 1e-7, rtol 1e-6) on parameters: K8 repeats the plain
+#   version's operations in order, but the card's division by a scalar
+#   (plain version) may differ in the last bit, which moves a parameter
+#   by a few f32 ulps of its update (lr x |m / sqrt(v)|, up to ~0.03
+#   here), hence the absolute part where the update cancels the
+#   parameter. TOL_MOMENT (rtol 2^-7) on the stored moments: equal, or
+#   one bf16 step apart where such a bit flips a rounding.
+TOL_XENT = (1e-7, 1e-5)
+TOL_XENT_GRAD_RTOL = 4e-5
+FLIP_REL = 2.0 ** -12
+FLIP_SHARE = 0.03
+FLIP_MIN = 8
+TOL_ADAM = (1e-7, 1e-6)
+TOL_MOMENT = (0.0, 2.0 ** -7)
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    if x == 0 or not math.isfinite(x):
+        return 0.0
+    return math.ldexp(1.0, math.frexp(abs(x))[1] - 8)
+
+
+def step_err(got, want):
+    """(max |got - want|, ok within one bf16 step at max |want|)."""
+    tol = bf16_step(float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    return err, err <= tol
+
+
+def check_flips(got, want, what):
+    """The share of elements (nonzero on either side) whose |got - want|
+    exceeds FLIP_REL |want|; fails past FLIP_SHARE (or FLIP_MIN
+    elements)."""
+    g, w = got.float(), want.float()
+    live = (g != 0) | (w != 0)
+    moved = int((((g - w).abs() > FLIP_REL * w.abs()) & live).sum())
+    n = int(live.sum())
+    if moved > max(FLIP_SHARE * n, FLIP_MIN):
+        fail(f"{what}: {moved} of {n} elements off by more than "
+             f"{FLIP_REL:.3g} relative (at most {FLIP_SHARE:.0%} may be)")
+    return moved / max(n, 1)
+
+
+def row_step_err(got, want):
+    """(largest |got - want| over one bf16 step at its row's largest
+    |want|, rows past that): each row held at its own scale."""
+    torch = sys.modules["torch"]
+    g, w = got.float(), want.float()
+    top = w.abs().amax(dim=1)
+    step = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8)
+    step = torch.where(top > 0, step, torch.zeros_like(step))
+    err = (g - w).abs().amax(dim=1)
+    ratio = err / step.clamp_min(torch.finfo(torch.float32).tiny)
+    return float(ratio.max()), int((err > step).sum())
+
+
+def adam_errors(params, mus, nus, ref_params, ref_mus, ref_nus, what):
+    """(max parameter error, max moment error); fails past TOL_ADAM on a
+    parameter or TOL_MOMENT on a moment, naming the tensor."""
+    err_p = err_m = 0.0
+    for i, (x, y) in enumerate(zip(params, ref_params)):
+        e, ok = max_err(x, y, TOL_ADAM)
+        err_p = max(err_p, e)
+        if not ok:
+            fail(f"{what}: parameter {i} max error {e} (tol {TOL_ADAM})")
+    for name, xs, ys in (("mu", mus, ref_mus), ("nu", nus, ref_nus)):
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            e, ok = max_err(x, y, TOL_MOMENT)
+            err_m = max(err_m, e)
+            if not ok:
+                fail(f"{what}: {name} {i} max error {e} (tol {TOL_MOMENT})")
+    return err_p, err_m
+
+
+def flagship_train():
+    """The flagship train shape: the port's Config defaults (batch 1024,
+    200 contexts, dropout keep 0.75, Adam lr 1e-3 with bf16 moments)."""
+    from code2vec_tpu_torch.config import Config
+    c = Config()
+    return types.SimpleNamespace(rows=c.train_batch_size,
+                                 contexts=c.max_contexts,
+                                 keep=c.dropout_keep_rate,
+                                 mu=c.adam_mu_dtype, nu=c.adam_nu_dtype)
+
+
+def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
+    from code2vec_tpu_torch.kernels import adam as kadam
+    from code2vec_tpu_torch.kernels import attention, encoder
+    from code2vec_tpu_torch.kernels import encoder_backward as kbwd
+    from code2vec_tpu_torch.kernels import softmax_xent as kxent
+    from code2vec_tpu_torch.training.state import DTYPES
+    import torch.nn.functional as F
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def uniform(shape, limit):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * limit
+
+    v_tok, v_path, v_tgt = (fs.vocab["token"] + 1, fs.vocab["path"] + 1,
+                            fs.vocab["target"] + 1)
+    td, pd, d = fs.token_dim, fs.path_dim, fs.code_dim
+    b, m = ft.rows, ft.contexts
+    n = b * m
+    tok = uniform((v_tok, td), math.sqrt(3 / td))
+    path = uniform((v_path, pd), math.sqrt(3 / pd))
+    tgt_table = uniform((v_tgt, d), math.sqrt(3 / d))
+    w = uniform((d, d), 1.0)          # pre-activations of std ~1
+    a = uniform((d,), 0.25)
+    attn_param = uniform((d, 1), 0.25)
+    ids = [torch.randint(0, hi, (b, m), generator=g, device=dev,
+                         dtype=torch.int32) for hi in (v_tok, v_path, v_tok)]
+    report = {}
+
+    def unique_rows_bytes(idx_list, width):
+        return torch.unique(torch.cat([i.flatten() for i in idx_list])
+                            ).numel() * width * 4
+
+    # K1, train mode: draw through the write-out mode, hold against the
+    # plain version on that mask
+    k_dim = 2 * td + pd
+    drawn = torch.empty((b, m, k_dim), dtype=torch.bool, device=dev)
+    step = 3
+
+    def k1(out_mask=None, step=step):
+        return encoder.context_encoder(
+            tok, None, path, None, w, *ids, residual=True,
+            dropout=encoder.Dropout(ft.keep, seed=seed, step=step,
+                                    out_mask=out_mask))
+
+    t, t_lo = k1(drawn)
+    want, want_lo = encoder.context_encoder_plain(
+        tok, None, path, None, w, *ids, residual=True,
+        dropout=encoder.Dropout(ft.keep, mask=drawn))
+    torch.cuda.synchronize()
+    err, ok = max_err(t, want, TOL_K1)
+    err_lo, ok_lo = step_err(t.float() + t_lo.float(),
+                             want.float() + want_lo.float())
+    share = float(drawn.float().mean())
+    sigma = math.sqrt(ft.keep * (1 - ft.keep) / drawn.numel())
+    again, other = torch.empty_like(drawn), torch.empty_like(drawn)
+    k1(again)
+    k1(other, step=step + 1)
+    torch.cuda.synchronize()
+    same, differs = bool(torch.equal(drawn, again)), not torch.equal(
+        drawn, other)
+    if not (ok and ok_lo) or abs(share - ft.keep) > 5 * sigma \
+            or not same or not differs:
+        fail(f"context_encoder train: max error {err} (residual {err_lo}), "
+             f"kept share {share} (keep {ft.keep}, sigma {sigma}), same "
+             f"key same mask {same}, next step another mask {differs}")
+    nbytes = (unique_rows_bytes(ids[0:3:2], td) + unique_rows_bytes(
+        ids[1:2], pd) + 3 * n * 4 + w.numel() * 4 + 2 * t.numel() * 2)
+    bms, by = bound(nbytes, 2.0 * n * k_dim * d)
+    ms = timer(lambda: k1())
+    plain_ms = timer(lambda: encoder.context_encoder_plain(
+        tok, None, path, None, w, *ids, residual=True,
+        dropout=encoder.Dropout(ft.keep, mask=drawn)), spin_ms=20)
+    log(f"K1 context_encoder train B={b} m={m} keep={ft.keep}: max_abs_err "
+        f"{err:.3g} (tol {TOL_K1}) with residual {err_lo:.3g} (tol one "
+        f"bf16 step at the largest value) kept {share:.5f} (5 sigma "
+        f"{5 * sigma:.2g}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+        f"{bms:.4f} ({by})")
+    report["context_encoder_train"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=None)
+
+    # K5: against the plain version on the drawn mask; then exact zeros
+    # for every dropped element, with every context row its own table row
+    dt = (uniform((b, m, d), 0.1)).to(torch.bfloat16)
+    drop = encoder.Dropout(ft.keep, seed=seed, step=step)
+    got = kbwd.encoder_backward(dt, t, t_lo, tok, path, w, *ids,
+                                dropout=drop)
+    want = kbwd.encoder_backward_plain(dt, t, t_lo, tok, path, w, *ids,
+                                       dropout=encoder.Dropout(ft.keep,
+                                                               mask=drawn))
+    torch.cuda.synchronize()
+    errs5 = [step_err(x, y) for x, y in zip(got, want)]
+    if not all(ok for _, ok in errs5):
+        fail(f"encoder_backward: max errors {[e for e, _ in errs5]} of "
+             f"largest values {[float(y.abs().max()) for y in want]} (tol "
+             f"one bf16 step there)")
+    flips5 = [check_flips(x, y, f"encoder_backward {name}") for x, y, name
+              in zip(got, want, ("d_token", "d_path", "d_transform"))]
+    del got, want
+    ar = torch.arange(n, dtype=torch.int32, device=dev).view(b, m)
+    own = [ar, ar, ar + n]
+    t_own, lo_own = encoder.context_encoder(
+        tok, None, path, None, w, *own, residual=True,
+        dropout=encoder.Dropout(ft.keep, seed=seed, step=step))
+    own_mask = torch.empty_like(drawn)
+    encoder.context_encoder(tok, None, path, None, w, *own,
+                            dropout=encoder.Dropout(ft.keep, seed=seed,
+                                                    step=step,
+                                                    out_mask=own_mask))
+    d_tok, d_path, _ = kbwd.encoder_backward(
+        dt, t_own, lo_own, tok, path, w, *own, dropout=drop)
+    torch.cuda.synchronize()
+    d_ctx = torch.cat([d_tok[:n], d_path[:n], d_tok[n:2 * n]],
+                      dim=1).view(b, m, k_dim)
+    dropped_nonzero = int(d_ctx[~own_mask].ne(0).sum())
+    kept_nonzero = float(d_ctx[own_mask].ne(0).float().mean())
+    if dropped_nonzero or kept_nonzero < 0.99:
+        fail(f"encoder_backward: {dropped_nonzero} dropped elements got a "
+             f"gradient; {kept_nonzero:.4f} of kept ones did")
+    del d_tok, d_path, d_ctx, t_own, lo_own, own_mask
+    nbytes = (3 * t.numel() * 2 + unique_rows_bytes(ids[0:3:2], td)
+              + unique_rows_bytes(ids[1:2], pd) + 3 * n * 4 + w.numel() * 4
+              + (tok.numel() + path.numel()) * 4 + w.numel() * 4)
+    bms, by = bound(nbytes, 4.0 * n * k_dim * d)
+    ms = timer(lambda: kbwd.encoder_backward(dt, t, t_lo, tok, path, w,
+                                             *ids, dropout=drop))
+    plain_ms = timer(lambda: kbwd.encoder_backward_plain(
+        dt, t, t_lo, tok, path, w, *ids,
+        dropout=encoder.Dropout(ft.keep, mask=drawn)), spin_ms=50)
+    # yardstick: the two products on cuBLAS (bf16 in, f32 out) and three
+    # index_add_ into zeroed dense tables
+    dpre = (dt.float() * (1 - t.float() ** 2)).to(torch.bfloat16).view(n, d)
+    ctx_b = torch.zeros((n, k_dim), dtype=torch.bfloat16, device=dev)
+    wb = w.to(torch.bfloat16)
+    flat = [i.flatten().long() for i in ids]
+
+    def library():
+        dctx = torch.mm(dpre, wb.T, out_dtype=torch.float32)
+        torch.mm(ctx_b.T, dpre, out_dtype=torch.float32)
+        gt = torch.zeros_like(tok)
+        gp = torch.zeros_like(path)
+        gt.index_add_(0, flat[0], dctx[:, :td])
+        gp.index_add_(0, flat[1], dctx[:, td:td + pd])
+        gt.index_add_(0, flat[2], dctx[:, td + pd:])
+
+    lib_ms = timer(library, spin_ms=20)
+    del dpre, ctx_b, flat
+    log(f"K5 encoder_backward B={b} m={m} keep={ft.keep}: max_abs_err "
+        f"d_token {errs5[0][0]:.3g} d_path {errs5[1][0]:.3g} d_transform "
+        f"{errs5[2][0]:.3g} (tol one bf16 step at the largest), elements "
+        f"moved {', '.join(f'{x:.2e}' for x in flips5)} (tol "
+        f"{FLIP_SHARE}); dropped "
+        f"elements with a gradient {dropped_nonzero}, kept with one "
+        f"{kept_nonzero:.4f}; ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+    report["encoder_backward"] = dict(
+        max_abs_err=max(e for e, _ in errs5), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    # K6: the backward of K2 on K1's train output
+    mask = (torch.rand((b, m), generator=g, device=dev) > 0.3).float()
+    mask[0] = 0.0
+    report["masked_attention_train"], _, attn = attention_case(
+        torch, timer, t, a, mask)
+    dcv = uniform((b, d), 0.05).to(torch.bfloat16).float()
+    got = attention.masked_attention_backward(t, a, mask, attn, dcv)
+    want = attention.masked_attention_backward_plain(t, a, mask, attn, dcv)
+    torch.cuda.synchronize()
+    errs6 = [step_err(x, y) for x, y in zip(got, want)]
+    if not all(ok for _, ok in errs6) or got[0][0].abs().max() != 0:
+        fail(f"masked_attention_backward: max errors "
+             f"{[e for e, _ in errs6]}, all-masked row max "
+             f"{float(got[0][0].abs().max())}")
+    flips6 = [check_flips(x, y, f"masked_attention_backward {name}")
+              for x, y, name in zip(got, want, ("dT", "da"))]
+    nbytes = 2 * t.numel() * 2 + 2 * b * m * 4 + b * d * 4 + 2 * d * 4
+    bms, by = bound(nbytes, 6.0 * t.numel())
+    ms = timer(lambda: attention.masked_attention_backward(t, a, mask, attn,
+                                                           dcv))
+    plain_ms = timer(lambda: attention.masked_attention_backward_plain(
+        t, a, mask, attn, dcv), spin_ms=20)
+    log(f"K6 masked_attention_backward B={b} m={m}: max_abs_err dT "
+        f"{errs6[0][0]:.3g} da {errs6[1][0]:.3g} (tol one bf16 step at "
+        f"the largest), elements moved {flips6[0]:.2e} {flips6[1]:.2e} (tol "
+        f"{FLIP_SHARE}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+        f"{bms:.4f} ({by})")
+    report["masked_attention_backward"] = dict(
+        max_abs_err=max(e for e, _ in errs6), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None)
+    del t, t_lo, dt, got, want, drawn, again, other, attn, mask, dcv
+
+    # K7 at 1024 x 261,246 f32 logits
+    logits = torch.randn((b, v_tgt), generator=g, device=dev) * 3
+    labels = torch.randint(0, v_tgt, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    valid = torch.ones(b, device=dev)
+    valid[1] = 0.0
+    loss, grad = kxent.softmax_xent(logits, labels, valid)
+    want_loss, want_grad = kxent.softmax_xent_plain(logits, labels, valid)
+    torch.cuda.synchronize()
+    err_l, ok_l = max_err(loss, want_loss, TOL_XENT)
+    zero_row = float(grad[:, 1].abs().max())
+    grad = grad[0].float() + grad[1].float()
+    want_grad = want_grad[0].float() + want_grad[1].float()
+    g_median = float(want_grad.abs().median())
+    tol_g = (1e-3 * g_median, TOL_XENT_GRAD_RTOL)
+    err_g, ok_g = max_err(grad, want_grad, tol_g)
+    if not (ok_l and ok_g) or zero_row != 0:
+        fail(f"softmax_xent: loss error {err_l}, gradient error {err_g} "
+             f"(tol {tol_g}), valid = 0 row max {zero_row}")
+    del grad, want_grad
+    nbytes = logits.numel() * 4 + logits.numel() * 2 * 2 + b * 8 + 4
+    bms, by = bound(nbytes, 5.0 * logits.numel())
+    ms = timer(lambda: kxent.softmax_xent(logits, labels, valid))
+    plain_ms = timer(lambda: kxent.softmax_xent_plain(logits, labels, valid),
+                     spin_ms=20)
+    leaf = logits.clone().requires_grad_(True)
+    lab64 = labels.long()
+
+    def library():
+        leaf.grad = None
+        ((F.cross_entropy(leaf, lab64, reduction="none") * valid).sum()
+         / b).backward()
+
+    lib_ms = timer(library, spin_ms=20)
+    log(f"K7 softmax_xent B={b} V={v_tgt}: max_abs_err loss {err_l:.3g} "
+        f"(tol {TOL_XENT}) gradient hi + lo {err_g:.3g} (tol "
+        f"({tol_g[0]:.3g}, {tol_g[1]}), median |g| {g_median:.3g}) ms "
+        f"{ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+    report["softmax_xent"] = dict(
+        max_abs_err=max(err_l, err_g), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    del logits, leaf
+    torch.cuda.empty_cache()
+
+    # K8 over the full state: 383.7M f32 parameters, bf16 moments
+    hyper = kadam.AdamHyper(mu_dtype=DTYPES[ft.mu], nu_dtype=DTYPES[ft.nu])
+    params = [tok, path, tgt_table, w, attn_param]
+    grads = [torch.randn(p.shape, generator=g, device=dev) * 1e-3
+             for p in params]
+    mus = [(torch.randn(p.shape, generator=g, device=dev) * 1e-3).to(
+        hyper.mu_dtype) for p in params]
+    nus = [(torch.rand(p.shape, generator=g, device=dev) * 1e-6).to(
+        hyper.nu_dtype) for p in params]
+    ref = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+    kadam.adam(params, grads, mus, nus, 7, hyper)
+    kadam.adam_plain(ref[0], grads, ref[1], ref[2], 7, hyper)
+    torch.cuda.synchronize()
+    err8, err_m = adam_errors(params, mus, nus, *ref, "adam")
+    del ref
+    n_params = sum(p.numel() for p in params)
+    msz, nsz = (2 if hyper.mu_dtype == torch.bfloat16 else 4,
+                2 if hyper.nu_dtype == torch.bfloat16 else 4)
+    nbytes = n_params * (8 + 4 + 2 * msz + 2 * nsz)
+    bms, by = bound(nbytes, 15.0 * n_params)
+    ms = timer(lambda: kadam.adam(params, grads, mus, nus, 8, hyper))
+    plain_ms = timer(lambda: kadam.adam_plain(params, grads, mus, nus, 8,
+                                              hyper), spin_ms=50)
+    del mus, nus
+    torch.cuda.empty_cache()
+    lib_params = [p.clone().requires_grad_(True) for p in params]
+    for p, gr in zip(lib_params, grads):
+        p.grad = gr
+    opt = torch.optim.Adam(lib_params, lr=hyper.learning_rate,
+                           betas=(hyper.b1, hyper.b2), eps=hyper.eps,
+                           fused=True)
+    lib_ms = timer(opt.step, spin_ms=20)
+    log(f"K8 adam {n_params} params mu {ft.mu} nu {ft.nu}: max_abs_err "
+        f"parameters {err8:.3g} (tol {TOL_ADAM}) moments {err_m:.3g} (tol "
+        f"{TOL_MOMENT}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {lib_ms:.4f} (fused torch.optim.Adam, f32 moments) "
+        f"bound_ms {bms:.4f} ({by})")
+    report["adam"] = dict(max_abs_err=err8, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    del opt, lib_params, params, grads, tok, path, tgt_table
+    torch.cuda.empty_cache()
+    return report
+
+
+# --------------------------------------------------------- train path phase
+
+
+def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
+                       n_names: int = 64, tokens_per_name: int = 64):
+    """PREFIX.dict.c2v with the java14m vocabulary sizes and
+    PREFIX.train.c2v of `n_rows` methods whose name follows their tokens
+    (the pattern of tests/test_end_to_end.py at full width): each of
+    `n_names` names owns `tokens_per_name` tokens spread over the token
+    vocabulary; paths are drawn from the whole path vocabulary."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v_tok, v_path, v_tgt = (fs.vocab["token"], fs.vocab["path"],
+                            fs.vocab["target"])
+    prefix = os.path.join(work_dir, "corpus")
+    with open(prefix + ".dict.c2v", "wb") as f:
+        # descending counts: the vocabulary order is the word order
+        pickle.dump({f"t{i}": v_tok - i for i in range(v_tok)}, f)
+        pickle.dump({f"p{i}": v_path - i for i in range(v_path)}, f)
+        pickle.dump({f"name|w{i}": v_tgt - i for i in range(v_tgt)}, f)
+        pickle.dump(n_rows, f)
+    owned = rng.choice(v_tok, size=(n_names, tokens_per_name), replace=False)
+    names = rng.integers(0, n_names, n_rows)
+    m = ft.contexts
+    lines = []
+    for r in range(n_rows):
+        toks = owned[names[r]][rng.integers(0, tokens_per_name, (2, m))]
+        pths = rng.integers(0, v_path, m)
+        ctx = " ".join(f"t{toks[0, j]},p{pths[j]},t{toks[1, j]}"
+                       for j in range(m))
+        lines.append(f"name|w{names[r] * 997 % v_tgt} {ctx}")
+    with open(prefix + ".train.c2v", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return prefix
+
+
+def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
+                     epochs: int = 2, steps_per_epoch: int = 4,
+                     dev: str = "cuda"):
+    from code2vec_tpu_torch import cli, kernels
+    from code2vec_tpu_torch.data.reader import parse_context_lines
+    from code2vec_tpu_torch.model_facade import Code2VecModel
+
+    # The reference's `.repeat(epochs).shuffle(buffer)` moves an epoch's
+    # boundary by the shuffle buffer, and the default buffer (10,000
+    # lines) would hold this whole corpus until the last pass. A buffer of
+    # rows/16 lines, and that many methods beyond 4 x 1024, give each of
+    # the two epochs exactly 4 full batches (the run's ragged tail is
+    # dropped).
+    buffer = max(ft.rows // 16, 1)
+    n_rows = steps_per_epoch * ft.rows + buffer
+    t0 = time.perf_counter()
+    prefix = write_train_corpus(work_dir, seed, fs, ft, n_rows)
+    log(f"train: wrote a {n_rows}-method corpus with java14m vocabularies "
+        f"in {time.perf_counter() - t0:.1f}s")
+    argv = ["train", "--data", prefix, "--epochs", str(epochs), "--seed",
+            str(seed), "--batch_size", str(ft.rows), "--max_contexts",
+            str(ft.contexts), "--device", dev]
+    _, config = cli.config_from_args(argv)
+    config.shuffle_buffer_size = buffer
+    config.verbose_mode = 0
+    t0 = time.perf_counter()
+    model = Code2VecModel(config)   # what `cli.main(argv)` runs
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"train: built vocabularies and a {n_params}-"
+        f"parameter model on {model.device} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    losses = model.trainer.epoch_losses
+    steps = model.state.step
+    means = [statistics.mean(e) if e else float("nan") for e in losses]
+    log(f"train: {epochs} epochs, {steps} steps in {wall:.1f}s; losses "
+        f"{[round(x, 4) for e in losses for x in e]}; epoch means "
+        f"{[round(x, 4) for x in means]}; kernel launches {counts}")
+    if len(losses) != epochs or any(len(e) != steps_per_epoch
+                                    for e in losses):
+        fail(f"train: epochs of {[len(e) for e in losses]} steps, expected "
+             f"{epochs} of {steps_per_epoch}")
+    if not all(math.isfinite(x) for e in losses for x in e):
+        fail("train: a loss is not finite")
+    if not means[1] < means[0]:
+        fail(f"train: the second epoch's mean loss {means[1]} is not below "
+             f"the first's {means[0]}")
+    train_counts = {k: counts[k] for k in kernels.TRAIN_KERNELS}
+    if any(v != steps for v in train_counts.values()):
+        fail(f"train: launches {train_counts} are not one per step "
+             f"({steps})")
+
+    # a steady step on one batch: host clock around synchronised steps
+    with open(config.train_data_path) as f:
+        lines = [next(f) for _ in range(ft.rows)]
+    arrays = model.trainer._to_device(parse_context_lines(
+        lines, model.vocabs, ft.contexts, keep_strings=False))
+    step_fn = model.builder.make_train_step(model.state)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.state, loss = step_fn(model.state, *arrays, seed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    step_ms = statistics.median(times[1:]) * 1e3
+    log(f"train: steady step {step_ms:.2f} ms (median of 5, host clock "
+        f"around synchronised steps), {ft.rows / step_ms * 1e3:.0f} "
+        f"examples/s")
+    del model
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=step_ms, examples_per_s=ft.rows / step_ms
+                        * 1e3, epoch_means=means)
+
+
+def train_step_check(torch, seed: int, fs, ft, rows: int = 64,
+                     dev: str = "cuda"):
+    """One train step at `rows` rows, full vocabulary widths, injected
+    dropout mask: GPU against CPU (plain versions)."""
+    import numpy as np
+
+    from code2vec_tpu_torch.kernels import adam as kadam
+    from code2vec_tpu_torch.models.code2vec import Code2VecModule, ModelDims
+    from code2vec_tpu_torch.training.state import DTYPES
+
+    dims = ModelDims(fs.vocab["token"] + 1, fs.vocab["path"] + 1,
+                     fs.vocab["target"] + 1, token_dim=fs.token_dim,
+                     path_dim=fs.path_dim)
+    gpu = Code2VecModule(dims, device=dev, dropout_keep_rate=ft.keep,
+                         generator=torch.Generator(device=dev
+                                                   ).manual_seed(seed))
+    cpu = Code2VecModule(dims, device="cpu", dropout_keep_rate=ft.keep)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(seed)
+    m, k_dim = ft.contexts, dims.context_dim
+    arrays = [rng.integers(0, hi, (rows, m)).astype(np.int32)
+              for hi in (dims.token_vocab_size, dims.path_vocab_size,
+                         dims.token_vocab_size)]
+    mask = (rng.random((rows, m)) > 0.2).astype(np.float32)
+    mask[0] = 0.0
+    labels = rng.integers(1, dims.target_vocab_size, rows).astype(np.int32)
+    valid = np.ones(rows, np.float32)
+    valid[1] = 0.0
+    drop = rng.random((rows, m, k_dim)) < ft.keep
+    host = [torch.from_numpy(x) for x in (*arrays, mask, labels, valid,
+                                          drop)]
+    grads, losses = {}, {}
+    for name, mod, where in (("gpu", gpu, dev), ("cpu", cpu, "cpu")):
+        x = [h.to(where) for h in host]
+        mod.requires_grad_(True)
+        t0 = time.perf_counter()
+        cv, _ = mod.encode(*x[:4], deterministic=False, dropout_mask=x[6])
+        loss = mod.train_loss(cv, x[4], x[5])
+        loss.backward()
+        losses[name] = float(loss.detach())
+        grads[name] = {k: p.grad.detach().cpu()
+                       for k, p in mod.named_parameters()}
+        log(f"step check: forward + backward on the {name} in "
+            f"{time.perf_counter() - t0:.1f}s")
+    if not abs(losses["gpu"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"]):
+        fail(f"GPU vs CPU step: loss {losses['gpu']} vs {losses['cpu']}")
+    # No share of moved elements here (check_flips): each side's kernels
+    # take inputs that already differ by rounding flips upstream (a bf16
+    # code vector element one step apart moves a whole column of the
+    # target gradient), which moved 3.2% of its elements on an H100. The
+    # kernel phase holds each kernel's precision on identical inputs.
+    errs = {}
+    for k in grads["cpu"]:
+        errs[k], ok = step_err(grads["gpu"][k], grads["cpu"][k])
+        if not ok:
+            fail(f"GPU vs CPU step: gradient of {k} max error {errs[k]} > "
+                 f"one bf16 step at {float(grads['cpu'][k].abs().max())}")
+    # the target rows that are no label get ~1/V of a label row's
+    # gradient: each row within one bf16 step at its own largest value
+    others = torch.ones(dims.target_vocab_size, dtype=torch.bool)
+    others[host[4].long()] = False
+    row_ratio, rows_off = row_step_err(
+        grads["gpu"]["target_embedding"][others],
+        grads["cpu"]["target_embedding"][others])
+    if rows_off:
+        fail(f"GPU vs CPU step: {rows_off} target rows that are no label "
+             f"off by more than one bf16 step at their largest value "
+             f"(worst {row_ratio:.3g} steps)")
+    # K8 on identical inputs: the GPU's gradients, the same parameters
+    hyper = kadam.AdamHyper(mu_dtype=DTYPES[ft.mu], nu_dtype=DTYPES[ft.nu])
+    outs = {}
+    for name, mod, where in (("gpu", gpu, dev), ("cpu", cpu, "cpu")):
+        ps = [p.detach() for p in mod.parameters()]
+        gs = [grads["gpu"][k].to(where) for k, _ in mod.named_parameters()]
+        mus = [torch.zeros_like(p, dtype=hyper.mu_dtype) for p in ps]
+        nus = [torch.zeros_like(p, dtype=hyper.nu_dtype) for p in ps]
+        kadam.adam(ps, gs, mus, nus, 1, hyper)
+        outs[name] = [x.cpu() for x in ps + mus + nus]
+    k = len(outs["gpu"]) // 3
+    err8, err_m = adam_errors(*(outs[w][i * k:(i + 1) * k]
+                                for w in ("gpu", "cpu") for i in range(3)),
+                              "GPU vs CPU adam")
+    log(f"step check: GPU vs CPU at B={rows}, m={m}, injected mask: loss "
+        f"{losses['gpu']:.6f} vs {losses['cpu']:.6f}; gradient max errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol one bf16 step at each largest value); target rows that "
+        f"are no label within {row_ratio:.3g} of a bf16 step at their "
+        f"largest value; adam max error "
+        f"parameters {err8:.3g} (tol {TOL_ADAM}) moments {err_m:.3g} (tol "
+        f"{TOL_MOMENT})")
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -648,7 +1289,10 @@ def main() -> None:
 
     timer = Timer(torch, args.samples)
     fs = flagship()
+    ft = flagship_train()
     report = kernel_phase(torch, args.seed, timer, fs)
+    torch.cuda.empty_cache()
+    report.update(train_kernel_phase(torch, args.seed, timer, fs, ft))
     del timer
     torch.cuda.empty_cache()
 
@@ -657,26 +1301,50 @@ def main() -> None:
     os.makedirs(work_dir)
     try:
         counts = path_phase(torch, args.seed, work_dir, fs)
+        train_counts, train_stats = train_path_phase(torch, args.seed,
+                                                     work_dir, fs, ft)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
+    train_step_check(torch, args.seed, fs, ft)
 
-    sources = {"context_encoder": ("encoder.cu",
-                                   "code2vec_tpu/models/code2vec.py:145"),
-               "masked_attention": ("attention.cu",
-                                    "code2vec_tpu/ops/attention.py:28"),
-               "blockwise_topk": ("topk.cu", "code2vec_tpu/ops/topk.py:99"),
-               "label_logits": ("label_logits.cu",
-                                "code2vec_tpu/ops/topk.py:182")}
+    sources = {
+        "context_encoder": ("encoder.cu",
+                            "code2vec_tpu/models/code2vec.py:145"),
+        "masked_attention": ("attention.cu",
+                             "code2vec_tpu/ops/attention.py:28"),
+        "blockwise_topk": ("topk.cu", "code2vec_tpu/ops/topk.py:99"),
+        "label_logits": ("label_logits.cu", "code2vec_tpu/ops/topk.py:182"),
+        "encoder_backward": ("encoder_backward.cu",
+                             "code2vec_tpu/models/code2vec.py:145"),
+        "masked_attention_backward": ("attention_backward.cu",
+                                      "code2vec_tpu/ops/attention.py:28"),
+        "softmax_xent": ("softmax_xent.cu",
+                         "code2vec_tpu/training/step.py:170"),
+        "adam": ("adam.cu", "code2vec_tpu/training/state.py:62"),
+    }
     entries = []
     for name, (src, replaces) in sources.items():
         r = report[name]
-        entries.append({
+        serving = name in SERVE_KERNELS
+        entry = {
             "name": name, "route": "cuda",
             "source": f"code2vec_tpu_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces,
+            "launches": counts[name] if serving else train_counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name in ("context_encoder", "masked_attention"):
+            # serving numbers above; the train shape's and the train
+            # path's launches here
+            entry["train_launches"] = train_counts[name]
+            t = report[f"{name}_train"]
+            entry.update({f"train_{k}": t[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+        entries.append(entry)
+    log(f"train step: {train_stats['step_ms']:.2f} ms, "
+        f"{train_stats['examples_per_s']:.0f} examples/s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

@@ -1,9 +1,14 @@
-"""Command line of the port: `serve` and `predict` against a release
-artifact, with the flag names of code2vec_tpu/cli.py and a `--device`
-flag (default cuda).
+"""Command line of the port: `train` from a preprocessed dataset, and
+`serve` and `predict` against a release artifact, with the flag names of
+code2vec_tpu/cli.py and a `--device` flag (default cuda).
 
+    python -m code2vec_tpu_torch train --data PREFIX --epochs N
+        [--batch_size B] [--max_contexts M] [--seed S] [--device cpu]
     python -m code2vec_tpu_torch serve --artifact DIR [--serve_port P]
     python -m code2vec_tpu_torch predict --artifact DIR [--device cpu]
+
+`train` neither saves nor evaluates yet: `--save` and `--test` are
+refused.
 """
 
 from __future__ import annotations
@@ -16,9 +21,21 @@ from code2vec_tpu_torch.config import Config
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m code2vec_tpu_torch")
-    p.add_argument("command", choices=("serve", "predict"))
+    p.add_argument("command", choices=("train", "serve", "predict"))
     p.add_argument("--artifact", dest="serve_artifact", metavar="DIR",
-                   required=True, help="release artifact directory")
+                   help="`serve`, `predict`: release artifact directory")
+    p.add_argument("-d", "--data", dest="data_path", metavar="PREFIX",
+                   help="`train`: path prefix of the preprocessed dataset "
+                        "(PREFIX.train.c2v, PREFIX.dict.c2v)")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="`train`: epochs (default 20)")
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="`train`: rows per step (default 1024)")
+    p.add_argument("--max_contexts", type=int, default=None,
+                   help="`train`: contexts per method (default 200)")
+    p.add_argument("--seed", type=int, default=42,
+                   help="`train`: seed of the parameters, dropout and "
+                        "shuffle")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -42,9 +59,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(argv):
     """(parsed args, Config)."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command == "train" and not args.data_path:
+        parser.error("train needs --data PREFIX")
+    if args.command != "train" and not args.serve_artifact:
+        parser.error(f"{args.command} needs --artifact DIR")
     config = Config(serve_artifact=args.serve_artifact, device=args.device,
-                    export_code_vectors=args.export_code_vectors)
+                    export_code_vectors=args.export_code_vectors,
+                    train_data_path_prefix=args.data_path, seed=args.seed)
+    for name, field in (("epochs", "num_train_epochs"),
+                        ("batch_size", "train_batch_size"),
+                        ("max_contexts", "max_contexts")):
+        value = getattr(args, name)
+        if value is not None:
+            setattr(config, field, value)
     for name in ("serve_port", "serve_host", "serve_batch_size",
                  "serve_max_delay_ms", "extractor_timeout_s"):
         value = getattr(args, name)
@@ -53,8 +82,14 @@ def config_from_args(argv):
     return args, config
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Runs a command; `train` returns its Code2VecModel."""
     args, config = config_from_args(sys.argv[1:] if argv is None else argv)
+    if args.command == "train":
+        from code2vec_tpu_torch.model_facade import Code2VecModel
+        model = Code2VecModel(config)
+        model.train()
+        return model
     from code2vec_tpu_torch.release.runtime import ReleaseModel
     model = ReleaseModel(config)
     if args.command == "serve":

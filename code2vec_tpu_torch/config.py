@@ -1,5 +1,5 @@
-"""The predict and serve knobs of the port, with the names and defaults of
-code2vec_tpu/config.py.
+"""The train, predict and serve knobs of the port, with the names and
+defaults of code2vec_tpu/config.py.
 
 A release artifact is authoritative for what shaped its export
 (max_contexts, topk, buckets, vocab sizes, compute dtype): ReleaseModel
@@ -17,6 +17,23 @@ from typing import Optional
 
 @dataclasses.dataclass
 class Config:
+    # training schedule (code2vec_tpu/config.py:27, :43, :83, :86)
+    num_train_epochs: int = 20
+    on_nonfinite_loss: str = "halt"
+    train_batch_size: int = 1024
+    num_batches_to_log_progress: int = 100
+    shuffle_buffer_size: int = 10000
+    csv_buffer_size: int = 100 * 1024 * 1024
+    train_data_path_prefix: Optional[str] = None
+    dropout_keep_rate: float = 0.75
+    # Adam (code2vec_tpu/config.py:136-139, :163, :172)
+    learning_rate: float = 0.001
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    adam_mu_dtype: str = "bfloat16"
+    adam_nu_dtype: str = "bfloat16"
+    seed: int = 42
     # model shape (code2vec_tpu/config.py:85-105)
     top_k_words_considered_during_prediction: int = 10
     max_contexts: int = 200
@@ -42,6 +59,35 @@ class Config:
     # the port's own
     device: str = "cuda"
     verbose_mode: int = 1
+
+    @property
+    def is_training(self) -> bool:
+        return bool(self.train_data_path_prefix)
+
+    @property
+    def train_data_path(self) -> Optional[str]:
+        # `<prefix>.train.c2v` (code2vec_tpu/config.py:753-758)
+        if not self.is_training:
+            return None
+        return f"{self.train_data_path_prefix}.train.c2v"
+
+    @property
+    def word_freq_dict_path(self) -> Optional[str]:
+        # `<prefix>.dict.c2v` (code2vec_tpu/config.py:760-764)
+        if not self.is_training:
+            return None
+        return f"{self.train_data_path_prefix}.dict.c2v"
+
+    def verify(self) -> None:
+        """The dtype and policy checks of code2vec_tpu/config.py:822-840
+        that the port's knobs share."""
+        for name in ("compute_dtype", "adam_mu_dtype", "adam_nu_dtype"):
+            if getattr(self, name) not in ("bfloat16", "float32"):
+                raise ValueError(f"{name} must be bfloat16 or float32.")
+        if self.on_nonfinite_loss not in ("halt", "warn"):
+            raise ValueError("on_nonfinite_loss must be halt or warn.")
+        if not 0.0 < self.dropout_keep_rate <= 1.0:
+            raise ValueError("dropout_keep_rate must be in (0, 1].")
 
     def log(self, msg: str) -> None:
         if self.verbose_mode > 0:

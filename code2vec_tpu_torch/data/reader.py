@@ -1,24 +1,61 @@
-"""Host-side parsing of extractor lines into model inputs, Predict action.
+"""Host-side parsing of `.c2v` lines into model inputs: the Predict and
+Train actions.
 
-The counterpart of code2vec_tpu/data/reader.py (RowBatch, and the
-keep-strings path of parse_context_lines :115, empty_predict_batch :290,
-slice_contexts :319, truncate_rows :344, _pad_rows :359). It must give
-the same int arrays as the reference for the same lines:
+The counterpart of code2vec_tpu/data/reader.py (RowBatch, EpochEnd :54,
+EstimatorAction :68, parse_context_lines :115, row_filter_mask :251,
+_select_rows :261, empty_predict_batch :290,
+slice_contexts :319, truncate_rows :344, _pad_rows :359, _iter_file_lines
+:390, _epoch_shuffle_rng :401, and PathContextReader :413-640 for one
+shard of a text `.c2v`). It must give the same int arrays, and in
+training the same batches in the same order, as the reference for the
+same file and seed:
 
 - a missing or empty part is PAD, an unknown word is OOV (in the joined
   scheme both are index 0);
 - a context is valid iff any of its three parts is not PAD;
-- predict rows are never filtered.
+- train rows are dropped when the target is PAD/OOV or no context is
+  valid; predict rows are never filtered;
+- training shuffles through a bounded buffer keyed per epoch, yields an
+  EpochEnd marker after every file pass, and drops the ragged tail.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import enum
+import hashlib
+import random
+import struct
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from code2vec_tpu_torch.vocab import Code2VecVocabs
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochEnd:
+    """Marker a train stream yields after the last batch of each file
+    pass; `epoch` is 1-based."""
+    epoch: int
+
+
+class EstimatorAction(enum.Enum):
+    Train = "train"
+    Evaluate = "evaluate"
+    Predict = "predict"
+
+    @property
+    def is_train(self) -> bool:
+        return self is EstimatorAction.Train
+
+    @property
+    def is_evaluate(self) -> bool:
+        return self is EstimatorAction.Evaluate
+
+    @property
+    def is_predict(self) -> bool:
+        return self is EstimatorAction.Predict
 
 
 @dataclasses.dataclass
@@ -45,11 +82,15 @@ class RowBatch:
 def parse_context_lines(lines: Sequence[str], vocabs: Code2VecVocabs,
                         max_contexts: int,
                         out: Optional[RowBatch] = None,
-                        row_offset: int = 0) -> RowBatch:
+                        row_offset: int = 0,
+                        keep_strings: bool = True) -> RowBatch:
     """Parse `name ctx ctx ...` lines (ctx = `token,path,token`) into a
-    keep-strings RowBatch, or into rows [row_offset, row_offset + n) of
-    `out` (a buffer from `empty_predict_batch`)."""
+    RowBatch, or into rows [row_offset, row_offset + n) of `out` (a
+    buffer from `empty_predict_batch`). Without `keep_strings` (the
+    train path) only the int arrays are filled."""
     n, m = len(lines), max_contexts
+    if out is not None and not keep_strings:
+        raise ValueError("out= requires the keep-strings parse path")
     token_w2i = vocabs.token_vocab.word_to_index
     path_w2i = vocabs.path_vocab.word_to_index
     token_oov = vocabs.token_vocab.oov_index
@@ -61,9 +102,10 @@ def parse_context_lines(lines: Sequence[str], vocabs: Code2VecVocabs,
         pth = np.full((n, m), path_pad, dtype=np.int32)
         tgt = np.full((n, m), token_pad, dtype=np.int32)
         target_index = np.empty((n,), dtype=np.int32)
-        src_s = np.full((n, m), "", dtype=object)
-        pth_s = np.full((n, m), "", dtype=object)
-        tgt_s = np.full((n, m), "", dtype=object)
+        if keep_strings:
+            src_s = np.full((n, m), "", dtype=object)
+            pth_s = np.full((n, m), "", dtype=object)
+            tgt_s = np.full((n, m), "", dtype=object)
     else:
         if out.source_token_indices.shape[1] != m:
             raise ValueError(f"out buffer context width "
@@ -93,7 +135,8 @@ def parse_context_lines(lines: Sequence[str], vocabs: Code2VecVocabs,
             src[i, j] = token_w2i.get(a, token_pad if a == "" else token_oov)
             pth[i, j] = path_w2i.get(b, path_pad if b == "" else path_oov)
             tgt[i, j] = token_w2i.get(c, token_pad if c == "" else token_oov)
-            src_s[i, j], pth_s[i, j], tgt_s[i, j] = a, b, c
+            if keep_strings:
+                src_s[i, j], pth_s[i, j], tgt_s[i, j] = a, b, c
     mask = ((src != token_pad) | (tgt != token_pad) | (pth != path_pad))
     context_valid_mask = mask.astype(np.float32)
     if out is not None:
@@ -102,6 +145,12 @@ def parse_context_lines(lines: Sequence[str], vocabs: Code2VecVocabs,
         out.example_valid[sl] = True
         out.target_strings[sl] = target_strings
         return out
+    if not keep_strings:
+        return RowBatch(
+            source_token_indices=src, path_indices=pth,
+            target_token_indices=tgt, context_valid_mask=context_valid_mask,
+            target_index=target_index,
+            example_valid=np.ones((n,), dtype=bool))
     return RowBatch(
         source_token_indices=src, path_indices=pth,
         target_token_indices=tgt, context_valid_mask=context_valid_mask,
@@ -183,3 +232,170 @@ def _pad_rows(batch: RowBatch, batch_size: int) -> RowBatch:
         source_strings=pad_arr(batch.source_strings, fill=""),
         path_strings=pad_arr(batch.path_strings, fill=""),
         target_token_strings=pad_arr(batch.target_token_strings, fill=""))
+
+
+def row_filter_mask(batch: RowBatch, vocabs: Code2VecVocabs,
+                    estimator_action: EstimatorAction) -> np.ndarray:
+    """The reference row filter: train rows need a known target and a
+    valid context, other rows only a valid context."""
+    any_valid = batch.context_valid_mask.any(axis=1)
+    if estimator_action.is_train:
+        target_known = batch.target_index > vocabs.target_vocab.oov_index
+        return any_valid & target_known
+    return any_valid
+
+
+def _select_rows(batch: RowBatch, idx: np.ndarray) -> RowBatch:
+    def sel(x):
+        if x is None:
+            return None
+        if isinstance(x, list):
+            return [x[i] for i in idx]
+        return x[idx]
+    return RowBatch(**{f.name: sel(getattr(batch, f.name))
+                       for f in dataclasses.fields(RowBatch)})
+
+
+def _iter_file_lines(path: str, buffer_size: int = 16 * 1024 * 1024
+                     ) -> Iterator[str]:
+    with open(path, "r", buffering=buffer_size) as f:
+        yield from f
+
+
+def _epoch_shuffle_rng(seed: int, epoch: int) -> random.Random:
+    """Shuffle RNG of one absolute epoch: a blake2b hash of (seed, epoch),
+    stable across processes (code2vec_tpu/data/reader.py:401)."""
+    digest = hashlib.blake2b(struct.pack("<qq", seed, epoch),
+                             digest_size=16).digest()
+    return random.Random(int.from_bytes(digest, "little"))
+
+
+def _concat_batches(batches: List[RowBatch]) -> RowBatch:
+    if len(batches) == 1:
+        return batches[0]
+
+    def cat(name):
+        vals = [getattr(b, name) for b in batches]
+        if vals[0] is None:
+            return None
+        if isinstance(vals[0], list):
+            return [x for v in vals for x in v]
+        return np.concatenate(vals, axis=0)
+
+    return RowBatch(**{f.name: cat(f.name)
+                       for f in dataclasses.fields(RowBatch)})
+
+
+class PathContextReader:
+    """Streaming batched reader of one text `.c2v` file, Train action.
+
+    Yields RowBatches of exactly `batch_size` rows and, with
+    `yield_epoch_markers`, an EpochEnd after each file pass. Lines go
+    through a bounded shuffle buffer (`.repeat(epochs).shuffle(buffer)`
+    of the original reader) whose RNG is keyed per epoch; rows are parsed
+    in chunks of `parse_chunk_lines` and filtered; the final partial batch
+    of the run is dropped. Chunks are parsed in order on the calling
+    thread (the reference parses them on a worker pool, which yields the
+    same order)."""
+
+    def __init__(self, vocabs: Code2VecVocabs, config,
+                 estimator_action: EstimatorAction,
+                 data_path: Optional[str] = None,
+                 parse_chunk_lines: int = 4096,
+                 batch_size: Optional[int] = None,
+                 num_epochs: Optional[int] = None,
+                 yield_epoch_markers: bool = False):
+        if not estimator_action.is_train:
+            raise ValueError("the port's reader streams the Train action "
+                             "only; evaluation is not ported yet")
+        self.vocabs = vocabs
+        self.config = config
+        self.estimator_action = estimator_action
+        self.data_path = (data_path if data_path is not None
+                          else config.train_data_path)
+        self.parse_chunk_lines = parse_chunk_lines
+        self.batch_size = batch_size or config.train_batch_size
+        self.num_epochs = (config.num_train_epochs if num_epochs is None
+                           else num_epochs)
+        self.yield_epoch_markers = yield_epoch_markers
+
+    def __iter__(self) -> Iterator:
+        yield from self._batched(self._shuffled_lines(self.num_epochs),
+                                 self.batch_size)
+
+    def _shuffled_lines(self, epochs: int) -> Iterator:
+        """Repeat + bounded shuffle buffer; an EpochEnd after every pass
+        (the buffer is drained before the final one)."""
+        buf: List[str] = []
+        buf_size = self.config.shuffle_buffer_size
+        epoch = 0
+        while epoch < epochs:
+            rng = _epoch_shuffle_rng(self.config.seed, epoch)
+            for line in _iter_file_lines(self.data_path,
+                                         self.config.csv_buffer_size):
+                if len(buf) < buf_size:
+                    buf.append(line)
+                    continue
+                j = rng.randrange(buf_size)
+                out, buf[j] = buf[j], line
+                yield out
+            epoch += 1
+            if epoch == epochs:
+                rng.shuffle(buf)
+                yield from buf
+                buf = []
+            yield EpochEnd(epoch)
+
+    def _parse_chunk(self, chunk: List[str]) -> RowBatch:
+        raw = parse_context_lines(chunk, self.vocabs,
+                                  self.config.max_contexts,
+                                  keep_strings=False)
+        keep = row_filter_mask(raw, self.vocabs, self.estimator_action)
+        return _select_rows(raw, np.nonzero(keep)[0])
+
+    def _parsed_chunks(self, line_iter: Iterator) -> Iterator:
+        chunk: List[str] = []
+        for line in line_iter:
+            if isinstance(line, EpochEnd):
+                if chunk:
+                    yield self._parse_chunk(chunk)
+                    chunk = []
+                yield line
+                continue
+            chunk.append(line)
+            if len(chunk) >= self.parse_chunk_lines:
+                yield self._parse_chunk(chunk)
+                chunk = []
+        if chunk:
+            yield self._parse_chunk(chunk)
+
+    def _batched(self, line_iter: Iterator, batch_size: int) -> Iterator:
+        pending: List[RowBatch] = []
+        pending_rows = 0
+
+        def pop_batches() -> Iterator[RowBatch]:
+            nonlocal pending, pending_rows
+            while pending_rows >= batch_size:
+                merged = _concat_batches(pending)
+                pending, pending_rows = [], 0
+                n = merged.target_index.shape[0]
+                for start in range(0, n - batch_size + 1, batch_size):
+                    yield _select_rows(merged,
+                                       np.arange(start, start + batch_size))
+                tail = n % batch_size
+                if tail:
+                    pending = [_select_rows(merged, np.arange(n - tail, n))]
+                    pending_rows = tail
+
+        for item in self._parsed_chunks(line_iter):
+            if isinstance(item, EpochEnd):
+                yield from pop_batches()
+                if self.yield_epoch_markers:
+                    yield item
+                continue
+            if item.target_index.shape[0]:
+                pending.append(item)
+                pending_rows += item.target_index.shape[0]
+            yield from pop_batches()
+        yield from pop_batches()
+        # the ragged tail of a train run is dropped

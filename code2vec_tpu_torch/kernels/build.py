@@ -24,7 +24,8 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional
 
-SOURCES = ("encoder", "attention", "topk", "label_logits")
+SOURCES = ("encoder", "attention", "topk", "label_logits",
+           "encoder_backward", "attention_backward", "softmax_xent", "adam")
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")

@@ -105,4 +105,60 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Dropout's random bits: Philox4x32-10 (Salmon et al., SC'11), a
+// counter-based generator. The key is the 64-bit seed; the counter is
+// (group, step), where an element's group is its flat index / 4 and the
+// element takes word index % 4 of the group's output. So any kernel can
+// redraw any element's bit from (seed, step, index) without storing a
+// mask.
+__device__ __forceinline__ uint4 philox4x32_10(uint64_t group,
+                                               uint64_t step,
+                                               uint64_t seed) {
+  uint32_t c0 = static_cast<uint32_t>(group);
+  uint32_t c1 = static_cast<uint32_t>(group >> 32);
+  uint32_t c2 = static_cast<uint32_t>(step);
+  uint32_t c3 = static_cast<uint32_t>(step >> 32);
+  uint32_t k0 = static_cast<uint32_t>(seed);
+  uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0, c1 = lo1, c2 = n2, c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// How a kernel learns which context elements dropout keeps.
+//   mode 0: no dropout (keep everything, no scaling);
+//   mode 1: Philox bits keyed by (seed, step), kept iff bits >> 8 <
+//           threshold (= keep * 2^24); `mask`, when not null, receives the
+//           drawn mask (one byte per element);
+//   mode 2: the caller's mask (one byte per element, nonzero = kept).
+struct Dropout {
+  int mode;
+  uint32_t threshold;
+  float keep;  // the keep rate, exact in bf16 (the reference's bf16(keep))
+  uint64_t seed, step;
+  uint8_t* mask;
+};
+
+// The keep bits of the four elements [4 * group, 4 * group + 4).
+__device__ __forceinline__ void dropout_keep4(const Dropout& d,
+                                              uint64_t group, bool k[4]) {
+  if (d.mode == 0) {
+    k[0] = k[1] = k[2] = k[3] = true;
+  } else if (d.mode == 2) {
+    const uchar4 m = *reinterpret_cast<const uchar4*>(d.mask + 4 * group);
+    k[0] = m.x, k[1] = m.y, k[2] = m.z, k[3] = m.w;
+  } else {
+    const uint4 r = philox4x32_10(group, d.step, d.seed);
+    k[0] = (r.x >> 8) < d.threshold, k[1] = (r.y >> 8) < d.threshold;
+    k[2] = (r.z >> 8) < d.threshold, k[3] = (r.w >> 8) < d.threshold;
+  }
+}
+
 }  // namespace c2v

@@ -18,6 +18,8 @@ from code2vec_tpu_torch.kernels import build
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64
+U64 = ctypes.c_uint64
+F32 = ctypes.c_float
 
 
 def runs_plain(*tensors: Optional[torch.Tensor]) -> bool:

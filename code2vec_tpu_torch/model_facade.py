@@ -1,11 +1,19 @@
-"""The bucketed predict path: line parsing, context bucketing, row
-padding, the (rows, bucket) step cache and the host-side assembly of
-results. The counterpart of the predict part of code2vec_tpu/
-model_facade.py BucketedPredictMixin (:66-395).
+"""The model facade: training (`Code2VecModel`) and the bucketed predict
+path (`BucketedPredictMixin`).
 
-Each device batch is padded to a fixed row count and its context axis cut
-to the smallest bucket that holds its deepest valid context, so the
-shapes the kernels see are bounded by len(buckets) per row count.
+`Code2VecModel` is the counterpart of code2vec_tpu/model_facade.py
+Code2VecModel for a training run from a `.c2v` text file (:440-470
+construction, :557-640 `_train_batches` and :690-740 `train`, without
+saving, evaluation, resume or the async committer): vocabularies from the
+data's `.dict.c2v`, parameters from `config.seed`, the dense train step
+and the Trainer.
+
+The predict part is the counterpart of BucketedPredictMixin (:66-395):
+line parsing, context bucketing, row padding, the (rows, bucket) step
+cache and the host-side assembly of results. Each device batch is padded
+to a fixed row count and its context axis cut to the smallest bucket that
+holds its deepest valid context, so the shapes the kernels see are
+bounded by len(buckets) per row count.
 """
 
 from __future__ import annotations
@@ -17,9 +25,17 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.data.reader import (
-    RowBatch, _pad_rows, parse_context_lines, slice_contexts, truncate_rows,
+    EstimatorAction, PathContextReader, RowBatch, _pad_rows,
+    parse_context_lines, slice_contexts, truncate_rows,
 )
+from code2vec_tpu_torch.models.code2vec import Code2VecModule, ModelDims
 from code2vec_tpu_torch.serving.batcher import bucket_for
+from code2vec_tpu_torch.training.loop import Trainer
+from code2vec_tpu_torch.training.state import (
+    DTYPES, create_train_state, make_optimizer, num_params,
+)
+from code2vec_tpu_torch.training.step import TrainStepBuilder, dropout_seed
+from code2vec_tpu_torch.vocab import Code2VecVocabs
 
 
 class ModelPredictionResults(NamedTuple):
@@ -137,3 +153,53 @@ class BucketedPredictMixin:
                 attention_per_context=attention_per_context,
                 code_vector=code_vectors[i] if with_code_vectors else None))
         return results
+
+
+class Code2VecModel:
+    """A training run on one device (config.device: cuda unless asked for
+    cpu): `Code2VecModel(config).train()`."""
+
+    def __init__(self, config):
+        from code2vec_tpu_torch.release.runtime import resolve_device
+        config.verify()
+        self.config = config
+        self.log = config.log
+        self.device = resolve_device(config.device)
+        self.vocabs = Code2VecVocabs.load_or_create(config)
+        tv = self.vocabs.target_vocab
+        self.dims = ModelDims(
+            token_vocab_size=self.vocabs.token_vocab.size,
+            path_vocab_size=self.vocabs.path_vocab.size,
+            target_vocab_size=tv.size,
+            token_dim=config.token_embeddings_size,
+            path_dim=config.path_embeddings_size,
+            target_oov_floor=max(tv.pad_index, tv.oov_index))
+        generator = torch.Generator(device=self.device).manual_seed(
+            config.seed)
+        self.module = Code2VecModule(
+            self.dims, compute_dtype=DTYPES[config.compute_dtype],
+            device=self.device, generator=generator,
+            dropout_keep_rate=config.dropout_keep_rate)
+        self.optimizer = make_optimizer(config)
+        self.state = create_train_state(self.module, self.optimizer)
+        self.builder = TrainStepBuilder(self.module, self.optimizer, config)
+        self.trainer = None
+        self.log(f"Model on {self.device}: vocabularies {self.dims.token_vocab_size} "
+                 f"tokens, {self.dims.path_vocab_size} paths, "
+                 f"{self.dims.target_vocab_size} targets; "
+                 f"{num_params(self.state)} parameters")
+
+    def _train_batches(self) -> PathContextReader:
+        """The text reader's train stream with EpochEnd markers."""
+        config = self.config
+        return PathContextReader(self.vocabs, config, EstimatorAction.Train,
+                                 batch_size=config.train_batch_size,
+                                 num_epochs=config.num_train_epochs,
+                                 yield_epoch_markers=True)
+
+    def train(self) -> None:
+        config = self.config
+        step = self.builder.make_train_step(self.state)
+        self.trainer = Trainer(config, step, self.device)
+        self.state = self.trainer.train(self.state, self._train_batches(),
+                                        dropout_seed(config))

@@ -10,6 +10,11 @@ version of kernel K2 (kernels/attention.py).
 Products of values already rounded to the compute dtype are computed in
 f32, which is exact for bf16 operands, so only the summation order can
 differ from the reference.
+
+`masked_single_query_attention_backward` is the backward with respect to
+the contexts and the query, the plain version of kernel K6; its rounding
+points are those of `jax.grad` of the reference (csrc/attention_backward.cu
+lists them).
 """
 
 from __future__ import annotations
@@ -40,3 +45,27 @@ def masked_single_query_attention(
     code_vectors = torch.einsum(
         "bm,bmd->bd", attention.to(transformed.dtype).float(), t)
     return code_vectors, attention
+
+
+def masked_single_query_attention_backward(
+    transformed: torch.Tensor,         # (B, M, D) the forward's input
+    attention_param: torch.Tensor,     # (D,)
+    context_valid_mask: torch.Tensor,  # (B, M)
+    attention: torch.Tensor,           # (B, M) f32 weights of the forward
+    d_code_vectors: torch.Tensor,      # (B, D) f32 cotangent
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d_transformed (B, M, D) in transformed's dtype, d_attention_param
+    (D,) f32)."""
+    cd = transformed.dtype
+    t = transformed.float()
+    g = d_code_vectors.float()
+    fs = torch.einsum("bd,bmd->bm", g, t).to(cd).float()
+    wfs = (attention * fs).sum(dim=1, keepdim=True)
+    ds = torch.where(context_valid_mask > 0, attention * (fs - wfs),
+                     torch.zeros_like(fs))
+    a = attention_param.to(cd).float()
+    w = attention.to(cd).float()
+    dt = ((w[:, :, None] * g[:, None, :]).to(cd).float()
+          + (ds[:, :, None] * a).to(cd).float()).to(cd)
+    da = torch.einsum("bm,bmd->d", ds, t).to(cd).float()
+    return dt, da

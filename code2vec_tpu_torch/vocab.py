@@ -72,6 +72,16 @@ class Vocab:
     def lookup_word(self, index: int) -> str:
         return self.index_to_word.get(index, self.special_words.oov)
 
+    @classmethod
+    def create_from_freq_dict(cls, vocab_type: VocabType,
+                              word_to_count: Dict[str, int], max_size: int,
+                              special_words: SpecialWords) -> "Vocab":
+        """Top `max_size` words by count; ties keep the dict's insertion
+        order (a stable sort, code2vec_tpu/vocab.py:99-104)."""
+        words = sorted(word_to_count, key=word_to_count.get,
+                       reverse=True)[:max_size]
+        return cls(vocab_type, words, special_words)
+
     def save_to_file(self, file) -> None:
         nr_special = len(self.special_words.unique)
         w2i = {w: i for w, i in self.word_to_index.items() if i >= nr_special}
@@ -104,6 +114,28 @@ class Vocab:
         return vocab
 
 
+class WordFreqDicts(NamedTuple):
+    token_to_count: Dict[str, int]
+    path_to_count: Dict[str, int]
+    target_to_count: Dict[str, int]
+    num_train_examples: int
+
+
+def load_word_freq_dicts(dict_c2v_path: str) -> WordFreqDicts:
+    """The `.dict.c2v` pickle of preprocessing: token, path and target
+    frequency dicts, then the train example count (absent in old files)."""
+    with open(dict_c2v_path, "rb") as f:
+        token_to_count = pickle.load(f)
+        path_to_count = pickle.load(f)
+        target_to_count = pickle.load(f)
+        try:
+            num_train_examples = pickle.load(f)
+        except EOFError:
+            num_train_examples = 0
+    return WordFreqDicts(token_to_count, path_to_count, target_to_count,
+                         num_train_examples)
+
+
 class Code2VecVocabs:
     """The token, path and target vocabularies of one model."""
 
@@ -123,6 +155,40 @@ class Code2VecVocabs:
         return cls(make(VocabType.Token, token_words),
                    make(VocabType.Path, path_words),
                    make(VocabType.Target, target_words))
+
+    @classmethod
+    def create_from_freq_dicts(cls, freq: WordFreqDicts, *,
+                               max_token_vocab_size: int,
+                               max_path_vocab_size: int,
+                               max_target_vocab_size: int,
+                               separate_oov_and_pad: bool = False
+                               ) -> "Code2VecVocabs":
+        def make(vocab_type, counts, max_size):
+            return Vocab.create_from_freq_dict(
+                vocab_type, counts, max_size,
+                special_words_for(vocab_type, separate_oov_and_pad))
+        return cls(make(VocabType.Token, freq.token_to_count,
+                        max_token_vocab_size),
+                   make(VocabType.Path, freq.path_to_count,
+                        max_path_vocab_size),
+                   make(VocabType.Target, freq.target_to_count,
+                        max_target_vocab_size))
+
+    @classmethod
+    def load_or_create(cls, config) -> "Code2VecVocabs":
+        """Vocabularies of a training run, built from the data's
+        `.dict.c2v` (code2vec_tpu/vocab.py:192-209 without `--load`,
+        which the port does not take yet)."""
+        if not config.is_training:
+            raise ValueError("load_or_create needs a training data prefix "
+                             "(--data); loading a saved model is not "
+                             "ported yet")
+        freq = load_word_freq_dicts(config.word_freq_dict_path)
+        return cls.create_from_freq_dicts(
+            freq, max_token_vocab_size=config.max_token_vocab_size,
+            max_path_vocab_size=config.max_path_vocab_size,
+            max_target_vocab_size=config.max_target_vocab_size,
+            separate_oov_and_pad=config.separate_oov_and_pad)
 
     @classmethod
     def load(cls, path: str,

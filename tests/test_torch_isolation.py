@@ -34,7 +34,8 @@ def _modules():
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "scripts", "profile_torch_kernels.py")]
+           os.path.join(REPO, "scripts", "profile_torch_kernels.py"),
+           os.path.join(REPO, "scripts", "profile_torch_train.py")]
     for root, _, files in os.walk(PKG_DIR):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -83,9 +84,14 @@ def test_no_forbidden_import_in_source(path):
 
 def _cuda_calls():
     """One call per CUDA wrapper, on fake CUDA tensors (no storage)."""
-    from code2vec_tpu_torch.kernels.attention import masked_attention
+    from code2vec_tpu_torch.kernels.adam import AdamHyper, adam
+    from code2vec_tpu_torch.kernels.attention import (
+        masked_attention, masked_attention_backward,
+    )
     from code2vec_tpu_torch.kernels.encoder import context_encoder
+    from code2vec_tpu_torch.kernels.encoder_backward import encoder_backward
     from code2vec_tpu_torch.kernels.label_logits import label_logits
+    from code2vec_tpu_torch.kernels.softmax_xent import softmax_xent
     from code2vec_tpu_torch.kernels.topk import blockwise_topk
 
     def t(shape, dtype=torch.float32):
@@ -104,6 +110,19 @@ def _cuda_calls():
         "label_logits": lambda: label_logits(
             t((2, 384)), t((70, 384), torch.int8), t((2,), torch.int32),
             scales=t((70, 1))),
+        "encoder_backward": lambda: encoder_backward(
+            t((2, 3, 384), torch.bfloat16), t((2, 3, 384), torch.bfloat16),
+            t((2, 3, 384), torch.bfloat16), t((50, 128)), t((40, 128)), t((384, 384)),
+            t((2, 3), torch.int32), t((2, 3), torch.int32),
+            t((2, 3), torch.int32)),
+        "masked_attention_backward": lambda: masked_attention_backward(
+            t((2, 3, 384), torch.bfloat16), t((384,)), t((2, 3)), t((2, 3)),
+            t((2, 384))),
+        "softmax_xent": lambda: softmax_xent(
+            t((2, 70)), t((2,), torch.int32), t((2,))),
+        "adam": lambda: adam([t((5, 4))], [t((5, 4))],
+                             [t((5, 4), torch.bfloat16)],
+                             [t((5, 4), torch.bfloat16)], 1, AdamHyper()),
     }
 
 

@@ -13,7 +13,21 @@ Tolerances, and why:
   f32 sums of exact bf16 products, taken in another order.
 - Top-k indices: exact; inputs are built with well-separated top logits,
   or with exact ties that the lowest index must win.
+- STEP (one bf16 step at the compared tensor's largest value, 2^-8 to
+  2^-7 of it): the train kernels' results that the reference rounds to
+  bf16 (K1's output, K5's table and W gradients, K6's dT and da) may
+  land one bf16 step from the plain version's, the largest value's
+  included, where f32 sums taken in another order (or K5's hi/lo split
+  of the f32 tanh gradient) move the value rounded; K5's table gradients
+  are f32 sums of such terms, added by atomics in any order.
+- K7 (rtol 1e-5, atol 1e-7) and K8 (rtol 1e-6, atol 1e-9): elementwise
+  f32 with the plain version's operation order; K7 sums a row in another
+  order, and the card's division by a scalar may differ in the last bit,
+  which moves a parameter by a few f32 ulps of the update (~lr = 1e-3)
+  where the update cancels it.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -21,11 +35,19 @@ import torch
 
 from code2vec_tpu_torch import kernels
 from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.kernels.adam import AdamHyper, adam, adam_plain
 from code2vec_tpu_torch.kernels.attention import (
-    masked_attention, masked_attention_plain,
+    masked_attention, masked_attention_backward,
+    masked_attention_backward_plain, masked_attention_plain,
 )
 from code2vec_tpu_torch.kernels.encoder import (
-    context_encoder, context_encoder_plain,
+    Dropout, context_encoder, context_encoder_plain,
+)
+from code2vec_tpu_torch.kernels.encoder_backward import (
+    encoder_backward, encoder_backward_plain,
+)
+from code2vec_tpu_torch.kernels.softmax_xent import (
+    softmax_xent, softmax_xent_plain,
 )
 from code2vec_tpu_torch.kernels.label_logits import (
     label_logits, label_logits_plain,
@@ -229,3 +251,185 @@ def test_release_model_cuda_matches_cpu(dev, tmp_path):
         np.testing.assert_allclose(g.code_vector, w.code_vector, **BF16)
         agree += g.topk_predicted_words == w.topk_predicted_words
     assert agree >= len(lines) - 2   # random weights: near-ties may swap
+
+
+# ------------------------------------------------------------- train path
+
+
+def _step_close(got, want, what):
+    g, w = got.float().cpu(), want.float().cpu()
+    largest = float(w.abs().max())
+    tol = math.ldexp(1.0, math.frexp(largest)[1] - 8) if largest else 0.0
+    err = float((g - w).abs().max())
+    assert err <= tol, f"{what}: max error {err} > {tol}"
+
+
+def _train_inputs(dev, b, m, v_tok=5000, v_path=3000, repeat=False):
+    rng = np.random.default_rng(b * 1000 + m)
+    tok = torch.from_numpy((0.3 * rng.standard_normal((v_tok, 128))
+                            ).astype(np.float32)).to(dev)
+    pth = torch.from_numpy((0.3 * rng.standard_normal((v_path, 128))
+                            ).astype(np.float32)).to(dev)
+    w = torch.from_numpy((0.1 * rng.standard_normal((384, 384))
+                          ).astype(np.float32)).to(dev)
+    hi = (7, 5, 7) if repeat else (v_tok, v_path, v_tok)  # collisions
+    ids = [torch.from_numpy(rng.integers(0, n, (b, m)).astype(np.int32)
+                            ).to(dev) for n in hi]
+    return rng, tok, pth, w, ids
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.75, 0.5])
+def test_context_encoder_train_mode_kernel(dev, keep):
+    rng, tok, pth, w, ids = _train_inputs(dev, 9, 37)
+    drawn = torch.empty((9, 37, 384), dtype=torch.bool, device=dev)
+    got, lo = context_encoder(tok, None, pth, None, w, *ids,
+                              dropout=Dropout(keep, seed=5, step=3,
+                                              out_mask=drawn),
+                              residual=True)
+    want, want_lo = context_encoder_plain(
+        tok, None, pth, None, w, *ids, dropout=Dropout(keep, mask=drawn),
+        residual=True)
+    _step_close(got, want, "K1 train")
+    _step_close(got.float() + lo.float(), want.float() + want_lo.float(),
+                "K1 train + residual")
+    share = float(drawn.float().mean())
+    assert abs(share - keep) <= 5 * (keep * (1 - keep) / drawn.numel()
+                                     ) ** 0.5 + 1e-9
+    again = torch.empty_like(drawn)
+    context_encoder(tok, None, pth, None, w, *ids,
+                    dropout=Dropout(keep, seed=5, step=3, out_mask=again))
+    assert torch.equal(drawn, again)
+    if keep < 1.0:
+        other = torch.empty_like(drawn)
+        context_encoder(tok, None, pth, None, w, *ids,
+                        dropout=Dropout(keep, seed=5, step=4,
+                                        out_mask=other))
+        assert not torch.equal(drawn, other)
+    injected = context_encoder(tok, None, pth, None, w, *ids,
+                               dropout=Dropout(keep, mask=drawn))
+    assert torch.equal(injected, got)
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+@pytest.mark.parametrize("b,m,repeat", [(3, 5, False), (64, 200, False),
+                                        (16, 33, True)])
+def test_encoder_backward_kernel(dev, keep, b, m, repeat):
+    rng, tok, pth, w, ids = _train_inputs(dev, b, m, repeat=repeat)
+    drawn = torch.empty((b, m, 384), dtype=torch.bool, device=dev)
+    t, lo = context_encoder(tok, None, pth, None, w, *ids,
+                            dropout=Dropout(keep, seed=1, step=2,
+                                            out_mask=drawn), residual=True)
+    dt = torch.from_numpy((0.1 * rng.standard_normal((b, m, 384))
+                           ).astype(np.float32)).to(dev).to(torch.bfloat16)
+    before = kernels.launch_counts()["encoder_backward"]
+    got = encoder_backward(dt, t, lo, tok, pth, w, *ids,
+                           dropout=Dropout(keep, seed=1, step=2))
+    assert kernels.launch_counts()["encoder_backward"] == before + 1
+    want = encoder_backward_plain(dt, t, lo, tok, pth, w, *ids,
+                                  dropout=Dropout(keep, mask=drawn))
+    for name, g, x in zip(("d_token", "d_path", "d_transform"), got, want):
+        _step_close(g, x, name)
+    # rows no id touches stay exactly 0
+    used = torch.zeros(tok.shape[0], dtype=torch.bool, device=dev)
+    used[ids[0].long().flatten()] = True
+    used[ids[2].long().flatten()] = True
+    assert not got[0][~used].any()
+
+
+def test_encoder_backward_dropped_elements_get_nothing(dev):
+    """Each context row its own table row: a dropped element's gradient
+    must be exactly 0."""
+    b, m = 4, 25
+    rng, tok, pth, w, _ = _train_inputs(dev, b, m)
+    n = b * m
+    ids = [torch.arange(n, dtype=torch.int32, device=dev).view(b, m),
+           torch.arange(n, dtype=torch.int32, device=dev).view(b, m),
+           torch.arange(n, 2 * n, dtype=torch.int32, device=dev).view(b, m)]
+    drawn = torch.empty((b, m, 384), dtype=torch.bool, device=dev)
+    t, lo = context_encoder(tok, None, pth, None, w, *ids,
+                            dropout=Dropout(0.5, seed=3, step=0,
+                                            out_mask=drawn), residual=True)
+    dt = torch.ones_like(t)
+    d_tok, d_path, _ = encoder_backward(dt, t, lo, tok, pth, w, *ids,
+                                        dropout=Dropout(0.5, seed=3, step=0))
+    src_rows = d_tok[:n].view(b, m, 128)
+    assert not src_rows[~drawn[..., :128]].any()
+    assert not d_path[:n].view(b, m, 128)[~drawn[..., 128:256]].any()
+    assert src_rows[drawn[..., :128]].ne(0).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("m", [5, 200])
+def test_masked_attention_backward_kernel(dev, m):
+    rng = np.random.default_rng(m + 1)
+    b = 9
+    t = torch.from_numpy(np.tanh(rng.standard_normal((b, m, 384))).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    a = torch.from_numpy(rng.standard_normal(384).astype(np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((b, m)) > 0.3).astype(np.float32)
+                            ).to(dev)
+    mask[0] = 0.0   # all masked
+    mask[1] = 1.0
+    _, attn = masked_attention(t, a, mask)
+    dcv = torch.from_numpy(rng.standard_normal((b, 384)).astype(np.float32)
+                           ).to(dev)
+    before = kernels.launch_counts()["masked_attention_backward"]
+    dt, da = masked_attention_backward(t, a, mask, attn, dcv)
+    assert kernels.launch_counts()["masked_attention_backward"] == before + 1
+    want_dt, want_da = masked_attention_backward_plain(t, a, mask, attn, dcv)
+    _step_close(dt, want_dt, "dT")
+    _step_close(da, want_da, "da")
+    assert not dt[0].any()
+
+
+@pytest.mark.parametrize("b,v", [(3, 17), (64, 30011), (64, 30012)])
+def test_softmax_xent_kernel(dev, b, v):
+    rng = np.random.default_rng(b + v)
+    logits = torch.from_numpy((4 * rng.standard_normal((b, v))
+                               ).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, v - 2, b).astype(np.int32)
+                              ).to(dev)
+    valid = torch.ones(b, device=dev)
+    valid[1] = 0.0
+    before = kernels.launch_counts()["softmax_xent"]
+    loss, grad = softmax_xent(logits, labels, valid, n_real=v - 2)
+    assert kernels.launch_counts()["softmax_xent"] == before + 1
+    want_loss, want_grad = softmax_xent_plain(logits, labels, valid,
+                                              n_real=v - 2)
+    _close(loss, want_loss, dict(rtol=1e-5, atol=1e-7))
+    # hi + lo per element: each side's planes carry its f32 g to 2^-16
+    # relative; where the two sides' g (~1e-6 apart: expf, the row sum's
+    # order) round lo or hi the other way, the sums differ by up to 2^-15
+    # of g (3.05e-5); atol far under the typical |g| of a valid row
+    got_g, want_g = grad[0].float() + grad[1].float(), (
+        want_grad[0].float() + want_grad[1].float())
+    _close(got_g, want_g, dict(rtol=4e-5, atol=1e-3 * float(
+        want_g[want_g != 0].abs().median())))
+    assert not grad[:, 1].any() and not grad[:, :, v - 2:].any()
+    with pytest.raises(ValueError, match="bfloat16"):
+        softmax_xent(logits, labels, valid, grad_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("shapes", [
+    [(1301, 128), (3,), (2049, 7), (384, 384), (384, 1)],   # scalar path
+    [(1301, 128), (911, 128), (261, 384), (384, 384), (384, 1)],  # 4-wide
+], ids=["odd", "vec4"])
+@pytest.mark.parametrize("mu,nu", [("bfloat16", "bfloat16"),
+                                   ("bfloat16", "float32"),
+                                   ("float32", "float32")])
+def test_adam_kernel(dev, mu, nu, shapes):
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    hyper = AdamHyper(mu_dtype=dt[mu], nu_dtype=dt[nu])
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = [torch.randn(s, device=dev, generator=g) for s in shapes]
+    grads = [torch.randn(s, device=dev, generator=g) * 1e-3 for s in shapes]
+    mus = [(torch.randn(s, device=dev, generator=g) * 1e-3).to(dt[mu])
+           for s in shapes]
+    nus = [(torch.rand(s, device=dev, generator=g) * 1e-6).to(dt[nu])
+           for s in shapes]
+    ref = [[x.clone() for x in xs] for xs in (params, mus, nus)]
+    before = kernels.launch_counts()["adam"]
+    adam(params, grads, mus, nus, 7, hyper)
+    assert kernels.launch_counts()["adam"] == before + 1
+    adam_plain(ref[0], grads, ref[1], ref[2], 7, hyper)
+    for got, want in zip(params + mus + nus, ref[0] + ref[1] + ref[2]):
+        _close(got, want, dict(rtol=1e-6, atol=1e-9))
