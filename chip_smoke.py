@@ -44,6 +44,26 @@ a C++ compiler. Phases, each fatal on failure:
    each tensor's largest value, the target rows that are no label within
    one bf16 step of their own largest value, and K8's update on
    identical inputs.
+8. Retrieval kernels: K9 kmeans_assign, K10 kmeans_update (two runs
+   bit-equal), K11 ivf_search and K3's float32 mode against their plain
+   versions, timed the same way (bounds over the float32 peak of 67
+   TFLOP/s where operations bound them), at two shapes: the MIPS head
+   over the flagship int8 classifier (261,245 rows, nlist 511, 6 Lloyd
+   steps, nprobe 16, B 64 and 1, k 10; at nprobe = nlist it must return
+   the exact head's indices away from near-ties) and an index of
+   1,000,000 normalised f32 vectors (nlist 1000, 10 spherical Lloyd
+   steps, nprobe 16, B 64, k 16; brute force at B 64, k 16).
+9. Retrieval path, through the port's CLI on the serving path's
+   artifact: `embed` of a 20,000-method synthetic corpus (plus the
+   request sources' methods, twice), `index-build`, then `serve
+   --retrieval_index --serve_mips_nprobe 16 --serve_mips_crossover 8`
+   over HTTP: well-formed /neighbors bodies, each stored method its own
+   top neighbor at cosine >= 1 - 1e-4, k 65 refused with 422, a
+   one-method /predict on the MIPS head (K11) and a 12-method one on the
+   exact head (K3), the recall@10 of IVF against brute force, the MIPS
+   head at nprobe = nlist against the exact head, every retrieval kernel
+   launched, and the embed job's vectors on the GPU against a CPU run of
+   the same rows.
 
 Prints one line per kernel, then a JSON line {"kernels": [...]}, the
 card's name and power limit, and as the last line
@@ -65,11 +85,13 @@ import subprocess
 import sys
 import time
 import types
+import urllib.error
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak, same source
+F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores, same
 # (atol, rtol) per kernel output, with the reason. The kernel phase's
 # inputs are scaled so the compared values are of order one.
 # K1's bf16 outputs: both sides round the same f32 value, except where the
@@ -181,9 +203,11 @@ class Timer:
         return statistics.median(out)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
+    """The least time (ms) for moving `nbytes` and doing `flops` at the
+    card's memory rate and peak rate `peak`, and which of the two."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -199,10 +223,11 @@ def max_err(got, want, tol):
     return float(diff.max()), ok
 
 
-def topk_agreement(idx, want_idx, want_vals, tol):
+def topk_agreement(idx, want_idx, want_vals, tol, next_vals=None):
     """(positions equal, positions differing without a near-tie): a
     position may differ only where the reference's neighbouring values
-    lie within tolerance of each other."""
+    lie within tolerance of each other; `next_vals`, the reference's
+    (k+1)-th value per row, is the last position's lower neighbour."""
     torch = sys.modules["torch"]
     diff = idx != want_idx
     v = want_vals.float()
@@ -210,8 +235,23 @@ def topk_agreement(idx, want_idx, want_vals, tol):
     gap_next = torch.full_like(v, math.inf)
     gap_prev[:, 1:] = (v[:, 1:] - v[:, :-1]).abs()
     gap_next[:, :-1] = (v[:, 1:] - v[:, :-1]).abs()
+    if next_vals is not None:
+        gap_next[:, -1] = (next_vals.float() - v[:, -1]).abs()
     near = torch.minimum(gap_prev, gap_next) <= tol[0] + tol[1] * v.abs()
     return int((~diff).sum()), int((diff & ~near).sum())
+
+
+def topk_detail(idx, want_idx, want_vals, next_vals, limit=4):
+    """The first differing positions as (row, rank, index, the
+    reference's index, its value, the value below it), for a failure
+    message."""
+    torch = sys.modules["torch"]
+    v = torch.cat([want_vals.float(), next_vals.float()[:, None]], dim=1)
+    out = []
+    for r, c in torch.nonzero(idx != want_idx)[:limit].tolist():
+        out.append((r, c, int(idx[r, c]), int(want_idx[r, c]),
+                    float(v[r, c]), float(v[r, c + 1])))
+    return out
 
 
 # ------------------------------------------------------------ kernel phase
@@ -1029,12 +1069,14 @@ def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
 
 
 def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
-                       n_names: int = 64, tokens_per_name: int = 64):
-    """PREFIX.dict.c2v with the java14m vocabulary sizes and
-    PREFIX.train.c2v of `n_rows` methods whose name follows their tokens
-    (the pattern of tests/test_end_to_end.py at full width): each of
-    `n_names` names owns `tokens_per_name` tokens spread over the token
-    vocabulary; paths are drawn from the whole path vocabulary."""
+                       n_names: int = 64, tokens_per_name: int = 64,
+                       stems=("t", "p", "name|w"), with_dict: bool = True):
+    """PREFIX.dict.c2v with the java14m vocabulary sizes (unless
+    `with_dict` is false) and PREFIX.train.c2v of `n_rows` methods whose
+    name follows their tokens (the pattern of tests/test_end_to_end.py at
+    full width): each of `n_names` names owns `tokens_per_name` tokens
+    spread over the token vocabulary; paths are drawn from the whole path
+    vocabulary. Words are `stems` + their vocabulary index."""
     import pickle
 
     import numpy as np
@@ -1042,13 +1084,15 @@ def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
     rng = np.random.default_rng(seed)
     v_tok, v_path, v_tgt = (fs.vocab["token"], fs.vocab["path"],
                             fs.vocab["target"])
+    st, sp, sn = stems
     prefix = os.path.join(work_dir, "corpus")
-    with open(prefix + ".dict.c2v", "wb") as f:
-        # descending counts: the vocabulary order is the word order
-        pickle.dump({f"t{i}": v_tok - i for i in range(v_tok)}, f)
-        pickle.dump({f"p{i}": v_path - i for i in range(v_path)}, f)
-        pickle.dump({f"name|w{i}": v_tgt - i for i in range(v_tgt)}, f)
-        pickle.dump(n_rows, f)
+    if with_dict:
+        with open(prefix + ".dict.c2v", "wb") as f:
+            # descending counts: the vocabulary order is the word order
+            pickle.dump({f"{st}{i}": v_tok - i for i in range(v_tok)}, f)
+            pickle.dump({f"{sp}{i}": v_path - i for i in range(v_path)}, f)
+            pickle.dump({f"{sn}{i}": v_tgt - i for i in range(v_tgt)}, f)
+            pickle.dump(n_rows, f)
     owned = rng.choice(v_tok, size=(n_names, tokens_per_name), replace=False)
     names = rng.integers(0, n_names, n_rows)
     m = ft.contexts
@@ -1056,9 +1100,9 @@ def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
     for r in range(n_rows):
         toks = owned[names[r]][rng.integers(0, tokens_per_name, (2, m))]
         pths = rng.integers(0, v_path, m)
-        ctx = " ".join(f"t{toks[0, j]},p{pths[j]},t{toks[1, j]}"
+        ctx = " ".join(f"{st}{toks[0, j]},{sp}{pths[j]},{st}{toks[1, j]}"
                        for j in range(m))
-        lines.append(f"name|w{names[r] * 997 % v_tgt} {ctx}")
+        lines.append(f"{sn}{names[r] * 997 % v_tgt} {ctx}")
     with open(prefix + ".train.c2v", "w") as f:
         f.write("\n".join(lines) + "\n")
     return prefix
@@ -1240,6 +1284,613 @@ def train_step_check(torch, seed: int, fs, ft, rows: int = 64,
 # -------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------ retrieval phases
+
+# Retrieval tolerances, and why: K9 and K10 and K11 and K3's float32
+# mode work in f32 and differ from their plain versions only in the order
+# of f32 sums (TOL_F32SUM). An assignment of K9 may differ from the plain
+# version's only where the two centroids' distances lie within
+# TOL_ASSIGN (relative) of each other; K11's and K3's positions only at
+# near-ties of the plain version's scores.
+TOL_ASSIGN = 1e-5
+
+
+def assign_agreement(torch, x, c, got, want):
+    """(rows equal, rows that differ away from a near-tie of their two
+    distances, the largest gap between those distances), distances in
+    float64."""
+    diff = torch.nonzero(got != want).flatten()
+    if diff.numel() == 0:
+        return int(got.numel()), 0, 0.0
+    xd, cd = x[diff].double(), c.double()
+
+    def dist(idx):
+        cc = cd[idx.long()]
+        return (cc * cc).sum(1) - 2 * (xd * cc).sum(1)
+
+    dg, dw = dist(got[diff]), dist(want[diff])
+    gap = (dg - dw).abs()
+    scale = torch.maximum(dg.abs(), dw.abs()).clamp(min=1.0)
+    bad = int((gap > TOL_ASSIGN * scale).sum())
+    return int(got.numel() - diff.numel()), bad, float(gap.max())
+
+
+def probed_rows(torch, q, cent, offsets, nprobe):
+    """(rows of the union of the probed lists, probed rows summed over
+    the queries): what K11 must read and score for these queries."""
+    from code2vec_tpu_torch.kernels.ivf import top_positions
+    _, probe = top_positions(q @ cent.T, nprobe)
+    lens = (offsets[1:] - offsets[:-1])
+    return (int(lens[torch.unique(probe)].sum()), int(lens[probe].sum()))
+
+
+def kmeans_cases(torch, timer, x, c0, spherical, what):
+    """K9 and K10 at one shape against their plain versions: agreement,
+    determinism, times, bounds and library calls. Returns (K9 entry, K10
+    entry, K9's assignment)."""
+    from code2vec_tpu_torch.kernels import kmeans
+
+    n, d = x.shape
+    c = c0.shape[0]
+    got = kmeans.kmeans_assign(x, c0)
+    want = kmeans.kmeans_assign_plain(x, c0)
+    torch.cuda.synchronize()
+    same, bad, gap = assign_agreement(torch, x, c0, got, want)
+    if bad:
+        fail(f"kmeans_assign {what}: {bad} assignments differ away from "
+             f"near-ties ({same}/{n} equal)")
+    nbytes = (n * d + c * d) * 4 + n * 4
+    bms, by = bound(nbytes, 2.0 * n * c * d, F32_FLOP_PER_S)
+    ms = timer(lambda: kmeans.kmeans_assign(x, c0))
+    plain_ms = timer(lambda: kmeans.kmeans_assign_plain(x, c0), spin_ms=20)
+    cn = (c0 * c0).sum(1)
+    lib_ms = timer(lambda: torch.argmin(torch.addmm(cn[None, :], x, c0.T,
+                                                    alpha=-2.0), dim=1),
+                   spin_ms=20)
+    log(f"K9 kmeans_assign {what} N={n} C={c} D={d}: assignments equal "
+        f"{same}/{n} (the rest near-ties within {TOL_ASSIGN}; largest "
+        f"distance gap {gap:.3g}) ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (addmm + argmin) "
+        f"bound_ms {bms:.4f} ({by})")
+    # max_abs_err: the largest gap between the distances of the two
+    # centroids where the assignments differ (0 where all agree)
+    k9 = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms,
+              bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    upd = kmeans.kmeans_update(x, got, c0, spherical)
+    again = kmeans.kmeans_update(x, got, c0, spherical)
+    want_c = kmeans.kmeans_update_plain(x, got, c0, spherical)
+    torch.cuda.synchronize()
+    if not torch.equal(upd, again):
+        fail(f"kmeans_update {what}: two runs gave different bits")
+    err, ok = max_err(upd, want_c, TOL_F32SUM)
+    if not ok:
+        fail(f"kmeans_update {what}: max error {err}")
+    counts = torch.bincount(got.long(), minlength=c)
+    empty = counts == 0
+    if empty.any() and not torch.equal(upd[empty], c0[empty]):
+        fail(f"kmeans_update {what}: an empty cluster moved")
+    nbytes = n * d * 4 + n * 4 + 2 * c * d * 4
+    bms, by = bound(nbytes, float(n * d), F32_FLOP_PER_S)
+    ms = timer(lambda: kmeans.kmeans_update(x, got, c0, spherical))
+    plain_ms = timer(lambda: kmeans.kmeans_update_plain(x, got, c0,
+                                                        spherical),
+                     spin_ms=20)
+    idx = got.long()
+    sums = torch.zeros_like(c0)
+    lib_ms = timer(lambda: sums.index_add_(0, idx, x))
+    log(f"K10 kmeans_update {what} N={n} C={c} D={d} spherical="
+        f"{spherical}: max_abs_err {err:.3g} (tol {TOL_F32SUM}), two runs "
+        f"bit-equal, {int(empty.sum())} empty clusters kept; ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (index_add_) "
+        f"bound_ms {bms:.4f} ({by})")
+    k10 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib_ms)
+    return k9, k10, got
+
+
+def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
+             scales=None, global_ids=None):
+    """K11 against its plain version on one batch of queries."""
+    from code2vec_tpu_torch.kernels.ivf import ivf_search, ivf_search_plain
+
+    b, d = q.shape
+    max_len = int((offsets[1:] - offsets[:-1]).max())
+    kw = dict(scales=scales, global_ids=global_ids, max_len=max_len)
+    args = (q, cent, rows, offsets, nprobe, k)
+    got_v, got_i = ivf_search(*args, **kw)
+    # the plain version's (k+1)-th value is the k-th one's lower neighbour
+    want_v, want_i = ivf_search_plain(*args[:-1], k + 1, **kw)
+    torch.cuda.synchronize()
+    nxt, want_v, want_i = want_v[:, k], want_v[:, :k], want_i[:, :k]
+    err, ok = max_err(got_v, want_v, TOL_F32SUM)
+    same, bad = topk_agreement(got_i, want_i, want_v, TOL_F32SUM,
+                               next_vals=nxt)
+    if not ok or bad:
+        fail(f"ivf_search {what}: value error {err}, {bad} positions differ "
+             f"away from near-ties: "
+             f"{topk_detail(got_i, want_i, want_v, nxt)}")
+    union, scanned = probed_rows(torch, q, cent, offsets, nprobe)
+    row_bytes = d * rows.element_size() + (4 if scales is not None else 0) \
+        + (4 if global_ids is not None else 0)
+    c = cent.shape[0]
+    nbytes = (union * row_bytes + c * d * 4 + b * d * 4
+              + (offsets.numel() * 8) + b * k * 8)
+    bms, by = bound(nbytes, 2.0 * d * (b * c + scanned), F32_FLOP_PER_S)
+    ms = timer(lambda: ivf_search(*args, **kw))
+    plain_ms = timer(lambda: ivf_search_plain(*args, **kw), spin_ms=20)
+    # the library chain from precomputed candidates: gather, bmm, topk
+    from code2vec_tpu_torch.kernels.ivf import padded_lists, top_positions
+    _, probe = top_positions(q @ cent.T, nprobe)
+    cand = padded_lists(offsets, max_len)[probe].reshape(b, -1)
+    safe = cand.clamp(min=0)
+    lib_ms = timer(lambda: torch.topk(torch.bmm(
+        rows[safe].float(), q[:, :, None]).squeeze(-1), k), spin_ms=20)
+    del cand, safe
+    log(f"K11 ivf_search {what} B={b} nprobe={nprobe} k={k}: max_abs_err "
+        f"{err:.3g} (tol {TOL_F32SUM}) positions equal {same}/"
+        f"{got_i.numel()}; {union} rows in the probed lists, {scanned} "
+        f"scored; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{lib_ms:.4f} (gather + bmm + topk) bound_ms {bms:.4f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def brute_case(torch, timer, q, table, k, what):
+    """K3's float32 mode against its plain version."""
+    from code2vec_tpu_torch.kernels import topk
+
+    b, d = q.shape
+    v = table.shape[0]
+    args = (q, table, k, 4096)
+    kw = dict(compute_dtype=torch.float32)
+    got = topk.blockwise_topk(*args, **kw)
+    # the plain version's (k+1)-th value is the k-th one's lower neighbour
+    want = topk.blockwise_topk_plain(q, table, k + 1, 4096, **kw)
+    torch.cuda.synchronize()
+    nxt, want_v, want_i = (want.values[:, k], want.values[:, :k],
+                           want.indices[:, :k])
+    err_v, ok_v = max_err(got.values, want_v, TOL_F32SUM)
+    err_l, ok_l = max_err(got.lse, want.lse, TOL_F32SUM)
+    same, bad = topk_agreement(got.indices, want_i, want_v, TOL_F32SUM,
+                               next_vals=nxt)
+    if not (ok_v and ok_l) or bad:
+        fail(f"blockwise_topk f32 {what}: value error {err_v}, lse error "
+             f"{err_l}, {bad} index mismatches away from near-ties: "
+             f"{topk_detail(got.indices, want_i, want_v, nxt)}")
+    nbytes = v * d * 4 + b * d * 4 + b * k * 8 + b * 4
+    bms, by = bound(nbytes, 2.0 * b * v * d, F32_FLOP_PER_S)
+    ms = timer(lambda: topk.blockwise_topk(*args, **kw))
+    plain_ms = timer(lambda: topk.blockwise_topk_plain(*args, **kw),
+                     spin_ms=100)
+    lib_ms = timer(lambda: torch.topk(torch.matmul(q, table.T), k))
+    log(f"K3 blockwise_topk float32 mode {what} B={b} V={v} k={k}: "
+        f"max_abs_err values {err_v:.3g} lse {err_l:.3g} (tol "
+        f"{TOL_F32SUM}) indices equal {same}/{got.indices.numel()} ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+        f"(f32 matmul + topk) bound_ms {bms:.4f} ({by})")
+    return dict(max_abs_err=max(err_v, err_l), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms), got
+
+
+def mips_against_exact(torch, head, cv, table, scales, real_vocab, fs):
+    """The MIPS head over every list against the served exact head (K3,
+    bf16 compute) on code vectors `cv`: (positions equal, positions that
+    differ away from near-ties, tolerance). The exact head rounds the
+    code vectors to bf16, which moves a logit by up to about 2^-8 of the
+    largest; the values at each rank must agree within that, and an index
+    may differ only where the exact head's neighbouring values (its
+    (k+1)-th included) lie within it."""
+    from code2vec_tpu_torch.kernels import topk
+
+    k = fs.topk
+    vals, ids = head.topk_fn(k, head.nlist)(cv)
+    exact = topk.blockwise_topk(cv, table, k + 1, fs.block, scales=scales,
+                                valid_rows=real_vocab)
+    tol = PATH_REL_TOL * float(exact.values.abs().max())
+    err, ok = max_err(vals, exact.values[:, :k], (tol, 0.0))
+    if not ok:
+        fail(f"MIPS head at nprobe = nlist: values off the exact head's by "
+             f"{err} > {tol}")
+    same, bad = topk_agreement(ids, exact.indices[:, :k],
+                               exact.values[:, :k], (tol, 0.0),
+                               next_vals=exact.values[:, k])
+    return same, bad, tol
+
+
+def retrieval_kernel_phase(torch, seed: int, timer, fs, work_dir: str,
+                           dev="cuda", index_rows: int = 1_000_000,
+                           index_nlist: int = 1000, index_iters: int = 10,
+                           mips_iters: int = 6, nprobe: int = 16):
+    """K9, K10, K11 and K3's float32 mode at two shapes: the approximate-
+    MIPS head over the flagship int8 classifier (261,245 real rows x 384,
+    nlist 511, 6 Lloyd steps, nprobe 16, B 64 and 1, k 10) and an index
+    of 1,000,000 L2-normalised f32 vectors (nlist 1000, 10 spherical
+    Lloyd steps, nprobe 16, B 64, k 16; brute force at B 64, k 16), built
+    by the `index-build` command from a store written under `work_dir`.
+    Returns (kernel entries, the 1M index's build and load seconds)."""
+    import numpy as np
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.kernels.ivf import ivf_search
+    from code2vec_tpu_torch.retrieval.index import load_index
+    from code2vec_tpu_torch.retrieval.mips import MipsHead
+    from code2vec_tpu_torch.retrieval.store import VectorStoreWriter
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    d = fs.code_dim
+    report = {}
+
+    # -- the MIPS head over the flagship int8 classifier
+    v_real = fs.vocab["target"]
+    table = (torch.rand((v_real + 1, d), generator=g, device=dev) * 2 - 1
+             ) * math.sqrt(3 / d)
+    q8, s8 = quantize(torch, table)
+    x = q8[:v_real].float() * s8[:v_real]
+    nlist = max(1, math.isqrt(v_real))
+    rng = np.random.default_rng(seed)
+    c0 = x[torch.from_numpy(rng.permutation(v_real)[:nlist]).to(dev)]
+    k9m, k10m, _ = kmeans_cases(torch, timer, x, c0, False, "MIPS")
+    del x, c0
+    t0 = time.perf_counter()
+    head = MipsHead.build(q8.cpu().numpy(), s8.cpu().numpy(),
+                          real_vocab=v_real, nprobe=nprobe,
+                          kmeans_iters=mips_iters, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"MIPS head: built over {v_real} rows in "
+        f"{time.perf_counter() - t0:.2f}s (host clock, {mips_iters} Lloyd "
+        f"steps + assignment + list reorder): nlist {head.nlist}, longest "
+        f"list {head.max_len}")
+    cv = (torch.rand((fs.rows, d), generator=g, device=dev) * 2 - 1)
+    mips = {}
+    for b in (fs.rows, 1):
+        mips[b] = ivf_case(torch, timer, cv[:b].contiguous(),
+                           head._centroids, head._rows, head._offsets,
+                           nprobe, fs.topk, f"MIPS int8 {v_real}x{d}",
+                           scales=head._scales, global_ids=head._global_ids)
+    # over every list the head is the exact head (the served bf16 one,
+    # whose bf16 code vectors move a logit by up to ~2^-8 of the largest)
+    same, bad, tol = mips_against_exact(torch, head, cv, q8, s8, v_real,
+                                        fs)
+    if bad:
+        fail(f"MIPS head at nprobe = nlist: {bad} indices differ from the "
+             f"exact head away from near-ties")
+    log(f"MIPS head at nprobe = nlist = {head.nlist}: indices equal to the "
+        f"exact head's {same}/{cv.shape[0] * fs.topk} (the rest near-ties "
+        f"within {tol:.3g})")
+    del head, table, q8, s8
+    torch.cuda.empty_cache()
+
+    # -- an index of 1M normalised f32 vectors: a store written from the
+    # seed, then the `index-build` command and the index loaded as
+    # `serve --retrieval_index` loads it
+    x = torch.randn((index_rows, d), generator=g, device=dev)
+    x /= torch.linalg.vector_norm(x, dim=1, keepdim=True).clamp(min=1e-12)
+    c0 = x[torch.from_numpy(rng.permutation(index_rows)[:index_nlist]
+                            ).to(dev)]
+    k9, k10, _ = kmeans_cases(torch, timer, x, c0, True, "index")
+    store, idx_dir = (os.path.join(work_dir, "index1m", s)
+                      for s in ("store", "index"))
+    t0 = time.perf_counter()
+    writer = VectorStoreWriter(store, d, "float32", "artifact:seed",
+                               source=f"chip_smoke --seed {seed}")
+    writer.append(x.cpu().numpy(), [f"m{i}" for i in range(index_rows)])
+    writer.finalize()
+    write_s = time.perf_counter() - t0
+    del x, c0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meta = cli.main(["index-build", "--vectors", store, "--index_out",
+                     idx_dir, "--nlist", str(index_nlist), "--kmeans_iters",
+                     str(index_iters), "--nprobe", str(nprobe), "--seed",
+                     str(seed), "--device", str(dev)])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = load_index(idx_dir, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lens = index._offsets[1:] - index._offsets[:-1]
+    log(f"index: store of {index_rows} rows written in {write_s:.2f}s; "
+        f"`index-build` ({index_iters} spherical Lloyd steps, assignment, "
+        f"reorder and files) in {build_s:.2f}s (build_seconds "
+        f"{meta['build_seconds']}s: all but reading and normalising the "
+        f"store); loaded in {load_s:.2f}s (host clock); "
+        f"lists {int(lens.min())}..{int(lens.max())} rows")
+    if meta["backend"] != "ivf_flat" or index.nlist != index_nlist:
+        fail(f"index-build gave {meta['backend']} with nlist {index.nlist}")
+    rows, cent, offsets = index._vectors, index._centroids, index._offsets
+    qi = rows[torch.from_numpy(rng.choice(index_rows, fs.rows,
+                                          replace=False)).to(dev)]
+    qi = qi + 0.05 * torch.randn(qi.shape, generator=g, device=dev)
+    qi = (qi / torch.linalg.vector_norm(qi, dim=1, keepdim=True)
+          ).contiguous()
+    k11 = ivf_case(torch, timer, qi, cent, rows, offsets, nprobe, 16,
+                   f"index f32 {index_rows}x{d}")
+    k3f, brute = brute_case(torch, timer, qi, rows, 16,
+                            f"index {index_rows}x{d}")
+    _, approx = ivf_search(qi, cent, rows, offsets, nprobe, 16,
+                           max_len=int(lens.max()))
+    hits = sum(len(set(a.tolist()) & set(e.tolist()))
+               for a, e in zip(approx.cpu(), brute.indices.cpu()))
+    log(f"index: recall@16 of IVF (nprobe {nprobe}) against brute force "
+        f"{hits / brute.indices.numel():.4f}")
+    del index, rows, cent, offsets, qi
+    shutil.rmtree(os.path.join(work_dir, "index1m"))
+    torch.cuda.empty_cache()
+
+    def merged(main, extra, prefix):
+        out = dict(main)
+        out.update({f"{prefix}_{k}": v for k, v in extra.items()})
+        return out
+
+    report["kmeans_assign"] = merged(k9, k9m, "mips")
+    report["kmeans_update"] = merged(k10, k10m, "mips")
+    report["ivf_search"] = k11
+    report["ivf_search_int8"] = merged(mips[fs.rows], mips[1], "b1")
+    report["blockwise_topk_f32"] = k3f
+    return report, dict(index_build_1m_s=build_s,
+                        index_kmeans_1m_s=meta["build_seconds"],
+                        index_load_1m_s=load_s)
+
+
+def many_methods_source(n: int) -> str:
+    """A Java class of `n` small methods: one request whose methods fill
+    a device batch beyond the MIPS crossover."""
+    body = "\n".join(
+        f"    int m{i}(int a, int b) {{ if (a > b + {i}) {{ return a - {i};"
+        f" }} return b * {i + 1}; }}" for i in range(n))
+    return f"class Many {{\n{body}\n}}"
+
+
+def post_json(url: str, payload: dict):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        status, data = r.status, r.read()
+    return status, json.loads(data), time.perf_counter() - t0
+
+
+def check_neighbors_body(body, fingerprint, k):
+    if sorted(body) != ["embedding_fingerprint", "index", "methods", "model",
+                        "model_fingerprint"]:
+        fail(f"/neighbors keys {sorted(body)}")
+    if body["model_fingerprint"] != fingerprint or \
+            body["embedding_fingerprint"] != fingerprint:
+        fail(f"/neighbors fingerprints {str(body)[:300]}")
+    if not body["methods"]:
+        fail("/neighbors: no methods")
+    for m in body["methods"]:
+        nb = m["neighbors"]
+        if sorted(m) != ["neighbors", "original_name"] or len(nb) != k:
+            fail(f"/neighbors method {str(m)[:300]}")
+        scores = [n["score"] for n in nb]
+        if not all(math.isfinite(s) and -1.0 - 1e-4 <= s <= 1.0 + 1e-4
+                   for s in scores) or scores != sorted(scores, reverse=True):
+            fail(f"/neighbors scores {scores}")
+        for n in nb:
+            if sorted(n) != ["distance", "id", "score", "store_row"] or \
+                    abs(n["distance"] - (1.0 - n["score"])) > 1e-6:
+                fail(f"/neighbors neighbor {n}")
+
+
+def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
+                         n_methods: int = 20_000, n_timed: int = 300,
+                         dev: str = "cuda"):
+    """embed -> index-build -> serve --retrieval_index --serve_mips_nprobe
+    16 --serve_mips_crossover 8 -> POST /neighbors and /predict, through
+    the port's CLI, over the serving path's full-width artifact. Then
+    `n_timed` /neighbors requests of one method, one at a time after a
+    warm-up, for the request latency, and the extractor alone on the
+    same source."""
+    import numpy as np
+
+    from code2vec_tpu_torch import cli, kernels
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.release.runtime import ReleaseModel
+    from code2vec_tpu_torch.retrieval.embed_job import run_embed_job
+    from code2vec_tpu_torch.retrieval.index import measure_recall
+    from code2vec_tpu_torch.retrieval.store import VectorStore
+    from code2vec_tpu_torch.serving.extractor_bridge import PathExtractor
+    from code2vec_tpu_torch.serving.server import PredictionServer
+
+    art = os.path.join(work_dir, "artifact")   # the serving path's
+    rdir = os.path.join(work_dir, "retrieval")
+    os.makedirs(rdir)
+    sources = dict(SOURCES)
+    with open(os.path.join(REPO, "Input.java")) as f:
+        sources["Input.java"] = f.read()
+    extractor = PathExtractor(Config(device=dev, max_contexts=fs.contexts,
+                                     verbose_mode=0))
+    extracted = [ln for s in sources.values()
+                 for ln in extractor.extract_source(s)[0]]
+    t0 = time.perf_counter()
+    prefix = write_train_corpus(rdir, seed, fs, ft, n_methods,
+                                stems=("tok", "path", "name|filler"),
+                                with_dict=False)
+    corpus = prefix + ".train.c2v"
+    # the request sources' methods are stored too, twice (exact ties)
+    with open(corpus, "a") as f:
+        f.write("\n".join(extracted * 2) + "\n")
+    log(f"retrieval: wrote a {n_methods + 2 * len(extracted)}-method corpus "
+        f"over the artifact's vocabularies in "
+        f"{time.perf_counter() - t0:.1f}s")
+    store, idx = os.path.join(rdir, "store"), os.path.join(rdir, "index")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = cli.main(["embed", "--artifact", art, "--test", corpus,
+                        "--embed_out", store, "--device", dev])
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    log(f"retrieval: embed {summary['rows']} rows in {embed_s:.1f}s "
+        f"({summary['rows'] / embed_s:.0f} rows/s end to end, "
+        f"{summary['rows_per_sec']:.0f} rows/s in the job's loop)")
+    t0 = time.perf_counter()
+    meta = cli.main(["index-build", "--vectors", store, "--index_out", idx,
+                     "--device", dev])
+    build_s = time.perf_counter() - t0
+    log(f"retrieval: index-build {meta['backend']} nlist {meta['nlist']} "
+        f"nprobe {meta['nprobe']} in {build_s:.2f}s "
+        f"(k-means {meta['build_seconds']}s)")
+    if meta["backend"] != "ivf_flat":
+        fail(f"index-build gave a {meta['backend']} index")
+
+    _, config = cli.config_from_args(
+        ["serve", "--artifact", art, "--retrieval_index", idx,
+         "--serve_mips_nprobe", "16", "--serve_mips_crossover", "8",
+         "--device", dev])
+    config.verbose_mode = 0
+    t0 = time.perf_counter()
+    model = ReleaseModel(config)   # what `cli.main(argv)` runs
+    model.warmup()
+    server = PredictionServer(model, config)
+    port = server.start(port=0)
+    url = f"http://127.0.0.1:{port}"
+    log(f"retrieval: server with the index mounted and the MIPS head "
+        f"(nlist {model.mips_head.nlist}) up in "
+        f"{time.perf_counter() - t0:.1f}s")
+    fp = model.model_fingerprint()
+    try:
+        own = 0
+        for name, src in sources.items():
+            status, body, _ = post_json(f"{url}/neighbors", {"code": src})
+            if status != 200:
+                fail(f"/neighbors {name}: HTTP {status}")
+            check_neighbors_body(body, fp, config.retrieval_topk)
+            for m in body["methods"]:
+                top = m["neighbors"][0]
+                if top["id"] != m["original_name"] or \
+                        top["score"] < 1 - 1e-4:
+                    fail(f"/neighbors {name}: {m['original_name']}'s top "
+                         f"neighbor is {top}")
+                own += 1
+        status, body, _ = post_json(f"{url}/neighbors",
+                                    {"code": sources["Input.java"],
+                                     "k": 64, "nprobe": 32})
+        if status != 200:
+            fail(f"/neighbors k=64: HTTP {status}")
+        check_neighbors_body(body, fp, 64)
+        req = urllib.request.Request(
+            f"{url}/neighbors", method="POST",
+            data=json.dumps({"code": sources["Input.java"], "k": 65}
+                            ).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=300)
+            fail("/neighbors k=65 was answered")
+        except urllib.error.HTTPError as e:
+            if e.code != 422:
+                fail(f"/neighbors k=65: HTTP {e.code}, not 422")
+        # head dispatch: a one-request batch of few methods takes the MIPS
+        # head (K11), a 12-method one the exact head (K3)
+        for src, want in ((sources["Max.java"], "mips"),
+                          (many_methods_source(12), "exact")):
+            before = kernels.launch_counts()
+            heads = dict(model.head_dispatches)
+            status, body, _ = post(f"{url}/predict", src)
+            if status != 200:
+                fail(f"/predict ({want} head): HTTP {status}")
+            check_predict_body(body, fp)
+            after = kernels.launch_counts()
+            d_k3 = after["blockwise_topk"] - before["blockwise_topk"]
+            d_k11 = after["ivf_search_int8"] - before["ivf_search_int8"]
+            d_head = {h: model.head_dispatches[h] - heads[h] for h in heads}
+            if (want == "mips") != (d_k11 == 1 and d_k3 == 0) or \
+                    d_head[want] != 1:
+                fail(f"/predict of {len(body['methods'])} methods: head "
+                     f"dispatches {d_head}, K3 +{d_k3}, K11 +{d_k11}; "
+                     f"expected the {want} head")
+            log(f"retrieval: /predict of {len(body['methods'])} methods took "
+                f"the {want} head (K3 +{d_k3}, K11 +{d_k11})")
+        # the request latency: /neighbors of one method (the MIPS head,
+        # then the index), one client, one request at a time
+        src = sources["Max.java"]
+        for _ in range(10):
+            post_json(f"{url}/neighbors", {"code": src})
+        latencies = []
+        for _ in range(n_timed):
+            status, body, dt = post_json(f"{url}/neighbors", {"code": src})
+            if status != 200:
+                fail(f"/neighbors (timed): HTTP {status}")
+            latencies.append(dt)
+        check_neighbors_body(body, fp, config.retrieval_topk)
+        extract = []
+        for _ in range(50):
+            t0 = time.perf_counter()
+            extractor.extract_source(src)
+            extract.append(time.perf_counter() - t0)
+        vecs = VectorStore.open(store).load()
+        recall = measure_recall(server.retrieval.index,
+                                vecs[:: max(1, len(vecs) // fs.rows)][:fs.rows],
+                                10)
+        counts = kernels.launch_counts()
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        server.shutdown()
+    if health["retrieval"]["status"] != "attached" or \
+            health["retrieval"]["fingerprint"] != fp:
+        fail(f"/healthz retrieval {health['retrieval']}")
+    lat = sorted(latencies)
+    stats = dict(p50_ms=statistics.median(lat) * 1e3,
+                 p99_ms=lat[int(0.99 * (len(lat) - 1))] * 1e3,
+                 max_ms=lat[-1] * 1e3,
+                 extract_p50_ms=statistics.median(extract) * 1e3)
+    log(f"retrieval: {len(lat)} /neighbors requests of Max.java (1 method, "
+        f"k {config.retrieval_topk}) after 10 warm-up: p50 "
+        f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, max "
+        f"{stats['max_ms']:.2f} ms; the extractor alone on it p50 "
+        f"{stats['extract_p50_ms']:.2f} ms over {len(extract)} calls; "
+        f"{own} methods found themselves first; recall@10 of IVF (nprobe "
+        f"{meta['nprobe']}) against brute force {recall:.4f}; kernel "
+        f"launches {counts}")
+    missing = [k for k in SERVE_KERNELS + kernels.RETRIEVAL_KERNELS
+               if counts[k] <= 0]
+    if missing:
+        fail(f"the retrieval path launched no {missing}")
+
+    # the MIPS head over every list returns the exact head's indices, on
+    # the code vectors the embed job stored
+    same, bad, tol = mips_against_exact(
+        torch, model.mips_head, torch.from_numpy(vecs[:fs.rows].copy()
+                                                 ).to(dev),
+        model.params["target_embedding"],
+        model.params["target_embedding_scale"],
+        int(model.meta["dims"]["real_target_vocab_size"]), fs)
+    if bad:
+        fail(f"MIPS head at nprobe = nlist: {bad} indices differ from the "
+             f"exact head away from near-ties")
+    log(f"retrieval: MIPS head at nprobe = nlist = {model.mips_head.nlist} "
+        f"equals the exact head on {same}/{fs.rows * fs.topk} indices (the "
+        f"rest near-ties within {tol:.3g})")
+    del model, server
+    torch.cuda.empty_cache()
+
+    # the embed job's vectors on the GPU against a CPU run of the same rows
+    small = os.path.join(rdir, "small.c2v")
+    with open(corpus) as f, open(small, "w") as out:
+        for _ in range(fs.rows):
+            out.write(next(f))
+    cpu = ReleaseModel(Config(serve_artifact=art, device="cpu",
+                              verbose_mode=0, test_batch_size=fs.rows))
+    run_embed_job(cpu, corpus_path=small,
+                  out_dir=os.path.join(rdir, "cpu-store"))
+    want = VectorStore.open(os.path.join(rdir, "cpu-store"))
+    got = vecs[:want.rows]
+    w = want.load()
+    err = float(np.abs(got - w).max())
+    tol = PATH_REL_TOL * float(np.abs(w).max())
+    if want.ids != VectorStore.open(store).ids[:want.rows] or err > tol:
+        fail(f"embed GPU vs CPU: max error {err} > {tol} or ids differ")
+    log(f"retrieval: embed GPU vs CPU on {want.rows} rows: max error "
+        f"{err:.3g} (tolerance {tol:.3g})")
+    return counts, dict(stats, embed_rows_per_s=summary["rows"] / embed_s,
+                        index_build_s=build_s, recall=recall)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1267,6 +1918,7 @@ def main() -> None:
     log(f"card: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind}")
 
+    from code2vec_tpu_torch import kernels
     from code2vec_tpu_torch.kernels import build
     t0 = time.perf_counter()
     make = None
@@ -1293,16 +1945,21 @@ def main() -> None:
     report = kernel_phase(torch, args.seed, timer, fs)
     torch.cuda.empty_cache()
     report.update(train_kernel_phase(torch, args.seed, timer, fs, ft))
-    del timer
     torch.cuda.empty_cache()
-
     work_dir = os.path.join(REPO, ".smoke")
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
     try:
+        retrieval_report, index_stats = retrieval_kernel_phase(
+            torch, args.seed, timer, fs, work_dir)
+        report.update(retrieval_report)
+        del timer
+        torch.cuda.empty_cache()
         counts = path_phase(torch, args.seed, work_dir, fs)
         train_counts, train_stats = train_path_phase(torch, args.seed,
                                                      work_dir, fs, ft)
+        retrieval_counts, retrieval_stats = retrieval_path_phase(
+            torch, args.seed, work_dir, fs, ft)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     train_step_check(torch, args.seed, fs, ft)
@@ -1321,16 +1978,28 @@ def main() -> None:
         "softmax_xent": ("softmax_xent.cu",
                          "code2vec_tpu/training/step.py:170"),
         "adam": ("adam.cu", "code2vec_tpu/training/state.py:62"),
+        "kmeans_assign": ("kmeans.cu",
+                          "code2vec_tpu/retrieval/index.py:117"),
+        "kmeans_update": ("kmeans.cu", "code2vec_tpu/retrieval/index.py:96"),
+        "ivf_search": ("ivf_search.cu",
+                       "code2vec_tpu/retrieval/index.py:319"),
+        "ivf_search_int8": ("ivf_search.cu",
+                            "code2vec_tpu/retrieval/mips.py:139"),
+        "blockwise_topk_f32": ("topk.cu",
+                               "code2vec_tpu/retrieval/index.py:306"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
         r = report[name]
         serving = name in SERVE_KERNELS
+        launches = (retrieval_counts[name]
+                    if name in kernels.RETRIEVAL_KERNELS
+                    else counts[name] if serving else train_counts[name])
         entry = {
             "name": name, "route": "cuda",
             "source": f"code2vec_tpu_torch/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": counts[name] if serving else train_counts[name],
+            "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
@@ -1342,9 +2011,24 @@ def main() -> None:
             entry.update({f"train_{k}": t[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
+        if name in kernels.RETRIEVAL_KERNELS:
+            # K9/K10: the index shape above, the MIPS shape's numbers as
+            # mips_*; the int8 K11: B 64 above, B 1 as b1_*
+            entry.update({k: v for k, v in r.items()
+                          if k.startswith(("mips", "b1"))})
+        if name in SERVE_KERNELS:
+            entry["retrieval_launches"] = retrieval_counts[name]
         entries.append(entry)
     log(f"train step: {train_stats['step_ms']:.2f} ms, "
         f"{train_stats['examples_per_s']:.0f} examples/s")
+    log(f"retrieval: embed {retrieval_stats['embed_rows_per_s']:.0f} rows/s; "
+        f"index-build {retrieval_stats['index_build_s']:.2f}s at 20K rows, "
+        f"{index_stats['index_build_1m_s']:.2f}s at 1M rows (load "
+        f"{index_stats['index_load_1m_s']:.2f}s); /neighbors p50 "
+        f"{retrieval_stats['p50_ms']:.2f} ms p99 "
+        f"{retrieval_stats['p99_ms']:.2f} ms max "
+        f"{retrieval_stats['max_ms']:.2f} ms; recall@10 "
+        f"{retrieval_stats['recall']:.4f}")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

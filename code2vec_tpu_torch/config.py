@@ -1,5 +1,5 @@
-"""The train, predict and serve knobs of the port, with the names and
-defaults of code2vec_tpu/config.py.
+"""The train, predict, serve and retrieval knobs of the port, with the
+names and defaults of code2vec_tpu/config.py.
 
 A release artifact is authoritative for what shaped its export
 (max_contexts, topk, buckets, vocab sizes, compute dtype): ReleaseModel
@@ -25,6 +25,9 @@ class Config:
     shuffle_buffer_size: int = 10000
     csv_buffer_size: int = 100 * 1024 * 1024
     train_data_path_prefix: Optional[str] = None
+    # `--test`: the corpus the embed job reads (code2vec_tpu/config.py:84)
+    test_data_path: Optional[str] = None
+    test_batch_size: int = 1024
     dropout_keep_rate: float = 0.75
     # Adam (code2vec_tpu/config.py:136-139, :163, :172)
     learning_rate: float = 0.001
@@ -48,6 +51,13 @@ class Config:
     topk_block_size: int = 4096
     release_scheme: str = "int8"
     serve_artifact: Optional[str] = None
+    # approximate-MIPS head (code2vec_tpu/config.py:499-522): 0 = exact
+    # head; nlist 0 = sqrt(real vocab); crossover -1 = the artifact's
+    # calibrated value (all-MIPS without one), 0 = exact only, N = batches
+    # with <= N live rows take the MIPS head
+    serve_mips_nprobe: int = 0
+    serve_mips_nlist: int = 0
+    serve_mips_crossover: int = -1
     # serving (code2vec_tpu/config.py:229-266)
     serve_port: int = 8800
     serve_host: str = "127.0.0.1"
@@ -56,6 +66,21 @@ class Config:
     serve_buckets: str = "32,64,128"
     extractor_timeout_s: float = 120.0
     export_code_vectors: bool = False
+    # retrieval (code2vec_tpu/config.py:548-600)
+    embed_out: Optional[str] = None
+    embed_dtype: str = "float32"
+    embed_shard_rows: int = 65536
+    index_vectors: Optional[str] = None
+    index_out: Optional[str] = None
+    index_nlist: int = 0
+    index_nprobe: int = 8
+    index_kmeans_iters: int = 10
+    index_metric: str = "cosine"
+    retrieval_index: Optional[str] = None
+    retrieval_topk: int = 10
+    # the command that runs (set by the CLI): what the checks below read
+    serve: bool = False
+    predict: bool = False
     # the port's own
     device: str = "cuda"
     verbose_mode: int = 1
@@ -63,6 +88,10 @@ class Config:
     @property
     def is_training(self) -> bool:
         return bool(self.train_data_path_prefix)
+
+    @property
+    def is_testing(self) -> bool:
+        return bool(self.test_data_path)
 
     @property
     def train_data_path(self) -> Optional[str]:
@@ -79,7 +108,7 @@ class Config:
         return f"{self.train_data_path_prefix}.dict.c2v"
 
     def verify(self) -> None:
-        """The dtype and policy checks of code2vec_tpu/config.py:822-840
+        """The checks of code2vec_tpu/config.py:822-840 and :1114-1278
         that the port's knobs share."""
         for name in ("compute_dtype", "adam_mu_dtype", "adam_nu_dtype"):
             if getattr(self, name) not in ("bfloat16", "float32"):
@@ -88,6 +117,101 @@ class Config:
             raise ValueError("on_nonfinite_loss must be halt or warn.")
         if not 0.0 < self.dropout_keep_rate <= 1.0:
             raise ValueError("dropout_keep_rate must be in (0, 1].")
+        self._verify_mips()
+        self._verify_retrieval()
+
+    def _verify_mips(self) -> None:
+        if self.serve_mips_nprobe < 0:
+            raise ValueError(
+                "serve_mips_nprobe must be >= 0 (0 = exact blockwise "
+                "top-k, the default).")
+        if self.serve_mips_nlist < 0:
+            raise ValueError(
+                "serve_mips_nlist must be >= 0 (0 = sqrt(vocab) auto).")
+        if self.serve_mips_nprobe > 0:
+            if not (self.serve or self.predict):
+                raise ValueError(
+                    "serve_mips_nprobe applies to serve/predict (the "
+                    "prediction head); embed always uses the exact "
+                    "blockwise path, so the knob would be a silent no-op "
+                    "here.")
+            if self.is_testing:
+                raise ValueError(
+                    "--serve_mips_nprobe cannot be combined with --test: "
+                    "accuracy evaluation always scores the exact "
+                    "blockwise head.")
+        if self.serve_mips_crossover < -1:
+            raise ValueError(
+                "serve_mips_crossover must be >= -1 (-1 = adopt the "
+                "artifact's calibrated crossover, 0 = exact-only, > 0 = "
+                "explicit crossover row count).")
+        if self.serve_mips_crossover > 0 and self.serve_mips_nprobe == 0:
+            raise ValueError(
+                "serve_mips_crossover > 0 requires serve_mips_nprobe > 0: "
+                "there is no MIPS head to dispatch small batches to "
+                "without an IVF probe budget.")
+
+    def _verify_retrieval(self) -> None:
+        if self.embed_dtype not in ("float32", "float16"):
+            raise ValueError("embed_dtype must be float32 or float16.")
+        if self.embed_shard_rows < 1:
+            raise ValueError(
+                "embed_shard_rows must be >= 1 (it is the embed job's "
+                "resume granularity).")
+        if self.embed_out and not self.is_testing:
+            raise ValueError(
+                "embed (--embed_out) needs a corpus: pass --test FILE.")
+        if self.embed_out and not self.serve_artifact:
+            raise ValueError(
+                "embed (--embed_out) needs a model: --artifact DIR (an "
+                "untrained model's vectors index noise).")
+        if self.embed_out and self.is_training:
+            raise ValueError(
+                "embed (--embed_out) is a one-shot job and cannot be "
+                "combined with training (--data); train first, then "
+                "embed the corpus.")
+        if self.embed_out and (self.serve or self.predict):
+            raise ValueError(
+                "embed (--embed_out) is a one-shot job and cannot be "
+                "combined with serve/predict. Run them as separate "
+                "invocations.")
+        if self.index_out and (self.is_training or self.serve
+                               or self.predict or self.is_testing
+                               or self.embed_out):
+            raise ValueError(
+                "index-build (--index_out) is a standalone job and cannot "
+                "be combined with training/serve/predict/--test/"
+                "--embed_out. Run them as separate invocations.")
+        if self.index_out and not self.index_vectors:
+            raise ValueError(
+                "index-build (--index_out) requires --vectors DIR (the "
+                "store the `embed` subcommand wrote).")
+        if self.index_vectors and not self.index_out:
+            raise ValueError(
+                "--vectors is only consumed by index-build; pass "
+                "--index_out DIR for the artifact to write.")
+        if self.index_nlist < 0:
+            raise ValueError(
+                "index_nlist must be >= 0 (0 = sqrt(rows) auto).")
+        if self.index_nprobe < 1:
+            raise ValueError("index_nprobe must be >= 1.")
+        if self.index_kmeans_iters < 1:
+            raise ValueError("index_kmeans_iters must be >= 1.")
+        if self.index_metric not in ("cosine", "dot"):
+            raise ValueError("index_metric must be cosine or dot.")
+        if self.retrieval_index and not self.serve:
+            raise ValueError(
+                "--retrieval_index applies to the serve subcommand only "
+                "(it mounts the /neighbors index).")
+        if self.retrieval_topk < 1:
+            raise ValueError("retrieval_topk must be >= 1.")
+        if self.retrieval_index:
+            from code2vec_tpu_torch.retrieval.api import MAX_SEARCH_K
+            if self.retrieval_topk > MAX_SEARCH_K:
+                raise ValueError(
+                    f"retrieval_topk {self.retrieval_topk} is above the "
+                    f"search kernels' limit of {MAX_SEARCH_K} neighbors "
+                    f"per method.")
 
     def log(self, msg: str) -> None:
         if self.verbose_mode > 0:

@@ -1,5 +1,5 @@
-"""Host-side parsing of `.c2v` lines into model inputs: the Predict and
-Train actions.
+"""Host-side parsing of `.c2v` lines into model inputs: the Predict,
+Train and Evaluate actions.
 
 The counterpart of code2vec_tpu/data/reader.py (RowBatch, EpochEnd :54,
 EstimatorAction :68, parse_context_lines :115, row_filter_mask :251,
@@ -14,9 +14,16 @@ same file and seed:
   scheme both are index 0);
 - a context is valid iff any of its three parts is not PAD;
 - train rows are dropped when the target is PAD/OOV or no context is
-  valid; predict rows are never filtered;
+  valid; evaluation rows when no context is valid; predict rows are
+  never filtered;
 - training shuffles through a bounded buffer keyed per epoch, yields an
-  EpochEnd marker after every file pass, and drops the ragged tail.
+  EpochEnd marker after every file pass, and drops the ragged tail;
+- evaluation reads the file once in order, with no shuffle, and pads its
+  tail batch with invalid rows, so every kept row is scored.
+
+The reference's embed job reads a packed `.c2vb` it writes beside the
+corpus; the port reads the same text file in the same row order (the
+packed reader is not ported).
 """
 
 from __future__ import annotations
@@ -83,11 +90,13 @@ def parse_context_lines(lines: Sequence[str], vocabs: Code2VecVocabs,
                         max_contexts: int,
                         out: Optional[RowBatch] = None,
                         row_offset: int = 0,
-                        keep_strings: bool = True) -> RowBatch:
+                        keep_strings: bool = True,
+                        with_target_strings: bool = False) -> RowBatch:
     """Parse `name ctx ctx ...` lines (ctx = `token,path,token`) into a
     RowBatch, or into rows [row_offset, row_offset + n) of `out` (a
     buffer from `empty_predict_batch`). Without `keep_strings` (the
-    train path) only the int arrays are filled."""
+    train and eval paths) only the int arrays are filled, and the method
+    names too with `with_target_strings`."""
     n, m = len(lines), max_contexts
     if out is not None and not keep_strings:
         raise ValueError("out= requires the keep-strings parse path")
@@ -150,7 +159,8 @@ def parse_context_lines(lines: Sequence[str], vocabs: Code2VecVocabs,
             source_token_indices=src, path_indices=pth,
             target_token_indices=tgt, context_valid_mask=context_valid_mask,
             target_index=target_index,
-            example_valid=np.ones((n,), dtype=bool))
+            example_valid=np.ones((n,), dtype=bool),
+            target_strings=target_strings if with_target_strings else None)
     return RowBatch(
         source_token_indices=src, path_indices=pth,
         target_token_indices=tgt, context_valid_mask=context_valid_mask,
@@ -287,16 +297,19 @@ def _concat_batches(batches: List[RowBatch]) -> RowBatch:
 
 
 class PathContextReader:
-    """Streaming batched reader of one text `.c2v` file, Train action.
+    """Streaming batched reader of one text `.c2v` file, Train or Evaluate
+    action.
 
-    Yields RowBatches of exactly `batch_size` rows and, with
-    `yield_epoch_markers`, an EpochEnd after each file pass. Lines go
+    Yields RowBatches of exactly `batch_size` rows. Train: with
+    `yield_epoch_markers`, an EpochEnd after each file pass; lines go
     through a bounded shuffle buffer (`.repeat(epochs).shuffle(buffer)`
-    of the original reader) whose RNG is keyed per epoch; rows are parsed
-    in chunks of `parse_chunk_lines` and filtered; the final partial batch
-    of the run is dropped. Chunks are parsed in order on the calling
-    thread (the reference parses them on a worker pool, which yields the
-    same order)."""
+    of the original reader) whose RNG is keyed per epoch; the final
+    partial batch of the run is dropped. Evaluate: one pass in file
+    order, the partial tail batch padded with invalid rows;
+    `with_target_strings` keeps each row's method name (the embed job's
+    ids). Rows are parsed in chunks of `parse_chunk_lines` and filtered.
+    Chunks are parsed in order on the calling thread (the reference
+    parses them on a worker pool, which yields the same order)."""
 
     def __init__(self, vocabs: Code2VecVocabs, config,
                  estimator_action: EstimatorAction,
@@ -304,24 +317,34 @@ class PathContextReader:
                  parse_chunk_lines: int = 4096,
                  batch_size: Optional[int] = None,
                  num_epochs: Optional[int] = None,
-                 yield_epoch_markers: bool = False):
-        if not estimator_action.is_train:
-            raise ValueError("the port's reader streams the Train action "
-                             "only; evaluation is not ported yet")
+                 yield_epoch_markers: bool = False,
+                 with_target_strings: bool = False):
+        if estimator_action.is_predict:
+            raise ValueError("the reader streams the Train and Evaluate "
+                             "actions; predict parses its lines directly")
         self.vocabs = vocabs
         self.config = config
         self.estimator_action = estimator_action
-        self.data_path = (data_path if data_path is not None
-                          else config.train_data_path)
+        if data_path is None:
+            data_path = (config.train_data_path if estimator_action.is_train
+                         else config.test_data_path)
+        self.data_path = data_path
         self.parse_chunk_lines = parse_chunk_lines
-        self.batch_size = batch_size or config.train_batch_size
+        self.batch_size = batch_size or (
+            config.train_batch_size if estimator_action.is_train
+            else config.test_batch_size)
+        self.with_target_strings = with_target_strings
         self.num_epochs = (config.num_train_epochs if num_epochs is None
                            else num_epochs)
         self.yield_epoch_markers = yield_epoch_markers
 
     def __iter__(self) -> Iterator:
-        yield from self._batched(self._shuffled_lines(self.num_epochs),
-                                 self.batch_size)
+        if self.estimator_action.is_train:
+            lines = self._shuffled_lines(self.num_epochs)
+        else:
+            lines = _iter_file_lines(self.data_path,
+                                     self.config.csv_buffer_size)
+        yield from self._batched(lines, self.batch_size)
 
     def _shuffled_lines(self, epochs: int) -> Iterator:
         """Repeat + bounded shuffle buffer; an EpochEnd after every pass
@@ -347,9 +370,9 @@ class PathContextReader:
             yield EpochEnd(epoch)
 
     def _parse_chunk(self, chunk: List[str]) -> RowBatch:
-        raw = parse_context_lines(chunk, self.vocabs,
-                                  self.config.max_contexts,
-                                  keep_strings=False)
+        raw = parse_context_lines(
+            chunk, self.vocabs, self.config.max_contexts,
+            keep_strings=False, with_target_strings=self.with_target_strings)
         keep = row_filter_mask(raw, self.vocabs, self.estimator_action)
         return _select_rows(raw, np.nonzero(keep)[0])
 
@@ -398,4 +421,6 @@ class PathContextReader:
                 pending_rows += item.target_index.shape[0]
             yield from pop_batches()
         yield from pop_batches()
-        # the ragged tail of a train run is dropped
+        # the ragged tail of a train run is dropped; evaluation pads it
+        if pending_rows and not self.estimator_action.is_train:
+            yield _pad_rows(_concat_batches(pending), batch_size)

@@ -97,7 +97,6 @@ def adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     tensors = [*params, *grads, *mus, *nus]
     if launch.runs_plain(*tensors):
         return adam_plain(params, grads, mus, nus, count, hyper)
-    global launches
     fn = _fn()  # builds the library first: raises where nvcc is missing
     n = len(params)
     launch.require(len(grads) == len(mus) == len(nus) == n,
@@ -128,4 +127,4 @@ def adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
              c["b1_bf16"], c["b1c"], c["b2c"], c["eps"], c["neg_lr"],
              launch.stream(device))
     launch.check_launch(err, "adam")
-    launches += 1
+    launch.count(__name__)

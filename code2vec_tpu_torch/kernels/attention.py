@@ -49,7 +49,6 @@ def masked_attention(transformed: torch.Tensor,
     if launch.runs_plain(transformed, attention_param, context_valid_mask):
         return masked_attention_plain(transformed, attention_param,
                                       context_valid_mask)
-    global launches
     fn = _fn()  # builds the library first: raises where nvcc is missing
     launch.check_tensor(transformed, "transformed", [torch.bfloat16], 3,
                         align=16)
@@ -73,7 +72,7 @@ def masked_attention(transformed: torch.Tensor,
              context_valid_mask.data_ptr(), b, m, d, cv.data_ptr(),
              attn.data_ptr(), launch.stream(transformed.device))
     launch.check_launch(err, "masked_attention")
-    launches += 1
+    launch.count(__name__)
     return cv, attn
 
 
@@ -100,7 +99,6 @@ def masked_attention_backward(transformed: torch.Tensor,
             d_code_vectors)
     if launch.runs_plain(*args):
         return masked_attention_backward_plain(*args)
-    global backward_launches
     fn = _backward_fn()  # builds the library first: raises without nvcc
     launch.check_tensor(transformed, "transformed", [torch.bfloat16], 3,
                         align=16)
@@ -130,5 +128,5 @@ def masked_attention_backward(transformed: torch.Tensor,
              d_code_vectors.data_ptr(), b, m, d, dt.data_ptr(),
              da_rows.data_ptr(), da.data_ptr(), launch.stream(device))
     launch.check_launch(err, "masked_attention_backward")
-    backward_launches += 1
+    launch.count(__name__, "backward_launches")
     return dt, da

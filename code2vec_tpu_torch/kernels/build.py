@@ -25,7 +25,8 @@ import time
 from typing import Dict, Iterable, List, Optional
 
 SOURCES = ("encoder", "attention", "topk", "label_logits",
-           "encoder_backward", "attention_backward", "softmax_xent", "adam")
+           "encoder_backward", "attention_backward", "softmax_xent", "adam",
+           "kmeans", "ivf_search")
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")

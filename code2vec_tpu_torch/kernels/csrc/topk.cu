@@ -1,4 +1,6 @@
-// K3 blockwise_topk: top-k and logsumexp of bf16(cv) @ bf16(table).T.
+// K3 blockwise_topk: top-k and logsumexp of bf16(cv) @ bf16(table).T, and
+// in its float32 mode (topk_partial_f32_kernel, below) of cv @ table.T
+// with f32 operands and f32 FMAs.
 //
 // Replaces code2vec_tpu/ops/topk.py blockwise_matmul_top_k (:99-179) with
 // its merge `_merge_top_k` (:41-52) and streaming logsumexp `_fold_lse`
@@ -62,6 +64,84 @@ __host__ __device__ inline Layout layout(int d, int k) {
   s.idx = s.vals + 4LL * kTileB * k;
   s.total = s.idx + 4LL * kTileB * k;
   return s;
+}
+
+// Fold one tile's logits (kTileB code vectors x kTileV table rows, row
+// stride ldl in `sl`) into each code vector's running top-k list and the
+// lanes' running (max, sumexp); warp w owns code vectors w, w + 8, ...
+template <bool kScaled>
+__device__ __forceinline__ void fold_tile(
+    const float* sl, int ldl, const float* sscale, int64_t t0, int64_t v_end,
+    int64_t valid_rows, int b0, int b_rows, int k, float* svals, int* sidx,
+    float (&run_m)[kRowsPerWarp], float (&run_s)[kRowsPerWarp], int warp,
+    int lane) {
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + kWarps * i;
+    if (b0 + r >= b_rows) continue;  // warp-uniform
+    float* lv = svals + r * k;
+    int* li = sidx + r * k;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = lane + 32 * h;
+      const int64_t v = t0 + c;
+      float x = -INFINITY;
+      bool live = false;
+      if (v < v_end) {
+        x = sl[r * ldl + c];
+        if (kScaled) x *= sscale[c];
+        live = v < valid_rows;
+        if (!live) x = -INFINITY;
+        // streaming logsumexp with the reference's nonfinite guard
+        const float y = (live && !isfinite(x)) ? -1e30f : x;
+        if (y > run_m[i]) {
+          run_s[i] = (isfinite(run_m[i]) ? run_s[i] * expf(run_m[i] - y)
+                                         : 0.f) + 1.f;
+          run_m[i] = y;
+        } else if (isfinite(y)) {
+          run_s[i] += expf(y - run_m[i]);
+        }
+      }
+      const int vi = static_cast<int>(v);
+      unsigned ballot = __ballot_sync(
+          c2v::kFullMask, live && c2v::topk_before(x, vi, lv[k - 1], li[k - 1]));
+      while (ballot) {
+        const int srcl = __ffs(ballot) - 1;
+        ballot &= ballot - 1;
+        const float cx = __shfl_sync(c2v::kFullMask, x, srcl);
+        const int ci = __shfl_sync(c2v::kFullMask, vi, srcl);
+        c2v::warp_topk_insert(lv, li, k, cx, ci, lane);
+      }
+    }
+  }
+}
+
+// A CTA's partial results: per code vector and chunk its (max, sumexp)
+// and top-k list. Partials are laid out [code vector][chunk] so the merge
+// reads one code vector's lists contiguously.
+__device__ __forceinline__ void write_partials(
+    float (&run_m)[kRowsPerWarp], float (&run_s)[kRowsPerWarp],
+    const float* svals, const int* sidx, int b0, int b_rows, int k,
+    int64_t chunk, int64_t n_chunks, float* part_vals, int* part_idx,
+    float* part_max, float* part_sum, int tid, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + kWarps * i;
+    if (b0 + r >= b_rows) continue;
+    float m = run_m[i], s = run_s[i];
+    c2v::warp_lse_reduce(m, s);
+    if (lane == 0) {
+      part_max[(b0 + r) * n_chunks + chunk] = m;
+      part_sum[(b0 + r) * n_chunks + chunk] = s;
+    }
+  }
+  for (int e = tid; e < kTileB * k; e += kThreads) {
+    const int r = e / k, j = e - r * k;
+    if (b0 + r >= b_rows) continue;
+    const int64_t o = ((b0 + r) * n_chunks + chunk) * k + j;
+    part_vals[o] = svals[e];
+    part_idx[o] = sidx[e];
+  }
 }
 
 template <bool kInt8>
@@ -196,68 +276,127 @@ topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
                               L.ldl, wmma::mem_row_major);
     __syncthreads();
 
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp + kWarps * i;
-      if (b0 + r >= b_rows) continue;  // warp-uniform
-      float* lv = svals + r * k;
-      int* li = sidx + r * k;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        const int64_t v = t0 + c;
-        float x = -INFINITY;
-        bool live = false;
-        if (v < v_end) {
-          x = sl[r * L.ldl + c];
-          if (kInt8) x *= sscale[c];
-          live = v < valid_rows;
-          if (!live) x = -INFINITY;
-          // streaming logsumexp with the reference's nonfinite guard
-          const float y = (live && !isfinite(x)) ? -1e30f : x;
-          if (y > run_m[i]) {
-            run_s[i] = (isfinite(run_m[i]) ? run_s[i] * expf(run_m[i] - y)
-                                           : 0.f) + 1.f;
-            run_m[i] = y;
-          } else if (isfinite(y)) {
-            run_s[i] += expf(y - run_m[i]);
-          }
-        }
-        const int vi = static_cast<int>(v);
-        unsigned ballot = __ballot_sync(
-            c2v::kFullMask, live && c2v::topk_before(x, vi, lv[k - 1], li[k - 1]));
-        while (ballot) {
-          const int srcl = __ffs(ballot) - 1;
-          ballot &= ballot - 1;
-          const float cx = __shfl_sync(c2v::kFullMask, x, srcl);
-          const int ci = __shfl_sync(c2v::kFullMask, vi, srcl);
-          c2v::warp_topk_insert(lv, li, k, cx, ci, lane);
-        }
-      }
-    }
+    fold_tile<kInt8>(sl, L.ldl, sscale, t0, v_end, valid_rows, b0, b_rows, k,
+                     svals, sidx, run_m, run_s, warp, lane);
   }
   __syncthreads();
+  write_partials(run_m, run_s, svals, sidx, b0, b_rows, k, chunk, n_chunks,
+                 part_vals, part_idx, part_max, part_sum, tid, warp, lane);
+}
 
-  // Partials are laid out [code vector][chunk] so the merge reads one
-  // code vector's lists contiguously.
+// The float32-compute mode: the same split-V partials, with the tile's
+// logits as f32 FMAs of the f32 operands (no bf16 rounding, no TF32), the
+// brute-force search of the retrieval index
+// (code2vec_tpu/retrieval/index.py `_search_brute` :306-317 calls
+// blockwise_matmul_top_k with its default compute_dtype=float32). Bound
+// by operations at the index shape (64 queries x 1M rows x 384: 49 GFLOP
+// of f32 FMAs over 1.54 GB). Each thread holds 4 code vectors x 4 table
+// rows of the 64 x 64 tile in registers; 32-deep slices of both operands
+// are staged k-major in shared memory, so each thread reads float4s.
+constexpr int kF32BK = 32;
+
+struct F32Layout {
+  int ldl;
+  int64_t a, t, l, vals, idx, total;
+};
+
+__host__ __device__ inline F32Layout f32_layout(int k) {
+  F32Layout s;
+  s.ldl = kTileV + 4;
+  s.a = 0;
+  s.t = s.a + 4LL * kF32BK * kTileB;
+  s.l = s.t + 4LL * kF32BK * kTileV;
+  s.vals = s.l + 4LL * kTileB * s.ldl;
+  s.idx = s.vals + 4LL * kTileB * k;
+  s.total = s.idx + 4LL * kTileB * k;
+  return s;
+}
+
+// A [kF32BK][tile] k-major slice of rows [row0, row0 + tile) of `src`
+// (row-major, width d, d % 4 == 0), zero past `row_end`.
+__device__ __forceinline__ void f32_slice(float* dst, const float* src,
+                                          int64_t row0, int64_t row_end,
+                                          int d, int k0, int tile, int tid) {
+  constexpr int per_row = kF32BK / 4;
+  for (int e = tid; e < tile * per_row; e += kThreads) {
+    const int r = e / per_row, q = (e - r * per_row) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < row_end && k0 + q < d)
+      x = *reinterpret_cast<const float4*>(src + (row0 + r) * d + k0 + q);
+    dst[(q + 0) * tile + r] = x.x;
+    dst[(q + 1) * tile + r] = x.y;
+    dst[(q + 2) * tile + r] = x.z;
+    dst[(q + 3) * tile + r] = x.w;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+topk_partial_f32_kernel(const float* cv, int b_rows, int d,
+                        const float* table, int64_t v_rows,
+                        int64_t valid_rows, int k, int64_t chunk_rows,
+                        int64_t n_chunks, float* part_vals, int* part_idx,
+                        float* part_max, float* part_sum) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const F32Layout L = f32_layout(k);
+  float* sa = reinterpret_cast<float*>(smem + L.a);
+  float* st = reinterpret_cast<float*>(smem + L.t);
+  float* sl = reinterpret_cast<float*>(smem + L.l);
+  float* svals = reinterpret_cast<float*>(smem + L.vals);
+  int* sidx = reinterpret_cast<int*>(smem + L.idx);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int64_t chunk = blockIdx.x;
+  const int b0 = blockIdx.y * kTileB;
+  const int64_t v_begin = chunk * chunk_rows;
+  const int64_t v_end =
+      v_begin + chunk_rows < v_rows ? v_begin + chunk_rows : v_rows;
+  for (int e = tid; e < kTileB * k; e += kThreads) {
+    svals[e] = -INFINITY;
+    sidx[e] = c2v::kEmptyIndex;
+  }
+  float run_m[kRowsPerWarp], run_s[kRowsPerWarp];
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + kWarps * i;
-    if (b0 + r >= b_rows) continue;
-    float m = run_m[i], s = run_s[i];
-    c2v::warp_lse_reduce(m, s);
-    if (lane == 0) {
-      part_max[(b0 + r) * n_chunks + chunk] = m;
-      part_sum[(b0 + r) * n_chunks + chunk] = s;
+    run_m[i] = -INFINITY;
+    run_s[i] = 0.f;
+  }
+  for (int64_t t0 = v_begin; t0 < v_end; t0 += kTileV) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += kF32BK) {
+      __syncthreads();  // the previous slice (and tile's logits) consumed
+      f32_slice(sa, cv, b0, b_rows, d, k0, kTileB, tid);
+      f32_slice(st, table, t0, v_end, d, k0, kTileV, tid);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kF32BK; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            sa + kk * kTileB + ty * 4);
+        const float4 t = *reinterpret_cast<const float4*>(
+            st + kk * kTileV + tx * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], tv[j], acc[i][j]);
+      }
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(sl + (ty * 4 + i) * L.ldl + tx * 4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    __syncthreads();
+    fold_tile<false>(sl, L.ldl, nullptr, t0, v_end, valid_rows, b0, b_rows,
+                     k, svals, sidx, run_m, run_s, warp, lane);
   }
-  for (int e = tid; e < kTileB * k; e += kThreads) {
-    const int r = e / k, j = e - r * k;
-    if (b0 + r >= b_rows) continue;
-    const int64_t o = ((b0 + r) * n_chunks + chunk) * k + j;
-    part_vals[o] = svals[e];
-    part_idx[o] = sidx[e];
-  }
+  __syncthreads();
+  write_partials(run_m, run_s, svals, sidx, b0, b_rows, k, chunk, n_chunks,
+                 part_vals, part_idx, part_max, part_sum, tid, warp, lane);
 }
 
 // One warp per code vector: copy its partial lists into shared memory
@@ -327,27 +466,40 @@ C2V_EXPORT int c2v_topk_tile_rows() { return kTileV; }
 C2V_EXPORT int64_t c2v_topk_smem(int d, int k) { return layout(d, k).total; }
 
 // cv: f32 (b, d). table: int8 (v, d) with f32 (v,) scales, or f32 (v, d)
-// with scales null. Partials: (b, n_chunks, k) values/indices and
-// (b, n_chunks) max/sumexp, n_chunks = ceil(v / chunk_rows). Outputs:
-// values f32 (b, k), indices int32 (b, k), lse f32 (b,).
+// with scales null. compute_f32: 0 rounds both operands to bf16 (tensor
+// cores), 1 multiplies the f32 operands in f32 (f32 tables only).
+// Partials: (b, n_chunks, k) values/indices and (b, n_chunks)
+// max/sumexp, n_chunks = ceil(v / chunk_rows). Outputs: values f32
+// (b, k), indices int32 (b, k), lse f32 (b,).
 C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
                                   const void* table, const float* scales,
-                                  int is_int8, int64_t v, int64_t valid_rows,
-                                  int k, int64_t chunk_rows, float* part_vals,
+                                  int is_int8, int compute_f32, int64_t v,
+                                  int64_t valid_rows, int k,
+                                  int64_t chunk_rows, float* part_vals,
                                   int* part_idx, float* part_max,
                                   float* part_sum, float* out_vals,
                                   int* out_idx, float* out_lse,
                                   void* stream) {
   if (b <= 0 || v <= 0 || k <= 0 || k > kMaxK || d % 16 != 0 ||
-      chunk_rows <= 0 || (is_int8 && d > 16 * kPrefetch * kThreads / kTileV))
+      chunk_rows <= 0 || (is_int8 && d > 16 * kPrefetch * kThreads / kTileV) ||
+      (compute_f32 && is_int8))
     return cudaErrorInvalidValue;
   const int64_t n_chunks = (v + chunk_rows - 1) / chunk_rows;
-  const int64_t smem = layout(d, k).total;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(n_chunks),
                   static_cast<unsigned>((b + kTileB - 1) / kTileB));
   cudaError_t err;
-  if (is_int8) {
+  if (compute_f32) {
+    const int64_t smem = f32_layout(k).total;
+    err = cudaFuncSetAttribute(topk_partial_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    topk_partial_f32_kernel<<<grid, kThreads, smem, s>>>(
+        cv, b, d, static_cast<const float*>(table), v, valid_rows, k,
+        chunk_rows, n_chunks, part_vals, part_idx, part_max, part_sum);
+  } else if (is_int8) {
+    const int64_t smem = layout(d, k).total;
     err = cudaFuncSetAttribute(topk_partial_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -356,6 +508,7 @@ C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
         cv, b, d, table, scales, v, valid_rows, k, chunk_rows, n_chunks,
         part_vals, part_idx, part_max, part_sum);
   } else {
+    const int64_t smem = layout(d, k).total;
     err = cudaFuncSetAttribute(topk_partial_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));

@@ -156,7 +156,6 @@ def context_encoder(token_table: torch.Tensor,
     if launch.runs_plain(*args, *masks):
         return context_encoder_plain(*args, compute_dtype=compute_dtype,
                                      dropout=dropout, residual=residual)
-    global launches
     fn = _fn()  # builds the library first: raises where nvcc is missing
     launch.require(compute_dtype == torch.bfloat16,
                    f"context_encoder kernel computes in bfloat16, "
@@ -207,5 +206,5 @@ def context_encoder(token_table: torch.Tensor,
              pth.data_ptr(), tgt.data_ptr(), b * m, out.data_ptr(),
              launch.ptr(out_lo), *drop, launch.stream(device))
     launch.check_launch(err, "context_encoder")
-    launches += 1
+    launch.count(__name__)
     return (out, out_lo) if residual else out

@@ -103,7 +103,6 @@ def encoder_backward(dt: torch.Tensor, t: torch.Tensor,
     if launch.runs_plain(*args, *masks):
         return encoder_backward_plain(*args, compute_dtype=compute_dtype,
                                       dropout=dropout)
-    global launches
     fn = _fn()  # builds the library first: raises where nvcc is missing
     launch.require(compute_dtype == torch.bfloat16,
                    f"encoder_backward kernel computes in bfloat16, "
@@ -156,5 +155,5 @@ def encoder_backward(dt: torch.Tensor, t: torch.Tensor,
              partial.data_ptr(), d_tok.data_ptr(), d_path.data_ptr(),
              dw.data_ptr(), launch.stream(device))
     launch.check_launch(err, "encoder_backward")
-    launches += 1
+    launch.count(__name__)
     return d_tok, d_path, dw

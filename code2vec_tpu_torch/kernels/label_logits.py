@@ -41,7 +41,6 @@ def label_logits(code_vectors: torch.Tensor, target_table: torch.Tensor,
     if launch.runs_plain(code_vectors, target_table, labels, scales):
         return label_logits_plain(code_vectors, target_table, labels,
                                   scales=scales, compute_dtype=compute_dtype)
-    global launches
     fn = _fn()  # builds the library first: raises where nvcc is missing
     launch.require(compute_dtype == torch.bfloat16,
                    f"label_logits kernel computes in bfloat16, "
@@ -68,5 +67,5 @@ def label_logits(code_vectors: torch.Tensor, target_table: torch.Tensor,
              launch.ptr(scales), int(int8), v, labels.data_ptr(),
              out.data_ptr(), launch.stream(code_vectors.device))
     launch.check_launch(err, "label_logits")
-    launches += 1
+    launch.count(__name__)
     return out

@@ -9,6 +9,8 @@ given lies on the CPU. CUDA tensors launch the kernel, and anything else
 from __future__ import annotations
 
 import ctypes
+import sys
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -20,6 +22,8 @@ I32 = ctypes.c_int
 I64 = ctypes.c_int64
 U64 = ctypes.c_uint64
 F32 = ctypes.c_float
+
+_count_lock = threading.Lock()
 
 
 def runs_plain(*tensors: Optional[torch.Tensor]) -> bool:
@@ -66,6 +70,15 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def count(module: str, counter: str = "launches") -> None:
+    """Add one to a wrapper's launch counter (an attribute of its module).
+    The server launches kernels from its HTTP threads and its batcher
+    thread at once, so the add holds a lock."""
+    mod = sys.modules[module]
+    with _count_lock:
+        setattr(mod, counter, getattr(mod, counter) + 1)
 
 
 def check_launch(err: int, name: str) -> None:

@@ -81,7 +81,6 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     if launch.runs_plain(logits, labels, valid):
         return softmax_xent_plain(logits, labels, valid, n_real=n_real,
                                   grad_dtype=grad_dtype)
-    global launches
     fn = _fn()  # builds the library first: raises where nvcc is missing
     launch.check_tensor(logits, "logits", [torch.float32], 2)
     b, v = logits.shape
@@ -102,5 +101,5 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
              grad.data_ptr(), ce.data_ptr(), loss.data_ptr(),
              launch.stream(device))
     launch.check_launch(err, "softmax_xent")
-    launches += 1
+    launch.count(__name__)
     return loss, grad

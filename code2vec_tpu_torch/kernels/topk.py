@@ -7,6 +7,12 @@ top of that file. One call is two launches: a split-V partial over chunks
 of table rows, then a merge of the partials. The plain version is
 ops/topk.py blockwise_matmul_top_k: CPU tensors take it, CUDA tensors
 launch the kernel.
+
+Two modes: bf16 compute (the serving head: operands rounded to bf16,
+tensor cores, f32 accumulation; int8 or f32 tables), counted in
+`launches`, and float32 compute (the retrieval index's brute-force
+search: f32 operands, f32 FMAs, no TF32; f32 tables), counted in
+`f32_launches`.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ from code2vec_tpu_torch.ops.topk import (
     BlockTopKOutputs, blockwise_matmul_top_k,
 )
 
-launches = 0
+launches = 0      # bf16 compute
+f32_launches = 0  # float32 compute
 _fns = {}
 MAX_K = 64        # the kernel's compiled maximum (csrc/topk.cu kMaxK)
 TILE_ROWS = 64    # table rows per tile (csrc/topk.cu kTileV)
@@ -35,8 +42,8 @@ def _fn():
         P, I32, I64 = launch.P, launch.I32, launch.I64
         fn = _fns["topk"] = launch.bind(
             "topk", "c2v_blockwise_topk",
-            [P, I32, I32, P, P, I32, I64, I64, I32, I64, P, P, P, P, P, P, P,
-             P])
+            [P, I32, I32, P, P, I32, I32, I64, I64, I32, I64, P, P, P, P, P,
+             P, P, P])
     return fn
 
 
@@ -61,11 +68,11 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
         return blockwise_topk_plain(
             code_vectors, target_table, k, block_rows, scales=scales,
             valid_rows=valid_rows, compute_dtype=compute_dtype)
-    global launches
     fn = _fn()  # builds the library first: raises where nvcc is missing
-    launch.require(compute_dtype == torch.bfloat16,
-                   f"blockwise_topk kernel computes in bfloat16, "
+    launch.require(compute_dtype in (torch.bfloat16, torch.float32),
+                   f"blockwise_topk kernel computes in bfloat16 or float32, "
                    f"not {compute_dtype}")
+    compute_f32 = compute_dtype == torch.float32
     launch.check_tensor(code_vectors, "code_vectors", [torch.float32], 2,
                         align=16)
     b, d = code_vectors.shape
@@ -79,6 +86,8 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
     launch.require(d % 16 == 0, f"code width {d} is not a multiple of 16")
     launch.require(not int8 or d <= MAX_INT8_D,
                    f"int8 rows wider than {MAX_INT8_D} are not supported")
+    launch.require(not (int8 and compute_f32),
+                   "the float32 mode takes f32 tables")
     if int8:
         launch.require(scales is not None, "int8 tables need scales")
         launch.check_tensor(scales, "scales", [torch.float32], 2)
@@ -103,10 +112,11 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
     indices = torch.empty((b, k), **i32)
     lse = torch.empty((b,), **f32)
     err = fn(code_vectors.data_ptr(), b, d, target_table.data_ptr(),
-             launch.ptr(scales), int(int8), v, valid, k, chunk,
+             launch.ptr(scales), int(int8), int(compute_f32), v, valid, k,
+             chunk,
              part_vals.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(),
              part_sum.data_ptr(), values.data_ptr(), indices.data_ptr(),
              lse.data_ptr(), launch.stream(device))
     launch.check_launch(err, "blockwise_topk")
-    launches += 1
+    launch.count(__name__, "f32_launches" if compute_f32 else "launches")
     return BlockTopKOutputs(values, indices, lse)

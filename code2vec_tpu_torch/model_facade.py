@@ -107,25 +107,33 @@ class BucketedPredictMixin:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in batch.model_arrays())
 
+    def context_bucket(self, chunk: RowBatch) -> int:
+        """The smallest bucket that holds the deepest valid context."""
+        any_valid_col = chunk.context_valid_mask.any(axis=0)
+        deepest = (int(np.nonzero(any_valid_col)[0][-1]) + 1
+                   if any_valid_col.any() else 1)
+        return bucket_for(deepest, self.context_buckets)
+
     def bucketed_batch(self, chunk: RowBatch, bs: int) -> RowBatch:
         """`chunk` as one device batch: its context axis cut to the
         smallest bucket that holds its deepest valid context, its rows
         cut or padded to `bs`."""
-        any_valid_col = chunk.context_valid_mask.any(axis=0)
-        deepest = (int(np.nonzero(any_valid_col)[0][-1]) + 1
-                   if any_valid_col.any() else 1)
-        chunk = slice_contexts(chunk, bucket_for(deepest,
-                                                 self.context_buckets))
+        chunk = slice_contexts(chunk, self.context_bucket(chunk))
         if chunk.target_index.shape[0] > bs:
             chunk = truncate_rows(chunk, bs)
         return _pad_rows(chunk, bs)
 
+    def _dispatch_predict_step(self, n: int, bs: int, m: int):
+        """(step, padded rows, head) for a batch with `n` live rows: one
+        head for every shape here; ReleaseModel dispatches by shape."""
+        return self._get_bucketed_predict_step(bs, m), bs, "exact"
+
     def _predict_parsed(self, chunk: RowBatch, n: int, bs: int,
                         with_code_vectors: bool
                         ) -> List[ModelPredictionResults]:
-        chunk = self.bucketed_batch(chunk, bs)
-        m = chunk.context_valid_mask.shape[1]
-        step = self._get_bucketed_predict_step(bs, m)
+        m = self.context_bucket(chunk)
+        step, rows, _ = self._dispatch_predict_step(n, bs, m)
+        chunk = self.bucketed_batch(chunk, rows)
         out = self._call_predict_step(step, self._to_device(chunk))
         topk_idx = out.topk_indices[:n].cpu().numpy()
         topk_val = out.topk_values[:n].cpu().numpy()

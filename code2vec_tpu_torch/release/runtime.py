@@ -11,14 +11,18 @@ model_facade.py. Its step runs four hand-written kernels on CUDA tensors
     K3 blockwise_topk    top-k and logsumexp over the target table
     K4 label_logits      each row's label logit, for the eval loss
 
-The MIPS head, AOT lowerings and the head-crossover calibration of the
-reference are not ported.
+With `serve_mips_nprobe` > 0 an approximate-MIPS head (retrieval/mips.py,
+kernel K11) replaces K3 and K4 for small batches, dispatched per batch
+shape as code2vec_tpu/release/runtime.py:315-403 and :467-490 do. The
+AOT lowerings and the export-time crossover calibration of the reference
+(`calibrate_mips_crossover`) are not ported, nor its `obs` counters.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from code2vec_tpu_torch.kernels.attention import masked_attention
@@ -55,8 +59,12 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def make_release_step(meta: dict):
-    """(params, src, pth, tgt, mask, labels, valid) -> EvalOutputs."""
+def make_release_step(meta: dict, mips_topk=None):
+    """(params, src, pth, tgt, mask, labels, valid) -> EvalOutputs.
+
+    `mips_topk` (a `MipsHead.topk_fn` closure) replaces the exact head
+    (K3, K4) with the approximate-MIPS search; such steps report
+    loss_sum 0 (no logsumexp exists over a candidate subset)."""
     require_ported_scheme(meta["quantization"]["scheme"])
     dims = meta["dims"]
     quantized = meta["quantization"]["scheme"] in QUANTIZED_SCHEMES
@@ -82,6 +90,11 @@ def make_release_step(meta: dict):
             params["transform"], src, pth, tgt, compute_dtype=compute_dtype)
         code_vectors, attention = masked_attention(
             transformed, params["attention"][:, 0], mask)
+        if mips_topk is not None:
+            values, indices = mips_topk(code_vectors)
+            return EvalOutputs(values, indices, code_vectors, attention,
+                               torch.zeros((), dtype=torch.float32,
+                                           device=code_vectors.device))
         target, target_s = (params["target_embedding"],
                             scale(params, "target_embedding"))
         out = blockwise_topk(code_vectors, target, k, block, scales=target_s,
@@ -123,21 +136,97 @@ class ReleaseModel(BucketedPredictMixin):
         self.vocabs = Code2VecVocabs.load(
             self.artifact.dictionaries_path,
             separate_oov_and_pad=config.separate_oov_and_pad)
-        self.params = release_params_from_artifact(self.artifact,
-                                                   self.device)
+        self._resolve_mips_dispatch()
+        # all-MIPS never runs the exact head, and the head holds its own
+        # list-ordered copy of the target table: keep the original off
+        # the device
+        self.params = release_params_from_artifact(
+            self.artifact, self.device,
+            skip=("target_embedding",) if self._mips_all else ())
         self._step_fn = make_release_step(meta)
         self._predict_steps: Dict[Tuple[int, int], object] = {}
+        self.head_dispatches = {"exact": 0, "mips": 0}
+        self.mips_head = None
+        self._mips_step = None
+        if self.mips_nprobe > 0:
+            self._build_mips_head()
         self.log(f"Release model loaded from {self.artifact.path} on "
                  f"{self.device}: scheme={self.artifact.scheme}, tables "
                  f"{self.artifact.table_bytes() / 1e6:.1f} MB, buckets "
                  f"{list(self.context_buckets)}, fingerprint "
                  f"{self.artifact.fingerprint[:12]}")
 
+    def _resolve_mips_dispatch(self) -> None:
+        """Batch-shape head dispatch: batches with <= mips_rows live rows
+        take the MIPS head. Crossover -1 adopts the artifact's calibrated
+        `mips_crossover`, or all-MIPS when it has none; 0 means exact
+        only; a crossover at or above the serve batch is all-MIPS."""
+        config = self.config
+        self.mips_nprobe = int(config.serve_mips_nprobe or 0)
+        crossover = int(config.serve_mips_crossover)
+        self.mips_rows = 0
+        self._mips_all = False
+        if self.mips_nprobe <= 0:
+            return
+        if crossover == 0:
+            self.mips_nprobe = 0
+            return
+        if crossover < 0:
+            calibrated = int(self.meta.get("mips_crossover", 0) or 0)
+            if calibrated > 0:
+                self.mips_rows = calibrated
+            else:
+                self._mips_all = True
+        else:
+            self.mips_rows = crossover
+        if self.mips_rows >= int(config.serve_batch_size):
+            self._mips_all, self.mips_rows = True, 0
+
+    def _build_mips_head(self) -> None:
+        from code2vec_tpu_torch.retrieval.mips import MipsHead
+        dims = self.meta["dims"]
+        scale = self.artifact.tables.get("target_embedding.scale")
+        self.mips_head = MipsHead.build(
+            self.artifact.tables["target_embedding"],
+            None if scale is None else np.asarray(scale),
+            real_vocab=int(dims["real_target_vocab_size"]),
+            nlist=int(self.config.serve_mips_nlist or 0),
+            nprobe=self.mips_nprobe, seed=int(self.config.seed),
+            log=self.log, device=self.device)
+        k = min(int(self.meta["topk"]), int(dims["real_target_vocab_size"]))
+        self._mips_step = make_release_step(
+            self.meta,
+            mips_topk=self.mips_head.topk_fn(k, self.mips_nprobe))
+        mode = ("all batches" if self._mips_all
+                else f"batches with <= {self.mips_rows} live rows (exact "
+                     f"blockwise head above)")
+        self.log(f"Approximate-MIPS head active for {mode}: nprobe "
+                 f"{self.mips_head.nprobe}/{self.mips_head.nlist} lists per "
+                 f"prediction")
+
     def model_fingerprint(self) -> str:
         return f"artifact:{self.artifact.fingerprint[:16]}"
 
     def _make_predict_step(self, batch_rows: int, m: int):
-        return self._step_fn
+        return self._mips_step if self._mips_all else self._step_fn
+
+    def _dispatch_predict_step(self, n: int, batch_rows: int, m: int):
+        """Batches with at most `mips_rows` live rows take the MIPS head
+        at that row count (small batches pad to it, not to the serve
+        batch); the rest take the exact head at the serve shape."""
+        if self._mips_all:
+            head = "mips"
+            step, rows = self._get_bucketed_predict_step(batch_rows, m), \
+                batch_rows
+        elif 0 < n <= self.mips_rows:
+            head = "mips"
+            step, rows = self._mips_step, self.mips_rows
+        else:
+            head = "exact"
+            step, rows = self._get_bucketed_predict_step(batch_rows, m), \
+                batch_rows
+        self.head_dispatches[head] += 1
+        return step, rows, head
 
     @torch.no_grad()
     def _call_predict_step(self, step, arrays) -> EvalOutputs:
@@ -149,6 +238,15 @@ class ReleaseModel(BucketedPredictMixin):
         rows, m = arrays[0].shape
         return self._call_predict_step(
             self._get_bucketed_predict_step(rows, m), arrays)
+
+    def eval_callable(self):
+        """(eval_step, params), the reference's surface for code that runs
+        the eval step itself (retrieval/embed_job.py): the step takes the
+        params slot first and ignores it, since the artifact's params are
+        bound."""
+        def step(_params_unused, *arrays) -> EvalOutputs:
+            return self.eval_step(*arrays)
+        return step, None
 
     def dummy_batch(self, rows: int, m: int):
         """An all-padding batch of one serve shape."""
@@ -165,5 +263,8 @@ class ReleaseModel(BucketedPredictMixin):
         rows = int(rows or self.config.serve_batch_size)
         for m in self.context_buckets:
             self.eval_step(*self.dummy_batch(rows, m))
+            if self.mips_rows > 0:
+                self._call_predict_step(self._mips_step,
+                                        self.dummy_batch(self.mips_rows, m))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -6,7 +6,7 @@ code2vec.py:110-126), so nothing is transposed.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -25,13 +25,17 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             for k in PARAM_NAMES}
 
 
-def release_params_from_artifact(artifact, device) -> Dict[str, torch.Tensor]:
+def release_params_from_artifact(artifact, device, skip: Tuple[str, ...] = ()
+                                 ) -> Dict[str, torch.Tensor]:
     """Device tensors of a loaded release artifact (release/artifact.py):
     the tables in their stored dtype (int8 or f32), `<table>_scale` f32
-    (V, 1) for a quantized scheme, and the dense f32 params."""
+    (V, 1) for a quantized scheme, and the dense f32 params; names that
+    start with an entry of `skip` stay on the host."""
     device = torch.device(device)
     params = {}
     for name, arr in artifact.tables.items():
+        if name.startswith(tuple(skip)):
+            continue
         t = torch.from_numpy(np.array(arr))  # copies the mmap
         params[name.replace(".scale", "_scale")] = t.to(device)
     return params

@@ -92,6 +92,8 @@ def _cuda_calls():
     from code2vec_tpu_torch.kernels.encoder_backward import encoder_backward
     from code2vec_tpu_torch.kernels.label_logits import label_logits
     from code2vec_tpu_torch.kernels.softmax_xent import softmax_xent
+    from code2vec_tpu_torch.kernels.ivf import ivf_search
+    from code2vec_tpu_torch.kernels.kmeans import kmeans_assign, kmeans_update
     from code2vec_tpu_torch.kernels.topk import blockwise_topk
 
     def t(shape, dtype=torch.float32):
@@ -123,6 +125,19 @@ def _cuda_calls():
         "adam": lambda: adam([t((5, 4))], [t((5, 4))],
                              [t((5, 4), torch.bfloat16)],
                              [t((5, 4), torch.bfloat16)], 1, AdamHyper()),
+        "blockwise_topk_f32": lambda: blockwise_topk(
+            t((2, 384)), t((70, 384)), 10, 4096,
+            compute_dtype=torch.float32),
+        "kmeans_assign": lambda: kmeans_assign(t((50, 384)), t((7, 384))),
+        "kmeans_update": lambda: kmeans_update(
+            t((50, 384)), t((50,), torch.int32), t((7, 384))),
+        "ivf_search": lambda: ivf_search(
+            t((2, 384)), t((7, 384)), t((50, 384)), t((8,), torch.int64),
+            3, 10, max_len=20),
+        "ivf_search_int8": lambda: ivf_search(
+            t((2, 384)), t((7, 384)), t((50, 384), torch.int8),
+            t((8,), torch.int64), 3, 10, scales=t((50,)),
+            global_ids=t((50,), torch.int32), max_len=20),
     }
 
 

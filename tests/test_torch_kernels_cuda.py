@@ -25,6 +25,14 @@ Tolerances, and why:
   order, and the card's division by a scalar may differ in the last bit,
   which moves a parameter by a few f32 ulps of the update (~lr = 1e-3)
   where the update cancels it.
+- F32DOT (rtol 1e-5, atol 1e-5): K3's float32 mode and K11 score with
+  f32 products summed in another order than the plain versions' matmul
+  and einsum (about 1e-7 relative of values of order 1-10); K11's test
+  data reach scores of ~4e3, so its atol is 1e-6 of the largest score.
+- K10 (rtol 1e-4, atol 1e-5): a centroid is the mean of up to a few
+  thousand f32 rows, summed in another order (about 1e-6 relative).
+- K9: an assignment may differ only where the two nearest centroids'
+  distances lie within 1e-4 (relative) of each other.
 """
 
 import math
@@ -45,6 +53,12 @@ from code2vec_tpu_torch.kernels.encoder import (
 )
 from code2vec_tpu_torch.kernels.encoder_backward import (
     encoder_backward, encoder_backward_plain,
+)
+from code2vec_tpu_torch.kernels.ivf import (
+    ivf_search, ivf_search_plain, top_positions,
+)
+from code2vec_tpu_torch.kernels.kmeans import (
+    kmeans_assign, kmeans_assign_plain, kmeans_update, kmeans_update_plain,
 )
 from code2vec_tpu_torch.kernels.softmax_xent import (
     softmax_xent, softmax_xent_plain,
@@ -433,3 +447,213 @@ def test_adam_kernel(dev, mu, nu, shapes):
     adam_plain(ref[0], grads, ref[1], ref[2], 7, hyper)
     for got, want in zip(params + mus + nus, ref[0] + ref[1] + ref[2]):
         _close(got, want, dict(rtol=1e-6, atol=1e-9))
+
+
+# ----------------------------------------- retrieval: K3 f32 mode, K9-K11
+
+F32DOT = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 16, 64])
+@pytest.mark.parametrize("b", [1, 64])
+def test_blockwise_topk_f32_kernel(dev, k, b):
+    rng = np.random.default_rng(100 + k + b)
+    v, valid = 20011, 20003
+    cv, table = _separated(rng, v, b, valid)
+    cv, table = torch.from_numpy(cv).to(dev), torch.from_numpy(table).to(dev)
+    before = kernels.launch_counts()
+    got = blockwise_topk(cv, table, k, 4096, valid_rows=valid,
+                         compute_dtype=torch.float32)
+    after = kernels.launch_counts()
+    assert after["blockwise_topk_f32"] == before["blockwise_topk_f32"] + 1
+    assert after["blockwise_topk"] == before["blockwise_topk"]
+    want = blockwise_topk_plain(cv, table, k, 4096, valid_rows=valid,
+                                compute_dtype=torch.float32)
+    assert torch.equal(got.indices, want.indices)
+    _close(got.values, want.values, F32DOT)
+    _close(got.lse, want.lse, F32DOT)
+
+
+def test_blockwise_topk_f32_ties_and_refusals(dev):
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((9000, 384)).astype(np.float32)
+    table[[8999, 17, 4500, 5]] = table[3]      # five identical rows
+    cv = torch.from_numpy(np.repeat(table[3:4] * 2, 3, axis=0)).to(dev)
+    tbl = torch.from_numpy(table).to(dev)
+    got = blockwise_topk(cv, tbl, 6, 4096, compute_dtype=torch.float32)
+    assert got.indices[:, :5].tolist() == [[3, 5, 17, 4500, 8999]] * 3
+    want = blockwise_topk_plain(cv, tbl, 6, 4096, compute_dtype=torch.float32)
+    assert torch.equal(got.indices, want.indices)
+    q = torch.zeros((9000, 384), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="f32 tables"):
+        blockwise_topk(cv, q, 6, 4096, scales=torch.ones((9000, 1),
+                                                         device=dev),
+                       compute_dtype=torch.float32)
+
+
+def _blobs(rng, n, d, c):
+    centers = 4.0 * rng.standard_normal((max(c, 1), d))
+    x = centers[rng.integers(0, max(c, 1), n)] + rng.standard_normal((n, d))
+    return x.astype(np.float32)
+
+
+def _distances(x, c):
+    return (c * c).sum(1)[None, :] - 2.0 * (x @ c.T)
+
+
+@pytest.mark.parametrize("n,d,c", [(1000, 384, 37), (5003, 16, 1),
+                                   (300, 8, 300), (70001, 384, 200)])
+def test_kmeans_assign_kernel(dev, n, d, c):
+    """Random blobs, a duplicated centroid (ties go to the lower index),
+    a single centroid, and nlist = N (every row its own centroid)."""
+    rng = np.random.default_rng(n + c)
+    x = _blobs(rng, n, d, c)
+    cent = x.copy() if c == n else x[rng.permutation(n)[:c]].copy()
+    if 2 < c < n:
+        cent[1] = cent[0]
+    xt, ct = torch.from_numpy(x).to(dev), torch.from_numpy(cent).to(dev)
+    before = kernels.launch_counts()["kmeans_assign"]
+    got = kmeans_assign(xt, ct)
+    assert kernels.launch_counts()["kmeans_assign"] == before + 1
+    want = kmeans_assign_plain(xt, ct)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    dist = _distances(x.astype(np.float64), cent.astype(np.float64))
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    rows = np.nonzero(g != w)[0]
+    gap = np.abs(dist[rows, g[rows]] - dist[rows, w[rows]])
+    assert (gap <= 1e-4 * np.abs(dist[rows]).max(axis=1)).all()
+    assert len(rows) <= max(1, n // 1000)
+    if 2 < c < n:
+        assert not (g == 1).any()   # the duplicate of centroid 0
+    if c == n:
+        assert (g == np.arange(n)).all()
+    if c == 1:
+        assert not g.any()
+
+
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("n,d,c", [(1000, 384, 37), (3001, 16, 1),
+                                   (300, 8, 300), (100003, 384, 500)])
+def test_kmeans_update_kernel(dev, n, d, c, spherical):
+    """Means (and renormalised means) equal to the plain version's, an
+    empty cluster keeps its centroid, and two runs give the same bits."""
+    rng = np.random.default_rng(n + c + spherical)
+    x = torch.from_numpy(_blobs(rng, n, d, c)).to(dev)
+    assign = rng.integers(0, c, n).astype(np.int32)
+    if c > 2:
+        assign[assign == 2] = 0   # cluster 2 is empty
+    assign = torch.from_numpy(assign).to(dev)
+    old = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32)
+                           ).to(dev)
+    before = kernels.launch_counts()["kmeans_update"]
+    got = kmeans_update(x, assign, old, spherical)
+    again = kmeans_update(x, assign, old, spherical)
+    assert kernels.launch_counts()["kmeans_update"] == before + 2
+    assert torch.equal(got, again)
+    _close(got, kmeans_update_plain(x, assign, old, spherical),
+           dict(rtol=1e-4, atol=1e-5))
+    if c > 2:
+        assert torch.equal(got[2], old[2])
+    if spherical:
+        norms = torch.linalg.vector_norm(got, dim=1)
+        live = torch.bincount(assign.long(), minlength=c) > 0
+        _close(norms[live], torch.ones_like(norms[live]),
+               dict(rtol=1e-5, atol=1e-6))
+
+
+def _ivf_index(rng, dev, scheme, sizes, d=384, dup=True):
+    """An IVF layout with the given list sizes (0 and 1 included), rows
+    near their list's centroid, exact duplicates (inside one list and
+    across two lists) and, for int8, an all-zero row (scale 0)."""
+    nlist = len(sizes)
+    cent = (3.0 * rng.standard_normal((nlist, d))).astype(np.float32)
+    owner = np.repeat(np.arange(nlist), sizes)
+    rows = (cent[owner] + rng.standard_normal((len(owner), d))
+            ).astype(np.float32)
+    offsets = np.zeros(nlist + 1, np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    big = int(np.argmax(sizes))
+    lo = int(offsets[big])
+    if dup:
+        rows[lo + 3:lo + 6] = rows[lo + 2]          # ties inside one list
+        other = int(np.argsort(sizes)[-2])
+        rows[int(offsets[other])] = rows[lo + 2]    # and across lists
+        rows[lo + 7] = 0.0
+    scales = None
+    if scheme == "int8":
+        q, s = quantize_rows(rows)
+        rows, scales = q, torch.from_numpy(s[:, 0].copy()).to(dev)
+    t = {"cent": torch.from_numpy(cent).to(dev),
+         "rows": torch.from_numpy(rows).to(dev),
+         "offsets": torch.from_numpy(offsets).to(dev), "scales": scales,
+         "max_len": max(sizes)}
+    return t, lo
+
+
+@pytest.mark.parametrize("scheme", ["f32", "int8"])
+@pytest.mark.parametrize("b,k,nprobe,ids", [
+    (1, 1, 3, False), (64, 64, 3, False), (7, 10, 9, False),
+    (64, 16, 2, True), (5, 64, 9, True)])
+def test_ivf_search_kernel(dev, scheme, b, k, nprobe, ids):
+    """Lists of 0 and 1 rows, nprobe = nlist (9), k = 1 and 64, k above
+    the candidates (dead slots -1 or id 0, value -inf), one query,
+    duplicate rows and, for int8, a row whose scale is 0."""
+    rng = np.random.default_rng(b + k + nprobe)
+    sizes = [0, 1, 40, 0, 25, 3, 1, 30, 17]
+    if nprobe == 3:  # small lists first: some queries get fewer than k
+        sizes = [3, 1, 40, 0, 5, 3, 1, 9, 17]
+    t, lo = _ivf_index(rng, dev, scheme, sizes)
+    n = int(sum(sizes))
+    q = torch.from_numpy(rng.standard_normal((b, 384)).astype(np.float32)
+                         ).to(dev)
+    q[0] = t["rows"][lo + 2].float() * (1.0 if t["scales"] is None
+                                        else t["scales"][lo + 2])
+    gids = (torch.from_numpy(rng.permutation(10 * n)[:n].astype(np.int32)
+                             ).to(dev) if ids else None)
+    args = (q, t["cent"], t["rows"], t["offsets"], nprobe, k)
+    kw = dict(scales=t["scales"], global_ids=gids, max_len=t["max_len"])
+    name = "ivf_search_int8" if scheme == "int8" else "ivf_search"
+    before = kernels.launch_counts()
+    got_v, got_i = ivf_search(*args, **kw)
+    # one launch, counted by its instantiation alone
+    assert kernels.launch_counts() == {**before, name: before[name] + 1}
+    want_v, want_i = ivf_search_plain(*args, **kw)
+    assert torch.equal(got_i, want_i)
+    # scores here run to ~4e3 (a row with itself) while others cancel to
+    # ~0.1: the error of an f32 sum of 384 products scales with the
+    # products, so atol is 1e-6 of the largest score
+    live = torch.isfinite(want_v)
+    _close(got_v, want_v, dict(rtol=1e-5, atol=1e-6 * float(
+        want_v[live].abs().max())))
+    dead = torch.isneginf(got_v)
+    assert (got_i[dead] == (0 if ids else -1)).all()
+    # each query's dead slots: k minus the rows of its probed lists
+    _, probe = top_positions(q @ t["cent"].T, nprobe)
+    cands = (t["offsets"][1:] - t["offsets"][:-1])[probe].sum(dim=1)
+    assert torch.equal(dead.sum(dim=1), (k - cands).clamp(min=0))
+
+
+def test_ivf_search_duplicate_order(dev):
+    """Identical rows come back in candidate order: probe rank, then the
+    offset in the list."""
+    rng = np.random.default_rng(9)
+    t, lo = _ivf_index(rng, dev, "f32", [20, 30, 10])
+    q = (t["rows"][lo + 2] * 3).reshape(1, -1).contiguous()
+    _, got = ivf_search(q, t["cent"], t["rows"], t["offsets"], 3, 5,
+                        max_len=t["max_len"])
+    other = int(t["offsets"][0])   # the copy in the second-largest list
+    rank = torch.argsort(-(t["cent"] @ q[0]), stable=True).tolist()
+    big, second = 1, 0
+    first_list = [lo + 2, lo + 3, lo + 4, lo + 5]
+    order = (first_list + [other] if rank.index(big) < rank.index(second)
+             else [other] + first_list)
+    assert got[0].tolist() == order
+
+
+def test_ivf_search_refuses_large_k(dev):
+    rng = np.random.default_rng(1)
+    t, _ = _ivf_index(rng, dev, "f32", [10, 10], dup=False)
+    q = torch.zeros((2, 384), device=dev)
+    with pytest.raises(ValueError, match="range"):
+        ivf_search(q, t["cent"], t["rows"], t["offsets"], 2, 65,
+                   max_len=t["max_len"])
