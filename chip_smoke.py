@@ -52,18 +52,40 @@ a C++ compiler. Phases, each fatal on failure:
    steps, nprobe 16, B 64 and 1, k 10; at nprobe = nlist it must return
    the exact head's indices away from near-ties) and an index of
    1,000,000 normalised f32 vectors (nlist 1000, 10 spherical Lloyd
-   steps, nprobe 16, B 64, k 16; brute force at B 64, k 16).
+   steps, nprobe 16, B 64, k 16; brute force at B 64, k 16). The large-k
+   mode (K13 select_topk): K3's float32 mode over the 1M index at B 64,
+   k 1000, and K11 int8 on the MIPS head at B 64, k 100, against their
+   plain versions (indices exact away from near-ties); K13 alone on the
+   1M index's scores, exact against its plain version, timed.
 9. Retrieval path, through the port's CLI on the serving path's
    artifact: `embed` of a 20,000-method synthetic corpus (plus the
    request sources' methods, twice), `index-build`, then `serve
    --retrieval_index --serve_mips_nprobe 16 --serve_mips_crossover 8`
    over HTTP: well-formed /neighbors bodies, each stored method its own
-   top neighbor at cosine >= 1 - 1e-4, k 65 refused with 422, a
-   one-method /predict on the MIPS head (K11) and a 12-method one on the
-   exact head (K3), the recall@10 of IVF against brute force, the MIPS
-   head at nprobe = nlist against the exact head, every retrieval kernel
-   launched, and the embed job's vectors on the GPU against a CPU run of
-   the same rows.
+   top neighbor at cosine >= 1 - 1e-4, k 65 and k 1000 answered (each
+   method still its own top neighbor), a one-method /predict on the
+   MIPS head (K11) and a 12-method one on the exact head (K3), the
+   recall@10 of IVF against brute force, the MIPS head at nprobe = nlist
+   against the exact head, every retrieval kernel launched, and the
+   embed job's vectors on the GPU against a CPU run of the same rows.
+10. Sparse kernels (run after 4), at the flagship train shapes: K5's
+   row mode against its plain version (one bf16 step; its rows summed
+   by id against the dense mode's table gradients) and K12 sparse_adam
+   against its plain version on both tables, ids drawn uniform and
+   Zipf(1.07) over the real vocabulary sizes: updated rows within K8's
+   tolerance, untouched rows bit-equal, two runs bit-equal, timed with
+   its bound and the unique-row count; each backward's allocation.
+11. Sparse train path (run after 6): the `train` command with
+   --sparse_embedding_update on the train path's corpus, 2 epochs of 4
+   steps: every loss finite, the second epoch's mean below the first's,
+   K5's row mode, K12 (twice) and K8 (over the dense subtree only)
+   launched every step; the steady step's time, examples/s and peak
+   device memory beside the dense step's.
+12. One sparse step (run after 7) at 64 rows with full vocabulary
+   widths, an injected dropout mask and mid-training row moments, GPU
+   against CPU: the loss, the updated rows of both tables, mu and nu
+   within one bf16 step of each tensor's largest value, untouched rows
+   bit-equal.
 
 Prints one line per kernel, then a JSON line {"kernels": [...]}, the
 card's name and power limit, and as the last line
@@ -1065,6 +1087,255 @@ def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
     return report
 
 
+# ------------------------------------------------------ sparse kernel phase
+
+# K12's check feeds gradient rows that are bf16 integers times 2^-12
+# (|x| <= 127): every partial sum of up to ~64K such rows is exact in f32,
+# so the kernel's order of the duplicate sums (fixed 64-row slices) and
+# the plain version's (position order) give the same g, and the update is
+# then held at K8's tolerance (TOL_ADAM on tables and nu; a bf16 mu equal
+# or one bf16 step apart, TOL_MOMENT). The timing uses the same inputs.
+# Row sums of K5's row mode against the dense mode's table gradients:
+# the same bf16-valued terms added in another order (the dense mode's
+# f32 atomics), within 1e-5 of the largest gradient (TOL_ROWSUM).
+TOL_ROWSUM_REL = 1e-5
+ZIPF_S = 1.07
+
+
+def zipf_ids(torch, g, n, v, dev):
+    """n ids over [0, v) with P(rank r) ~ r^-1.07 (the skew of
+    code2vec_tpu/config.py:150), rank r = id r."""
+    p = torch.arange(1, v + 1, dtype=torch.float64, device=dev) ** -ZIPF_S
+    return torch.multinomial(p / p.sum(), n, replacement=True,
+                             generator=g).to(torch.int32)
+
+
+def sparse_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
+    """K5's row mode and K12 at the flagship train shapes. Returns the
+    two kernels' entries and the allocation of each backward mode."""
+    from code2vec_tpu_torch.kernels import encoder
+    from code2vec_tpu_torch.kernels import encoder_backward as kbwd
+    from code2vec_tpu_torch.kernels import sparse_adam as ksa
+    from code2vec_tpu_torch.training.sparse_adam import RowAdamSlots
+    from code2vec_tpu_torch.training.state import DTYPES
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+
+    def uniform(shape, limit):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * limit
+
+    v_tok, v_path = fs.vocab["token"] + 1, fs.vocab["path"] + 1
+    td, pd, d = fs.token_dim, fs.path_dim, fs.code_dim
+    b, m = ft.rows, ft.contexts
+    n = b * m
+    k_dim = 2 * td + pd
+    tok = uniform((v_tok, td), math.sqrt(3 / td))
+    path = uniform((v_path, pd), math.sqrt(3 / pd))
+    w = uniform((d, d), 1.0)
+    ids = [torch.randint(0, hi, (b, m), generator=g, device=dev,
+                         dtype=torch.int32) for hi in (v_tok, v_path, v_tok)]
+    report = {}
+
+    # K5's row mode on K1's train output with a drawn mask
+    drawn = torch.empty((b, m, k_dim), dtype=torch.bool, device=dev)
+    drop = encoder.Dropout(ft.keep, seed=seed, step=5)
+    t, t_lo = encoder.context_encoder(
+        tok, None, path, None, w, *ids, residual=True,
+        dropout=encoder.Dropout(ft.keep, seed=seed, step=5,
+                                out_mask=drawn))
+    dt = uniform((b, m, d), 0.1).to(torch.bfloat16)
+    args = (dt, t, t_lo, tok, path, w, *ids)
+    allocs = {}
+    for mode, fn in (("dense", kbwd.encoder_backward),
+                     ("rows", kbwd.encoder_backward_rows)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(*args, dropout=drop)
+        torch.cuda.synchronize()
+        allocs[mode] = torch.cuda.max_memory_allocated() - base
+        if mode == "dense":
+            dense = out
+        else:
+            got = out
+        del out
+    want = kbwd.encoder_backward_rows_plain(
+        *args, dropout=encoder.Dropout(ft.keep, mask=drawn))
+    torch.cuda.synchronize()
+    errs = [step_err(x, y) for x, y in zip(got, want)]
+    if not all(ok for _, ok in errs):
+        fail(f"encoder_backward_rows: max errors {[e for e, _ in errs]} of "
+             f"largest values {[float(y.abs().max()) for y in want]} (tol "
+             f"one bf16 step there)")
+    flips = [check_flips(x, y, f"encoder_backward_rows {name}") for x, y,
+             name in zip(got, want, ("token rows", "path rows", "d_transform"))]
+    del want
+    if not torch.equal(got[2], dense[2]):
+        fail("encoder_backward_rows: d_transform differs from the dense "
+             "mode's")
+    sums = torch.zeros_like(tok).index_add_(
+        0, torch.cat([ids[0].flatten(), ids[2].flatten()]).long(),
+        got[0].reshape(-1, td).float())
+    psums = torch.zeros_like(path).index_add_(
+        0, ids[1].flatten().long(), got[1].reshape(-1, pd).float())
+    err_sum = max(float((sums - dense[0]).abs().max()),
+                  float((psums - dense[1]).abs().max()))
+    tol_sum = TOL_ROWSUM_REL * max(float(dense[0].abs().max()),
+                                   float(dense[1].abs().max()))
+    del sums, psums, dense
+    if err_sum > tol_sum:
+        fail(f"encoder_backward_rows: rows summed by id off the dense "
+             f"mode's table gradients by {err_sum} > {tol_sum}")
+    table_bytes = (tok.numel() + path.numel()) * 4
+    row_bytes = sum(x.numel() * x.element_size() for x in got[:2])
+    saved = allocs["dense"] - allocs["rows"]
+    if saved < table_bytes - row_bytes:
+        fail(f"encoder_backward_rows allocates {allocs['rows']} bytes, the "
+             f"dense mode {allocs['dense']}: {saved} fewer, expected at "
+             f"least the table gradients less the rows "
+             f"({table_bytes - row_bytes})")
+
+    def unique_rows_bytes(idx_list, width):
+        return torch.unique(torch.cat([i.flatten() for i in idx_list])
+                            ).numel() * width * 4
+
+    nbytes = (3 * t.numel() * 2 + unique_rows_bytes(ids[0:3:2], td)
+              + unique_rows_bytes(ids[1:2], pd) + 3 * n * 4 + w.numel() * 4
+              + row_bytes + w.numel() * 4)
+    bms, by = bound(nbytes, 4.0 * n * k_dim * d)
+    ms = timer(lambda: kbwd.encoder_backward_rows(*args, dropout=drop))
+    plain_ms = timer(lambda: kbwd.encoder_backward_rows_plain(
+        *args, dropout=encoder.Dropout(ft.keep, mask=drawn)), spin_ms=50)
+    # yardstick: the two products on cuBLAS (bf16 in, f32 out)
+    dpre = (dt.float() * (1 - t.float() ** 2)).to(torch.bfloat16).view(n, d)
+    ctx_b = torch.zeros((n, k_dim), dtype=torch.bfloat16, device=dev)
+    wb = w.to(torch.bfloat16)
+    lib_ms = timer(lambda: (torch.mm(dpre, wb.T, out_dtype=torch.float32),
+                            torch.mm(ctx_b.T, dpre,
+                                     out_dtype=torch.float32)), spin_ms=20)
+    del dpre, ctx_b, got, t, t_lo, dt, drawn
+    log(f"K5 encoder_backward row mode B={b} m={m} keep={ft.keep}: "
+        f"max_abs_err token rows {errs[0][0]:.3g} path rows "
+        f"{errs[1][0]:.3g} d_transform {errs[2][0]:.3g} (tol one bf16 step "
+        f"at the largest), elements moved "
+        f"{', '.join(f'{x:.2e}' for x in flips)} (tol {FLIP_SHARE}); rows "
+        f"summed by id vs the dense mode {err_sum:.3g} (tol {tol_sum:.3g}); "
+        f"allocates {allocs['rows'] / 1e9:.3f} GB (dense mode "
+        f"{allocs['dense'] / 1e9:.3f} GB); ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {lib_ms:.4f} (2 cuBLAS mm) bound_ms "
+        f"{bms:.4f} ({by})")
+    report["encoder_backward_rows"] = dict(
+        max_abs_err=max(e for e, _ in errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        alloc_gb=allocs["rows"] / 1e9, dense_alloc_gb=allocs["dense"] / 1e9)
+    torch.cuda.empty_cache()
+
+    # K12 on both tables: ids uniform and Zipf(1.07) over the real sizes
+    mu_dtype = DTYPES[ft.mu]
+    hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+    tables = {"token": (v_tok, 2 * n), "path": (v_path, n)}
+    states = {}
+    for name, (v, _) in tables.items():
+        p0 = uniform((v, 128), math.sqrt(3 / 128))
+        m0 = (torch.randn((v, 128), generator=g, device=dev) * 1e-3
+              ).to(mu_dtype)
+        n0 = torch.rand((v, 128), generator=g, device=dev) * 1e-6
+        states[name] = (p0, m0, n0)
+    cases = {}
+    for dist in ("uniform", "zipf"):
+        case = {}
+        for name, (v, cnt) in tables.items():
+            idx = (zipf_ids(torch, g, cnt, v, dev) if dist == "zipf"
+                   else torch.randint(0, v, (cnt,), generator=g, device=dev,
+                                      dtype=torch.int32))
+            rows = (torch.randint(-127, 128, (cnt, 128), generator=g,
+                                  device=dev).float() * 2.0 ** -12
+                    ).to(torch.bfloat16)
+            case[name] = (idx, rows)
+        cases[dist] = case
+    k12 = {}
+    for dist, case in cases.items():
+        errs_p, errs_m, uniq = [], [], {}
+        for name, (idx, rows) in case.items():
+            p0, m0, n0 = states[name]
+            runs = []
+            for _ in range(2):
+                p, slots = p0.clone(), RowAdamSlots(mu=m0.clone(),
+                                                    nu=n0.clone())
+                ksa.sparse_adam(p, slots, idx, rows, t=7, **hyper)
+                runs.append((p, slots.mu, slots.nu))
+            if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                fail(f"sparse_adam {name} {dist}: two runs gave different "
+                     f"bits")
+            p, slots = p0.clone(), RowAdamSlots(mu=m0.clone(), nu=n0.clone())
+            ksa.sparse_adam_plain(p, slots, idx, rows, t=7, **hyper)
+            torch.cuda.synchronize()
+            got_p, got_m, got_n = runs[0]
+            del runs
+            touched = torch.zeros(p0.shape[0], dtype=torch.bool, device=dev)
+            touched[idx.long()] = True
+            uniq[name] = int(touched.sum())
+            for x, x0 in ((got_p, p0), (got_m, m0), (got_n, n0)):
+                if not torch.equal(x[~touched], x0[~touched]):
+                    fail(f"sparse_adam {name} {dist}: an untouched row "
+                         f"changed")
+            e, ok = max_err(got_p[touched], p[touched], TOL_ADAM)
+            en, ok_n = max_err(got_n[touched], slots.nu[touched], TOL_ADAM)
+            em, ok_m = max_err(got_m[touched], slots.mu[touched], TOL_MOMENT)
+            if not (ok and ok_n and ok_m):
+                fail(f"sparse_adam {name} {dist}: max errors table {e} nu "
+                     f"{en} (tol {TOL_ADAM}) mu {em} (tol {TOL_MOMENT})")
+            errs_p.append(max(e, en))
+            errs_m.append(em)
+            del got_p, got_m, got_n, p, slots, touched
+        msz = 2 if mu_dtype == torch.bfloat16 else 4
+        nbytes = sum(cnt * 128 * 2 + cnt * 4 + uniq[name] * 128 * (
+            2 * 4 + 2 * msz + 2 * 4) for name, (_, cnt) in tables.items())
+        bms, by = bound(nbytes, 20.0 * 128 * sum(uniq.values()))
+        work = {name: (states[name][0].clone(), RowAdamSlots(
+            mu=states[name][1].clone(), nu=states[name][2].clone()))
+            for name in tables}
+
+        def run(fn):
+            for name, (idx, rows) in case.items():
+                fn(work[name][0], work[name][1], idx, rows, t=7, **hyper)
+
+        ms = timer(lambda: run(ksa.sparse_adam))
+        plain_ms = timer(lambda: run(ksa.sparse_adam_plain), spin_ms=20)
+        # yardstick: torch.optim.SparseAdam.step on coalesced COO
+        # gradients of the same ids and rows (f32 moments)
+        lib_params = [torch.nn.Parameter(states[name][0].clone())
+                      for name in tables]
+        for lp, (idx, rows) in zip(lib_params, case.values()):
+            lp.grad = torch.sparse_coo_tensor(
+                idx.long()[None, :], rows.float(), lp.shape).coalesce()
+        opt = torch.optim.SparseAdam(lib_params, lr=hyper["lr"],
+                                     betas=(hyper["b1"], hyper["b2"]),
+                                     eps=hyper["eps"])
+        lib_ms = timer(opt.step, spin_ms=20)
+        del opt, lib_params, work
+        torch.cuda.empty_cache()
+        log(f"K12 sparse_adam {dist} ids: token {tables['token'][1]} ids -> "
+            f"{uniq['token']} unique rows of {tables['token'][0]}, path "
+            f"{tables['path'][1]} ids -> {uniq['path']} unique rows of "
+            f"{tables['path'][0]}; mu {ft.mu}: max_abs_err table/nu "
+            f"{max(errs_p):.3g} (tol {TOL_ADAM}) mu {max(errs_m):.3g} (tol "
+            f"{TOL_MOMENT}); untouched rows bit-equal, two runs bit-equal; "
+            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"(torch.optim.SparseAdam, f32 moments) bound_ms {bms:.4f} "
+            f"({by})")
+        k12[dist] = dict(max_abs_err=max(errs_p), ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                         unique_rows=uniq["token"] + uniq["path"])
+    report["sparse_adam"] = dict(k12["uniform"])
+    report["sparse_adam"].update({f"zipf_{k}": v
+                                  for k, v in k12["zipf"].items()})
+    del states, cases, tok, path, w, ids
+    torch.cuda.empty_cache()
+    return report
+
+
 # --------------------------------------------------------- train path phase
 
 
@@ -1110,10 +1381,15 @@ def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
 
 def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
                      epochs: int = 2, steps_per_epoch: int = 4,
-                     dev: str = "cuda"):
+                     dev: str = "cuda", sparse: bool = False):
+    """The `train` command (with --sparse_embedding_update when `sparse`)
+    on the synthetic corpus under `work_dir` (written by the first call):
+    the epochs' losses, one launch per step of each kernel of the step,
+    then a steady step's time, examples/s and peak device memory."""
     from code2vec_tpu_torch import cli, kernels
     from code2vec_tpu_torch.data.reader import parse_context_lines
     from code2vec_tpu_torch.model_facade import Code2VecModel
+    from code2vec_tpu_torch.training.state import SPARSE_PARAM_NAMES
 
     # The reference's `.repeat(epochs).shuffle(buffer)` moves an epoch's
     # boundary by the shuffle buffer, and the default buffer (10,000
@@ -1123,13 +1399,18 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     # dropped).
     buffer = max(ft.rows // 16, 1)
     n_rows = steps_per_epoch * ft.rows + buffer
-    t0 = time.perf_counter()
-    prefix = write_train_corpus(work_dir, seed, fs, ft, n_rows)
-    log(f"train: wrote a {n_rows}-method corpus with java14m vocabularies "
-        f"in {time.perf_counter() - t0:.1f}s")
+    what = "sparse train" if sparse else "train"
+    prefix = os.path.join(work_dir, "corpus")
+    if not os.path.isfile(prefix + ".train.c2v"):
+        t0 = time.perf_counter()
+        prefix = write_train_corpus(work_dir, seed, fs, ft, n_rows)
+        log(f"train: wrote a {n_rows}-method corpus with java14m "
+            f"vocabularies in {time.perf_counter() - t0:.1f}s")
     argv = ["train", "--data", prefix, "--epochs", str(epochs), "--seed",
             str(seed), "--batch_size", str(ft.rows), "--max_contexts",
             str(ft.contexts), "--device", dev]
+    if sparse:
+        argv.append("--sparse_embedding_update")
     _, config = cli.config_from_args(argv)
     config.shuffle_buffer_size = buffer
     config.verbose_mode = 0
@@ -1137,7 +1418,7 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     model = Code2VecModel(config)   # what `cli.main(argv)` runs
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.module.parameters())
-    log(f"train: built vocabularies and a {n_params}-"
+    log(f"{what}: built vocabularies and a {n_params}-"
         f"parameter model on {model.device} in "
         f"{time.perf_counter() - t0:.1f}s")
     kernels.reset_launch_counts()
@@ -1149,22 +1430,34 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     losses = model.trainer.epoch_losses
     steps = model.state.step
     means = [statistics.mean(e) if e else float("nan") for e in losses]
-    log(f"train: {epochs} epochs, {steps} steps in {wall:.1f}s; losses "
+    log(f"{what}: {epochs} epochs, {steps} steps in {wall:.1f}s; losses "
         f"{[round(x, 4) for e in losses for x in e]}; epoch means "
         f"{[round(x, 4) for x in means]}; kernel launches {counts}")
     if len(losses) != epochs or any(len(e) != steps_per_epoch
                                     for e in losses):
-        fail(f"train: epochs of {[len(e) for e in losses]} steps, expected "
-             f"{epochs} of {steps_per_epoch}")
+        fail(f"{what}: epochs of {[len(e) for e in losses]} steps, "
+             f"expected {epochs} of {steps_per_epoch}")
     if not all(math.isfinite(x) for e in losses for x in e):
-        fail("train: a loss is not finite")
+        fail(f"{what}: a loss is not finite")
     if not means[1] < means[0]:
-        fail(f"train: the second epoch's mean loss {means[1]} is not below "
+        fail(f"{what}: the second epoch's mean loss {means[1]} is not below "
              f"the first's {means[0]}")
-    train_counts = {k: counts[k] for k in kernels.TRAIN_KERNELS}
-    if any(v != steps for v in train_counts.values()):
-        fail(f"train: launches {train_counts} are not one per step "
-             f"({steps})")
+    names = (kernels.SPARSE_TRAIN_KERNELS if sparse
+             else kernels.TRAIN_KERNELS)
+    want = {k: steps * (2 if k == "sparse_adam" else 1) for k in names}
+    if sparse:  # no dense K5: no table-shaped gradient
+        want["encoder_backward"] = 0
+    train_counts = {k: counts[k] for k in want}
+    if train_counts != want:
+        fail(f"{what}: launches {train_counts}, expected {want} (one per "
+             f"step, K12 once per table)")
+    if sparse:
+        dense_names = sorted(model.state.opt_state.dense.mu)
+        if dense_names != ["attention", "target_embedding", "transform"] or \
+                any(model.state.params[k].grad is not None
+                    for k in SPARSE_PARAM_NAMES):
+            fail(f"{what}: K8 ran over {dense_names}, or a table got a "
+                 f"gradient")
 
     # a steady step on one batch: host clock around synchronised steps
     with open(config.train_data_path) as f:
@@ -1180,13 +1473,24 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     step_ms = statistics.median(times[1:]) * 1e3
-    log(f"train: steady step {step_ms:.2f} ms (median of 5, host clock "
+    # peak device memory of one step: in all, and above the memory held
+    # before it (parameters, optimizer state, the batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model.state, loss = step_fn(model.state, *arrays, seed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what}: steady step {step_ms:.2f} ms (median of 5, host clock "
         f"around synchronised steps), {ft.rows / step_ms * 1e3:.0f} "
-        f"examples/s")
+        f"examples/s; peak device memory {peak / 1e9:.3f} GB, "
+        f"{(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held "
+        f"between steps")
     del model
     torch.cuda.empty_cache()
     return counts, dict(step_ms=step_ms, examples_per_s=ft.rows / step_ms
-                        * 1e3, epoch_means=means)
+                        * 1e3, epoch_means=means, peak_gb=peak / 1e9,
+                        step_gb=(peak - held) / 1e9, held_gb=held / 1e9)
 
 
 def train_step_check(torch, seed: int, fs, ft, rows: int = 64,
@@ -1279,6 +1583,107 @@ def train_step_check(torch, seed: int, fs, ft, rows: int = 64,
         f"largest value; adam max error "
         f"parameters {err8:.3g} (tol {TOL_ADAM}) moments {err_m:.3g} (tol "
         f"{TOL_MOMENT})")
+
+
+def sparse_step_check(torch, seed: int, fs, ft, rows: int = 64,
+                      dev: str = "cuda"):
+    """One sparse train step at `rows` rows, full vocabulary widths, an
+    injected dropout mask and mid-training row moments (global step 100):
+    GPU against CPU (plain versions). The loss, the tables, mu and nu
+    within one bf16 step of each tensor's largest value, and rows no id
+    touched bit-equal to their start."""
+    import numpy as np
+
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.code2vec import Code2VecModule, ModelDims
+    from code2vec_tpu_torch.training.state import (
+        SPARSE_PARAM_NAMES, create_train_state, make_optimizer,
+    )
+    from code2vec_tpu_torch.training.step import TrainStepBuilder
+
+    dims = ModelDims(fs.vocab["token"] + 1, fs.vocab["path"] + 1,
+                     fs.vocab["target"] + 1, token_dim=fs.token_dim,
+                     path_dim=fs.path_dim)
+    config = Config(use_sparse_embedding_update=True,
+                    dropout_keep_rate=ft.keep, adam_mu_dtype=ft.mu,
+                    adam_nu_dtype=ft.nu)
+    hyper = make_optimizer(config)
+    gpu = Code2VecModule(dims, device=dev, dropout_keep_rate=ft.keep,
+                         generator=torch.Generator(device=dev
+                                                   ).manual_seed(seed))
+    cpu = Code2VecModule(dims, device="cpu", dropout_keep_rate=ft.keep)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    rng = np.random.default_rng(seed + 5)
+    m, k_dim = ft.contexts, dims.context_dim
+    arrays = [rng.integers(0, hi, (rows, m)).astype(np.int32)
+              for hi in (dims.token_vocab_size, dims.path_vocab_size,
+                         dims.token_vocab_size)]
+    mask = (rng.random((rows, m)) > 0.2).astype(np.float32)
+    mask[0] = 0.0
+    labels = rng.integers(1, dims.target_vocab_size, rows).astype(np.int32)
+    valid = np.ones(rows, np.float32)
+    valid[1] = 0.0
+    drop = rng.random((rows, m, k_dim)) < ft.keep
+    host = [torch.from_numpy(x) for x in (*arrays, mask, labels, valid,
+                                          drop)]
+    # mid-training row moments, the same on both sides
+    slots0 = {}
+    for name in SPARSE_PARAM_NAMES:
+        shape = getattr(cpu, name).shape
+        mu = torch.from_numpy((rng.standard_normal(shape) * 1e-3).astype(
+            np.float32)).to(hyper.mu_dtype)
+        nu = torch.from_numpy((rng.random(shape) * 1e-6).astype(np.float32))
+        slots0[name] = (mu, nu)
+    start = {k: p.detach().clone() for k, p in cpu.named_parameters()
+             if k in SPARSE_PARAM_NAMES}
+    outs, losses = {}, {}
+    for side, mod, where in (("gpu", gpu, dev), ("cpu", cpu, "cpu")):
+        state = create_train_state(mod, hyper, config)
+        for name, (mu, nu) in slots0.items():
+            state.opt_state.slots[name].mu.copy_(mu)
+            state.opt_state.slots[name].nu.copy_(nu)
+        state.step = 99
+        step = TrainStepBuilder(mod, hyper, config).make_train_step(state)
+        x = [h.to(where) for h in host]
+        t0 = time.perf_counter()
+        state, loss = step(state, *x[:6], seed, dropout_mask=x[6])
+        losses[side] = float(loss)
+        outs[side] = {name: (state.params[name].detach().cpu(),
+                             state.opt_state.slots[name].mu.cpu(),
+                             state.opt_state.slots[name].nu.cpu())
+                      for name in SPARSE_PARAM_NAMES}
+        log(f"sparse step check: one sparse step on the {side} in "
+            f"{time.perf_counter() - t0:.1f}s")
+    if not abs(losses["gpu"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"]):
+        fail(f"GPU vs CPU sparse step: loss {losses['gpu']} vs "
+             f"{losses['cpu']}")
+    errs = {}
+    touched_ids = {"token_embedding": torch.cat([host[0].flatten(),
+                                                 host[2].flatten()]),
+                   "path_embedding": host[1].flatten()}
+    for name in SPARSE_PARAM_NAMES:
+        touched = torch.zeros(start[name].shape[0], dtype=torch.bool)
+        touched[touched_ids[name].long()] = True
+        g_out, c_out = outs["gpu"][name], outs["cpu"][name]
+        for what, got, want, first in zip(
+                ("table", "mu", "nu"), g_out, c_out,
+                (start[name], *slots0[name])):
+            e, ok = step_err(got[touched], want[touched])
+            errs[f"{name} {what}"] = e
+            if not ok:
+                fail(f"GPU vs CPU sparse step: {name} {what} max error {e} "
+                     f"> one bf16 step at "
+                     f"{float(want[touched].float().abs().max())}")
+            if not (torch.equal(got[~touched], first[~touched])
+                    and torch.equal(want[~touched], first[~touched])):
+                fail(f"GPU vs CPU sparse step: an untouched {name} {what} "
+                     f"row changed")
+    log(f"sparse step check: GPU vs CPU at B={rows}, m={m}, injected mask, "
+        f"global step 100: loss {losses['gpu']:.6f} vs {losses['cpu']:.6f}; "
+        f"touched rows' max errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + " (tol one bf16 step at each largest value); untouched rows "
+        "bit-equal")
 
 
 # -------------------------------------------------------------------- main
@@ -1436,8 +1841,9 @@ def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
                 bound_by=by, library_ms=lib_ms)
 
 
-def brute_case(torch, timer, q, table, k, what):
-    """K3's float32 mode against its plain version."""
+def brute_case(torch, timer, q, table, k, what, timed=True):
+    """K3's float32 mode against its plain version (above k 64 its
+    large-k mode, through K13); timed unless `timed` is false."""
     from code2vec_tpu_torch.kernels import topk
 
     b, d = q.shape
@@ -1458,6 +1864,12 @@ def brute_case(torch, timer, q, table, k, what):
         fail(f"blockwise_topk f32 {what}: value error {err_v}, lse error "
              f"{err_l}, {bad} index mismatches away from near-ties: "
              f"{topk_detail(got.indices, want_i, want_v, nxt)}")
+    if not timed:
+        log(f"K3 blockwise_topk float32 mode {what} B={b} V={v} k={k}: "
+            f"max_abs_err values {err_v:.3g} lse {err_l:.3g} (tol "
+            f"{TOL_F32SUM}) indices equal {same}/{got.indices.numel()} "
+            f"(the rest near-ties)")
+        return dict(max_abs_err=max(err_v, err_l)), got
     nbytes = v * d * 4 + b * d * 4 + b * k * 8 + b * 4
     bms, by = bound(nbytes, 2.0 * b * v * d, F32_FLOP_PER_S)
     ms = timer(lambda: topk.blockwise_topk(*args, **kw))
@@ -1471,6 +1883,32 @@ def brute_case(torch, timer, q, table, k, what):
         f"(f32 matmul + topk) bound_ms {bms:.4f} ({by})")
     return dict(max_abs_err=max(err_v, err_l), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), got
+
+
+def select_case(torch, timer, scores, k, what):
+    """K13 alone against its plain version on one score matrix: the same
+    positions and the same values (read back from the scores)."""
+    from code2vec_tpu_torch.kernels.select import (
+        select_topk, select_topk_plain,
+    )
+    b, n = scores.shape
+    got_v, got_p = select_topk(scores, k)
+    want_v, want_p = select_topk_plain(scores, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_p, want_p) and torch.equal(got_v, want_v)):
+        diff = int((got_p != want_p).sum())
+        fail(f"select_topk {what}: {diff} positions differ from the plain "
+             f"version's")
+    nbytes = b * n * 4 + b * k * 8
+    bms, by = bound(nbytes, float(b * n))
+    ms = timer(lambda: select_topk(scores, k))
+    plain_ms = timer(lambda: select_topk_plain(scores, k), spin_ms=20)
+    lib_ms = timer(lambda: torch.topk(scores, k), spin_ms=20)
+    log(f"K13 select_topk {what} B={b} n={n} k={k}: positions and values "
+        f"equal to the plain version's; ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {lib_ms:.4f} (torch.topk) bound_ms {bms:.4f} ({by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
 
 
 def mips_against_exact(torch, head, cv, table, scales, real_vocab, fs):
@@ -1549,6 +1987,11 @@ def retrieval_kernel_phase(torch, seed: int, timer, fs, work_dir: str,
                            head._centroids, head._rows, head._offsets,
                            nprobe, fs.topk, f"MIPS int8 {v_real}x{d}",
                            scales=head._scales, global_ids=head._global_ids)
+    # the large-k mode: K11 int8 at B 64, k 100, through K13
+    mips_k100 = ivf_case(torch, timer, cv, head._centroids, head._rows,
+                         head._offsets, nprobe, 100,
+                         f"MIPS int8 {v_real}x{d} (large-k mode)",
+                         scales=head._scales, global_ids=head._global_ids)
     # over every list the head is the exact head (the served bf16 one,
     # whose bf16 code vectors move a logit by up to ~2^-8 of the largest)
     same, bad, tol = mips_against_exact(torch, head, cv, q8, s8, v_real,
@@ -1609,6 +2052,15 @@ def retrieval_kernel_phase(torch, seed: int, timer, fs, work_dir: str,
                    f"index f32 {index_rows}x{d}")
     k3f, brute = brute_case(torch, timer, qi, rows, 16,
                             f"index {index_rows}x{d}")
+    # the large-k mode: K3's float32 mode at k 1000 through K13, then
+    # K13 alone on the same queries' scores
+    k3_large, _ = brute_case(torch, timer, qi, rows, 1000,
+                             f"index {index_rows}x{d} (large-k mode)",
+                             timed=False)
+    scores = torch.matmul(qi, rows.T)
+    k13 = select_case(torch, timer, scores, 1000,
+                      f"index {index_rows}x{d} scores")
+    del scores
     _, approx = ivf_search(qi, cent, rows, offsets, nprobe, 16,
                            max_len=int(lens.max()))
     hits = sum(len(set(a.tolist()) & set(e.tolist()))
@@ -1627,8 +2079,10 @@ def retrieval_kernel_phase(torch, seed: int, timer, fs, work_dir: str,
     report["kmeans_assign"] = merged(k9, k9m, "mips")
     report["kmeans_update"] = merged(k10, k10m, "mips")
     report["ivf_search"] = k11
-    report["ivf_search_int8"] = merged(mips[fs.rows], mips[1], "b1")
-    report["blockwise_topk_f32"] = k3f
+    report["ivf_search_int8"] = merged(merged(mips[fs.rows], mips[1], "b1"),
+                                       mips_k100, "k100")
+    report["blockwise_topk_f32"] = merged(k3f, k3_large, "k1000")
+    report["select_topk"] = k13
     return report, dict(index_build_1m_s=build_s,
                         index_kmeans_1m_s=meta["build_seconds"],
                         index_load_1m_s=load_s)
@@ -1767,23 +2221,21 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
                     fail(f"/neighbors {name}: {m['original_name']}'s top "
                          f"neighbor is {top}")
                 own += 1
-        status, body, _ = post_json(f"{url}/neighbors",
-                                    {"code": sources["Input.java"],
-                                     "k": 64, "nprobe": 32})
-        if status != 200:
-            fail(f"/neighbors k=64: HTTP {status}")
-        check_neighbors_body(body, fp, 64)
-        req = urllib.request.Request(
-            f"{url}/neighbors", method="POST",
-            data=json.dumps({"code": sources["Input.java"], "k": 65}
-                            ).encode(),
-            headers={"Content-Type": "application/json"})
-        try:
-            urllib.request.urlopen(req, timeout=300)
-            fail("/neighbors k=65 was answered")
-        except urllib.error.HTTPError as e:
-            if e.code != 422:
-                fail(f"/neighbors k=65: HTTP {e.code}, not 422")
+        # k 64 (the lists of K11), 65 and 1000 (its large-k mode, K13):
+        # each answered in full, each method still its own top neighbor
+        for k in (64, 65, 1000):
+            status, body, _ = post_json(f"{url}/neighbors",
+                                        {"code": sources["Input.java"],
+                                         "k": k, "nprobe": 32})
+            if status != 200:
+                fail(f"/neighbors k={k}: HTTP {status}")
+            check_neighbors_body(body, fp, k)
+            for m in body["methods"]:
+                top = m["neighbors"][0]
+                if top["id"] != m["original_name"] or \
+                        top["score"] < 1 - 1e-4:
+                    fail(f"/neighbors k={k}: {m['original_name']}'s top "
+                         f"neighbor is {top}")
         # head dispatch: a one-request batch of few methods takes the MIPS
         # head (K11), a 12-method one the exact head (K3)
         for src, want in ((sources["Max.java"], "mips"),
@@ -1946,6 +2398,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     report.update(train_kernel_phase(torch, args.seed, timer, fs, ft))
     torch.cuda.empty_cache()
+    report.update(sparse_kernel_phase(torch, args.seed, timer, fs, ft))
+    torch.cuda.empty_cache()
     work_dir = os.path.join(REPO, ".smoke")
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
@@ -1958,11 +2412,14 @@ def main() -> None:
         counts = path_phase(torch, args.seed, work_dir, fs)
         train_counts, train_stats = train_path_phase(torch, args.seed,
                                                      work_dir, fs, ft)
+        sparse_counts, sparse_stats = train_path_phase(
+            torch, args.seed, work_dir, fs, ft, sparse=True)
         retrieval_counts, retrieval_stats = retrieval_path_phase(
             torch, args.seed, work_dir, fs, ft)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     train_step_check(torch, args.seed, fs, ft)
+    sparse_step_check(torch, args.seed, fs, ft)
 
     sources = {
         "context_encoder": ("encoder.cu",
@@ -1987,6 +2444,11 @@ def main() -> None:
                             "code2vec_tpu/retrieval/mips.py:139"),
         "blockwise_topk_f32": ("topk.cu",
                                "code2vec_tpu/retrieval/index.py:306"),
+        "encoder_backward_rows": ("encoder_backward.cu",
+                                  "code2vec_tpu/models/code2vec.py:145"),
+        "sparse_adam": ("sparse_adam.cu",
+                        "code2vec_tpu/training/sparse_adam.py:86"),
+        "select_topk": ("select.cu", "code2vec_tpu/ops/topk.py:99"),
     }
     entries = []
     for name, (src, replaces) in sources.items():
@@ -1994,7 +2456,10 @@ def main() -> None:
         serving = name in SERVE_KERNELS
         launches = (retrieval_counts[name]
                     if name in kernels.RETRIEVAL_KERNELS
-                    else counts[name] if serving else train_counts[name])
+                    else counts[name] if serving
+                    else sparse_counts[name]
+                    if name in ("encoder_backward_rows", "sparse_adam")
+                    else train_counts[name])
         entry = {
             "name": name, "route": "cuda",
             "source": f"code2vec_tpu_torch/kernels/csrc/{src}",
@@ -2011,16 +2476,25 @@ def main() -> None:
             entry.update({f"train_{k}": t[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
-        if name in kernels.RETRIEVAL_KERNELS:
-            # K9/K10: the index shape above, the MIPS shape's numbers as
-            # mips_*; the int8 K11: B 64 above, B 1 as b1_*
-            entry.update({k: v for k, v in r.items()
-                          if k.startswith(("mips", "b1"))})
+        # K9/K10: the index shape above, the MIPS shape's numbers as
+        # mips_*; the int8 K11: B 64 above, B 1 as b1_*, its large-k mode
+        # (k 100) as k100_*; K3's float32 mode at k 1000 as k1000_*; K12:
+        # uniform ids above, Zipf(1.07) as zipf_*; K5's row mode: its
+        # allocation beside the dense mode's
+        entry.update({k: v for k, v in r.items()
+                      if k.startswith(("mips", "b1", "k100", "zipf"))
+                      or k.endswith("alloc_gb") or k == "unique_rows"})
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
         entries.append(entry)
-    log(f"train step: {train_stats['step_ms']:.2f} ms, "
-        f"{train_stats['examples_per_s']:.0f} examples/s")
+    log(f"train step: dense {train_stats['step_ms']:.2f} ms, "
+        f"{train_stats['examples_per_s']:.0f} examples/s, peak "
+        f"{train_stats['peak_gb']:.3f} GB ({train_stats['step_gb']:.3f} GB "
+        f"above {train_stats['held_gb']:.3f} GB held); sparse "
+        f"{sparse_stats['step_ms']:.2f} ms, "
+        f"{sparse_stats['examples_per_s']:.0f} examples/s, peak "
+        f"{sparse_stats['peak_gb']:.3f} GB ({sparse_stats['step_gb']:.3f} "
+        f"GB above {sparse_stats['held_gb']:.3f} GB held)")
     log(f"retrieval: embed {retrieval_stats['embed_rows_per_s']:.0f} rows/s; "
         f"index-build {retrieval_stats['index_build_s']:.2f}s at 20K rows, "
         f"{index_stats['index_build_1m_s']:.2f}s at 1M rows (load "

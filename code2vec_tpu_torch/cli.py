@@ -5,6 +5,7 @@ code2vec_tpu/cli.py and config.py, plus `--device` (default cuda).
 
     python -m code2vec_tpu_torch train --data PREFIX --epochs N
         [--batch_size B] [--max_contexts M] [--seed S] [--device cpu]
+        [--sparse_embedding_update]
     python -m code2vec_tpu_torch serve --artifact DIR [--serve_port P]
         [--retrieval_index IDX [--retrieval_topk K]]
         [--serve_mips_nprobe P [--serve_mips_nlist N]
@@ -46,6 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42,
                    help="`train`: seed of the parameters, dropout and "
                         "shuffle")
+    p.add_argument("--sparse_embedding_update", action="store_true",
+                   help="`train`: touched-rows (lazy) Adam for the "
+                        "token/path tables (training/sparse_adam.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -150,6 +154,7 @@ def config_from_args(argv):
     config = Config(serve_artifact=args.serve_artifact, device=args.device,
                     export_code_vectors=args.export_code_vectors,
                     train_data_path_prefix=args.data_path, seed=args.seed,
+                    use_sparse_embedding_update=args.sparse_embedding_update,
                     serve=args.command == "serve",
                     predict=args.command == "predict")
     for name, field in (("epochs", "num_train_epochs"),

@@ -36,6 +36,11 @@ class Config:
     adam_eps: float = 1e-8
     adam_mu_dtype: str = "bfloat16"
     adam_nu_dtype: str = "bfloat16"
+    # touched-rows (lazy) Adam for the token and path tables
+    # (training/sparse_adam.py; code2vec_tpu/config.py:143-158): their
+    # gradients stay rows, their moments are updated only where a batch
+    # touches them (mu in adam_mu_dtype, nu in f32)
+    use_sparse_embedding_update: bool = False
     seed: int = 42
     # model shape (code2vec_tpu/config.py:85-105)
     top_k_words_considered_during_prediction: int = 10
@@ -205,13 +210,6 @@ class Config:
                 "(it mounts the /neighbors index).")
         if self.retrieval_topk < 1:
             raise ValueError("retrieval_topk must be >= 1.")
-        if self.retrieval_index:
-            from code2vec_tpu_torch.retrieval.api import MAX_SEARCH_K
-            if self.retrieval_topk > MAX_SEARCH_K:
-                raise ValueError(
-                    f"retrieval_topk {self.retrieval_topk} is above the "
-                    f"search kernels' limit of {MAX_SEARCH_K} neighbors "
-                    f"per method.")
 
     def log(self, msg: str) -> None:
         if self.verbose_mode > 0:

@@ -12,11 +12,15 @@ each beside its plain PyTorch version and its launch count.
     K9 kmeans_assign              kernels/kmeans.py            csrc/kmeans.cu
     K10 kmeans_update             kernels/kmeans.py            csrc/kmeans.cu
     K11 ivf_search                kernels/ivf.py               csrc/ivf_search.cu
+    K12 sparse_adam               kernels/sparse_adam.py       csrc/sparse_adam.cu
+    K13 select_topk               kernels/select.py            csrc/select.cu
 
 K3 has a float32-compute mode (the retrieval index's brute-force
 search), counted apart as `blockwise_topk_f32`; K11's int8-row
 instantiation (the MIPS head over an int8 classifier) is counted apart
-from its f32-row one as `ivf_search_int8`.
+from its f32-row one as `ivf_search_int8`. K5's row mode (the sparse
+train step's row gradients) is counted apart as `encoder_backward_rows`.
+K13 is the large-k mode of K3 and K11 (k above 64).
 
 Each wrapper adds one to its counter (`launches` of its module, or the
 attribute KERNEL_COUNTERS names) where it launches its kernel, and
@@ -42,19 +46,29 @@ KERNEL_MODULES = {
     "ivf_search": "code2vec_tpu_torch.kernels.ivf",
     "ivf_search_int8": "code2vec_tpu_torch.kernels.ivf",
     "blockwise_topk_f32": "code2vec_tpu_torch.kernels.topk",
+    "encoder_backward_rows": "code2vec_tpu_torch.kernels.encoder_backward",
+    "sparse_adam": "code2vec_tpu_torch.kernels.sparse_adam",
+    "select_topk": "code2vec_tpu_torch.kernels.select",
 }
 # counters other than the module's `launches`
 KERNEL_COUNTERS = {"masked_attention_backward": "backward_launches",
                    "kmeans_update": "update_launches",
                    "blockwise_topk_f32": "f32_launches",
-                   "ivf_search_int8": "int8_launches"}
+                   "ivf_search_int8": "int8_launches",
+                   "encoder_backward_rows": "rows_launches"}
 
 # the kernels every train step launches (K1 in train mode)
 TRAIN_KERNELS = ("context_encoder", "masked_attention", "encoder_backward",
                  "masked_attention_backward", "softmax_xent", "adam")
-# the kernels of k-means and the index and MIPS searches
+# the kernels every sparse train step launches: K5's row mode in place
+# of K5, K8 over the dense subtree, K12 once per table
+SPARSE_TRAIN_KERNELS = ("context_encoder", "masked_attention",
+                        "encoder_backward_rows", "masked_attention_backward",
+                        "softmax_xent", "adam", "sparse_adam")
+# the kernels of k-means and the index and MIPS searches (K13 for k
+# above 64)
 RETRIEVAL_KERNELS = ("kmeans_assign", "kmeans_update", "ivf_search",
-                     "ivf_search_int8", "blockwise_topk_f32")
+                     "ivf_search_int8", "blockwise_topk_f32", "select_topk")
 
 
 def launch_counts() -> Dict[str, int]:

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, List, Optional
 
 SOURCES = ("encoder", "attention", "topk", "label_logits",
            "encoder_backward", "attention_backward", "softmax_xent", "adam",
-           "kmeans", "ivf_search")
+           "kmeans", "ivf_search", "sparse_adam", "select")
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")

@@ -1,5 +1,6 @@
 // K5 encoder_backward: the backward of K1 (gather, concat, bf16 cast,
-// dropout, tanh(ctx @ W)) for dense table gradients.
+// dropout, tanh(ctx @ W)) for dense table gradients, or (row mode) for
+// the gradients of the gathered rows.
 //
 // Replaces the autodiff of code2vec_tpu/models/code2vec.py
 // transform_contexts / transform_gathered (:128-177) inside
@@ -37,6 +38,16 @@
 // rows, 384 -> 384) the two products are 121 GFLOP (0.12 ms of bf16
 // tensor-core time) while dT, T, the re-gathered f32 rows (~315 MB) and
 // the scatter into the 1.3M x 128 and 911K x 128 f32 tables move ~1 GB.
+//
+// Row mode (the sparse train step, code2vec_tpu/training/step.py:198-269,
+// whose gradients are taken with respect to the gathered rows through
+// `apply_from_rows`): the epilogue writes each context row's dctx, split
+// into its source, path and target parts, to bf16 row arrays instead of
+// the scatter: g_tok (2, n_ctx, td) (sources, then targets: the
+// reference's concat of the token ids) and g_path (n_ctx, pd). The
+// reference's row gradient is f32(bf16 dctx) (the pre-dropout cast of
+// `transform_gathered`), so bf16 storage changes no value and halves the
+// bytes; nothing table-shaped is allocated or zeroed. dW is the same.
 // Design: kernel A takes 64 rows per CTA: tanh's rule into shared memory
 // (hi/lo bf16), the dctx product with WMMA (each warp owns 48 columns of
 // all 64 rows and reads its W^T fragments straight from an L2-resident
@@ -108,7 +119,8 @@ encoder_backward_rows(const __nv_bfloat16* dt, const __nv_bfloat16* t,
                       const int* pth, const int* tgt, int64_t n_ctx,
                       c2v::Dropout drop, __nv_bfloat16* dpre_hi,
                       __nv_bfloat16* dpre_lo, __nv_bfloat16* ctx_out,
-                      float* d_tok, float* d_path) {
+                      float* d_tok, float* d_path, __nv_bfloat16* g_tok,
+                      __nv_bfloat16* g_path) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int k_dim = 2 * tok_dim + path_dim;
   const int lda = d + kPad;
@@ -228,6 +240,19 @@ encoder_backward_rows(const __nv_bfloat16* dt, const __nv_bfloat16* t,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         v[i] = k[i] ? c2v::bf16_round(v[i] / drop.keep) : 0.f;
+    }
+    if (g_tok != nullptr) {  // row mode: bf16 rows, exact
+      __nv_bfloat16* dst;
+      if (c < tok_dim)
+        dst = g_tok + ctx * tok_dim + c;
+      else if (c < tok_dim + path_dim)
+        dst = g_path + ctx * path_dim + (c - tok_dim);
+      else
+        dst = g_tok + (n_ctx + ctx) * tok_dim + (c - tok_dim - path_dim);
+      __align__(8) __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                                          __floats2bfloat162_rn(v[2], v[3])};
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
+      continue;
     }
     float* table;
     int64_t id, rows;
@@ -353,20 +378,26 @@ C2V_EXPORT int c2v_encoder_backward_slices(int64_t n_ctx) {
 // redraws, mode 2 reads `mask`). Scratch: wb bf16 (k_dim, d); dpre_hi,
 // dpre_lo bf16 (n_pad, d); ctx_s bf16 (n_pad, k_dim); partial f32
 // (slices, k_dim, d). Outputs: d_tok, d_path f32, zeroed by the caller,
-// are added to; dw f32 (k_dim, d) is written. Returns a cudaError_t.
+// are added to; dw f32 (k_dim, d) is written. Row mode (g_tok not
+// null): g_tok bf16 (2, n_ctx, tok_dim) and g_path bf16 (n_ctx,
+// path_dim) are written and d_tok, d_path are not used. Returns a
+// cudaError_t.
 C2V_EXPORT int c2v_encoder_backward(
     const void* dt, const void* t, const void* t_lo, int d, const float* w, const float* tok,
     int64_t tok_rows, int tok_dim, const float* path, int64_t path_rows,
     int path_dim, const int* src, const int* pth, const int* tgt,
     int64_t n_ctx, int drop_mode, float keep, uint64_t seed, uint64_t step,
     void* mask, void* wb, void* dpre_hi, void* dpre_lo, void* ctx_s,
-    float* partial, float* d_tok, float* d_path, float* dw, void* stream) {
+    float* partial, float* d_tok, float* d_path, float* dw, void* g_tok,
+    void* g_path, void* stream) {
   const int k_dim = 2 * tok_dim + path_dim;
   if (n_ctx <= 0 || tok_dim % 4 != 0 || path_dim % 4 != 0 ||
       k_dim % kTileW != 0 || k_dim > 16 * kWarps * kMaxColFrags ||
       d % kTileW != 0 ||
       drop_mode < 0 || drop_mode > 2 || !(keep > 0.f && keep <= 1.f) ||
-      (drop_mode == 2 && mask == nullptr))
+      (drop_mode == 2 && mask == nullptr) ||
+      (g_tok == nullptr) != (g_path == nullptr) ||
+      (g_tok == nullptr && (d_tok == nullptr || d_path == nullptr)))
     return cudaErrorInvalidValue;
   c2v::Dropout drop;
   drop.mode = drop_mode;
@@ -401,7 +432,8 @@ C2V_EXPORT int c2v_encoder_backward(
       static_cast<const __nv_bfloat16*>(t),
       static_cast<const __nv_bfloat16*>(t_lo), d, wbf, tok, tok_rows, tok_dim,
       path, path_rows, path_dim, src, pth, tgt, n_ctx, drop, hi, lo, cs,
-      d_tok, d_path);
+      d_tok, d_path, static_cast<__nv_bfloat16*>(g_tok),
+      static_cast<__nv_bfloat16*>(g_path));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 

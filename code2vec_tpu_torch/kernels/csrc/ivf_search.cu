@@ -36,6 +36,13 @@
 // latency of its loads more than by their bytes, hence the loads in
 // flight; reading each probed list once for all the queries that probe
 // it is the next step.
+//
+// Large-k mode (k above the 64 entries a list holds): launch (2) becomes
+// list_scores_kernel, which writes every probed row's score to a (b, ld)
+// f32 matrix at its padded candidate position rank * max_len + offset
+// (-inf past the list's end), K13 (csrc/select.cu) selects the top k
+// positions, and map_kernel turns them into store positions or global
+// ids, dead slots into -1 / 0.
 #include "common.cuh"
 
 namespace {
@@ -197,6 +204,77 @@ list_topk_kernel(const float* q, int d, const void* rows,
   }
 }
 
+// (2') Large-k mode: every probed row's score at its padded candidate
+// position, -inf past the end of its list.
+template <bool kInt8>
+__global__ void __launch_bounds__(kThreads)
+list_scores_kernel(const float* q, int d, const void* rows,
+                   const float* scales, const int64_t* offsets,
+                   const int* probe, int nprobe, int max_len, float* scores,
+                   int64_t ld) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);  // d
+  const int p = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int j = tid; j < d; j += kThreads)
+    sq[j] = q[static_cast<int64_t>(b) * d + j];
+  __syncthreads();
+  const int list = probe[static_cast<int64_t>(b) * nprobe + p];
+  const int64_t lo = offsets[list], len = offsets[list + 1] - lo;
+  float* out = scores + static_cast<int64_t>(b) * ld +
+               static_cast<int64_t>(p) * max_len;
+  for (int64_t off = len + tid; off < max_len; off += kThreads)
+    out[off] = -INFINITY;
+  const int d4 = d / 4;
+  for (int64_t off = 2 * warp; off < len; off += 2 * kWarps) {
+    const bool two = off + 1 < len;  // warp-uniform
+    float4 va[kMaxVec], vb[kMaxVec];
+    load_row<kInt8>(rows, lo + off, d, lane, va);
+    if (two) load_row<kInt8>(rows, lo + off + 1, d, lane, vb);
+    float sa = c2v::warp_sum(dot4(va, sq, d4, lane));
+    float sb = two ? c2v::warp_sum(dot4(vb, sq, d4, lane)) : 0.f;
+    if (kInt8) {
+      sa *= scales[lo + off];
+      if (two) sb *= scales[lo + off + 1];
+    }
+    if (lane == 0) {
+      out[off] = sa;
+      if (two) out[off + 1] = sb;
+    }
+  }
+}
+
+// (3') Large-k mode: K13's positions -> store positions or global ids;
+// slots past the candidates (j >= k_sel) and dead slots -> -inf, -1 / 0.
+__global__ void map_kernel(const float* sel_vals, const int* sel_pos,
+                           int k_sel, const int64_t* offsets,
+                           const int* probe, int nprobe, int max_len, int k,
+                           const int* global_ids, float* out_vals,
+                           int* out_idx, int b_rows) {
+  const int64_t e = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
+  if (e >= static_cast<int64_t>(b_rows) * k) return;
+  const int64_t b = e / k;
+  const int j = static_cast<int>(e - b * k);
+  const int dead_id = global_ids != nullptr ? 0 : -1;
+  if (j >= k_sel) {
+    out_vals[e] = -INFINITY;
+    out_idx[e] = dead_id;
+    return;
+  }
+  const int key = sel_pos[b * k_sel + j];
+  const int rank = key / max_len, off = key - rank * max_len;
+  const int list = probe[b * nprobe + rank];
+  const int64_t lo = offsets[list];
+  out_vals[e] = sel_vals[b * k_sel + j];
+  if (off >= offsets[list + 1] - lo) {
+    out_idx[e] = dead_id;
+  } else {
+    const int64_t pos = lo + off;
+    out_idx[e] = global_ids != nullptr ? global_ids[pos]
+                                       : static_cast<int>(pos);
+  }
+}
+
 // (3) One warp per query: the top k of its nprobe partial lists, then
 // keys -> positions (index) or global ids (MIPS).
 __global__ void __launch_bounds__(32)
@@ -292,5 +370,58 @@ C2V_EXPORT int c2v_ivf_search(const float* q, int b, int d,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   merge_kernel<<<b, 32, 0, s>>>(part_vals, part_keys, offsets, probe, nprobe,
                                 max_len, k, global_ids, out_vals, out_idx);
+  return cudaGetLastError();
+}
+
+// Large-k mode, before K13: the probe (1) and every probed row's score
+// (2') into scores f32 (b, ld), ld >= nprobe * max_len. Arguments as in
+// c2v_ivf_search.
+C2V_EXPORT int c2v_ivf_scores(const float* q, int b, int d,
+                              const float* centroids, int n_cent,
+                              const void* rows, const float* scales,
+                              int is_int8, const int64_t* offsets,
+                              int max_len, int nprobe, int* probe,
+                              float* scores, int64_t ld, void* stream) {
+  if (b <= 0 || d <= 0 || d % 4 != 0 || d > 128 * kMaxVec || n_cent <= 0 ||
+      nprobe <= 0 || nprobe > n_cent || max_len <= 0 ||
+      static_cast<int64_t>(nprobe) * max_len > 0x7ffffffe ||
+      ld < static_cast<int64_t>(nprobe) * max_len)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t probe_smem = sizeof(float) * (d + n_cent);
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(probe_smem));
+  if (err != cudaSuccess) return err;
+  probe_kernel<<<b, kProbeThreads, probe_smem, s>>>(q, d, centroids, n_cent,
+                                                    nprobe, probe);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(nprobe), static_cast<unsigned>(b));
+  const size_t smem = sizeof(float) * d;
+  if (is_int8)
+    list_scores_kernel<true><<<grid, kThreads, smem, s>>>(
+        q, d, rows, scales, offsets, probe, nprobe, max_len, scores, ld);
+  else
+    list_scores_kernel<false><<<grid, kThreads, smem, s>>>(
+        q, d, rows, scales, offsets, probe, nprobe, max_len, scores, ld);
+  return cudaGetLastError();
+}
+
+// Large-k mode, after K13: sel_vals f32 / sel_pos int32 (b, k_sel), the
+// top k_sel padded candidate positions, -> out_vals f32 / out_idx int32
+// (b, k), k >= k_sel.
+C2V_EXPORT int c2v_ivf_map(const float* sel_vals, const int* sel_pos,
+                           int b, int k_sel, const int64_t* offsets,
+                           const int* probe, int nprobe, int max_len, int k,
+                           const int* global_ids, float* out_vals,
+                           int* out_idx, void* stream) {
+  if (b <= 0 || k <= 0 || k_sel < 0 || k_sel > k || nprobe <= 0 ||
+      max_len <= 0)
+    return cudaErrorInvalidValue;
+  const int64_t n = static_cast<int64_t>(b) * k;
+  map_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      sel_vals, sel_pos, k_sel, offsets, probe, nprobe, max_len, k,
+      global_ids, out_vals, out_idx, b);
   return cudaGetLastError();
 }

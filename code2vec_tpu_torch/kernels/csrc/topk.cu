@@ -25,6 +25,11 @@
 // the insertions) and a per-lane running (max, sumexp). A second launch
 // merges the per-chunk partials. Every table row belongs to exactly one
 // chunk, so no row is counted twice.
+//
+// Large-k mode (k above the 64 entries a list holds): the tiles' logits
+// (raw, -inf past `valid_rows`) go to a (b, ld) f32 score matrix instead
+// of the lists, the merge launch folds the logsumexp alone, and K13
+// (csrc/select.cu) selects the top k from the scores.
 #include "common.cuh"
 
 #include <mma.h>
@@ -67,14 +72,15 @@ __host__ __device__ inline Layout layout(int d, int k) {
 }
 
 // Fold one tile's logits (kTileB code vectors x kTileV table rows, row
-// stride ldl in `sl`) into each code vector's running top-k list and the
-// lanes' running (max, sumexp); warp w owns code vectors w, w + 8, ...
+// stride ldl in `sl`) into each code vector's running top-k list (or,
+// with `scores`, write them there, row stride `sld`) and the lanes'
+// running (max, sumexp); warp w owns code vectors w, w + 8, ...
 template <bool kScaled>
 __device__ __forceinline__ void fold_tile(
     const float* sl, int ldl, const float* sscale, int64_t t0, int64_t v_end,
     int64_t valid_rows, int b0, int b_rows, int k, float* svals, int* sidx,
-    float (&run_m)[kRowsPerWarp], float (&run_s)[kRowsPerWarp], int warp,
-    int lane) {
+    float* scores, int64_t sld, float (&run_m)[kRowsPerWarp],
+    float (&run_s)[kRowsPerWarp], int warp, int lane) {
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp + kWarps * i;
@@ -101,6 +107,10 @@ __device__ __forceinline__ void fold_tile(
         } else if (isfinite(y)) {
           run_s[i] += expf(y - run_m[i]);
         }
+      }
+      if (scores != nullptr) {  // warp-uniform
+        if (v < v_end) scores[static_cast<int64_t>(b0 + r) * sld + v] = x;
+        continue;
       }
       const int vi = static_cast<int>(v);
       unsigned ballot = __ballot_sync(
@@ -150,7 +160,7 @@ topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
                     const float* scales, int64_t v_rows, int64_t valid_rows,
                     int k, int64_t chunk_rows, int64_t n_chunks,
                     float* part_vals, int* part_idx, float* part_max,
-                    float* part_sum) {
+                    float* part_sum, float* scores, int64_t sld) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(d, k);
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem + L.a);
@@ -277,7 +287,7 @@ topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
     __syncthreads();
 
     fold_tile<kInt8>(sl, L.ldl, sscale, t0, v_end, valid_rows, b0, b_rows, k,
-                     svals, sidx, run_m, run_s, warp, lane);
+                     svals, sidx, scores, sld, run_m, run_s, warp, lane);
   }
   __syncthreads();
   write_partials(run_m, run_s, svals, sidx, b0, b_rows, k, chunk, n_chunks,
@@ -335,7 +345,8 @@ topk_partial_f32_kernel(const float* cv, int b_rows, int d,
                         const float* table, int64_t v_rows,
                         int64_t valid_rows, int k, int64_t chunk_rows,
                         int64_t n_chunks, float* part_vals, int* part_idx,
-                        float* part_max, float* part_sum) {
+                        float* part_max, float* part_sum, float* scores,
+                        int64_t sld) {
   extern __shared__ __align__(128) unsigned char smem[];
   const F32Layout L = f32_layout(k);
   float* sa = reinterpret_cast<float*>(smem + L.a);
@@ -392,7 +403,7 @@ topk_partial_f32_kernel(const float* cv, int b_rows, int d,
           make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     __syncthreads();
     fold_tile<false>(sl, L.ldl, nullptr, t0, v_end, valid_rows, b0, b_rows,
-                     k, svals, sidx, run_m, run_s, warp, lane);
+                     k, svals, sidx, scores, sld, run_m, run_s, warp, lane);
   }
   __syncthreads();
   write_partials(run_m, run_s, svals, sidx, b0, b_rows, k, chunk, n_chunks,
@@ -470,7 +481,9 @@ C2V_EXPORT int64_t c2v_topk_smem(int d, int k) { return layout(d, k).total; }
 // cores), 1 multiplies the f32 operands in f32 (f32 tables only).
 // Partials: (b, n_chunks, k) values/indices and (b, n_chunks)
 // max/sumexp, n_chunks = ceil(v / chunk_rows). Outputs: values f32
-// (b, k), indices int32 (b, k), lse f32 (b,).
+// (b, k), indices int32 (b, k), lse f32 (b,). Large-k mode: `scores` f32
+// (b, scores_ld), scores_ld >= v, receives every logit and k is 0 (no
+// lists, no values or indices; lse only).
 C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
                                   const void* table, const float* scales,
                                   int is_int8, int compute_f32, int64_t v,
@@ -479,8 +492,11 @@ C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
                                   int* part_idx, float* part_max,
                                   float* part_sum, float* out_vals,
                                   int* out_idx, float* out_lse,
+                                  float* scores, int64_t scores_ld,
                                   void* stream) {
-  if (b <= 0 || v <= 0 || k <= 0 || k > kMaxK || d % 16 != 0 ||
+  if (b <= 0 || v <= 0 || k < 0 || k > kMaxK ||
+      (k == 0) != (scores != nullptr) ||
+      (scores != nullptr && scores_ld < v) || d % 16 != 0 ||
       chunk_rows <= 0 || (is_int8 && d > 16 * kPrefetch * kThreads / kTileV) ||
       (compute_f32 && is_int8))
     return cudaErrorInvalidValue;
@@ -497,7 +513,8 @@ C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
     if (err != cudaSuccess) return err;
     topk_partial_f32_kernel<<<grid, kThreads, smem, s>>>(
         cv, b, d, static_cast<const float*>(table), v, valid_rows, k,
-        chunk_rows, n_chunks, part_vals, part_idx, part_max, part_sum);
+        chunk_rows, n_chunks, part_vals, part_idx, part_max, part_sum,
+        scores, scores_ld);
   } else if (is_int8) {
     const int64_t smem = layout(d, k).total;
     err = cudaFuncSetAttribute(topk_partial_kernel<true>,
@@ -506,7 +523,7 @@ C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
     if (err != cudaSuccess) return err;
     topk_partial_kernel<true><<<grid, kThreads, smem, s>>>(
         cv, b, d, table, scales, v, valid_rows, k, chunk_rows, n_chunks,
-        part_vals, part_idx, part_max, part_sum);
+        part_vals, part_idx, part_max, part_sum, scores, scores_ld);
   } else {
     const int64_t smem = layout(d, k).total;
     err = cudaFuncSetAttribute(topk_partial_kernel<false>,
@@ -515,7 +532,7 @@ C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
     if (err != cudaSuccess) return err;
     topk_partial_kernel<false><<<grid, kThreads, smem, s>>>(
         cv, b, d, table, scales, v, valid_rows, k, chunk_rows, n_chunks,
-        part_vals, part_idx, part_max, part_sum);
+        part_vals, part_idx, part_max, part_sum, scores, scores_ld);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -18,6 +18,11 @@ version below gathers from a padded (nlist, max_len) list matrix as the
 reference does (take + einsum + a stable top-k). CPU tensors take the
 plain version, CUDA tensors launch the kernel. Each instantiation keeps
 its own count: `launches` (f32 rows) and `int8_launches`.
+
+For k above the 64 entries a list holds (MAX_K), K11 runs its large-k
+mode: every probed row's score goes to a (B, nprobe * max_len) f32
+matrix at its padded candidate position, K13 (kernels/select.py) selects
+the top k positions, and a last launch maps them to positions or ids.
 """
 
 from __future__ import annotations
@@ -26,12 +31,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from code2vec_tpu_torch.kernels import launch
+from code2vec_tpu_torch.kernels import launch, select
+from code2vec_tpu_torch.kernels.select import top_positions
 
 launches = 0       # f32 rows
 int8_launches = 0  # int8 rows with scales
 _fns = {}
-MAX_K = 64    # the kernel's compiled maximum (csrc/ivf_search.cu kMaxK)
+MAX_K = 64    # a list's length (csrc/ivf_search.cu kMaxK); above: K13
 MAX_D = 512   # the widest row a lane's registers hold (4 x 128)
 
 
@@ -43,14 +49,6 @@ def padded_lists(list_offsets: torch.Tensor, max_len: int) -> torch.Tensor:
     j = torch.arange(max(int(max_len), 1), device=list_offsets.device)
     return torch.where(j[None, :] < lens[:, None], lo[:, None] + j[None, :],
                        torch.full_like(j[None, :], -1))
-
-
-def top_positions(scores: torch.Tensor, k: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`lax.top_k` of each row: values descending, NaN first, equal
-    values by ascending position (a stable descending sort)."""
-    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], pos[:, :k]
 
 
 def ivf_search_plain(queries: torch.Tensor, centroids: torch.Tensor,
@@ -90,6 +88,13 @@ def _fn():
             "ivf_search", "c2v_ivf_search",
             [P, I32, I32, P, I32, P, P, I32, P, I32, P, I32, I32, P, P, P, P,
              P, P])
+        _fns["scores"] = launch.bind(
+            "ivf_search", "c2v_ivf_scores",
+            [P, I32, I32, P, I32, P, P, I32, P, I32, I32, P, P, launch.I64,
+             P])
+        _fns["map"] = launch.bind(
+            "ivf_search", "c2v_ivf_map",
+            [P, P, I32, I32, P, P, I32, I32, I32, P, P, P, P])
     return fn
 
 
@@ -136,8 +141,7 @@ def ivf_search(queries: torch.Tensor, centroids: torch.Tensor,
                        f"global_ids: expected ({rows.shape[0]},)")
     launch.require(1 <= nprobe <= n_cent,
                    f"nprobe={nprobe} outside 1..{n_cent}")
-    launch.require(1 <= k <= MAX_K,
-                   f"k={k} outside the kernel's range 1..{MAX_K}")
+    launch.require(k >= 1, f"k={k} < 1")
     max_len = max(int(max_len), 1)
     launch.require(nprobe * max_len < 2 ** 31 - 1,
                    "nprobe x longest list must stay below 2^31")
@@ -145,6 +149,9 @@ def ivf_search(queries: torch.Tensor, centroids: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     probe = torch.empty((b, nprobe), **i32)
+    if k > MAX_K:
+        return _large_k(queries, centroids, rows, list_offsets, nprobe, k,
+                        scales, global_ids, max_len, probe)
     part_vals = torch.empty((b, nprobe, k), **f32)
     part_keys = torch.empty((b, nprobe, k), **i32)
     values = torch.empty((b, k), **f32)
@@ -157,4 +164,33 @@ def ivf_search(queries: torch.Tensor, centroids: torch.Tensor,
              launch.stream(device))
     launch.check_launch(err, "ivf_search")
     launch.count(__name__, "int8_launches" if int8 else "launches")
+    return values, indices
+
+
+def _large_k(queries, centroids, rows, list_offsets, nprobe, k, scales,
+             global_ids, max_len, probe):
+    """K11's large-k mode: the probed rows' scores, K13, the id map."""
+    b, d = queries.shape
+    int8 = rows.dtype == torch.int8
+    device = queries.device
+    n = nprobe * max_len
+    scores = torch.empty((b, select.padded_width(n)), dtype=torch.float32,
+                         device=device)
+    err = _fns["scores"](queries.data_ptr(), b, d, centroids.data_ptr(),
+                         centroids.shape[0], rows.data_ptr(),
+                         launch.ptr(scales), int(int8),
+                         list_offsets.data_ptr(), max_len, nprobe,
+                         probe.data_ptr(), scores.data_ptr(),
+                         scores.shape[1], launch.stream(device))
+    launch.check_launch(err, "ivf_search scores")
+    launch.count(__name__, "int8_launches" if int8 else "launches")
+    k_sel = min(k, n)
+    sel_vals, sel_pos = select.select_topk(scores, k_sel, n=n)
+    values = torch.empty((b, k), dtype=torch.float32, device=device)
+    indices = torch.empty((b, k), dtype=torch.int32, device=device)
+    err = _fns["map"](sel_vals.data_ptr(), sel_pos.data_ptr(), b, k_sel,
+                      list_offsets.data_ptr(), probe.data_ptr(), nprobe,
+                      max_len, k, launch.ptr(global_ids), values.data_ptr(),
+                      indices.data_ptr(), launch.stream(device))
+    launch.check_launch(err, "ivf_search map")
     return values, indices

@@ -8,6 +8,10 @@ of table rows, then a merge of the partials. The plain version is
 ops/topk.py blockwise_matmul_top_k: CPU tensors take it, CUDA tensors
 launch the kernel.
 
+For k above the 64 entries a list holds (MAX_K), K3 runs its large-k
+mode: it writes every logit to a (B, V) f32 score matrix and folds the
+logsumexp, and K13 (kernels/select.py) selects the top k from the scores.
+
 Two modes: bf16 compute (the serving head: operands rounded to bf16,
 tensor cores, f32 accumulation; int8 or f32 tables), counted in
 `launches`, and float32 compute (the retrieval index's brute-force
@@ -21,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from code2vec_tpu_torch.kernels import launch
+from code2vec_tpu_torch.kernels import launch, select
 from code2vec_tpu_torch.ops.topk import (
     BlockTopKOutputs, blockwise_matmul_top_k,
 )
@@ -29,7 +33,7 @@ from code2vec_tpu_torch.ops.topk import (
 launches = 0      # bf16 compute
 f32_launches = 0  # float32 compute
 _fns = {}
-MAX_K = 64        # the kernel's compiled maximum (csrc/topk.cu kMaxK)
+MAX_K = 64        # a list's length (csrc/topk.cu kMaxK); above: K13
 TILE_ROWS = 64    # table rows per tile (csrc/topk.cu kTileV)
 MAX_INT8_D = 512  # widest int8 row a tile prefetch holds (csrc/topk.cu)
 
@@ -42,8 +46,11 @@ def _fn():
         P, I32, I64 = launch.P, launch.I32, launch.I64
         fn = _fns["topk"] = launch.bind(
             "topk", "c2v_blockwise_topk",
+            # cv, b, d, table, scales, is_int8, compute_f32, v, valid_rows,
+            # k, chunk_rows, 4 partials, values, indices, lse, scores,
+            # scores_ld, stream
             [P, I32, I32, P, P, I32, I32, I64, I64, I32, I64, P, P, P, P, P,
-             P, P, P])
+             P, P, P, I64, P])
     return fn
 
 
@@ -61,9 +68,10 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
                    compute_dtype: torch.dtype = torch.bfloat16
                    ) -> BlockTopKOutputs:
     """Top-k (values, int32 indices) and logsumexp of code_vectors @
-    target_table.T. `block_rows` is the reference's sequential block
-    size; the plain version walks the table in such blocks, the kernel
-    in its own chunks (the result does not depend on it)."""
+    target_table.T, for any k (clamped to the live rows). `block_rows`
+    is the reference's sequential block size; the plain version walks
+    the table in such blocks, the kernel in its own chunks (the result
+    does not depend on it)."""
     if launch.runs_plain(code_vectors, target_table, scales):
         return blockwise_topk_plain(
             code_vectors, target_table, k, block_rows, scales=scales,
@@ -97,26 +105,33 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
         launch.require(scales is None, "f32 tables take no scales")
     valid = v if valid_rows is None else int(valid_rows)
     k = min(int(k), valid)
-    launch.require(1 <= k <= MAX_K,
-                   f"k={k} outside the kernel's range 1..{MAX_K}")
+    launch.require(k >= 1, f"k={k}: at least one live row is needed")
     device = code_vectors.device
     chunk = chunk_rows_for(v, device)
     n_chunks = -(-v // chunk)
+    large = k > MAX_K
+    k_list = 0 if large else k
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    part_vals = torch.empty((b, n_chunks, k), **f32)
-    part_idx = torch.empty((b, n_chunks, k), **i32)
+    part_vals = torch.empty((b, n_chunks, k_list), **f32)
+    part_idx = torch.empty((b, n_chunks, k_list), **i32)
     part_max = torch.empty((b, n_chunks), **f32)
     part_sum = torch.empty((b, n_chunks), **f32)
-    values = torch.empty((b, k), **f32)
-    indices = torch.empty((b, k), **i32)
+    values = torch.empty((b, k_list), **f32)
+    indices = torch.empty((b, k_list), **i32)
     lse = torch.empty((b,), **f32)
+    scores = (torch.empty((b, select.padded_width(v)), **f32) if large
+              else None)
     err = fn(code_vectors.data_ptr(), b, d, target_table.data_ptr(),
-             launch.ptr(scales), int(int8), int(compute_f32), v, valid, k,
-             chunk,
+             launch.ptr(scales), int(int8), int(compute_f32), v, valid,
+             k_list, chunk,
              part_vals.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(),
              part_sum.data_ptr(), values.data_ptr(), indices.data_ptr(),
-             lse.data_ptr(), launch.stream(device))
+             lse.data_ptr(), launch.ptr(scores),
+             0 if scores is None else scores.shape[1],
+             launch.stream(device))
     launch.check_launch(err, "blockwise_topk")
     launch.count(__name__, "f32_launches" if compute_f32 else "launches")
+    if large:
+        values, indices = select.select_topk(scores, k, n=valid)
     return BlockTopKOutputs(values, indices, lse)

@@ -189,13 +189,16 @@ class Code2VecModel:
             device=self.device, generator=generator,
             dropout_keep_rate=config.dropout_keep_rate)
         self.optimizer = make_optimizer(config)
-        self.state = create_train_state(self.module, self.optimizer)
+        self.state = create_train_state(self.module, self.optimizer, config)
         self.builder = TrainStepBuilder(self.module, self.optimizer, config)
         self.trainer = None
+        update = ("sparse (touched-rows)"
+                  if config.use_sparse_embedding_update else "dense")
         self.log(f"Model on {self.device}: vocabularies {self.dims.token_vocab_size} "
                  f"tokens, {self.dims.path_vocab_size} paths, "
                  f"{self.dims.target_vocab_size} targets; "
-                 f"{num_params(self.state)} parameters")
+                 f"{num_params(self.state)} parameters; {update} embedding "
+                 f"update")
 
     def _train_batches(self) -> PathContextReader:
         """The text reader's train stream with EpochEnd markers."""

@@ -3,7 +3,8 @@
 The counterpart of code2vec_tpu/models/code2vec.py (:128-232):
 
   token/path embedding gathers -> concat (B, M, 3d) -> compute dtype
-  -> dropout (train) -> tanh(. @ transform)   K1, backward K5
+  -> dropout (train) -> tanh(. @ transform)   K1, backward K5 (or its
+                                                row mode: RowGrads)
   -> masked single-query attention -> code vector      K2, backward K6
   -> logits = code_vector @ target_embedding.T         plain product
   -> softmax cross-entropy (train loss)                K7
@@ -15,6 +16,13 @@ backward, so the module trains once its parameters require grad
 (training/state.py). As in the reference, `deterministic=False` turns
 dropout on; its mask is drawn from (dropout_seed, dropout_step) or given
 as `dropout_mask` (kernels/encoder.py).
+
+For the sparse train step (training/step.py), `encode(...,
+row_grads=RowGrads())` runs the same forward, and its backward leaves
+the gradients of the gathered rows in the RowGrads (K5's row mode) in
+place of table-shaped gradients: the reference's gather outside the
+differentiated function, then `apply_from_rows` (:213-224), whose rows
+take the same values as the gather inside K1.
 
 The classifier product is left to the library, as the reference leaves
 it to XLA: bf16 operands with f32 results (`matmul_f32`), forward and
@@ -34,7 +42,9 @@ from code2vec_tpu_torch.kernels.attention import (
     masked_attention, masked_attention_backward,
 )
 from code2vec_tpu_torch.kernels.encoder import Dropout, context_encoder
-from code2vec_tpu_torch.kernels.encoder_backward import encoder_backward
+from code2vec_tpu_torch.kernels.encoder_backward import (
+    encoder_backward, encoder_backward_rows,
+)
 from code2vec_tpu_torch.kernels.softmax_xent import softmax_xent
 
 
@@ -77,14 +87,26 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+class RowGrads:
+    """Where the row-gradient encoder's backward leaves the gradients of
+    the gathered rows: `tok` (2, B, M, td), the source then the target
+    rows, and `path` (B, M, pd), in the compute dtype."""
+
+    def __init__(self):
+        self.tok: Optional[torch.Tensor] = None
+        self.path: Optional[torch.Tensor] = None
+
+
 class _EncoderFn(torch.autograd.Function):
     """K1 forward, K5 backward. The backward re-gathers the context and
     redraws the dropout mask instead of saving them; it differentiates
-    tanh at K1's output plus K1's residual (kernels/encoder.py)."""
+    tanh at K1's output plus K1's residual (kernels/encoder.py). With
+    `row_grads` it runs K5's row mode: the tables' gradients go there as
+    rows, never to the tables."""
 
     @staticmethod
     def forward(ctx, token_embedding, path_embedding, transform, src, pth,
-                tgt, compute_dtype, dropout):
+                tgt, compute_dtype, dropout, row_grads):
         t, t_lo = context_encoder(
             token_embedding, None, path_embedding, None, transform, src,
             pth, tgt, compute_dtype=compute_dtype, dropout=dropout,
@@ -93,15 +115,21 @@ class _EncoderFn(torch.autograd.Function):
                               src, pth, tgt, t, t_lo)
         ctx.mark_non_differentiable(t_lo)
         ctx.compute_dtype, ctx.dropout = compute_dtype, dropout
+        ctx.row_grads = row_grads
         return t, t_lo
 
     @staticmethod
     def backward(ctx, dt, d_t_lo):
         tok, path, w, src, pth, tgt, t, t_lo = ctx.saved_tensors
-        d_tok, d_path, dw = encoder_backward(
-            dt.contiguous(), t, t_lo, tok, path, w, src, pth, tgt,
-            compute_dtype=ctx.compute_dtype, dropout=ctx.dropout)
-        return d_tok, d_path, dw, None, None, None, None, None
+        args = (dt.contiguous(), t, t_lo, tok, path, w, src, pth, tgt)
+        kw = dict(compute_dtype=ctx.compute_dtype, dropout=ctx.dropout)
+        if ctx.row_grads is None:
+            d_tok, d_path, dw = encoder_backward(*args, **kw)
+        else:
+            rows = ctx.row_grads
+            rows.tok, rows.path, dw = encoder_backward_rows(*args, **kw)
+            d_tok = d_path = None
+        return d_tok, d_path, dw, None, None, None, None, None, None
 
 
 class _AttentionFn(torch.autograd.Function):
@@ -211,27 +239,32 @@ class Code2VecModule(nn.Module):
                            target_token_indices: torch.Tensor,
                            deterministic: bool = True,
                            dropout_seed: int = 0, dropout_step: int = 0,
-                           dropout_mask: Optional[torch.Tensor] = None
+                           dropout_mask: Optional[torch.Tensor] = None,
+                           row_grads: Optional[RowGrads] = None
                            ) -> torch.Tensor:
         """(B, M) ids -> (B, M, code_dim) in the compute dtype; with
-        deterministic=False, dropout on the (B, M, 3d) context."""
+        deterministic=False, dropout on the (B, M, 3d) context. With
+        `row_grads`, the backward leaves the tables' gradients there as
+        rows (the sparse step)."""
         return _EncoderFn.apply(
             self.token_embedding, self.path_embedding, self.transform,
             source_token_indices, path_indices, target_token_indices,
             self.compute_dtype,
             self._dropout(deterministic, dropout_seed, dropout_step,
-                          dropout_mask))[0]
+                          dropout_mask), row_grads)[0]
 
     def encode(self, source_token_indices, path_indices,
                target_token_indices, context_valid_mask,
                deterministic: bool = True, dropout_seed: int = 0,
                dropout_step: int = 0,
-               dropout_mask: Optional[torch.Tensor] = None
+               dropout_mask: Optional[torch.Tensor] = None,
+               row_grads: Optional[RowGrads] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Code vectors (B, code_dim) f32 + attention weights (B, M)."""
         transformed = self.transform_contexts(
             source_token_indices, path_indices, target_token_indices,
-            deterministic, dropout_seed, dropout_step, dropout_mask)
+            deterministic, dropout_seed, dropout_step, dropout_mask,
+            row_grads)
         code_vectors, attention = _AttentionFn.apply(
             transformed, self.attention[:, 0], context_valid_mask)
         return code_vectors.float(), attention

@@ -16,11 +16,10 @@ Embedding-space safety is the handle's job:
   port has not ported yet.
 
 Search limits: k and nprobe are bucketed to powers of two, as the
-reference does, and the search kernels (K3's float32 mode, K11) take k up
-to MAX_SEARCH_K. A larger bucketed k raises SearchLimitExceeded (HTTP
-422); it is never routed to a plain version. The reference's `obs`
-metrics (retrieval_search_seconds, serving_retrieval_detached_total) and
-trace spans are not ported.
+reference does, and k is clamped to the index rows; the search kernels
+(K3's float32 mode, K11) take any such k (above 64 through K13). The
+reference's `obs` metrics (retrieval_search_seconds,
+serving_retrieval_detached_total) and trace spans are not ported.
 """
 
 from __future__ import annotations
@@ -30,10 +29,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from code2vec_tpu_torch.kernels import ivf, topk
 from code2vec_tpu_torch.retrieval.index import NeighborIndex, load_index
-
-MAX_SEARCH_K = min(ivf.MAX_K, topk.MAX_K)
 
 
 def _pow2_ceil(n: int) -> int:
@@ -43,10 +39,6 @@ def _pow2_ceil(n: int) -> int:
 class EmbeddingSpaceMismatch(RuntimeError):
     """A /neighbors answer would have crossed embedding spaces (model
     fingerprint != index fingerprint); maps to 503."""
-
-
-class SearchLimitExceeded(ValueError):
-    """A k beyond what the search kernels take; maps to 422."""
 
 
 class RetrievalHandle:
@@ -67,12 +59,10 @@ class RetrievalHandle:
               device="cuda") -> "RetrievalHandle":
         """Load + fingerprint-check an index for a live model. Raises
         IndexArtifactError (named field) on any validation failure,
-        including an embedding-space mismatch, and SearchLimitExceeded
-        for a default k the search kernels do not take."""
+        including an embedding-space mismatch."""
         index = load_index(path, expect_fingerprint=model_fingerprint,
                            device=device)
         handle = cls(index, default_topk=default_topk)
-        handle.search_k()
         if log is not None:
             log(f"Retrieval index mounted from {path}: "
                 f"{index.rows} rows, backend {index.backend}, "
@@ -121,16 +111,10 @@ class RetrievalHandle:
 
     def search_k(self, k: Optional[int] = None) -> int:
         """The k the search runs at: the request's (or the default),
-        clamped to the index rows and bucketed to a power of two; raises
-        SearchLimitExceeded past MAX_SEARCH_K."""
+        clamped to the index rows and bucketed to a power of two."""
         k = self.default_topk if k is None else max(1, int(k))
         k = min(k, self.index.rows)
-        k_eff = min(_pow2_ceil(k), self.index.rows)
-        if k_eff > MAX_SEARCH_K:
-            raise SearchLimitExceeded(
-                f"k={k} searches {k_eff} neighbors, above the limit of "
-                f"{MAX_SEARCH_K} per method")
-        return k_eff
+        return min(_pow2_ceil(k), self.index.rows)
 
     def neighbors(self, code_vectors: np.ndarray, result_fingerprint: str,
                   k: Optional[int] = None, nprobe: Optional[int] = None

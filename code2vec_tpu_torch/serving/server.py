@@ -13,9 +13,8 @@ Each request runs the extractor (a cold subprocess) on its thread, then
 joins the dynamic batcher, whose one dispatcher thread runs the model on
 the card; /neighbors then searches the index on the request's thread.
 Response bodies are those of code2vec_tpu/serving/server.py (:523-560,
-:680-765), keys sorted. /neighbors answers 404 without a mount, 503
-when the index and the model embed in different spaces, and 422 for a k
-the search kernels do not take (retrieval/api.py MAX_SEARCH_K). The
+:680-765), keys sorted. /neighbors answers 404 without a mount and 503
+when the index and the model embed in different spaces. The
 reference's cache, admission control, breakers, telemetry, supervisor
 and hot swap are not ported.
 """
@@ -77,9 +76,7 @@ class PredictionServer:
 
     def _neighbor_knobs(self, params: Optional[Dict]) -> Dict:
         """The request's `k` and `nprobe` (JSON body), defaulted and
-        checked: 400 for a malformed value, 422 for a k past the search
-        kernels' limit."""
-        from code2vec_tpu_torch.retrieval.api import SearchLimitExceeded
+        checked: 400 for a malformed value."""
         params = params or {}
         try:
             k = int(params.get("k", self.retrieval.default_topk))
@@ -89,10 +86,6 @@ class PredictionServer:
             raise _HTTPError(400, "k and nprobe must be integers")
         if k < 1 or (nprobe is not None and nprobe < 1):
             raise _HTTPError(400, "k and nprobe must be >= 1")
-        try:
-            self.retrieval.search_k(k)
-        except SearchLimitExceeded as e:
-            raise _HTTPError(422, str(e))
         return {"k": k, "nprobe": nprobe}
 
     def _render_neighbors(self, raw, knobs: Dict) -> dict:

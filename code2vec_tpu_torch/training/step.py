@@ -1,12 +1,18 @@
-"""The dense single-device train step.
+"""The single-device train steps: dense, and sparse (touched-rows Adam
+for the token and path tables).
 
 The counterpart of code2vec_tpu/training/step.py TrainStepBuilder with
-mesh=None (`_make_gspmd_train_step` :177-199 and `_loss_from_logits`
-:170-175): forward with dropout keyed by (seed, step), the softmax
-cross-entropy over the logits, backward, and Adam over every parameter.
-On CUDA tensors every stage runs a hand-written kernel (K1, K2, K7, then
-K6, K5 and K8) or raises; on CPU tensors their plain versions run. The
-sparse, tensor- and context-parallel steps are not ported yet.
+mesh=None: `_make_gspmd_train_step` (:177-199) and
+`_make_gspmd_sparse_train_step` (:198-269), with `_loss_from_logits`
+(:170-175). Both run the forward with dropout keyed by (seed, step), the
+softmax cross-entropy over the logits and the backward. The dense step
+then runs Adam over every parameter (K8). The sparse step takes the
+tables' gradients as rows (K5's row mode) and runs K8 over the dense
+subtree only and K12 over each table's touched rows, with bias
+correction from the global step. On CUDA tensors every stage runs a
+hand-written kernel (K1, K2, K7, then K6, K5 and K8, and K12) or raises;
+on CPU tensors their plain versions run. The tensor- and
+context-parallel steps are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,8 +22,12 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from code2vec_tpu_torch.kernels.adam import AdamHyper, adam
-from code2vec_tpu_torch.models.code2vec import Code2VecModule
-from code2vec_tpu_torch.training.state import TrainState
+from code2vec_tpu_torch.kernels.sparse_adam import sparse_adam
+from code2vec_tpu_torch.models.code2vec import Code2VecModule, RowGrads
+from code2vec_tpu_torch.training.sparse_adam import HybridOptState
+from code2vec_tpu_torch.training.state import (
+    SPARSE_PARAM_NAMES, TrainState, uses_sparse_update,
+)
 
 # the reference keys dropout with jax.random.key(config.seed + 2)
 # (training/state.py dropout_rng)
@@ -41,10 +51,20 @@ class TrainStepBuilder:
         """(state, src, pth, tgt, mask, labels, valid, dropout_seed,
         dropout_mask=None) -> (state, loss). The state is updated in place
         and returned; `dropout_mask` (B, M, 3d) bool replaces the drawn
-        mask (tests)."""
+        mask (tests). The state's optimizer state says which step: a
+        HybridOptState the sparse one, which the config must ask for."""
         if set(example_state.params) != set(
                 dict(self.module.named_parameters())):
             raise ValueError("the state's parameters are not the module's")
+        sparse = isinstance(example_state.opt_state, HybridOptState)
+        if sparse != uses_sparse_update(self.config):
+            raise ValueError(
+                f"TrainState opt_state is {'sparse' if sparse else 'dense'} "
+                f"but config.use_sparse_embedding_update="
+                f"{uses_sparse_update(self.config)}; pass the same config "
+                f"to create_train_state and TrainStepBuilder.")
+        if sparse:
+            return self._make_sparse_train_step()
         module, hyper = self.module, self.optimizer
 
         def train_step(state: TrainState, src, pth, tgt, mask, labels,
@@ -69,6 +89,59 @@ class TrainStepBuilder:
                 p.grad = None
             state.opt_state.count = count
             state.step += 1
+            return state, loss.detach()
+
+        return train_step
+
+    def _adam_kwargs(self) -> dict:
+        """K12's hyper-parameters: those of the dense subtree's Adam, so
+        the two updates agree on the rows they both could touch."""
+        cfg = self.config
+        return dict(lr=cfg.learning_rate, b1=cfg.adam_beta1,
+                    b2=cfg.adam_beta2, eps=cfg.adam_eps)
+
+    def _make_sparse_train_step(self) -> Callable:
+        module, hyper = self.module, self.optimizer
+        row_adam = self._adam_kwargs()
+
+        def train_step(state: TrainState, src, pth, tgt, mask, labels,
+                       valid, seed: int,
+                       dropout_mask: Optional[torch.Tensor] = None
+                       ) -> Tuple[TrainState, torch.Tensor]:
+            names = [n for n in state.params if n not in SPARSE_PARAM_NAMES]
+            params = [state.params[n] for n in names]
+            for p in params:
+                p.grad = None
+            rows = RowGrads()
+            code_vectors, _ = module.encode(
+                src, pth, tgt, mask, deterministic=False, dropout_seed=seed,
+                dropout_step=state.step, dropout_mask=dropout_mask,
+                row_grads=rows)
+            loss = module.train_loss(code_vectors, labels, valid.float())
+            loss.backward()
+            dense = state.opt_state.dense
+            count = dense.count + 1
+            t = state.step + 1   # bias correction from the global step
+            slots = state.opt_state.slots
+            tok = state.params["token_embedding"]
+            path = state.params["path_embedding"]
+            with torch.no_grad():
+                adam(params, [p.grad for p in params],
+                     [dense.mu[n] for n in names],
+                     [dense.nu[n] for n in names], count, hyper)
+                # the source positions first, then the targets: the
+                # reference's concat of the token ids
+                sparse_adam(tok, slots["token_embedding"],
+                            torch.cat([src.reshape(-1), tgt.reshape(-1)]),
+                            rows.tok.reshape(-1, tok.shape[1]), t=t,
+                            **row_adam)
+                sparse_adam(path, slots["path_embedding"], pth.reshape(-1),
+                            rows.path.reshape(-1, path.shape[1]), t=t,
+                            **row_adam)
+            for p in params:
+                p.grad = None
+            dense.count = count
+            state.step = t
             return state, loss.detach()
 
         return train_step

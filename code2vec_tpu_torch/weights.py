@@ -54,24 +54,40 @@ def _adam_leaf(opt_state):
     return None
 
 
+def _tensor(a) -> torch.Tensor:
+    """An array (numpy or device, bf16 or f32) -> a tensor of its dtype."""
+    a = np.asarray(a)
+    dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+    # widened losslessly to f32 for numpy, then narrowed back
+    return torch.from_numpy(a.astype(np.float32)).to(dtype)
+
+
 def opt_state_from_jax(opt_state):
     """optax's ScaleByAdamState (alone or inside a chain, with numpy or
-    device arrays) -> training.state.AdamState. Each moment keeps its
-    storage dtype (bf16 or f32)."""
+    device arrays) -> training.state.AdamState over the parameters it
+    holds; a sparse step's HybridOptState (the dense subtree's optax
+    state and the tables' `slots[name].mu/.nu`) ->
+    training.sparse_adam.HybridOptState. Each moment keeps its storage
+    dtype (bf16 or f32)."""
+    from code2vec_tpu_torch.training.sparse_adam import (
+        HybridOptState, RowAdamSlots,
+    )
     from code2vec_tpu_torch.training.state import AdamState
+    if hasattr(opt_state, "dense") and hasattr(opt_state, "slots"):
+        return HybridOptState(
+            dense=opt_state_from_jax(opt_state.dense),
+            slots={k: RowAdamSlots(mu=_tensor(s.mu), nu=_tensor(s.nu))
+                   for k, s in opt_state.slots.items()})
     leaf = _adam_leaf(opt_state)
     if leaf is None:
         raise KeyError("optimizer state holds no (count, mu, nu) state")
 
     def tensors(tree):
-        out = {}
-        for k in PARAM_NAMES:
-            a = np.asarray(tree[k])
-            dtype = torch.bfloat16 if a.dtype.name == "bfloat16" \
-                else torch.float32
-            # widened losslessly to f32 for numpy, then narrowed back
-            out[k] = torch.from_numpy(a.astype(np.float32)).to(dtype)
-        return out
+        unknown = [k for k in tree if k not in PARAM_NAMES]
+        if unknown:
+            raise KeyError(f"optimizer state names unknown parameters "
+                           f"{unknown}")
+        return {k: _tensor(tree[k]) for k in PARAM_NAMES if k in tree}
 
     return AdamState(count=int(np.asarray(leaf.count)), mu=tensors(leaf.mu),
                      nu=tensors(leaf.nu))

@@ -2,12 +2,15 @@
 """Where the port's flagship train step spends its time, on one CUDA GPU.
 
     python3 scripts/profile_torch_train.py [--seed N] [--steps N]
+        [--sparse_embedding_update]
 
 Run from the repo root on a machine with a CUDA GPU and nvcc. It builds
 the flagship model at full width (java14m vocabularies, dims 128/384,
 bf16 compute, Adam with the config's moment dtypes) with random weights
 from --seed, takes a random batch of 1024 methods x 200 contexts (80% of
-contexts valid), and prints:
+contexts valid), and prints, for the dense step or (with
+--sparse_embedding_update, as the `train` command takes it) the sparse
+one:
 
 - the step time: median over --steps steps of CUDA events around one
   step (the step's device work, no host read-back), and examples/s;
@@ -31,6 +34,7 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--sparse_embedding_update", action="store_true")
     args = p.parse_args()
 
     import torch
@@ -50,7 +54,7 @@ def main() -> None:
     build.build_all()
     fs, ft = chip_smoke.flagship(), chip_smoke.flagship_train()
     dev = torch.device("cuda")
-    config = Config()
+    config = Config(use_sparse_embedding_update=args.sparse_embedding_update)
     dims = ModelDims(fs.vocab["token"] + 1, fs.vocab["path"] + 1,
                      fs.vocab["target"] + 1, token_dim=fs.token_dim,
                      path_dim=fs.path_dim)
@@ -58,7 +62,7 @@ def main() -> None:
     module = Code2VecModule(dims, device=dev, generator=g,
                             dropout_keep_rate=ft.keep)
     hyper = make_optimizer(config)
-    state = create_train_state(module, hyper)
+    state = create_train_state(module, hyper, config)
     step = TrainStepBuilder(module, hyper, config).make_train_step(state)
     b, m = ft.rows, ft.contexts
     batch = [torch.randint(0, hi, (b, m), generator=g, device=dev,
@@ -70,7 +74,8 @@ def main() -> None:
     batch.append(torch.randint(1, dims.target_vocab_size, (b,), generator=g,
                                device=dev, dtype=torch.int32))
     batch.append(torch.ones(b, dtype=torch.bool, device=dev))
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; "
+          f"{'sparse' if args.sparse_embedding_update else 'dense'} step")
     for _ in range(2):
         state, _ = step(state, *batch, args.seed)
     times = []

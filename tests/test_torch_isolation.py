@@ -89,12 +89,17 @@ def _cuda_calls():
         masked_attention, masked_attention_backward,
     )
     from code2vec_tpu_torch.kernels.encoder import context_encoder
-    from code2vec_tpu_torch.kernels.encoder_backward import encoder_backward
+    from code2vec_tpu_torch.kernels.encoder_backward import (
+        encoder_backward, encoder_backward_rows,
+    )
     from code2vec_tpu_torch.kernels.label_logits import label_logits
     from code2vec_tpu_torch.kernels.softmax_xent import softmax_xent
     from code2vec_tpu_torch.kernels.ivf import ivf_search
     from code2vec_tpu_torch.kernels.kmeans import kmeans_assign, kmeans_update
+    from code2vec_tpu_torch.kernels.select import select_topk
+    from code2vec_tpu_torch.kernels.sparse_adam import sparse_adam
     from code2vec_tpu_torch.kernels.topk import blockwise_topk
+    from code2vec_tpu_torch.training.sparse_adam import RowAdamSlots
 
     def t(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="cuda")
@@ -117,6 +122,17 @@ def _cuda_calls():
             t((2, 3, 384), torch.bfloat16), t((50, 128)), t((40, 128)), t((384, 384)),
             t((2, 3), torch.int32), t((2, 3), torch.int32),
             t((2, 3), torch.int32)),
+        "encoder_backward_rows": lambda: encoder_backward_rows(
+            t((2, 3, 384), torch.bfloat16), t((2, 3, 384), torch.bfloat16),
+            t((2, 3, 384), torch.bfloat16), t((50, 128)), t((40, 128)),
+            t((384, 384)), t((2, 3), torch.int32), t((2, 3), torch.int32),
+            t((2, 3), torch.int32)),
+        "sparse_adam": lambda: sparse_adam(
+            t((50, 128)), RowAdamSlots(mu=t((50, 128), torch.bfloat16),
+                                       nu=t((50, 128))),
+            t((12,), torch.int32), t((12, 128), torch.bfloat16), t=1,
+            lr=1e-3, b1=0.9, b2=0.999, eps=1e-8),
+        "select_topk": lambda: select_topk(t((2, 100)), 70),
         "masked_attention_backward": lambda: masked_attention_backward(
             t((2, 3, 384), torch.bfloat16), t((384,)), t((2, 3)), t((2, 3)),
             t((2, 384))),

@@ -33,6 +33,10 @@ Tolerances, and why:
   thousand f32 rows, summed in another order (about 1e-6 relative).
 - K9: an assignment may differ only where the two nearest centroids'
   distances lie within 1e-4 (relative) of each other.
+- K13: exact (the same positions, values read back from the scores).
+- K12: K8's (rtol 1e-6, atol 1e-9; a bf16 mu equal or one bf16 step
+  apart), on gradient rows whose duplicate sums are exact in f32 in any
+  order; untouched rows and reruns bit-equal.
 """
 
 import math
@@ -226,9 +230,10 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
     tbl = torch.zeros((100, 384), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="scales"):
         blockwise_topk(cv, tbl, 10, 4096)
-    with pytest.raises(ValueError, match="range"):
-        blockwise_topk(cv, tbl, 65, 4096,
-                       scales=torch.ones((100, 1), device=dev))
+    # a k above the 64-entry lists is no refusal: K13 answers it
+    out = blockwise_topk(cv, tbl, 65, 4096,
+                         scales=torch.ones((100, 1), device=dev))
+    assert out.indices.shape == (2, 65)
 
 
 def test_release_model_cuda_matches_cpu(dev, tmp_path):
@@ -651,9 +656,221 @@ def test_ivf_search_duplicate_order(dev):
 
 
 def test_ivf_search_refuses_large_k(dev):
+    """No k is refused any more: k 65 over 20 candidates answers as the
+    plain version does (20 rows, then dead slots)."""
     rng = np.random.default_rng(1)
     t, _ = _ivf_index(rng, dev, "f32", [10, 10], dup=False)
-    q = torch.zeros((2, 384), device=dev)
-    with pytest.raises(ValueError, match="range"):
-        ivf_search(q, t["cent"], t["rows"], t["offsets"], 2, 65,
-                   max_len=t["max_len"])
+    q = torch.from_numpy(rng.standard_normal((2, 384)).astype(np.float32)
+                         ).to(dev)
+    args = (q, t["cent"], t["rows"], t["offsets"], 2, 65)
+    got_v, got_i = ivf_search(*args, max_len=t["max_len"])
+    want_v, want_i = ivf_search_plain(*args, max_len=t["max_len"])
+    assert torch.equal(got_i, want_i)
+    assert torch.isneginf(got_v[:, 20:]).all()
+
+
+# ------------------------------------------------- large k (K13), K12
+
+
+def _select_close(got, want):
+    """K13 against the plain stable sort: positions equal, values equal
+    bit for bit (they are read back from the scores), NaN on NaN."""
+    assert torch.equal(got[1], want[1])
+    g, w = got[0].cpu(), want[0].cpu()
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert torch.equal(g.nan_to_num(), w.nan_to_num())
+
+
+@pytest.mark.parametrize("b,n,k", [(3, 1001, 1), (64, 30011, 100),
+                                   (5, 200003, 1000), (2, 40000, 20000),
+                                   (4, 77, 77)])
+def test_select_topk_kernel(dev, b, n, k):
+    """Ties (a value repeated across the row), NaN and -inf entries, +0
+    and -0, k up to the whole row and past the shared-memory sort."""
+    from code2vec_tpu_torch.kernels.select import (
+        padded_width, select_topk, select_topk_plain,
+    )
+    rng = np.random.default_rng(n + k)
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    x[:, ::7] = 0.5                  # ties spread over the row
+    x[0, 3] = np.nan
+    x[0, 10] = -np.inf
+    x[-1, 5], x[-1, 6] = 0.0, -0.0
+    scores = torch.full((b, padded_width(n)), 7.0, device=dev)
+    scores[:, :n] = torch.from_numpy(x).to(dev)  # padding never selected
+    before = kernels.launch_counts()["select_topk"]
+    got = select_topk(scores, k, n=n)
+    assert kernels.launch_counts()["select_topk"] == before + 1
+    _select_close(got, select_topk_plain(scores, k, n=n))
+    again = select_topk(scores, k, n=n)
+    assert torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("k", [65, 1000])
+def test_blockwise_topk_large_k_kernel(dev, f32, k):
+    """K3's large-k mode: the scores, then K13; ties among identical
+    rows go to the lower row, the logsumexp is the lists' one."""
+    rng = np.random.default_rng(k)
+    v, valid = 20011, 20003
+    cv, table = _separated(rng, v, 9, valid)
+    table[[11, 700, 9000]] = table[5]               # identical rows
+    cv_t = torch.from_numpy(cv).to(dev)
+    tbl = torch.from_numpy(table).to(dev)
+    cd = torch.float32 if f32 else torch.bfloat16
+    name = "blockwise_topk_f32" if f32 else "blockwise_topk"
+    before = kernels.launch_counts()
+    got = blockwise_topk(cv_t, tbl, k, 4096, valid_rows=valid,
+                         compute_dtype=cd)
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after["select_topk"] == before["select_topk"] + 1
+    want = blockwise_topk_plain(cv_t, tbl, k, 4096, valid_rows=valid,
+                                compute_dtype=cd)
+    tol = F32DOT if f32 else F32SUM
+    _close(got.values, want.values, tol)
+    _close(got.lse, want.lse, tol)
+    small = blockwise_topk(cv_t, tbl, 64, 4096, valid_rows=valid,
+                           compute_dtype=cd)
+    _close(got.lse, small.lse, dict(rtol=1e-6, atol=1e-6))
+    # the well-separated head and the identical rows' order are exact
+    assert torch.equal(got.indices[:, :64], small.indices)
+    assert (got.indices < valid).all()
+    vals, idx = got.values.cpu(), got.indices.cpu()
+    for r in range(idx.shape[0]):
+        same = [int(i) for i, x in zip(idx[r], vals[r])
+                if int(i) in (5, 11, 700, 9000)]
+        assert same == sorted(same)
+
+
+@pytest.mark.parametrize("scheme", ["f32", "int8"])
+@pytest.mark.parametrize("k,nprobe", [(65, 3), (100, 9), (200, 9)])
+def test_ivf_search_large_k_kernel(dev, scheme, k, nprobe):
+    """K11's large-k mode against the plain version: candidate order
+    among duplicates, dead slots past the candidates."""
+    rng = np.random.default_rng(k + nprobe)
+    sizes = [0, 1, 40, 0, 25, 3, 1, 30, 17]
+    t, lo = _ivf_index(rng, dev, scheme, sizes)
+    n = int(sum(sizes))
+    q = torch.from_numpy(rng.standard_normal((6, 384)).astype(np.float32)
+                         ).to(dev)
+    q[0] = t["rows"][lo + 2].float() * (1.0 if t["scales"] is None
+                                        else t["scales"][lo + 2])
+    gids = torch.from_numpy(rng.permutation(10 * n)[:n].astype(np.int32)
+                            ).to(dev) if scheme == "int8" else None
+    args = (q, t["cent"], t["rows"], t["offsets"], nprobe, k)
+    kw = dict(scales=t["scales"], global_ids=gids, max_len=t["max_len"])
+    name = "ivf_search_int8" if scheme == "int8" else "ivf_search"
+    before = kernels.launch_counts()
+    got_v, got_i = ivf_search(*args, **kw)
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after["select_topk"] == before["select_topk"] + 1
+    want_v, want_i = ivf_search_plain(*args, **kw)
+    assert torch.equal(got_i, want_i)
+    live = torch.isfinite(want_v)
+    _close(got_v, want_v, dict(rtol=1e-5, atol=1e-6 * float(
+        want_v[live].abs().max())))
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+@pytest.mark.parametrize("b,m,repeat", [(3, 5, False), (64, 200, False),
+                                        (16, 33, True)])
+def test_encoder_backward_rows_kernel(dev, keep, b, m, repeat):
+    """K5's row mode against its plain version; its rows summed by id
+    against the dense mode's table gradients."""
+    from code2vec_tpu_torch.kernels.encoder_backward import (
+        encoder_backward_rows, encoder_backward_rows_plain,
+    )
+    rng, tok, pth, w, ids = _train_inputs(dev, b, m, repeat=repeat)
+    drawn = torch.empty((b, m, 384), dtype=torch.bool, device=dev)
+    t, lo = context_encoder(tok, None, pth, None, w, *ids,
+                            dropout=Dropout(keep, seed=1, step=2,
+                                            out_mask=drawn), residual=True)
+    dt = torch.from_numpy((0.1 * rng.standard_normal((b, m, 384))
+                           ).astype(np.float32)).to(dev).to(torch.bfloat16)
+    drop = Dropout(keep, seed=1, step=2)
+    before = kernels.launch_counts()
+    got = encoder_backward_rows(dt, t, lo, tok, pth, w, *ids, dropout=drop)
+    after = kernels.launch_counts()
+    assert after["encoder_backward_rows"] == \
+        before["encoder_backward_rows"] + 1
+    assert after["encoder_backward"] == before["encoder_backward"]
+    assert got[0].shape == (2, b, m, 128) and got[1].shape == (b, m, 128)
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    want = encoder_backward_rows_plain(dt, t, lo, tok, pth, w, *ids,
+                                       dropout=Dropout(keep, mask=drawn))
+    for name, g, x in zip(("token rows", "path rows", "d_transform"), got,
+                          want):
+        _step_close(g, x, name)
+    dense = encoder_backward(dt, t, lo, tok, pth, w, *ids, dropout=drop)
+    assert torch.equal(got[2], dense[2])
+    tok_ids = torch.cat([ids[0].flatten(), ids[2].flatten()]).long()
+    summed = torch.zeros_like(tok).index_add_(
+        0, tok_ids, got[0].reshape(-1, 128).float())
+    _close(summed, dense[0], dict(rtol=1e-5, atol=1e-6))
+
+
+def _zipf_ids(rng, n, v, s=1.07):
+    ranks = np.arange(1, v + 1, dtype=np.float64)
+    p = ranks ** -s
+    return rng.choice(v, size=n, p=p / p.sum()).astype(np.int32)
+
+
+@pytest.mark.parametrize("mu", ["bfloat16", "float32"])
+@pytest.mark.parametrize("v,n,dist", [(1000, 5000, "uniform"),
+                                      (50000, 40000, "zipf"),
+                                      (300, 70000, "zipf"),
+                                      (5000, 1, "uniform")])
+def test_sparse_adam_kernel(dev, mu, v, n, dist):
+    """K12 against its plain version: touched rows within Adam's
+    tolerance, untouched rows bit-equal, ids past the table dropped, two
+    runs bit-equal. The gradient rows are bf16 integers times 2^-12, so
+    every partial sum of a duplicated id is exact in f32 and the kernel's
+    order of the sums (fixed 64-row slices) gives the plain version's g."""
+    from code2vec_tpu_torch.kernels.sparse_adam import (
+        sparse_adam, sparse_adam_plain,
+    )
+    from code2vec_tpu_torch.training.sparse_adam import RowAdamSlots
+    rng = np.random.default_rng(v + n)
+    ids = (_zipf_ids(rng, n, v) if dist == "zipf"
+           else rng.integers(0, v, n).astype(np.int32))
+    if n > 3:
+        ids[:3] = [v, v + 9, -1]
+    grads = (rng.integers(-127, 128, (n, 128)) * 2.0 ** -12).astype(
+        np.float32)
+    mdt = torch.bfloat16 if mu == "bfloat16" else torch.float32
+    table = torch.from_numpy(rng.standard_normal((v, 128)).astype(
+        np.float32)).to(dev)
+    m0 = torch.from_numpy((rng.standard_normal((v, 128)) * 1e-3).astype(
+        np.float32)).to(dev).to(mdt)
+    n0 = torch.from_numpy((rng.random((v, 128)) * 1e-6).astype(
+        np.float32)).to(dev)
+    ids_t = torch.from_numpy(ids).to(dev)
+    g_t = torch.from_numpy(grads).to(dev).to(torch.bfloat16)
+    outs = []
+    for _ in range(2):
+        tb, slots = table.clone(), RowAdamSlots(mu=m0.clone(),
+                                                nu=n0.clone())
+        before = kernels.launch_counts()["sparse_adam"]
+        sparse_adam(tb, slots, ids_t, g_t, t=5, lr=1e-3, b1=0.9,
+                    b2=0.999, eps=1e-8)
+        assert kernels.launch_counts()["sparse_adam"] == before + 1
+        outs.append((tb, slots.mu, slots.nu))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)                # two runs, the same bits
+    tb, slots = table.clone(), RowAdamSlots(mu=m0.clone(), nu=n0.clone())
+    sparse_adam_plain(tb, slots, ids_t, g_t, t=5, lr=1e-3, b1=0.9,
+                      b2=0.999, eps=1e-8)
+    got_p, got_m, got_n = outs[0]
+    _close(got_p, tb, dict(rtol=1e-6, atol=1e-9))
+    _close(got_n, slots.nu, dict(rtol=1e-6, atol=1e-12))
+    step = 2.0 ** -7 if mdt == torch.bfloat16 else 1e-6
+    assert ((got_m.float() - slots.mu.float()).abs()
+            <= step * slots.mu.float().abs() + 1e-12).all()
+    touched = torch.zeros(v, dtype=torch.bool, device=dev)
+    ok = (ids_t >= 0) & (ids_t < v)
+    touched[ids_t[ok].long()] = True
+    assert torch.equal(got_p[~touched], table[~touched])
+    assert torch.equal(got_m[~touched], m0[~touched])
+    assert torch.equal(got_n[~touched], n0[~touched])

@@ -40,8 +40,7 @@ from code2vec_tpu_torch.retrieval import index as tindex
 from code2vec_tpu_torch.retrieval import mips as tmips
 from code2vec_tpu_torch.retrieval import store as tstore
 from code2vec_tpu_torch.retrieval.api import (
-    MAX_SEARCH_K, EmbeddingSpaceMismatch, RetrievalHandle,
-    SearchLimitExceeded,
+    EmbeddingSpaceMismatch, RetrievalHandle,
 )
 from code2vec_tpu_torch.retrieval.embed_job import run_embed_job
 from code2vec_tpu_torch.serving.server import PredictionServer
@@ -547,12 +546,16 @@ def test_neighbors_body_matches_jax(neighbor_servers, params):
 
 
 def test_neighbors_errors_and_healthz(neighbor_servers, monkeypatch):
-    _, tserver, url, _ = neighbor_servers
+    jserver, tserver, url, _ = neighbor_servers
+    # a k above the 64 entries of the kernels' lists is answered, as the
+    # reference answers it
+    want = json.loads(jserver.handle("neighbors", SOURCE,
+                                     params={"k": 100}))
     status, body = _post(f"{url}/neighbors",
-                         json.dumps({"code": SOURCE,
-                                     "k": MAX_SEARCH_K + 1}),
+                         json.dumps({"code": SOURCE, "k": 100}),
                          "application/json")
-    assert status == 422 and str(MAX_SEARCH_K) in body.decode()
+    assert status == 200, body
+    _neighbor_lists_close(json.loads(body), want)
     status, _ = _post(f"{url}/neighbors",
                       json.dumps({"code": SOURCE, "k": 0}),
                       "application/json")
@@ -575,10 +578,10 @@ def test_neighbors_refuses_other_embedding_spaces(neighbor_servers,
     with pytest.raises(tindex.IndexArtifactError, match="model_fingerprint"):
         RetrievalHandle.mount(idx, "artifact:0000000000000000",
                               device="cpu")
-    # a default k the search kernels do not take is refused at mount
-    with pytest.raises(SearchLimitExceeded, match="limit of 64"):
-        RetrievalHandle.mount(idx, tserver.fingerprint, default_topk=65,
-                              device="cpu")
+    # a default k above the kernels' list length is taken at mount
+    handle = RetrievalHandle.mount(idx, tserver.fingerprint, default_topk=65,
+                                   device="cpu")
+    assert handle.default_topk == 65 and handle.search_k() == 128
     handle = RetrievalHandle.mount(idx, tserver.fingerprint, device="cpu")
     with pytest.raises(EmbeddingSpaceMismatch):
         handle.neighbors(np.zeros((1, 384), np.float32), "artifact:other")
@@ -683,10 +686,105 @@ def test_cli_embed_and_index_build(f32_artifact, tmp_path):
     (["serve", "--artifact", "A", "--serve_mips_crossover", "2"],
      "serve_mips_nprobe"),
     (["serve", "--artifact", "A", "--test", "c.c2v"], "--test"),
-    (["serve", "--artifact", "A", "--retrieval_index", "I",
-      "--retrieval_topk", "65"], "limit of 64"),
 ])
 def test_cli_refuses_bad_retrieval_flags(argv, message, capsys):
     with pytest.raises(SystemExit):
         cli.config_from_args(argv)
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("k", [100, "rows"])
+def test_serve_takes_any_retrieval_topk(neighbor_servers, f32_artifact, k):
+    """`serve --retrieval_topk 65` parses, and /neighbors at k = 100 and
+    at k = the index rows (above the kernels' 64-entry lists) returns the
+    JAX server's body."""
+    jserver, tserver, url, idx = neighbor_servers
+    _, art, _ = f32_artifact
+    _, cfg = cli.config_from_args(["serve", "--artifact", art,
+                                   "--retrieval_index", idx,
+                                   "--retrieval_topk", "65",
+                                   "--device", "cpu"])
+    assert cfg.retrieval_topk == 65
+    rows = tserver.retrieval.index.rows
+    k = rows if k == "rows" else k
+    params = {"k": k, "nprobe": 64}   # every list: k real neighbors
+    want = json.loads(jserver.handle("neighbors", SOURCE, params=params))
+    status, body = _post(f"{url}/neighbors",
+                         json.dumps(dict(code=SOURCE, **params)),
+                         "application/json")
+    assert status == 200, body
+    got = json.loads(body)
+    _neighbor_lists_close(got, want)
+    assert got["index"]["k"] == k
+    assert all(len(m["neighbors"]) == min(k, rows) for m in got["methods"])
+
+
+@pytest.fixture(scope="module")
+def wide_artifact(tmp_path_factory):
+    """A tiny f32-compute JAX model over 150 method names, exported with
+    top-k 100 (above the kernels' 64-entry lists)."""
+    import pickle
+    import random
+
+    from code2vec_tpu.config import Config as JaxConfig
+    from code2vec_tpu.model_facade import Code2VecModel as JaxModel
+    tmp = tmp_path_factory.mktemp("torch-wide")
+    rng = random.Random(1)
+    tokens = [f"tok{i}" for i in range(12)]
+    paths = [f"p{i}" for i in range(6)]
+    targets = [f"name|x{i}" for i in range(150)]
+    rows = []
+    for _ in range(64):
+        t = rng.randrange(len(targets))
+        ctxs = [f"{tokens[t % 12]},{rng.choice(paths)},{tokens[t % 7]}"
+                for _ in range(rng.randint(2, 6))]
+        rows.append(f"{targets[t]} " + " ".join(ctxs))
+    prefix = str(tmp / "wide")
+    with open(prefix + ".train.c2v", "w") as f:
+        f.write("\n".join(rows) + "\n")
+    with open(prefix + ".dict.c2v", "wb") as f:
+        pickle.dump({w: 10 for w in tokens}, f)
+        pickle.dump({p: 10 for p in paths}, f)
+        pickle.dump({t: 10 for t in targets}, f)
+        pickle.dump(len(rows), f)
+    model = JaxModel(JaxConfig(
+        train_data_path_prefix=prefix, max_contexts=8, train_batch_size=8,
+        test_batch_size=8, compute_dtype="float32", verbose_mode=0,
+        serve_batch_size=4, serve_buckets="4,8", num_train_epochs=1,
+        save_every_epochs=1000, top_k_words_considered_during_prediction=100))
+    art = str(tmp / "artifact")
+    jart.export_artifact(model, art, aot=False, log=lambda m: None)
+    return model, art, rows
+
+
+@pytest.mark.parametrize("head", ["exact", "mips"])
+def test_release_model_topk_100_matches_jax(wide_artifact, head):
+    """An artifact exported with top-k 100 serves through ReleaseModel
+    with the exact head and with the MIPS head over every list, as the
+    JAX package's ReleaseModel serves it."""
+    model, art, rows = wide_artifact
+    knobs = {} if head == "exact" else dict(serve_mips_nprobe=64,
+                                            serve=True)
+    jcfg = dataclasses.replace(model.config, train_data_path_prefix=None,
+                               serve_artifact=art, serve_batch_size=4,
+                               **knobs)
+    jrm = JaxReleaseModel(jcfg, log=lambda m: None)
+    trm = ReleaseModel(_torch_config(art, **knobs))
+    assert (trm.mips_head is not None) == (head == "mips")
+    assert int(trm.meta["topk"]) == 100
+    want = jrm.predict(rows[:6], batch_size=4)
+    got = trm.predict(rows[:6], batch_size=4)
+    assert trm.head_dispatches[head] > 0
+    for g, w in zip(got, want):
+        assert len(g.topk_predicted_words) == len(w.topk_predicted_words) \
+            == 100
+        np.testing.assert_allclose(g.topk_predicted_words_scores,
+                                   w.topk_predicted_words_scores, **F32)
+        # names equal except where the reference's neighbouring
+        # probabilities are within tolerance of each other (near-ties)
+        p = np.asarray(w.topk_predicted_words_scores)
+        for j, (a, b) in enumerate(zip(g.topk_predicted_words,
+                                       w.topk_predicted_words)):
+            near = any(abs(p[j] - p[i]) <= 1e-6 + 1e-5 * abs(p[j])
+                       for i in (j - 1, j + 1) if 0 <= i < len(p))
+            assert a == b or near, (j, a, b)
