@@ -87,6 +87,27 @@ a C++ compiler. Phases, each fatal on failure:
    within one bf16 step of each tensor's largest value, untouched rows
    bit-equal.
 
+13. fp8 and int4 kernels (run after 3): the e4m3, e5m2 and packed-int4
+   modes of K1 (200 and 32 contexts), K3 (k 10, and k 100 through its
+   large-k mode and K13), K4 and K11 (the MIPS head's lists over the
+   classifier in that format; B 64 and 1 at k 10, B 64 at k 100) against
+   their plain versions at the serving shapes, to the int8 mode's
+   tolerances, timed with their bounds, plain versions and library
+   calls (the cast or torch's int4 unpack, a bf16 matmul and
+   torch.topk); all 256 codes of each fp8 format through K3 and K4.
+14. fp8 and int4 serving (run after 5): full-width artifacts of all five
+   schemes written from one set of seeded weights; the e4m3 artifact
+   served over HTTP (exact head), the int4 one with the MIPS head
+   (nprobe 16, crossover 8: one-method requests on K11's int4 mode, a
+   12-method one on the exact head): bodies checked, the mode's kernels
+   launched and the int8 ones not, the step on one padded batch GPU
+   against CPU; the e5m2 artifact on that batch in process.
+15. Evaluation: the `evaluate` command over each of the five artifacts
+   and a synthetic corpus of 4 x 1024 + 37 methods labelled with the
+   float32 artifact's top-1 names (so float32 must score top-1 1.0, and
+   each scheme's top-1 is its agreement with float32): examples/s,
+   table bytes, top-1/top-10, F1; then a 64-row subset GPU against CPU.
+
 Prints one line per kernel, then a JSON line {"kernels": [...]}, the
 card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -99,8 +120,10 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import logging
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -239,7 +262,9 @@ def max_err(got, want, tol):
     torch = sys.modules["torch"]
     g, w = got.float(), want.float()
     same_nan = torch.isnan(g) == torch.isnan(w)
-    diff = torch.where(torch.isnan(w), torch.zeros_like(w), (g - w).abs())
+    # NaN meets NaN; an infinity must meet the same one
+    diff = torch.where(torch.isnan(w) | (g == w), torch.zeros_like(w),
+                       (g - w).abs())
     ok = bool(same_nan.all()) and bool(
         (diff <= tol[0] + tol[1] * w.abs().nan_to_num()).all())
     return float(diff.max()), ok
@@ -488,14 +513,15 @@ def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
 # -------------------------------------------------------------- path phase
 
 
-def write_flagship_artifact(out_dir: str, seed: int, extracted, fs):
-    """A full-width int8 artifact from seeded random weights. The
-    vocabularies hold the tokens, hashed paths and method names the
-    extractor gives for the request sources, padded with filler words to
-    the java14m sizes, so requests gather real rows."""
+def flagship_weights(seed: int, extracted, fs):
+    """(f32 params, vocabularies) of a full-width artifact from seeded
+    random weights. The vocabularies hold the tokens, hashed paths and
+    method names the extractor gives for the request sources, padded
+    with filler words to the java14m sizes, so requests gather real rows;
+    the filler method names hold no digits, so that they can be legal
+    predictions in an evaluation."""
     import numpy as np
 
-    from code2vec_tpu_torch.release.artifact import write_artifact
     from code2vec_tpu_torch.vocab import Code2VecVocabs
 
     tokens, paths, names = {}, {}, {}
@@ -507,14 +533,14 @@ def write_flagship_artifact(out_dir: str, seed: int, extracted, fs):
                 w1, p, w2 = ctx.split(",")
                 tokens[w1] = tokens[w2] = paths[p] = None
 
-    def padded(seen, n, stem):
+    def padded(seen, n, stem, suffix=str):
         words = list(seen)[:n]
-        return words + [f"{stem}{i}" for i in range(n - len(words))]
+        return words + [f"{stem}{suffix(i)}" for i in range(n - len(words))]
 
     vocabs = Code2VecVocabs.from_words(
         padded(tokens, fs.vocab["token"], "tok"),
         padded(paths, fs.vocab["path"], "path"),
-        padded(names, fs.vocab["target"], "name|filler"))
+        padded(names, fs.vocab["target"], "name|filler", letters))
     rng = np.random.default_rng(seed)
     td, pd, d = fs.token_dim, fs.path_dim, fs.code_dim
 
@@ -534,11 +560,7 @@ def write_flagship_artifact(out_dir: str, seed: int, extracted, fs):
         "transform": uniform((d, d), math.sqrt(6 / (2 * d))),
         "attention": uniform((d, 1), math.sqrt(6 / (d + 1))),
     }
-    return write_artifact(params, vocabs, out_dir, fs.scheme,
-                          max_contexts=fs.contexts,
-                          compute_dtype=fs.compute_dtype,
-                          topk=fs.topk, topk_block_size=fs.block,
-                          serve_batch_size=fs.rows, buckets=fs.buckets)
+    return params, vocabs
 
 
 def post(url: str, body: str):
@@ -567,24 +589,24 @@ def check_predict_body(body, fingerprint):
             fail(f"/predict attention paths of {m['original_name']}")
 
 
-def path_phase(torch, seed: int, work_dir: str, fs, dev: str = "cuda"):
+def path_phase(torch, seed: int, work_dir: str, fs, weights,
+               dev: str = "cuda"):
+    """The int8 artifact of `weights` (serving_weights) served over HTTP.
+    Returns (the launch counts, (the artifact's directory, its meta))."""
     from code2vec_tpu_torch import kernels
     from code2vec_tpu_torch.config import Config
-    from code2vec_tpu_torch.data.reader import parse_context_lines
-    from code2vec_tpu_torch.kernels import label_logits
+    from code2vec_tpu_torch.release.artifact import write_artifact
     from code2vec_tpu_torch.release.runtime import ReleaseModel
-    from code2vec_tpu_torch.serving.extractor_bridge import PathExtractor
     from code2vec_tpu_torch.serving.server import PredictionServer
 
-    sources = dict(SOURCES)
-    with open(os.path.join(REPO, "Input.java")) as f:
-        sources["Input.java"] = f.read()
-    config = Config(device=dev, max_contexts=fs.contexts, verbose_mode=0)
-    extractor = PathExtractor(config)
-    extracted = [extractor.extract_source(s) for s in sources.values()]
+    params, vocabs, extracted, sources = weights
     t0 = time.perf_counter()
     art_dir = os.path.join(work_dir, "artifact")
-    meta = write_flagship_artifact(art_dir, seed, extracted, fs)
+    meta = write_artifact(params, vocabs, art_dir, fs.scheme,
+                          max_contexts=fs.contexts,
+                          compute_dtype=fs.compute_dtype, topk=fs.topk,
+                          topk_block_size=fs.block,
+                          serve_batch_size=fs.rows, buckets=fs.buckets)
     log(f"path: wrote a full-width int8 artifact in "
         f"{time.perf_counter() - t0:.1f}s: dims {meta['dims']}, "
         f"{meta['table_bytes']['artifact'] / 1e6:.1f} MB of tables")
@@ -638,8 +660,22 @@ def path_phase(torch, seed: int, work_dir: str, fs, dev: str = "cuda"):
     if missing:
         fail(f"the path launched no {missing}")
 
-    # the step on the GPU against the same step on the CPU (plain
-    # versions) on the same padded batch of every extracted method
+    step_gpu_vs_cpu(torch, model, art_dir, extracted, fs, "path", dev)
+    return counts, (art_dir, meta)
+
+
+def step_gpu_vs_cpu(torch, model, art_dir: str, extracted, fs, what: str,
+                    dev: str = "cuda"):
+    """The serving step on the GPU against the same step on the CPU
+    (plain versions) on the same padded batch of every extracted method:
+    top-k values, code vectors and attention within PATH_REL_TOL of each
+    tensor's largest value, loss_sum within TOL_F32SUM, and the top-k
+    indices equal away from near-ties."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.reader import parse_context_lines
+    from code2vec_tpu_torch.kernels import label_logits
+    from code2vec_tpu_torch.release.runtime import ReleaseModel
+
     lines = [ln for ls, _ in extracted for ln in ls][:fs.rows]
     batch = model.bucketed_batch(
         parse_context_lines(lines, model.vocabs, model.config.max_contexts),
@@ -656,11 +692,12 @@ def path_phase(torch, seed: int, work_dir: str, fs, dev: str = "cuda"):
         tol = (PATH_REL_TOL * float(w.abs().max()), 0.0)
         errs[name], ok = max_err(g, w, tol)
         if not ok:
-            fail(f"GPU vs CPU step: {name} max error {errs[name]} > {tol}")
+            fail(f"{what}: GPU vs CPU step: {name} max error "
+                 f"{errs[name]} > {tol}")
     errs["loss_sum"], ok = max_err(got.loss_sum.cpu(), want.loss_sum,
                                    TOL_F32SUM)
     if not ok:
-        fail(f"GPU vs CPU step: loss_sum {float(got.loss_sum)} vs "
+        fail(f"{what}: GPU vs CPU step: loss_sum {float(got.loss_sum)} vs "
              f"{float(want.loss_sum)}")
     # each index the GPU returned holds, on the CPU, the logit the GPU
     # gave it; then equal positional values make it a top-k of the CPU's
@@ -679,16 +716,15 @@ def path_phase(torch, seed: int, work_dir: str, fs, dev: str = "cuda"):
                                          tol)
     same, bad = topk_agreement(g_idx, w_idx, w_val, (2 * tol[0], 0.0))
     if not ok or bad:
-        fail(f"GPU vs CPU step: top-k indices: logits at the GPU's indices "
-             f"off by {errs['logit_at_index']}, {bad} positions differ "
-             f"away from near-ties")
-    log(f"path: GPU vs CPU step on {n} methods (bucket "
+        fail(f"{what}: GPU vs CPU step: top-k indices: logits at the "
+             f"GPU's indices off by {errs['logit_at_index']}, {bad} "
+             f"positions differ away from near-ties")
+    log(f"{what}: GPU vs CPU step on {n} methods (bucket "
         f"{batch.context_valid_mask.shape[1]}): top-k indices equal "
         f"{same}/{g_idx.numel()}; max errors "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f" (tolerance {PATH_REL_TOL:.3g} x max|value|; loss_sum "
         f"{TOL_F32SUM})")
-    return counts
 
 
 # ------------------------------------------------------- train kernel phase
@@ -1796,8 +1832,10 @@ def kmeans_cases(torch, timer, x, c0, spherical, what):
 
 def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
              scales=None, global_ids=None):
-    """K11 against its plain version on one batch of queries."""
+    """K11 against its plain version on one batch of queries; `rows` in
+    any format."""
     from code2vec_tpu_torch.kernels.ivf import ivf_search, ivf_search_plain
+    from code2vec_tpu_torch.ops.quant import decode_rows
 
     b, d = q.shape
     max_len = int((offsets[1:] - offsets[:-1]).max())
@@ -1816,7 +1854,8 @@ def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
              f"away from near-ties: "
              f"{topk_detail(got_i, want_i, want_v, nxt)}")
     union, scanned = probed_rows(torch, q, cent, offsets, nprobe)
-    row_bytes = d * rows.element_size() + (4 if scales is not None else 0) \
+    row_bytes = rows.shape[1] * rows.element_size() \
+        + (4 if scales is not None else 0) \
         + (4 if global_ids is not None else 0)
     c = cent.shape[0]
     nbytes = (union * row_bytes + c * d * 4 + b * d * 4
@@ -1830,7 +1869,8 @@ def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
     cand = padded_lists(offsets, max_len)[probe].reshape(b, -1)
     safe = cand.clamp(min=0)
     lib_ms = timer(lambda: torch.topk(torch.bmm(
-        rows[safe].float(), q[:, :, None]).squeeze(-1), k), spin_ms=20)
+        decode_rows(rows[safe], d), q[:, :, None]).squeeze(-1), k),
+        spin_ms=20)
     del cand, safe
     log(f"K11 ivf_search {what} B={b} nprobe={nprobe} k={k}: max_abs_err "
         f"{err:.3g} (tol {TOL_F32SUM}) positions equal {same}/"
@@ -2343,6 +2383,763 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
                         index_build_s=build_s, recall=recall)
 
 
+# ---------------------------------------- fp8 and int4 tables: kernel phase
+
+QUANT_FORMATS = ("e4m3", "e5m2", "int4")
+FORMAT_SCHEMES = {"e4m3": "fp8_e4m3", "e5m2": "fp8_e5m2", "int4": "int4"}
+VALUE_BYTES = {"int8": 1.0, "e4m3": 1.0, "e5m2": 1.0, "int4": 0.5,
+               "float32": 4.0}
+
+
+def mode_of(fmt: str) -> str:
+    """The launch-counter suffix of a table format's kernel modes."""
+    return "int4" if fmt == "int4" else "fp8"
+
+
+def quantize_format(torch, table, fmt):
+    """The port's int8, fp8 or packed-int4 row quantizer (ops/quant.py),
+    on the device: (the payload in the dtype that names its format, (V, 1)
+    f32 scales); float32 tables as they are, with no scales."""
+    from code2vec_tpu_torch.ops.quant import FP8_DTYPES, FP8_MAX, INT4_QMAX
+    if fmt == "float32":
+        return table, None
+    absmax = table.abs().amax(dim=1, keepdim=True)
+    qmax = {"int8": 127.0, "int4": INT4_QMAX}.get(fmt) or FP8_MAX[fmt]
+    scales = (absmax / qmax).float()
+    safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+    if fmt == "int8":
+        return (torch.clamp(torch.round(table / safe), -127, 127)
+                .to(torch.int8), scales)
+    if fmt != "int4":
+        return (table / safe).to(FP8_DTYPES[fmt]), scales
+    u = (torch.clamp(torch.round(table / safe), -INT4_QMAX, INT4_QMAX)
+         + 8).to(torch.uint8)
+    if u.shape[1] % 2:
+        u = torch.cat([u, torch.full((u.shape[0], 1), 8, dtype=torch.uint8,
+                                     device=u.device)], dim=1)
+    return (u[:, 0::2] | (u[:, 1::2] << 4)).contiguous(), scales
+
+
+def fp8_codes_case(torch, fmt, dev):
+    """All 256 codes of an fp8 format through two kernels: K3's large-k
+    mode (row j holds code j in its first column and the code vector
+    picks that column with +1, then with -1, so each logit is the code's
+    value or its negative: NaN and the infinities included; a logit of
+    -inf ranks last, where the reference's top-k keeps its empty slot, so
+    each pass checks the codes it does not send to -inf) and K4 (the
+    finite codes; the rest -1e30)."""
+    from code2vec_tpu_torch.kernels import label_logits, topk
+    from code2vec_tpu_torch.ops.quant import FP8_DTYPES
+    codes = torch.arange(256, dtype=torch.uint8)
+    want = codes.view(FP8_DTYPES[fmt]).float()
+    rows = torch.zeros((256, 16), dtype=torch.uint8)
+    rows[:, 0] = codes
+    tbl = rows.to(dev).view(FP8_DTYPES[fmt])
+    ones = torch.ones((256, 1), device=dev)
+    pick = torch.zeros((256, 16), device=dev)
+    pick[:, 0] = 1.0
+    nan = torch.isnan(want)
+    finite = torch.isfinite(want)
+    for sign in (1.0, -1.0):
+        out = topk.blockwise_topk(sign * pick[:1], tbl, 256, 4096,
+                                  scales=ones)
+        logit = torch.full((256,), -math.inf)
+        vals, idx = out.values[0].cpu(), out.indices[0].cpu().long()
+        keep = vals != -math.inf   # an empty slot holds (-inf, 0)
+        logit[idx[keep]] = vals[keep]
+        w = sign * want
+        held = w != -math.inf
+        if not (torch.equal(torch.isnan(logit[held]), nan[held])
+                and torch.equal(logit[held & ~nan], w[held & ~nan])):
+            bad = torch.nonzero(held & ~nan & (logit != w)).flatten()
+            bad = bad[:8].tolist()
+            fail(f"fp8 {fmt}: codes {bad} x {sign} decode to "
+                 f"{[float(logit[i]) for i in bad]}, not "
+                 f"{[float(w[i]) for i in bad]}")
+    k4 = label_logits.label_logits(
+        pick, tbl, torch.arange(256, dtype=torch.int32, device=dev),
+        scales=ones).cpu()
+    if not (torch.equal(k4[finite], want[finite])
+            and bool((k4[~finite] == -1e30).all())):
+        fail(f"fp8 {fmt}: K4 decodes codes "
+             f"{torch.nonzero(finite & (k4 != want)).flatten()[:8].tolist()}"
+             f" wrongly")
+    log(f"fp8 {fmt}: all 256 codes decode exactly through K3 (large-k "
+        f"mode; {int(nan.sum())} NaN, {int((~finite & ~nan).sum())} "
+        f"infinite) and K4 ({int(finite.sum())} finite)")
+
+
+def quant_kernel_phase(torch, seed: int, timer, slow_timer, fs,
+                       dev="cuda", mips_iters: int = 6, nprobe: int = 16):
+    """The fp8 (e4m3, e5m2) and packed-int4 modes of K1, K3, K4 and K11
+    against their plain versions at the flagship serving shapes: tables
+    at the java14m sizes quantized on the device from one seeded f32
+    set, K1 at 200 and 32 contexts, K3 at k 10 and k 100 (the large-k
+    mode), K4, and K11 on the MIPS head's lists (B 64 and 1 at k 10, B 64
+    at k 100), each to the int8 mode's tolerances (every fp8 and int4
+    value decodes exactly), timed with its bound, its plain version and
+    a library call; and all 256 fp8 codes of each format. Returns the
+    kernel entries, keyed by mode (`context_encoder_fp8`: e4m3 with the
+    e5m2 numbers as e5m2_*)."""
+    from code2vec_tpu_torch.kernels import attention, encoder, label_logits
+    from code2vec_tpu_torch.kernels import topk
+    from code2vec_tpu_torch.ops.quant import unpack_int4
+    from code2vec_tpu_torch.retrieval.index import ivf_lists
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    def uniform(shape, limit):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * limit
+
+    v_tok, v_path, v_tgt = (fs.vocab["token"] + 1, fs.vocab["path"] + 1,
+                            fs.vocab["target"] + 1)
+    v_real = fs.vocab["target"]
+    td, pd, d = fs.token_dim, fs.path_dim, fs.code_dim
+    f32 = {"tok": uniform((v_tok, td), math.sqrt(3 / td)),
+           "path": uniform((v_path, pd), math.sqrt(3 / pd)),
+           "tgt": uniform((v_tgt, d), math.sqrt(3 / d))}
+    w = uniform((d, d), 1.0)
+    a = uniform((d,), 0.25)
+    ids = {m: (torch.randint(0, v_tok, (fs.rows, m), generator=g, device=dev,
+                             dtype=torch.int32),
+               torch.randint(0, v_path, (fs.rows, m), generator=g,
+                             device=dev, dtype=torch.int32),
+               torch.randint(0, v_tok, (fs.rows, m), generator=g, device=dev,
+                             dtype=torch.int32))
+           for m in (fs.contexts, 32)}
+    mask = (torch.rand((fs.rows, fs.contexts), generator=g, device=dev)
+            > 0.3).float()
+    labels = torch.randint(0, v_tgt, (fs.rows,), generator=g, device=dev,
+                           dtype=torch.int32)
+    # the MIPS head's lists: k-means over the f32 classifier's real rows
+    # (K9, K10), the same lists for every format
+    nlist = max(1, math.isqrt(v_real))
+    cent, order, offsets = ivf_lists(f32["tgt"][:v_real], nlist, mips_iters,
+                                     seed, device=dev)
+    gids = order.to(torch.int32)
+    torch.cuda.synchronize()
+    report = {}
+    for fmt in QUANT_FORMATS:
+        mode = mode_of(fmt)
+        main = fmt != "e5m2"   # e5m2's numbers go beside e4m3's
+        esize = VALUE_BYTES[fmt]
+        tok, tok_s = quantize_format(torch, f32["tok"], fmt)
+        path, path_s = quantize_format(torch, f32["path"], fmt)
+        entries = {}
+        # -- K1
+        for m in ((fs.contexts, 32) if main else (fs.contexts,)):
+            src, pth, tgt = ids[m]
+            args = (tok, tok_s, path, path_s, w, src, pth, tgt)
+            got = encoder.context_encoder(*args)
+            want = encoder.context_encoder_plain(*args)
+            torch.cuda.synchronize()
+            err, ok = max_err(got, want, TOL_K1)
+            if not ok:
+                fail(f"context_encoder {fmt} m={m}: max error {err}")
+            if m != fs.contexts:
+                log(f"K1 context_encoder {fmt} B={fs.rows} m={m}: "
+                    f"max_abs_err {err:.3g} (tol {TOL_K1})")
+                continue
+            transformed = got
+            uniq_tok = torch.unique(torch.cat([src, tgt])).numel()
+            uniq_path = torch.unique(pth).numel()
+            nbytes = (uniq_tok * (td * esize + 4) + uniq_path * (pd * esize
+                                                                + 4)
+                      + 3 * src.numel() * 4 + w.numel() * 4
+                      + got.numel() * 2)
+            bms, by = bound(nbytes, 2.0 * src.numel() * d * d)
+            ms = timer(lambda: encoder.context_encoder(*args))
+            plain_ms = timer(lambda: encoder.context_encoder_plain(*args),
+                             spin_ms=20)
+            log(f"K1 context_encoder {fmt} B={fs.rows} m={m}: max_abs_err "
+                f"{err:.3g} (tol {TOL_K1}) ms {ms:.4f} plain_ms "
+                f"{plain_ms:.4f} bound_ms {bms:.4f} ({by})")
+            entries["context_encoder"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+        del tok, path, tok_s, path_s
+        cv, _ = attention.masked_attention(transformed, a, mask)
+        cv = cv.contiguous()
+        del transformed
+        tbl, scl = quantize_format(torch, f32["tgt"], fmt)
+        tbl_bytes = tbl.numel() * tbl.element_size() + tbl.shape[0] * 4
+        # -- K3 at k 10 and k 100 (the large-k mode, through K13)
+        for k in (fs.topk, 100):
+            kw = dict(scales=scl, valid_rows=v_tgt)
+            got = topk.blockwise_topk(cv, tbl, k, fs.block, **kw)
+            # the plain version's (k+1)-th value is the k-th one's lower
+            # neighbour
+            want = topk.blockwise_topk_plain(cv, tbl, k + 1, fs.block,
+                                             compute_dtype=torch.bfloat16,
+                                             **kw)
+            torch.cuda.synchronize()
+            nxt, w_v, w_i = (want.values[:, k], want.values[:, :k],
+                             want.indices[:, :k])
+            err_v, ok_v = max_err(got.values, w_v, TOL_F32SUM)
+            err_l, ok_l = max_err(got.lse, want.lse, TOL_F32SUM)
+            same, bad = topk_agreement(got.indices, w_i, w_v, TOL_F32SUM,
+                                       next_vals=nxt)
+            if not (ok_v and ok_l) or bad:
+                fail(f"blockwise_topk {fmt} k={k}: value error {err_v}, lse "
+                     f"error {err_l}, {bad} index mismatches away from "
+                     f"near-ties: {topk_detail(got.indices, w_i, w_v, nxt)}")
+            nbytes = tbl_bytes + cv.numel() * 4 + fs.rows * k * 8 \
+                + fs.rows * 4
+            bms, by = bound(nbytes, 2.0 * fs.rows * tbl.shape[0] * d)
+            ms = timer(lambda: topk.blockwise_topk(cv, tbl, k, fs.block,
+                                                   **kw))
+            plain_ms = slow_timer(lambda: topk.blockwise_topk_plain(
+                cv, tbl, k, fs.block, compute_dtype=torch.bfloat16, **kw),
+                spin_ms=100)
+            cv_bf16 = cv.to(torch.bfloat16)
+            if fmt != "int4":   # the cast, a bf16 matmul and torch.topk
+                lib_ms = timer(lambda: torch.topk(torch.matmul(
+                    cv_bf16, tbl.to(torch.bfloat16).T), k))
+            else:             # torch's unpack, then the same
+                lib_ms = timer(lambda: torch.topk(torch.matmul(
+                    cv_bf16, unpack_int4(tbl, d).to(torch.bfloat16).T),
+                    k), spin_ms=20)
+            log(f"K3 blockwise_topk {fmt} B={fs.rows} V={tbl.shape[0]} "
+                f"k={k}: max_abs_err values {err_v:.3g} lse {err_l:.3g} "
+                f"(tol {TOL_F32SUM}) indices equal {same}/"
+                f"{got.indices.numel()} ms {ms:.4f} plain_ms {plain_ms:.4f}"
+                f" library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+            r = dict(max_abs_err=max(err_v, err_l), ms=ms,
+                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=lib_ms)
+            if k == fs.topk:
+                entries["blockwise_topk"] = r
+            else:
+                entries["blockwise_topk"].update(
+                    {f"k100_{n}": x for n, x in r.items()})
+        # -- K4
+        kw = dict(scales=scl)
+        got = label_logits.label_logits(cv, tbl, labels, **kw)
+        want = label_logits.label_logits_plain(
+            cv, tbl, labels, compute_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, TOL_F32SUM)
+        if not ok:
+            fail(f"label_logits {fmt}: max error {err}")
+        uniq = torch.unique(labels).numel()
+        nbytes = uniq * (d * esize + 4) + cv.numel() * 4 + fs.rows * 8
+        bms, by = bound(nbytes, 2.0 * fs.rows * d)
+        ms = timer(lambda: label_logits.label_logits(cv, tbl, labels, **kw))
+        plain_ms = timer(lambda: label_logits.label_logits_plain(
+            cv, tbl, labels, compute_dtype=torch.bfloat16, **kw),
+            spin_ms=20)
+        log(f"K4 label_logits {fmt} B={fs.rows}: max_abs_err {err:.3g} "
+            f"(tol {TOL_F32SUM}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"bound_ms {bms:.4f} ({by})")
+        entries["label_logits"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=bms,
+                                       bound_by=by, library_ms=None)
+        # -- K11 on the MIPS head's lists, rows in this format
+        rows = tbl[:v_real][order].contiguous()
+        rs = scl[:v_real][order].reshape(-1).contiguous()
+        del tbl, scl
+        q = (torch.rand((fs.rows, d), generator=g, device=dev) * 2 - 1)
+        what = f"MIPS {fmt} {v_real}x{d}"
+        kw = dict(scales=rs, global_ids=gids)
+        mips = {b: ivf_case(torch, timer, q[:b].contiguous(), cent, rows,
+                            offsets, nprobe, fs.topk, what, **kw)
+                for b in (fs.rows, 1)}
+        k100 = ivf_case(torch, timer, q, cent, rows, offsets, nprobe, 100,
+                        f"{what} (large-k mode)", **kw)
+        entries["ivf_search"] = dict(mips[fs.rows])
+        entries["ivf_search"].update({f"b1_{n}": x
+                                      for n, x in mips[1].items()})
+        entries["ivf_search"].update({f"k100_{n}": x
+                                      for n, x in k100.items()})
+        del rows, rs, q, cv
+        torch.cuda.empty_cache()
+        if fmt != "int4":
+            fp8_codes_case(torch, fmt, dev)
+        for name, r in entries.items():
+            key = f"{name}_{mode}"
+            if main:
+                report[key] = r
+            else:
+                report[key].update({f"e5m2_{n}": x for n, x in r.items()})
+    del f32, cent, order, offsets, gids
+    torch.cuda.empty_cache()
+    return report
+
+
+EVAL_FORMATS = {"float32": "float32", "int8": "int8", "fp8_e4m3": "e4m3",
+                "fp8_e5m2": "e5m2", "int4": "int4"}   # scheme -> format
+
+
+def eval_shape_phase(torch, seed: int, timer, fs, rows: int, dev="cuda"):
+    """The kernels of the `evaluate` path at its batch shape (`rows` x
+    200 contexts, each row 1 to 200 of them live; K3 over the real target
+    rows at k 10), in the table format of every artifact scheme: K1, K3
+    and K4 against their plain versions on the same inputs on the card, to
+    the serving shape's tolerances (K3's rows span rows / 64 row tiles),
+    and the device time of one batch's K1 + K2 + K3 + K4 (CUDA events).
+    Returns {scheme: that time in ms}."""
+    from code2vec_tpu_torch.kernels import attention, encoder, label_logits
+    from code2vec_tpu_torch.kernels import topk
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+
+    def uniform(shape, limit):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * limit
+
+    def ids(n):
+        return torch.randint(0, n, (rows, fs.contexts), generator=g,
+                             device=dev, dtype=torch.int32)
+
+    v_tok, v_path, v_tgt = (fs.vocab["token"] + 1, fs.vocab["path"] + 1,
+                            fs.vocab["target"] + 1)
+    v_real, d = fs.vocab["target"], fs.code_dim
+    f32 = {"tok": uniform((v_tok, fs.token_dim), math.sqrt(3 / fs.token_dim)),
+           "path": uniform((v_path, fs.path_dim), math.sqrt(3 / fs.path_dim)),
+           "tgt": uniform((v_tgt, d), math.sqrt(3 / d))}
+    w = uniform((d, d), math.sqrt(6 / (2 * d)))
+    a = uniform((d,), math.sqrt(6 / (d + 1)))
+    src, pth, tgt = ids(v_tok), ids(v_path), ids(v_tok)
+    live = torch.randint(1, fs.contexts + 1, (rows, 1), generator=g,
+                         device=dev)
+    mask = (torch.arange(fs.contexts, device=dev)[None, :] < live).float()
+    labels = torch.randint(0, v_tgt, (rows,), generator=g, device=dev,
+                           dtype=torch.int32)
+    step_ms = {}
+    for scheme, fmt in EVAL_FORMATS.items():
+        tok, tok_s = quantize_format(torch, f32["tok"], fmt)
+        path, path_s = quantize_format(torch, f32["path"], fmt)
+        tbl, scl = quantize_format(torch, f32["tgt"], fmt)
+        args = (tok, tok_s, path, path_s, w, src, pth, tgt)
+        got = encoder.context_encoder(*args)
+        err_k1, ok = max_err(got, encoder.context_encoder_plain(*args),
+                             TOL_K1)
+        if not ok:
+            fail(f"evaluate shape {fmt}: context_encoder max error {err_k1}")
+        cv = attention.masked_attention(got, a, mask)[0].contiguous()
+        del got
+        kw = dict(scales=scl, valid_rows=v_real)
+        out = topk.blockwise_topk(cv, tbl, fs.topk, fs.block, **kw)
+        # the plain version's (k+1)-th value is the k-th one's lower
+        # neighbour
+        want = topk.blockwise_topk_plain(cv, tbl, fs.topk + 1, fs.block,
+                                         compute_dtype=torch.bfloat16, **kw)
+        k = fs.topk
+        nxt, w_v, w_i = (want.values[:, k], want.values[:, :k],
+                         want.indices[:, :k])
+        err_v, ok_v = max_err(out.values, w_v, TOL_F32SUM)
+        err_l, ok_l = max_err(out.lse, want.lse, TOL_F32SUM)
+        same, bad = topk_agreement(out.indices, w_i, w_v, TOL_F32SUM,
+                                   next_vals=nxt)
+        if not (ok_v and ok_l) or bad:
+            fail(f"evaluate shape {fmt}: blockwise_topk value error {err_v}, "
+                 f"lse error {err_l}, {bad} index mismatches away from "
+                 f"near-ties: {topk_detail(out.indices, w_i, w_v, nxt)}")
+        got4 = label_logits.label_logits(cv, tbl, labels, scales=scl)
+        err_k4, ok = max_err(got4, label_logits.label_logits_plain(
+            cv, tbl, labels, scales=scl, compute_dtype=torch.bfloat16),
+            TOL_F32SUM)
+        if not ok:
+            fail(f"evaluate shape {fmt}: label_logits max error {err_k4}")
+
+        def batch():
+            t = encoder.context_encoder(*args)
+            c = attention.masked_attention(t, a, mask)[0].contiguous()
+            topk.blockwise_topk(c, tbl, fs.topk, fs.block, **kw)
+            label_logits.label_logits(c, tbl, labels, scales=scl)
+
+        step_ms[scheme] = timer(batch, spin_ms=10)
+        log(f"evaluate shape {fmt} B={rows} m={fs.contexts}: K1 max_abs_err "
+            f"{err_k1:.3g} (tol {TOL_K1}); K3 k={k} values {err_v:.3g} lse "
+            f"{err_l:.3g} (tol {TOL_F32SUM}) indices equal {same}/"
+            f"{out.indices.numel()}; K4 {err_k4:.3g}; K1+K2+K3+K4 "
+            f"{step_ms[scheme]:.4f} ms a batch")
+        del tok, path, tbl, scl, tok_s, path_s, cv, out, want, got4, args
+        torch.cuda.empty_cache()
+    del f32, w, src, pth, tgt, mask
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+# ------------------------------------- fp8 and int4 artifacts: serving path
+
+def letters(i: int) -> str:
+    """i in base 26 over a-z: a method-name part with no digits, so that
+    names built from it are legal predictions (^[a-zA-Z|]+$)."""
+    out = ""
+    while True:
+        out = chr(97 + i % 26) + out
+        i //= 26
+        if i == 0:
+            return out
+
+
+def write_scheme_artifacts(work_dir: str, params, vocabs, fs, schemes):
+    """Release artifacts of `schemes` from one set of f32 params, written
+    in parallel threads: {scheme: (directory, meta)}."""
+    from code2vec_tpu_torch.release.artifact import write_artifact
+
+    def one(scheme):
+        out = os.path.join(work_dir, f"artifact-{scheme}")
+        return scheme, out, write_artifact(
+            params, vocabs, out, scheme, max_contexts=fs.contexts,
+            compute_dtype=fs.compute_dtype, topk=fs.topk,
+            topk_block_size=fs.block, serve_batch_size=fs.rows,
+            buckets=fs.buckets)
+
+    with concurrent.futures.ThreadPoolExecutor(len(schemes)) as ex:
+        return {s: (out, meta) for s, out, meta in ex.map(one, schemes)}
+
+
+def serving_weights(seed: int, fs, dev: str = "cuda"):
+    """(f32 params, vocabularies, extracted methods, request sources) of
+    the serving, fp8/int4 and evaluate phases: the request sources, the
+    methods the extractor finds in them, and flagship_weights."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.serving.extractor_bridge import PathExtractor
+
+    sources = dict(SOURCES)
+    with open(os.path.join(REPO, "Input.java")) as f:
+        sources["Input.java"] = f.read()
+    extractor = PathExtractor(Config(device=dev, max_contexts=fs.contexts,
+                                     verbose_mode=0))
+    extracted = [extractor.extract_source(s) for s in sources.values()]
+    params, vocabs = flagship_weights(seed, extracted, fs)
+    return params, vocabs, extracted, sources
+
+
+def timed_posts(url: str, body: str, n: int, warm: int = 10):
+    """`warm` then `n` timed POSTs of one body, one at a time: (the
+    latencies in seconds, the last response body)."""
+    for _ in range(warm):
+        post(url, body)
+    lat = []
+    for _ in range(n):
+        status, resp, dt = post(url, body)
+        if status != 200:
+            fail(f"{url} (timed): HTTP {status}")
+        lat.append(dt)
+    return lat, resp
+
+
+def latency_stats(lat):
+    lat = sorted(lat)
+    return dict(p50_ms=statistics.median(lat) * 1e3,
+                p99_ms=lat[int(0.99 * (len(lat) - 1))] * 1e3,
+                max_ms=lat[-1] * 1e3, requests=len(lat))
+
+
+SCHEME_MODES = {"float32": "int8", "int8": "int8", "fp8_e4m3": "fp8",
+                "fp8_e5m2": "fp8", "int4": "int4"}   # launch-counter suffix
+
+
+def quant_path_phase(torch, seed: int, work_dir: str, fs, weights,
+                     arts, dev: str = "cuda", n_one: int = 300,
+                     n_many: int = 100):
+    """Serving the int8, e4m3 and int4 artifacts of one set of weights
+    over HTTP, and the e5m2 one in process, each with the MIPS head
+    beside the exact one (--serve_mips_nprobe 16 --serve_mips_crossover
+    8: batches of up to 8 methods take K11 in the table's format, larger
+    ones K3 and K4). Over HTTP: every request source and one 12-method
+    request with their bodies checked; then the request latency, one
+    request at a time after 10 warm-up, of `n_one` requests of one method
+    (the MIPS head) and `n_many` of 12 methods (the exact head). In
+    process: one method through predict, then 14. Each run with both
+    heads dispatched, its mode's kernels launched (K11 in the table's
+    format included) and no other mode's, and the exact step on one padded
+    batch of the extracted methods against the CPU. Returns ({scheme: the
+    launch counts of its run}, {scheme: {head: latency stats}})."""
+    from code2vec_tpu_torch import kernels
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.release.runtime import ReleaseModel
+    from code2vec_tpu_torch.serving.server import PredictionServer
+
+    _, _, extracted, sources = weights
+    many = many_methods_source(12)
+    runs, latency = {}, {}
+    for scheme, http in (("int8", True), ("fp8_e4m3", True), ("int4", True),
+                         ("fp8_e5m2", False)):
+        art, _ = arts[scheme]
+        mode = SCHEME_MODES[scheme]
+        config = Config(serve_artifact=art, device=dev, verbose_mode=0,
+                        serve=True, serve_mips_nprobe=16,
+                        serve_mips_crossover=8)
+        t0 = time.perf_counter()
+        model = ReleaseModel(config)
+        model.warmup()
+        mb = model.artifact.table_bytes() / 1e6
+        log(f"quant path: loaded {scheme} ({mb:.1f} MB of tables), built "
+            f"its MIPS head and warmed it in "
+            f"{time.perf_counter() - t0:.1f}s")
+        kernels.reset_launch_counts()
+        if http:
+            server = PredictionServer(model)
+            url = f"http://127.0.0.1:{server.start(port=0)}/predict"
+            fp = model.model_fingerprint()
+            try:
+                for src in list(sources.values()) + [many]:
+                    status, body, _ = post(url, src)
+                    if status != 200:
+                        fail(f"/predict on the {scheme} artifact: HTTP "
+                             f"{status}")
+                    check_predict_body(body, fp)
+                one, body = timed_posts(url, sources["Max.java"], n_one)
+                check_predict_body(body, fp)
+                twelve, body = timed_posts(url, many, n_many)
+                check_predict_body(body, fp)
+                counts = kernels.launch_counts()
+            finally:
+                server.shutdown()
+            latency[scheme] = {"mips": latency_stats(one),
+                               "exact": latency_stats(twelve)}
+            log(f"quant path: {scheme}: " + "; ".join(
+                f"{st['requests']} /predict requests of {what} ({head} "
+                f"head) after 10 warm-up: p50 {st['p50_ms']:.2f} ms, p99 "
+                f"{st['p99_ms']:.2f}, max {st['max_ms']:.2f}"
+                for head, what, st in (("mips", "1 method",
+                                        latency[scheme]["mips"]),
+                                       ("exact", "12 methods",
+                                        latency[scheme]["exact"])))
+                + f"; heads {model.head_dispatches}")
+        else:   # one method (the MIPS head), then 2 x 7 (the exact one)
+            lines = [ln for ls, _ in extracted for ln in ls]
+            for res in model.predict(lines[:1]) + model.predict(lines * 2):
+                if not res.topk_predicted_words:
+                    fail(f"{scheme}: predict gave no words")
+            counts = kernels.launch_counts()
+        if not (model.head_dispatches["exact"]
+                and model.head_dispatches["mips"]):
+            fail(f"{scheme}: the heads ran {model.head_dispatches}")
+        need = list(kernels.SERVE_KERNELS[mode]) + [f"ivf_search_{mode}"]
+        missing = [k for k in need if counts[k] <= 0]
+        stray = [k for m in kernels.SERVE_KERNELS if m != mode
+                 for k in kernels.SERVE_KERNELS[m] + (f"ivf_search_{m}",)
+                 if k != "masked_attention" and counts[k]]
+        if missing or stray:
+            fail(f"{scheme}: launched no {missing}; launched other modes "
+                 f"{stray}: {counts}")
+        log(f"quant path: {scheme}: K11's {scheme} instantiation "
+            f"(ivf_search_{mode}) launched {counts[f'ivf_search_{mode}']} "
+            f"times on this run")
+        step_gpu_vs_cpu(torch, model, art, extracted, fs, scheme, dev)
+        runs[scheme] = counts
+        del model
+        torch.cuda.empty_cache()
+    return runs, latency
+
+
+class LogLines(logging.Handler):
+    """The messages of the port's logger while attached."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def evaluate_phase(torch, seed: int, work_dir: str, fs, weights, arts,
+                   batch_ms, n_rows: int = 4 * 1024 + 37, subset: int = 64,
+                   dev: str = "cuda"):
+    """The `evaluate` command on the GPU over the artifacts of all five
+    schemes (one set of seeded weights) and a synthetic labelled corpus:
+    `n_rows` methods (4 batches of 1024 and a partial one) of 1 to 200
+    random contexts over the artifacts' vocabularies, each labelled with
+    the float32 artifact's first legal top-10 name on the GPU. So the
+    float32 artifact must score top-1 1.0 (the same kernels on the same
+    batches), and every scheme's top-1 accuracy is the share of rows
+    whose top-1 equals the float32 artifact's. Per scheme, from the
+    command's own timing line (host clock): the artifact's load seconds
+    and the evaluation's examples/s, beside the text parse alone and the
+    device time of its batches (`batch_ms`, eval_shape_phase); table
+    bytes, top-1/top-10 accuracy, F1 and loss, its mode's kernels
+    launched; then the same on a `subset`-row file on the
+    GPU against the CPU (plain versions): the top-k of its one batch
+    within PATH_REL_TOL away from near-ties, the metrics equal but for
+    rows with such a near-tie, the loss within TOL_F32SUM. Returns
+    ({scheme: the launch counts of its run}, {scheme: stats})."""
+    import numpy as np
+
+    from code2vec_tpu_torch import cli, kernels
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.reader import (
+        EstimatorAction, PathContextReader,
+    )
+    from code2vec_tpu_torch.evaluation.evaluator import Evaluator
+    from code2vec_tpu_torch.evaluation.metrics import TargetWordTables
+    from code2vec_tpu_torch.release.runtime import ReleaseModel
+
+    _, vocabs, _, _ = weights
+    rng = np.random.default_rng(seed + 7)
+    tw, pw = vocabs.token_vocab.index_to_word, vocabs.path_vocab.index_to_word
+    n_tok, n_path = vocabs.token_vocab.size, vocabs.path_vocab.size
+    t0 = time.perf_counter()
+    bodies = []
+    for _ in range(n_rows):
+        m = int(rng.integers(1, fs.contexts + 1))
+        s, p, t = (rng.integers(1, n_tok, m), rng.integers(1, n_path, m),
+                   rng.integers(1, n_tok, m))
+        bodies.append(" ".join(f"{tw[int(a)]},{pw[int(b)]},{tw[int(c)]}"
+                               for a, b, c in zip(s, p, t)))
+    edir = os.path.join(work_dir, "evaluate")
+    os.makedirs(edir)
+    unlabelled = os.path.join(edir, "unlabelled.c2v")
+    with open(unlabelled, "w") as f:
+        f.write("".join(f"unlabelled {b}\n" for b in bodies))
+
+    def scored(model):
+        """The evaluation of config.test_data_path (one batch) and the
+        step's outputs on it."""
+        step, params = model.eval_callable()
+        outs = []
+
+        def recording(p, *arrays):
+            outs.append(step(p, *arrays))
+            return outs[-1]
+
+        res = Evaluator(model.config, model.vocabs, recording, model.device,
+                        log_path=None).evaluate(params,
+                                                model._eval_batches())
+        [out] = outs
+        return res, out
+
+    def batches(model, path, rows):
+        reader = PathContextReader(model.vocabs, model.config,
+                                   EstimatorAction.Evaluate, data_path=path,
+                                   batch_size=rows, with_target_strings=True)
+        for batch in reader:
+            yield batch, tuple(torch.from_numpy(np.ascontiguousarray(a))
+                               for a in batch.model_arrays())
+
+    f32 = ReleaseModel(Config(serve_artifact=arts["float32"][0], device=dev,
+                              verbose_mode=0))
+    tables = TargetWordTables(f32.vocabs.target_vocab)
+    labels = []
+    for batch, arrays in batches(f32, unlabelled, 1024):
+        out = f32.eval_step(*(a.to(dev) for a in arrays))
+        for row in out.topk_indices.cpu().numpy()[batch.example_valid]:
+            legal = [int(i) for i in row if tables.legal(int(i))]
+            labels.append(tables.word(legal[0]) if legal else "unlabelled")
+    if len(labels) != n_rows:
+        fail(f"evaluate: the reader kept {len(labels)} of {n_rows} rows")
+    labelled = sum(lb != "unlabelled" for lb in labels) / n_rows
+    corpus = os.path.join(edir, "test.c2v")
+    with open(corpus, "w") as f:
+        f.write("".join(f"{lb} {b}\n" for lb, b in zip(labels, bodies)))
+    sub = os.path.join(edir, "subset.c2v")
+    with open(sub, "w") as f:
+        f.write("".join(f"{lb} {b}\n" for lb, b in
+                        zip(labels[:subset], bodies[:subset])))
+    log(f"evaluate: a {n_rows}-method labelled corpus written in "
+        f"{time.perf_counter() - t0:.1f}s ({labelled:.4f} of the rows "
+        f"have a legal float32 top-10 name)")
+    # the text parse alone: the evaluation's reader over the corpus at its
+    # batch size, no step
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in PathContextReader(
+        f32.vocabs, f32.config, EstimatorAction.Evaluate, data_path=corpus,
+        batch_size=f32.config.test_batch_size, with_target_strings=True))
+    parse_s = time.perf_counter() - t0
+    del f32
+    torch.cuda.empty_cache()
+    log(f"evaluate: the reader alone parses the corpus into {n_batches} "
+        f"batches in {parse_s:.3f}s ({n_rows / parse_s:.0f} rows/s)")
+
+    runs, stats = {}, {}
+    logger = logging.getLogger("code2vec_tpu_torch")
+    for scheme in EVAL_FORMATS:
+        art, meta = arts[scheme]
+        mode = SCHEME_MODES[scheme]
+        kernels.reset_launch_counts()
+        captured = LogLines()
+        logger.addHandler(captured)
+        level = logger.level
+        logger.setLevel(logging.INFO)
+        t0 = time.perf_counter()
+        try:
+            res = cli.main(["evaluate", "--artifact", art, "--test", corpus,
+                            "--eval_log", os.path.join(edir, f"{scheme}.log"),
+                            "--device", dev])
+            torch.cuda.synchronize()
+        finally:
+            logger.removeHandler(captured)
+            logger.setLevel(level)
+        secs = time.perf_counter() - t0
+        timing = [re.search(r"artifact load ([0-9.]+)s, (\d+) examples "
+                            r"scored in ([0-9.]+)s", ln)
+                  for ln in captured.lines]
+        timing = [m for m in timing if m]
+        if len(timing) != 1 or int(timing[0].group(2)) != n_rows:
+            fail(f"evaluate {scheme}: no timing line for {n_rows} examples "
+                 f"in the command's log: {captured.lines[-3:]}")
+        load_s, eval_s = float(timing[0].group(1)), float(timing[0].group(3))
+        counts = kernels.launch_counts()
+        runs[scheme] = counts
+        missing = [k for k in kernels.SERVE_KERNELS[mode] if counts[k] <= 0]
+        if missing:
+            fail(f"evaluate {scheme}: launched no {missing}")
+        if not (np.isfinite(res.loss) and np.isfinite(res.topk_acc).all()):
+            fail(f"evaluate {scheme}: {res}")
+        if scheme == "float32" and res.topk_acc[0] != labelled:
+            fail(f"evaluate float32: top-1 {res.topk_acc[0]} on its own "
+                 f"top-1 labels (want {labelled})")
+        nbytes = meta["table_bytes"]["artifact"]
+        device_s = batch_ms[scheme] * n_batches / 1e3
+        stats[scheme] = dict(
+            examples_per_s=n_rows / eval_s, load_s=load_s, eval_s=eval_s,
+            command_s=secs, parse_s=parse_s, device_s=device_s,
+            table_bytes=nbytes, top1=float(res.topk_acc[0]),
+            top10=float(res.topk_acc[-1]), f1=float(res.subtoken_f1),
+            loss=float(res.loss), top1_agrees_with_f32=float(res.topk_acc[0]))
+        log(f"evaluate {scheme}: the command in {secs:.2f}s: artifact load "
+            f"{load_s:.3f}s, {n_rows} methods scored in {eval_s:.3f}s "
+            f"({n_rows / eval_s:.0f} examples/s; the parse alone "
+            f"{parse_s:.3f}s, the kernels {device_s:.3f}s of device time "
+            f"for {n_batches} batches); tables {nbytes / 1e6:.1f} MB; top-1 "
+            f"{res.topk_acc[0]:.4f} (= the share of rows whose top-1 equals "
+            f"float32's) top-10 {res.topk_acc[-1]:.4f} F1 "
+            f"{res.subtoken_f1:.4f} loss {res.loss:.4f}")
+
+        # the subset on the GPU against the CPU: one batch, whose step
+        # outputs the evaluation keeps
+        cfg = dict(serve_artifact=art, test_data_path=sub,
+                   test_batch_size=subset, verbose_mode=0)
+        gpu = ReleaseModel(Config(device=dev, **cfg))
+        cpu = ReleaseModel(Config(device="cpu", **cfg),
+                           artifact=gpu.artifact)
+        (g_res, got), (c_res, want) = scored(gpu), scored(cpu)
+        tol = (PATH_REL_TOL * float(want.topk_values.abs().max()), 0.0)
+        err, ok = max_err(got.topk_values.cpu(), want.topk_values, tol)
+        same, bad = topk_agreement(got.topk_indices.cpu(),
+                                   want.topk_indices, want.topk_values,
+                                   (2 * tol[0], 0.0))
+        near_rows = int((got.topk_indices.cpu() != want.topk_indices)
+                        .any(dim=1).sum())
+        acc_rows = np.abs(g_res.topk_acc - c_res.topk_acc) * subset
+        err_l, ok_l = max_err(torch.tensor(g_res.loss),
+                              torch.tensor(c_res.loss), TOL_F32SUM)
+        if not ok or bad or not ok_l or (acc_rows > near_rows + 1e-9).any() \
+                or (near_rows == 0 and g_res.subtoken_f1
+                    != c_res.subtoken_f1):
+            fail(f"evaluate {scheme} GPU vs CPU on {subset} rows: values "
+                 f"{err} (tol {tol[0]:.3g}), {bad} indices away from "
+                 f"near-ties, accuracy {g_res.topk_acc} vs "
+                 f"{c_res.topk_acc} ({near_rows} near-tie rows), F1 "
+                 f"{g_res.subtoken_f1} vs {c_res.subtoken_f1}, loss "
+                 f"{g_res.loss} vs {c_res.loss}")
+        log(f"evaluate {scheme}: GPU vs CPU on {subset} rows: top-k "
+            f"indices equal {same}/{got.topk_indices.numel()} ({near_rows} "
+            f"rows with a near-tie), values within {err:.3g}, top-1 "
+            f"{g_res.topk_acc[0]:.4f} vs {c_res.topk_acc[0]:.4f}, F1 "
+            f"{g_res.subtoken_f1:.4f} vs {c_res.subtoken_f1:.4f}, loss "
+            f"{g_res.loss:.6f} vs {c_res.loss:.6f}")
+        del gpu, cpu, got, want
+        torch.cuda.empty_cache()
+    return runs, stats
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2396,6 +3193,12 @@ def main() -> None:
     ft = flagship_train()
     report = kernel_phase(torch, args.seed, timer, fs)
     torch.cuda.empty_cache()
+    report.update(quant_kernel_phase(torch, args.seed, timer,
+                                     Timer(torch, 5), fs))
+    torch.cuda.empty_cache()
+    from code2vec_tpu_torch.config import Config
+    eval_batch_ms = eval_shape_phase(torch, args.seed, timer, fs,
+                                     Config().test_batch_size)
     report.update(train_kernel_phase(torch, args.seed, timer, fs, ft))
     torch.cuda.empty_cache()
     report.update(sparse_kernel_phase(torch, args.seed, timer, fs, ft))
@@ -2409,7 +3212,27 @@ def main() -> None:
         report.update(retrieval_report)
         del timer
         torch.cuda.empty_cache()
-        counts = path_phase(torch, args.seed, work_dir, fs)
+        weights = serving_weights(args.seed, fs)
+        counts, int8_art = path_phase(torch, args.seed, work_dir, fs,
+                                      weights)
+        t0 = time.perf_counter()
+        arts = write_scheme_artifacts(work_dir, weights[0], weights[1], fs,
+                                      ("fp8_e4m3", "fp8_e5m2", "int4",
+                                       "float32"))
+        arts["int8"] = int8_art   # the serving path's, same weights
+        log(f"quant path: wrote the artifacts of four more schemes from the "
+            f"serving path's weights in {time.perf_counter() - t0:.1f}s: "
+            + ", ".join(f"{k} {m['table_bytes']['artifact'] / 1e6:.1f} MB"
+                        for k, (_, m) in arts.items()))
+        quant_runs, quant_latency = quant_path_phase(
+            torch, args.seed, work_dir, fs, weights, arts)
+        eval_runs, eval_stats = evaluate_phase(torch, args.seed, work_dir,
+                                               fs, weights, arts,
+                                               eval_batch_ms)
+        del weights
+        for scheme, (art, _) in arts.items():
+            if scheme != "int8":   # the retrieval path serves that one
+                shutil.rmtree(art)
         train_counts, train_stats = train_path_phase(torch, args.seed,
                                                      work_dir, fs, ft)
         sparse_counts, sparse_stats = train_path_phase(
@@ -2487,6 +3310,57 @@ def main() -> None:
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
         entries.append(entry)
+    # the fp8 and int4 modes: e4m3's numbers (e5m2's as e5m2_*), the
+    # launches of the serving and evaluate runs of those formats (fp8's
+    # also per format, as e4m3_launches and e5m2_launches)
+    path_runs = [(scheme, c) for runs in (quant_runs, eval_runs)
+                 for scheme, c in runs.items()]
+    quant_replaces = {
+        "fp8": dict.fromkeys(kernels.QUANT_MODE_KERNELS,
+                             "code2vec_tpu/release/runtime.py:352"),
+        "int4": {"context_encoder": "code2vec_tpu/ops/quant.py:174",
+                 "blockwise_topk": "code2vec_tpu/ops/topk.py:142",
+                 "label_logits": "code2vec_tpu/ops/topk.py:193",
+                 "ivf_search": "code2vec_tpu/retrieval/mips.py:166"}}
+    for kernel in kernels.QUANT_MODE_KERNELS:
+        for mode in ("fp8", "int4"):
+            name = f"{kernel}_{mode}"
+            r = report[name]
+            per_scheme = {
+                scheme: sum(c[name] for s_, c in path_runs if s_ == scheme)
+                for scheme in (("fp8_e4m3", "fp8_e5m2") if mode == "fp8"
+                               else ("int4",))}
+            if not all(per_scheme.values()):
+                fail(f"the fp8/int4 paths launched {name} {per_scheme} "
+                     f"times by scheme")
+            entry = {
+                "name": name, "route": "cuda",
+                "source": ("code2vec_tpu_torch/kernels/csrc/"
+                           f"{sources[kernel][0]}"),
+                "replaces": quant_replaces[mode][kernel],
+                "launches": sum(per_scheme.values()),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            entry.update({k: v for k, v in r.items()
+                          if k.startswith(("e5m2", "b1", "k100"))})
+            if mode == "fp8":
+                entry.update(e4m3_launches=per_scheme["fp8_e4m3"],
+                             e5m2_launches=per_scheme["fp8_e5m2"])
+            entries.append(entry)
+    for scheme, heads in quant_latency.items():
+        log(f"serving {scheme}: " + "; ".join(
+            f"{head} head p50 {st['p50_ms']:.2f} ms, p99 "
+            f"{st['p99_ms']:.2f}, max {st['max_ms']:.2f} over "
+            f"{st['requests']} requests" for head, st in heads.items()))
+    for scheme, st in eval_stats.items():
+        log(f"evaluate {scheme}: load {st['load_s']:.3f}s, "
+            f"{st['examples_per_s']:.0f} examples/s scored ({st['eval_s']:.3f}"
+            f"s; parse alone {st['parse_s']:.3f}s, kernels "
+            f"{st['device_s']:.3f}s), tables {st['table_bytes'] / 1e6:.1f} "
+            f"MB, top-1 {st['top1']:.4f} top-10 {st['top10']:.4f} F1 "
+            f"{st['f1']:.4f}, top-1 equal to float32's "
+            f"{st['top1_agrees_with_f32']:.4f}")
     log(f"train step: dense {train_stats['step_ms']:.2f} ms, "
         f"{train_stats['examples_per_s']:.0f} examples/s, peak "
         f"{train_stats['peak_gb']:.3f} GB ({train_stats['step_gb']:.3f} GB "

@@ -1,7 +1,8 @@
 """Command line of the port: `train` from a preprocessed dataset;
-`serve`, `predict` and `embed` against a release artifact; `index-build`
-over a vector store. Flag names, defaults and checks are those of
-code2vec_tpu/cli.py and config.py, plus `--device` (default cuda).
+`serve`, `predict`, `evaluate` and `embed` against a release artifact of
+any scheme; `index-build` over a vector store. Flag names, defaults and
+checks are those of code2vec_tpu/cli.py and config.py, plus a command
+word and `--device` (default cuda).
 
     python -m code2vec_tpu_torch train --data PREFIX --epochs N
         [--batch_size B] [--max_contexts M] [--seed S] [--device cpu]
@@ -11,20 +12,25 @@ code2vec_tpu/cli.py and config.py, plus `--device` (default cuda).
         [--serve_mips_nprobe P [--serve_mips_nlist N]
          [--serve_mips_crossover R]]
     python -m code2vec_tpu_torch predict --artifact DIR [--device cpu]
+    python -m code2vec_tpu_torch evaluate --artifact DIR --test FILE
+        [--test_batch_size N] [--eval_log FILE] [--device cpu]
     python -m code2vec_tpu_torch embed --artifact DIR --test CORPUS.c2v
         --embed_out STORE [--embed_dtype float16] [--embed_shard_rows N]
     python -m code2vec_tpu_torch index-build --vectors STORE
         --index_out IDX [--nlist N] [--nprobe P] [--kmeans_iters I]
         [--index_metric cosine|dot]
 
-`train` neither saves nor evaluates yet: `--save` is refused, and `--test`
-is the embed job's corpus.
+`train` neither saves nor evaluates yet. `evaluate` is the reference's
+`--artifact DIR --test FILE`: it prints the top-k accuracy, subtoken
+precision, recall and F1 and the loss, and writes each example's outcome
+to `--eval_log` (default log.txt).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 from code2vec_tpu_torch.config import Config
 
@@ -33,8 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m code2vec_tpu_torch")
     p.add_argument("command", choices=COMMANDS)
     p.add_argument("--artifact", dest="serve_artifact", metavar="DIR",
-                   help="`serve`, `predict`, `embed`: release artifact "
-                        "directory")
+                   help="`serve`, `predict`, `evaluate`, `embed`: release "
+                        "artifact directory")
     p.add_argument("-d", "--data", dest="data_path", metavar="PREFIX",
                    help="`train`: path prefix of the preprocessed dataset "
                         "(PREFIX.train.c2v, PREFIX.dict.c2v)")
@@ -86,10 +92,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "only)")
     # retrieval
     p.add_argument("-te", "--test", dest="test_data_path", metavar="FILE",
-                   help="`embed`: the .c2v corpus to embed")
+                   help="`evaluate`: the labelled .c2v corpus to score; "
+                        "`embed`: the .c2v corpus to embed")
     p.add_argument("--test_batch_size", type=int, default=None,
-                   metavar="ROWS", help="`embed`: rows per device batch "
-                                        "(default 1024)")
+                   metavar="ROWS", help="`evaluate`, `embed`: rows per "
+                                        "device batch (default 1024)")
+    p.add_argument("--eval_log", default="log.txt", metavar="FILE",
+                   help="`evaluate`: each example's outcome (default "
+                        "log.txt)")
     p.add_argument("--embed_out", metavar="DIR",
                    help="`embed`: write the corpus's code vectors into a "
                         "sharded vector store here (resumable per shard)")
@@ -129,7 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-COMMANDS = ("train", "serve", "predict", "embed", "index-build")
+COMMANDS = ("train", "serve", "predict", "evaluate", "embed",
+            "index-build")
 
 
 def config_from_args(argv):
@@ -138,12 +149,14 @@ def config_from_args(argv):
     args = parser.parse_args(argv)
     if args.command == "train" and not args.data_path:
         parser.error("train needs --data PREFIX")
-    if args.command in ("serve", "predict", "embed") and \
+    if args.command in ("serve", "predict", "evaluate", "embed") and \
             not args.serve_artifact:
         parser.error(f"{args.command} needs --artifact DIR")
-    if args.test_data_path and args.command != "embed":
-        parser.error("--test is the `embed` command's corpus; the port "
-                     "does not evaluate yet")
+    if args.test_data_path and args.command not in ("evaluate", "embed"):
+        parser.error("--test is the `embed` command's corpus and the "
+                     "`evaluate` command's labelled one")
+    if args.command == "evaluate" and not args.test_data_path:
+        parser.error("evaluate needs --test FILE (a labelled .c2v corpus)")
     if args.command == "embed" and not args.embed_out:
         parser.error("the `embed` subcommand requires --embed_out DIR "
                      "(plus --test CORPUS and --artifact DIR)")
@@ -182,8 +195,9 @@ def config_from_args(argv):
 
 
 def main(argv=None):
-    """Runs a command; `train` returns its Code2VecModel, `embed` the
-    embed job's summary and `index-build` the index meta."""
+    """Runs a command; `train` returns its Code2VecModel, `evaluate` its
+    ModelEvaluationResults, `embed` the embed job's summary and
+    `index-build` the index meta."""
     args, config = config_from_args(sys.argv[1:] if argv is None else argv)
     if args.command == "train":
         from code2vec_tpu_torch.model_facade import Code2VecModel
@@ -201,10 +215,23 @@ def main(argv=None):
                            log=config.log,
                            device=resolve_device(config.device))
     from code2vec_tpu_torch.release.runtime import ReleaseModel
+    t0 = time.perf_counter()
     model = ReleaseModel(config)
+    load_s = time.perf_counter() - t0
     if args.command == "embed":
         from code2vec_tpu_torch.retrieval.embed_job import run_embed_job
         return run_embed_job(model)
+    if args.command == "evaluate":
+        t0 = time.perf_counter()
+        results = model.evaluate(log_path=args.eval_log)
+        eval_s = time.perf_counter() - t0
+        config.log(str(results).replace(
+            "topk", f"top{config.top_k_words_considered_during_prediction}"))
+        n = config.num_test_examples
+        config.log(f"evaluate timing: artifact load {load_s:.3f}s, "
+                   f"{n} examples scored in {eval_s:.3f}s "
+                   f"({n / max(eval_s, 1e-9):.1f} examples/s)")
+        return results
     if args.command == "serve":
         from code2vec_tpu_torch.serving.server import serve_main
         model.warmup()

@@ -25,9 +25,11 @@ class Config:
     shuffle_buffer_size: int = 10000
     csv_buffer_size: int = 100 * 1024 * 1024
     train_data_path_prefix: Optional[str] = None
-    # `--test`: the corpus the embed job reads (code2vec_tpu/config.py:84)
+    # `--test`: the labelled corpus `evaluate` scores, or the one the
+    # embed job reads (code2vec_tpu/config.py:84, :697)
     test_data_path: Optional[str] = None
     test_batch_size: int = 1024
+    num_test_examples: int = 0
     dropout_keep_rate: float = 0.75
     # Adam (code2vec_tpu/config.py:136-139, :163, :172)
     learning_rate: float = 0.001

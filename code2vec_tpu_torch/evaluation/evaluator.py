@@ -1,0 +1,212 @@
+"""Evaluation loop: device top-k + host metrics + per-example audit log.
+
+The counterpart of code2vec_tpu/evaluation/evaluator.py. The eval step
+returns top-k indices (and the CE summed over rows with an in-vocabulary
+label); strings exist only on the host, where the metrics of metrics.py
+score the valid rows of each padded batch and each example's outcome is
+appended to `log.txt`.
+
+Two loops that give identical results: the serial one (parse, move, step,
+score, one batch after another) and the pipelined one, where a worker
+thread parses batch N+1 and moves it to the device while the host scores
+batch N. After each step the host copies of what scoring reads start at
+once, behind the step on the stream, so that scoring batch N waits for
+step N alone and not for step N+1, which is already queued.
+
+Left out of the reference's: the `obs` spans, counters and gauges, the
+multi-host reduction of the counts (the port runs on one device), and the
+code-vector outputs (`code_vectors_path`, `code_vectors_sink`), which no
+caller of the port uses.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch.evaluation.metrics import (
+    ModelEvaluationResults, SubtokensEvaluationMetric, TargetWordTables,
+    TopKAccuracyEvaluationMetric, batch_prediction_info,
+)
+
+PREFETCH_DEPTH = 2  # batches the worker keeps ready ahead of the step
+
+
+def batch_to_device(batch, device: torch.device):
+    """The step's six inputs of a RowBatch as tensors on `device`."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in batch.model_arrays())
+
+
+class _HostCopy:
+    """Host copies of some of a step's outputs, started on the stream
+    right after the step; `get()` waits for them alone."""
+
+    def __init__(self, out, names):
+        self.values = {n: getattr(out, n).to("cpu", non_blocking=True)
+                       for n in names}
+        self.event = None
+        if out.topk_indices.is_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def get(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.values
+
+
+class _Prefetcher:
+    """Iterates `batches` on a worker thread and yields (device arrays,
+    host batch), up to `depth` of them ready ahead of the consumer. An
+    error on the worker is raised in the consumer."""
+
+    _END = object()
+
+    def __init__(self, batches: Iterable, device: torch.device,
+                 depth: int = PREFETCH_DEPTH):
+        self.batches = batches
+        self.device = device
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        self._error: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+
+    def _put(self, item) -> bool:
+        """A bounded put that gives up once the consumer has stopped."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self) -> None:
+        try:
+            for batch in self.batches:
+                if not self._put((batch_to_device(batch, self.device),
+                                  batch)):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised in __iter__
+            self._error = e
+        finally:
+            self._put(self._END)
+
+    def __iter__(self):
+        self._thread.start()
+        try:
+            while True:
+                item = self._queue.get()
+                if item is self._END:
+                    if self._error is not None:
+                        raise self._error
+                    return
+                yield item
+        finally:
+            self._stop.set()
+            self._thread.join(timeout=10)
+
+
+class Evaluator:
+    """Scores an eval step (`eval_step(params, *arrays)` -> the release
+    step's EvalOutputs) over a stream of RowBatches on `device`."""
+
+    def __init__(self, config, vocabs, eval_step: Callable,
+                 device: torch.device, log_path: Optional[str] = "log.txt"):
+        self.config = config
+        self.vocabs = vocabs
+        self.eval_step = eval_step
+        self.device = torch.device(device)
+        self.log_path = log_path
+        self.tables = TargetWordTables(vocabs.target_vocab)
+
+    def evaluate(self, params, batches: Iterable,
+                 prefetch: bool = True) -> ModelEvaluationResults:
+        """Pipelined (`prefetch`) or serial evaluation; both give the same
+        results."""
+        config = self.config
+        topk_metric = TopKAccuracyEvaluationMetric(
+            config.top_k_words_considered_during_prediction, self.tables)
+        subtoken_metric = SubtokensEvaluationMetric(self.tables)
+        # the step sums CE over rows with an in-vocabulary label; the mean
+        # divides by the same row count
+        oov_floor = max(self.vocabs.target_vocab.pad_index,
+                        self.vocabs.target_vocab.oov_index)
+        names_read = ("topk_indices", "loss_sum")
+        totals = dict(loss_sum=0.0, loss_rows=0, predictions=0, batches=0)
+        start_time = time.time()
+        log_file = open(self.log_path, "w") if self.log_path else None
+
+        def consume(batch, host: _HostCopy) -> None:
+            out = host.get()
+            valid = np.asarray(batch.example_valid)
+            names = batch.target_strings
+            if names is None:
+                names = [self.vocabs.target_vocab.lookup_word(int(i))
+                         for i in batch.target_index]
+            names = [n for n, v in zip(names, valid) if v]
+            rows = out["topk_indices"].numpy()[valid]
+            info = batch_prediction_info(self.tables, names, rows)
+            topk_metric.update_batch_from_indices(names, rows, info=info)
+            subtoken_metric.update_batch_from_indices(names, rows, info=info)
+            totals["loss_sum"] += float(out["loss_sum"])
+            totals["loss_rows"] += int(np.sum(
+                valid & (np.asarray(batch.target_index) > oov_floor)))
+            totals["predictions"] += len(names)
+            totals["batches"] += 1
+            if log_file is not None:
+                self._log_predictions(log_file, names, info)
+            if totals["batches"] % config.num_batches_to_log_progress == 0:
+                elapsed = time.time() - start_time
+                config.log(f"Evaluated {totals['predictions']} examples... "
+                           f"({totals['predictions'] / max(elapsed, 1e-9):.0f}"
+                           f" samples/sec)")
+
+        def step(arrays) -> _HostCopy:
+            with torch.no_grad():
+                return _HostCopy(self.eval_step(params, *arrays), names_read)
+
+        try:
+            if prefetch:
+                pending = None
+                for arrays, batch in _Prefetcher(batches, self.device):
+                    host = step(arrays)  # queued behind the previous step
+                    if pending is not None:
+                        consume(*pending)
+                    pending = (batch, host)
+                if pending is not None:
+                    consume(*pending)
+            else:
+                for batch in batches:
+                    consume(batch, step(batch_to_device(batch, self.device)))
+            if log_file is not None:
+                log_file.write(str(topk_metric.topk_correct_predictions)
+                               + "\n")
+        finally:
+            if log_file is not None:
+                log_file.close()
+        return ModelEvaluationResults(
+            topk_acc=topk_metric.topk_correct_predictions,
+            subtoken_precision=subtoken_metric.precision,
+            subtoken_recall=subtoken_metric.recall,
+            subtoken_f1=subtoken_metric.f1,
+            loss=totals["loss_sum"] / max(totals["loss_rows"], 1))
+
+    def _log_predictions(self, log_file, names, info) -> None:
+        # reference: tensorflow_model.py:410-421
+        for name, rank, idx in zip(names, info.match_rank, info.match_idx):
+            if rank >= 0:
+                if rank == 0:
+                    log_file.write(f"Original: {name}, predicted 1st: "
+                                   f"{self.tables.word(int(idx))}\n")
+                else:
+                    log_file.write("\t\t predicted correctly at rank: "
+                                   f"{rank + 1}\n")
+            else:
+                log_file.write(f"No results for predicting: {name}\n")

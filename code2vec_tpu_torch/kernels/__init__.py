@@ -22,6 +22,11 @@ from its f32-row one as `ivf_search_int8`. K5's row mode (the sparse
 train step's row gradients) is counted apart as `encoder_backward_rows`.
 K13 is the large-k mode of K3 and K11 (k above 64).
 
+K1, K3, K4 and K11 read their tables in the stored format of a release
+artifact: f32, int8, fp8 (e4m3 or e5m2) or packed int4. The fp8 and int4
+modes are counted apart per kernel, as `<kernel>_fp8` (both fp8 formats)
+and `<kernel>_int4`.
+
 Each wrapper adds one to its counter (`launches` of its module, or the
 attribute KERNEL_COUNTERS names) where it launches its kernel, and
 nowhere else.
@@ -50,12 +55,21 @@ KERNEL_MODULES = {
     "sparse_adam": "code2vec_tpu_torch.kernels.sparse_adam",
     "select_topk": "code2vec_tpu_torch.kernels.select",
 }
+# the fp8 and int4 modes of the kernels that read a release artifact's
+# tables
+QUANT_MODE_KERNELS = ("context_encoder", "blockwise_topk", "label_logits",
+                      "ivf_search")
+for _kernel in QUANT_MODE_KERNELS:
+    for _mode in ("fp8", "int4"):
+        KERNEL_MODULES[f"{_kernel}_{_mode}"] = KERNEL_MODULES[_kernel]
 # counters other than the module's `launches`
 KERNEL_COUNTERS = {"masked_attention_backward": "backward_launches",
                    "kmeans_update": "update_launches",
                    "blockwise_topk_f32": "f32_launches",
                    "ivf_search_int8": "int8_launches",
-                   "encoder_backward_rows": "rows_launches"}
+                   "encoder_backward_rows": "rows_launches",
+                   **{f"{k}_{m}": f"{m}_launches"
+                      for k in QUANT_MODE_KERNELS for m in ("fp8", "int4")}}
 
 # the kernels every train step launches (K1 in train mode)
 TRAIN_KERNELS = ("context_encoder", "masked_attention", "encoder_backward",
@@ -65,6 +79,16 @@ TRAIN_KERNELS = ("context_encoder", "masked_attention", "encoder_backward",
 SPARSE_TRAIN_KERNELS = ("context_encoder", "masked_attention",
                         "encoder_backward_rows", "masked_attention_backward",
                         "softmax_xent", "adam", "sparse_adam")
+# the kernels of serving an artifact of a given scheme: K1-K4 in the
+# tables' format (K2 has none)
+SERVE_KERNELS = {
+    "int8": ("context_encoder", "masked_attention", "blockwise_topk",
+             "label_logits"),
+    "fp8": ("context_encoder_fp8", "masked_attention", "blockwise_topk_fp8",
+            "label_logits_fp8"),
+    "int4": ("context_encoder_int4", "masked_attention",
+             "blockwise_topk_int4", "label_logits_int4"),
+}
 # the kernels of k-means and the index and MIPS searches (K13 for k
 # above 64)
 RETRIEVAL_KERNELS = ("kmeans_assign", "kmeans_update", "ivf_search",

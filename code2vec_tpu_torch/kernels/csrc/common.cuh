@@ -16,6 +16,62 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // index (code2vec_tpu/ops/topk.py blockwise_matmul_top_k init).
 constexpr int kEmptyIndex = 0x7fffffff;
 
+// How a table's values are stored (kernels/launch.py FMT_*): f32; int8,
+// fp8 e4m3fn or fp8 e5m2, one byte per value; or packed int4, two values
+// per byte, the even column in the low nibble, offset-binary q + 8. Every
+// quantized format carries an f32 scale per row, applied by the caller.
+enum TableFormat : int {
+  kF32 = 0, kInt8 = 1, kE4M3 = 2, kE5M2 = 3, kInt4 = 4
+};
+
+// An fp8 e4m3fn byte as f32, exactly. Its exponent and mantissa bits set
+// at bit 20 of an f32 give the value times 2^-120 (a subnormal code lands
+// on an f32 subnormal with the same factor), so one multiply by 2^120
+// restores it. S.1111.111 is NaN; the format has no infinity.
+__device__ __forceinline__ float e4m3_to_f32(uint32_t b) {
+  const uint32_t mag = b & 0x7Fu;
+  float v = __uint_as_float(mag << 20) * __uint_as_float(0x7B800000u);
+  if (mag == 0x7Fu) v = __uint_as_float(0x7FC00000u);
+  return (b & 0x80u) ? -v : v;
+}
+
+// An fp8 e5m2 byte as f32, exactly: bits at 21, times 2^112; exponent
+// 11111 is infinity (mantissa 0) or NaN.
+__device__ __forceinline__ float e5m2_to_f32(uint32_t b) {
+  const uint32_t mag = b & 0x7Fu;
+  float v = __uint_as_float(mag << 21) * __uint_as_float(0x77800000u);
+  if (mag >= 0x7Cu)
+    v = mag == 0x7Cu ? INFINITY : __uint_as_float(0x7FC00000u);
+  return (b & 0x80u) ? -v : v;
+}
+
+// Four consecutive values of a quantized row as f32, exactly, before the
+// row's scale: the bytes of `w` lowest first (int8, e4m3, e5m2), or the
+// four nibbles of its low 16 bits lowest first (int4).
+template <int kFmt>
+__device__ __forceinline__ void decode4(uint32_t w, float (&v)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (kFmt == kInt4) {
+      v[i] = static_cast<float>(static_cast<int>((w >> (4 * i)) & 0xFu) - 8);
+    } else {
+      const uint32_t b = (w >> (8 * i)) & 0xFFu;
+      if (kFmt == kInt8)
+        v[i] = static_cast<float>(static_cast<int8_t>(b));
+      else if (kFmt == kE4M3)
+        v[i] = e4m3_to_f32(b);
+      else
+        v[i] = e5m2_to_f32(b);
+    }
+  }
+}
+
+// Values of a quantized format per 32-bit word of its row.
+template <int kFmt>
+__host__ __device__ constexpr int values_per_word() {
+  return kFmt == kInt4 ? 8 : 4;
+}
+
 // Round an f32 to the nearest bf16 (ties to even) and widen it back: the
 // reference's `.astype(bfloat16)` before a product with f32 accumulation.
 // The product of two bf16 values is exact in f32, so an f32 FMA over

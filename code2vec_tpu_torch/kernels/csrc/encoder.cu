@@ -4,7 +4,9 @@
 // Replaces code2vec_tpu/models/code2vec.py transform_contexts /
 // transform_gathered (:128-177), as mirrored by the release step
 // (code2vec_tpu/release/runtime.py:113-122) over ops/quant.py
-// table_gather / dequant_gather (:163-194). In train mode it applies the
+// table_gather / dequant_gather / dequant_gather_int4 (:151-194), for
+// tables stored as f32, int8, fp8 e4m3 or e5m2 (the reference's fp8 view
+// at load, runtime.py:312-352), or packed int4. In train mode it applies the
 // reference's dropout after the bf16 cast (:167-173):
 // where(keep, bf16(x / bf16(keep)), 0), with the keep bits drawn by a
 // Philox generator keyed by (seed, step) and each element's flat index in
@@ -21,7 +23,8 @@
 // rows and 157 MB of output, and the bytes do.
 // Design: one CTA owns a tile of 64 contexts x 128 output columns. One
 // warp per context gathers its three embedding rows straight into shared
-// memory with vector loads (dequantising int8 as float(q) * scale, then
+// memory with vector loads (decoding int8, fp8 or int4 exactly in
+// registers, common.cuh, and dequantising as float(q) * scale, then
 // rounding to bf16 exactly where the reference casts the concatenated
 // context, then dropping four elements per Philox call). W is staged 128
 // rows at a time as bf16, so two CTAs fit on an SM, and the product runs
@@ -29,8 +32,11 @@
 // runs in f32 on the accumulators and the result is stored as bf16. The
 // (B, M, 384) f32 context never exists in device memory. Dropout and the
 // residual output are compiled only into the train instantiation
-// (kTrain), so the serving one carries neither. No TMA, wgmma or
-// load/compute overlap yet.
+// (kTrain), so the serving one carries neither; the train mode reads f32
+// and int8 tables only. An int4 row is half the bytes of an int8 one, but
+// at the serve shape the gathered rows are a third of the bytes and the
+// product sets the floor, so the narrower formats barely move it. No TMA,
+// wgmma or load/compute overlap yet.
 #include "common.cuh"
 
 #include <mma.h>
@@ -49,10 +55,13 @@ constexpr int kLdb = kTileN + kPad;
 constexpr int kLdc = kTileN + 4;
 
 // One embedding row, dequantised, rounded to bf16 and dropped out, into
-// shared memory: each lane moves 4 values per step (a 4-byte int8 or
-// 16-byte f32 load). `elem0` is the row's first flat index in the
-// (n_ctx, k_dim) context, a multiple of 4. Dropout only when kTrain.
-template <bool kInt8, bool kTrain>
+// shared memory: each lane moves 4 values per step (a 16-byte f32 load, a
+// 4-byte int8 or fp8 load, or a 2-byte load of four int4 nibbles, a row
+// of int4 being dim / 2 bytes), decoded exactly to f32 in registers and
+// times the row's scale, as the reference's `astype(f32) * scale`.
+// `elem0` is the row's first flat index in the (n_ctx, k_dim) context, a
+// multiple of 4. Dropout only when kTrain.
+template <int kFmt, bool kTrain>
 __device__ __forceinline__ void gather_row(__nv_bfloat16* dst,
                                            const void* table,
                                            const float* scales, int64_t rows,
@@ -60,20 +69,23 @@ __device__ __forceinline__ void gather_row(__nv_bfloat16* dst,
                                            const c2v::Dropout& drop,
                                            int64_t elem0) {
   const bool ok = id >= 0 && id < rows;  // else jnp.take's NaN fill
-  const float s = (kInt8 && ok) ? scales[id] : 1.f;
+  const float s = (kFmt != c2v::kF32 && ok) ? scales[id] : 1.f;
+  const unsigned char* bytes = static_cast<const unsigned char*>(table);
   for (int c = lane * 4; c < dim; c += 128) {
     float v0 = nanf(""), v1 = v0, v2 = v0, v3 = v0;
-    if (ok && kInt8) {
-      const char4 q = *reinterpret_cast<const char4*>(
-          static_cast<const int8_t*>(table) + id * dim + c);
-      v0 = static_cast<float>(q.x) * s;
-      v1 = static_cast<float>(q.y) * s;
-      v2 = static_cast<float>(q.z) * s;
-      v3 = static_cast<float>(q.w) * s;
-    } else if (ok) {
+    if (ok && kFmt == c2v::kF32) {
       const float4 f = *reinterpret_cast<const float4*>(
           static_cast<const float*>(table) + id * dim + c);
       v0 = f.x, v1 = f.y, v2 = f.z, v3 = f.w;
+    } else if (ok) {
+      const uint32_t w =
+          kFmt == c2v::kInt4
+              ? *reinterpret_cast<const uint16_t*>(bytes + id * (dim / 2) +
+                                                   c / 2)
+              : *reinterpret_cast<const uint32_t*>(bytes + id * dim + c);
+      float q[4];
+      c2v::decode4<kFmt>(w, q);
+      v0 = q[0] * s, v1 = q[1] * s, v2 = q[2] * s, v3 = q[3] * s;
     }
     if (kTrain && drop.mode != 0) {
       const uint64_t group = static_cast<uint64_t>(elem0 + c) >> 2;
@@ -93,7 +105,7 @@ __device__ __forceinline__ void gather_row(__nv_bfloat16* dst,
   }
 }
 
-template <bool kInt8, bool kTrain>
+template <int kFmt, bool kTrain>
 __global__ void __launch_bounds__(kThreads, 2)
 context_encoder_kernel(const void* tok, const float* tok_scale,
                        int64_t tok_rows, int tok_dim, const void* path,
@@ -124,13 +136,13 @@ context_encoder_kernel(const void* tok, const float* tok_scale,
       c2v::Dropout d = drop;
       if (kTrain && blockIdx.y != 0 && d.mode == 1) d.mask = nullptr;
       const int64_t e0 = ctx * k_dim;
-      gather_row<kInt8, kTrain>(dst, tok, tok_scale, tok_rows, tok_dim,
-                                src[ctx], lane, d, e0);
-      gather_row<kInt8, kTrain>(dst + tok_dim, path, path_scale, path_rows,
-                                path_dim, pth[ctx], lane, d, e0 + tok_dim);
-      gather_row<kInt8, kTrain>(dst + tok_dim + path_dim, tok, tok_scale,
-                                tok_rows, tok_dim, tgt[ctx], lane, d,
-                                e0 + tok_dim + path_dim);
+      gather_row<kFmt, kTrain>(dst, tok, tok_scale, tok_rows, tok_dim,
+                               src[ctx], lane, d, e0);
+      gather_row<kFmt, kTrain>(dst + tok_dim, path, path_scale, path_rows,
+                               path_dim, pth[ctx], lane, d, e0 + tok_dim);
+      gather_row<kFmt, kTrain>(dst + tok_dim + path_dim, tok, tok_scale,
+                               tok_rows, tok_dim, tgt[ctx], lane, d,
+                               e0 + tok_dim + path_dim);
     } else {
       for (int c = lane * 2; c < k_dim; c += 64)
         *reinterpret_cast<__nv_bfloat162*>(dst + c) =
@@ -209,7 +221,9 @@ C2V_EXPORT int64_t c2v_context_encoder_smem(int k_dim) {
   return a + (b > c ? b : c);
 }
 
-// tok/path: int8 (with f32 (rows,) scales) or f32 (scales null) tables.
+// tok/path: tables of format `fmt` (c2v::TableFormat): f32 (scales null),
+// or int8, e4m3, e5m2 (rows x dim bytes) or int4 (rows x dim / 2 bytes)
+// with f32 (rows,) scales; the train mode takes f32 and int8 only.
 // w: f32 (k_dim, d_out) row-major. src/pth/tgt: int32 (n_ctx,). out: bf16
 // (n_ctx, d_out); out_lo, when not null, bf16 (n_ctx, d_out) receives
 // the residual tanh - out. Dropout (common.cuh c2v::Dropout): drop_mode
@@ -220,7 +234,7 @@ C2V_EXPORT int c2v_context_encoder(const void* tok, const float* tok_scale,
                                    int64_t tok_rows, int tok_dim,
                                    const void* path, const float* path_scale,
                                    int64_t path_rows, int path_dim,
-                                   int is_int8, const float* w, int d_out,
+                                   int fmt, const float* w, int d_out,
                                    const int* src, const int* pth,
                                    const int* tgt, int64_t n_ctx, void* out,
                                    void* out_lo, int drop_mode, float keep,
@@ -259,12 +273,31 @@ C2V_EXPORT int c2v_context_encoder(const void* tok, const float* tok_scale,
     return cudaSuccess;
   };
   cudaError_t err;
-  if (is_int8)
-    err = train ? run(context_encoder_kernel<true, true>)
-                : run(context_encoder_kernel<true, false>);
-  else
-    err = train ? run(context_encoder_kernel<false, true>)
-                : run(context_encoder_kernel<false, false>);
+  switch (fmt) {
+    case c2v::kF32:
+      err = train ? run(context_encoder_kernel<c2v::kF32, true>)
+                  : run(context_encoder_kernel<c2v::kF32, false>);
+      break;
+    case c2v::kInt8:
+      err = train ? run(context_encoder_kernel<c2v::kInt8, true>)
+                  : run(context_encoder_kernel<c2v::kInt8, false>);
+      break;
+    // serving only: training keeps f32 tables
+    case c2v::kE4M3:
+      err = train ? cudaErrorInvalidValue
+                  : run(context_encoder_kernel<c2v::kE4M3, false>);
+      break;
+    case c2v::kE5M2:
+      err = train ? cudaErrorInvalidValue
+                  : run(context_encoder_kernel<c2v::kE5M2, false>);
+      break;
+    case c2v::kInt4:
+      err = train ? cudaErrorInvalidValue
+                  : run(context_encoder_kernel<c2v::kInt4, false>);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -1,11 +1,13 @@
-// K11 ivf_search: the probe and candidate scan of an IVF index, with two
-// instantiations of one kernel:
+// K11 ivf_search: the probe and candidate scan of an IVF index, with an
+// instantiation of one kernel per row format:
 //   (a) f32 rows: code2vec_tpu/retrieval/index.py `NeighborIndex._search_ivf`
 //       (:319-349), an index over a store's vectors;
-//   (b) int8 rows with per-row f32 scales: code2vec_tpu/retrieval/mips.py
-//       `MipsHead.topk_fn` (:139-188), the approximate-MIPS prediction
-//       head over the quantized target-name table, whose score is
-//       (cv . float(row)) * scale, in that order (mips.py:168-172).
+//   (b) int8, fp8 (e4m3 or e5m2) or packed int4 rows with per-row f32
+//       scales: code2vec_tpu/retrieval/mips.py `MipsHead.topk_fn`
+//       (:139-188), the approximate-MIPS prediction head over the
+//       quantized target-name table, whose score is (cv . float(row)) *
+//       scale in f32, in that order (mips.py:166-172); each value decodes
+//       exactly in registers (common.cuh).
 //
 // Per query: score every centroid by inner product, take the top nprobe
 // (ties to the lowest centroid index, NaN first, as lax.top_k), walk the
@@ -19,7 +21,8 @@
 // 0 (MIPS), value -inf.
 //
 // What bounds it on an H100: bytes. Each probed row is read once per
-// query that probes it (f32: 1,536 bytes at width 384, int8: 384 + 4) for
+// query that probes it (f32: 1,536 bytes at width 384, int8 and fp8:
+// 384 + 4, int4: 192 + 4) for
 // 2 D operations, well under the card's ~20 f32 operations per byte; the
 // least time counts every row of the union of the probed lists once.
 // Design: three launches. (1) One CTA of 32 warps per query scores the
@@ -74,14 +77,15 @@ __device__ __forceinline__ float dot4(const float4 (&v)[kMaxVec],
   return s;
 }
 
-// One row's vectors (f32, or int8 widened to f32), every load issued
-// before any is used.
-template <bool kInt8>
+// One row's vectors (f32, or a quantized format decoded to f32 before
+// its scale: a lane's 4 values are 4 bytes, or 2 of int4), every load
+// issued before any is used.
+template <int kFmt>
 __device__ __forceinline__ void load_row(const void* rows, int64_t row,
                                          int d, int lane,
                                          float4 (&v)[kMaxVec]) {
   const int d4 = d / 4;
-  if (kInt8) {
+  if constexpr (kFmt == c2v::kInt8) {
     const int* r = reinterpret_cast<const int*>(
         static_cast<const int8_t*>(rows) + row * d);
     int packed[kMaxVec];
@@ -94,6 +98,27 @@ __device__ __forceinline__ void load_row(const void* rows, int64_t row,
                          static_cast<float>(static_cast<int8_t>(packed[i] >> 8)),
                          static_cast<float>(static_cast<int8_t>(packed[i] >> 16)),
                          static_cast<float>(static_cast<int8_t>(packed[i] >> 24)));
+  } else if constexpr (kFmt != c2v::kF32) {
+    const unsigned char* base = static_cast<const unsigned char*>(rows);
+    uint32_t packed[kMaxVec];
+    if constexpr (kFmt == c2v::kInt4) {
+      const uint16_t* r =
+          reinterpret_cast<const uint16_t*>(base + row * (d / 2));
+#pragma unroll
+      for (int i = 0; i < kMaxVec; ++i)
+        packed[i] = lane + 32 * i < d4 ? r[lane + 32 * i] : 0x8888u;
+    } else {
+      const uint32_t* r = reinterpret_cast<const uint32_t*>(base + row * d);
+#pragma unroll
+      for (int i = 0; i < kMaxVec; ++i)
+        packed[i] = lane + 32 * i < d4 ? r[lane + 32 * i] : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxVec; ++i) {
+      float q[4];
+      c2v::decode4<kFmt>(packed[i], q);
+      v[i] = make_float4(q[0], q[1], q[2], q[3]);
+    }
   } else {
     const float4* r = reinterpret_cast<const float4*>(
         static_cast<const float*>(rows) + row * d);
@@ -119,7 +144,7 @@ probe_kernel(const float* q, int d, const float* cent, int n_cent,
   const int d4 = d / 4;
   for (int c = warp; c < n_cent; c += kProbeThreads / 32) {
     float4 v[kMaxVec];
-    load_row<false>(cent, c, d, lane, v);
+    load_row<c2v::kF32>(cent, c, d, lane, v);
     const float s = c2v::warp_sum(dot4(v, sq, d4, lane));
     if (lane == 0) sc[c] = s;
   }
@@ -135,7 +160,7 @@ probe_kernel(const float* q, int d, const float* cent, int n_cent,
 // (2) The top k of one probed list for one query. Candidates are keyed
 // by rank * max_len + offset, so keys order like the reference's padded
 // candidate positions.
-template <bool kInt8>
+template <int kFmt>
 __global__ void __launch_bounds__(kThreads)
 list_topk_kernel(const float* q, int d, const void* rows,
                  const float* scales, const int64_t* offsets,
@@ -162,11 +187,11 @@ list_topk_kernel(const float* q, int d, const void* rows,
   for (int64_t off = 2 * warp; off < len; off += 2 * kWarps) {
     const bool two = off + 1 < len;  // warp-uniform
     float4 va[kMaxVec], vb[kMaxVec];
-    load_row<kInt8>(rows, lo + off, d, lane, va);
-    if (two) load_row<kInt8>(rows, lo + off + 1, d, lane, vb);
+    load_row<kFmt>(rows, lo + off, d, lane, va);
+    if (two) load_row<kFmt>(rows, lo + off + 1, d, lane, vb);
     float sa = c2v::warp_sum(dot4(va, sq, d4, lane));  // same bits in
     float sb = two ? c2v::warp_sum(dot4(vb, sq, d4, lane)) : 0.f;  // all
-    if (kInt8) {
+    if (kFmt != c2v::kF32) {
       sa *= scales[lo + off];
       if (two) sb *= scales[lo + off + 1];
     }
@@ -206,7 +231,7 @@ list_topk_kernel(const float* q, int d, const void* rows,
 
 // (2') Large-k mode: every probed row's score at its padded candidate
 // position, -inf past the end of its list.
-template <bool kInt8>
+template <int kFmt>
 __global__ void __launch_bounds__(kThreads)
 list_scores_kernel(const float* q, int d, const void* rows,
                    const float* scales, const int64_t* offsets,
@@ -229,11 +254,11 @@ list_scores_kernel(const float* q, int d, const void* rows,
   for (int64_t off = 2 * warp; off < len; off += 2 * kWarps) {
     const bool two = off + 1 < len;  // warp-uniform
     float4 va[kMaxVec], vb[kMaxVec];
-    load_row<kInt8>(rows, lo + off, d, lane, va);
-    if (two) load_row<kInt8>(rows, lo + off + 1, d, lane, vb);
+    load_row<kFmt>(rows, lo + off, d, lane, va);
+    if (two) load_row<kFmt>(rows, lo + off + 1, d, lane, vb);
     float sa = c2v::warp_sum(dot4(va, sq, d4, lane));
     float sb = two ? c2v::warp_sum(dot4(vb, sq, d4, lane)) : 0.f;
-    if (kInt8) {
+    if (kFmt != c2v::kF32) {
       sa *= scales[lo + off];
       if (two) sb *= scales[lo + off + 1];
     }
@@ -330,21 +355,23 @@ merge_kernel(const float* part_vals, const int* part_keys,
 
 C2V_EXPORT int c2v_ivf_max_k() { return kMaxK; }
 
-// q f32 (b, d), d % 4 == 0; centroids f32 (n_cent, d); rows (n, d) f32
-// (is_int8 0) or int8 with scales f32 (n,) (is_int8 1); offsets int64
-// (n_cent + 1,); global_ids int32 (n,) or null (positions out).
+// q f32 (b, d), d % 4 == 0; centroids f32 (n_cent, d); rows of format
+// `fmt` (c2v::TableFormat): f32 (n, d) with scales null, or int8, e4m3,
+// e5m2 (n, d bytes) or int4 (n, d / 2 bytes) with scales f32 (n,);
+// offsets int64 (n_cent + 1,); global_ids int32 (n,) or null (positions
+// out).
 // Scratch: probe int32 (b, nprobe), part_vals f32 / part_keys int32
 // (b, nprobe, k). Writes out_vals f32 (b, k), out_idx int32 (b, k).
 C2V_EXPORT int c2v_ivf_search(const float* q, int b, int d,
                               const float* centroids, int n_cent,
                               const void* rows, const float* scales,
-                              int is_int8, const int64_t* offsets,
+                              int fmt, const int64_t* offsets,
                               int max_len, const int* global_ids,
                               int nprobe, int k, int* probe,
                               float* part_vals, int* part_keys,
                               float* out_vals, int* out_idx, void* stream) {
   if (b <= 0 || d <= 0 || d % 4 != 0 || d > 128 * kMaxVec || n_cent <= 0 ||
-      nprobe <= 0 ||
+      fmt < c2v::kF32 || fmt > c2v::kInt4 || nprobe <= 0 ||
       nprobe > n_cent || k <= 0 || k > kMaxK || max_len <= 0 ||
       static_cast<int64_t>(nprobe) * max_len > 0x7ffffffe)
     return cudaErrorInvalidValue;
@@ -359,14 +386,18 @@ C2V_EXPORT int c2v_ivf_search(const float* q, int b, int d,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(nprobe), static_cast<unsigned>(b));
   const size_t list_smem = sizeof(float) * d + 8 * kWarps * k;
-  if (is_int8)
-    list_topk_kernel<true><<<grid, kThreads, list_smem, s>>>(
-        q, d, rows, scales, offsets, probe, nprobe, max_len, k, part_vals,
-        part_keys);
-  else
-    list_topk_kernel<false><<<grid, kThreads, list_smem, s>>>(
-        q, d, rows, scales, offsets, probe, nprobe, max_len, k, part_vals,
-        part_keys);
+  auto run = [&](auto kernel) {
+    kernel<<<grid, kThreads, list_smem, s>>>(q, d, rows, scales, offsets,
+                                             probe, nprobe, max_len, k,
+                                             part_vals, part_keys);
+  };
+  switch (fmt) {
+    case c2v::kF32: run(list_topk_kernel<c2v::kF32>); break;
+    case c2v::kInt8: run(list_topk_kernel<c2v::kInt8>); break;
+    case c2v::kE4M3: run(list_topk_kernel<c2v::kE4M3>); break;
+    case c2v::kE5M2: run(list_topk_kernel<c2v::kE5M2>); break;
+    default: run(list_topk_kernel<c2v::kInt4>); break;
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   merge_kernel<<<b, 32, 0, s>>>(part_vals, part_keys, offsets, probe, nprobe,
                                 max_len, k, global_ids, out_vals, out_idx);
@@ -379,11 +410,12 @@ C2V_EXPORT int c2v_ivf_search(const float* q, int b, int d,
 C2V_EXPORT int c2v_ivf_scores(const float* q, int b, int d,
                               const float* centroids, int n_cent,
                               const void* rows, const float* scales,
-                              int is_int8, const int64_t* offsets,
+                              int fmt, const int64_t* offsets,
                               int max_len, int nprobe, int* probe,
                               float* scores, int64_t ld, void* stream) {
   if (b <= 0 || d <= 0 || d % 4 != 0 || d > 128 * kMaxVec || n_cent <= 0 ||
-      nprobe <= 0 || nprobe > n_cent || max_len <= 0 ||
+      fmt < c2v::kF32 || fmt > c2v::kInt4 || nprobe <= 0 ||
+      nprobe > n_cent || max_len <= 0 ||
       static_cast<int64_t>(nprobe) * max_len > 0x7ffffffe ||
       ld < static_cast<int64_t>(nprobe) * max_len)
     return cudaErrorInvalidValue;
@@ -398,12 +430,17 @@ C2V_EXPORT int c2v_ivf_scores(const float* q, int b, int d,
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(nprobe), static_cast<unsigned>(b));
   const size_t smem = sizeof(float) * d;
-  if (is_int8)
-    list_scores_kernel<true><<<grid, kThreads, smem, s>>>(
-        q, d, rows, scales, offsets, probe, nprobe, max_len, scores, ld);
-  else
-    list_scores_kernel<false><<<grid, kThreads, smem, s>>>(
-        q, d, rows, scales, offsets, probe, nprobe, max_len, scores, ld);
+  auto run = [&](auto kernel) {
+    kernel<<<grid, kThreads, smem, s>>>(q, d, rows, scales, offsets, probe,
+                                        nprobe, max_len, scores, ld);
+  };
+  switch (fmt) {
+    case c2v::kF32: run(list_scores_kernel<c2v::kF32>); break;
+    case c2v::kInt8: run(list_scores_kernel<c2v::kInt8>); break;
+    case c2v::kE4M3: run(list_scores_kernel<c2v::kE4M3>); break;
+    case c2v::kE5M2: run(list_scores_kernel<c2v::kE5M2>); break;
+    default: run(list_scores_kernel<c2v::kInt4>); break;
+  }
   return cudaGetLastError();
 }
 

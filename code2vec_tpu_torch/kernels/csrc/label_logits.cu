@@ -4,7 +4,10 @@
 // gather of the label's table row, a dot with the code vector (bf16
 // operands, f32 accumulation), times the row's dequant scale, and the
 // reference's nonfinite guard (a NaN/Inf logit becomes -1e30). A label
-// outside the table gives -1e30, as jnp.take's NaN fill does there.
+// outside the table gives -1e30, as jnp.take's NaN fill does there. The
+// table is f32, or int8, fp8 e4m3 / e5m2 or packed int4 (the reference's
+// unpack_int4 on the gathered rows, topk.py:193-195) with per-row scales;
+// each value decodes exactly (common.cuh) and is exact in bf16.
 //
 // What bounds it on an H100: launch latency. At the serve shape it reads
 // 64 table rows (25 KB) and does 49 K flops. Design: one warp per row, the
@@ -16,7 +19,25 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
 
-template <bool kInt8>
+// Value i of row `row` of a table of format kFmt, before its scale, as the
+// bf16 operand of the product (exact for every quantized format).
+template <int kFmt>
+__device__ __forceinline__ float table_value(const void* table, int64_t row,
+                                             int d, int i) {
+  if (kFmt == c2v::kF32)
+    return c2v::bf16_round(static_cast<const float*>(table)[row * d + i]);
+  const unsigned char* bytes = static_cast<const unsigned char*>(table);
+  float v[4];
+  if (kFmt == c2v::kInt4) {
+    const uint32_t b = bytes[row * ((d + 1) / 2) + i / 2];
+    c2v::decode4<kFmt>((i & 1) ? b >> 4 : b, v);
+  } else {
+    c2v::decode4<kFmt>(bytes[row * d + i], v);
+  }
+  return v[0];
+}
+
+template <int kFmt>
 __global__ void __launch_bounds__(kThreads)
 label_logits_kernel(const float* cv, int b_rows, int d, const void* table,
                     const float* scales, int64_t v_rows, const int* labels,
@@ -31,36 +52,39 @@ label_logits_kernel(const float* cv, int b_rows, int d, const void* table,
   }
   const float* x = cv + static_cast<int64_t>(b) * d;
   float acc = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float w =
-        kInt8 ? static_cast<float>(
-                    static_cast<const int8_t*>(table)[lab * d + i])
-              : c2v::bf16_round(static_cast<const float*>(table)[lab * d + i]);
-    acc += c2v::bf16_round(x[i]) * w;
-  }
+  for (int i = lane; i < d; i += 32)
+    acc += c2v::bf16_round(x[i]) * table_value<kFmt>(table, lab, d, i);
   acc = c2v::warp_sum(acc);
   if (lane == 0) {
-    if (kInt8) acc *= scales[lab];
+    if (kFmt != c2v::kF32) acc *= scales[lab];
     out[b] = isfinite(acc) ? acc : -1e30f;
   }
 }
 
 }  // namespace
 
-// cv: f32 (b, d); table int8 (v, d) + f32 (v,) scales, or f32 (v, d) with
-// scales null; labels int32 (b,); out f32 (b,). Returns a cudaError_t.
+// cv: f32 (b, d); table of format `fmt` (c2v::TableFormat): f32 (v, d)
+// with scales null, or int8, e4m3, e5m2 (v, d bytes) or int4
+// (v, ceil(d / 2) bytes) with f32 (v,) scales; labels int32 (b,); out f32
+// (b,). Returns a cudaError_t.
 C2V_EXPORT int c2v_label_logits(const float* cv, int b, int d,
                                 const void* table, const float* scales,
-                                int is_int8, int64_t v, const int* labels,
+                                int fmt, int64_t v, const int* labels,
                                 float* out, void* stream) {
   if (b <= 0 || d <= 0 || v <= 0) return cudaErrorInvalidValue;
   const unsigned blocks = (b + kRowsPerBlock - 1) / kRowsPerBlock;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_int8)
-    label_logits_kernel<true><<<blocks, kThreads, 0, s>>>(
-        cv, b, d, table, scales, v, labels, out);
-  else
-    label_logits_kernel<false><<<blocks, kThreads, 0, s>>>(
-        cv, b, d, table, scales, v, labels, out);
+  auto run = [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, s>>>(cv, b, d, table, scales, v, labels,
+                                       out);
+  };
+  switch (fmt) {
+    case c2v::kF32: run(label_logits_kernel<c2v::kF32>); break;
+    case c2v::kInt8: run(label_logits_kernel<c2v::kInt8>); break;
+    case c2v::kE4M3: run(label_logits_kernel<c2v::kE4M3>); break;
+    case c2v::kE5M2: run(label_logits_kernel<c2v::kE5M2>); break;
+    case c2v::kInt4: run(label_logits_kernel<c2v::kInt4>); break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }

@@ -10,9 +10,17 @@
 // first, as lax.top_k orders it), and the logsumexp sees every live
 // non-finite logit as -1e30 while the top-k merges the raw logits.
 //
-// What bounds it on an H100: bytes. At the serve shape the int8 table is
-// 100 MB against 12.8 GFLOP, ~130 flops per byte, under the card's ~295,
-// so the floor is one pass over the table (~30 us). Design: split-V. The
+// Tables: f32, int8, fp8 e4m3 or e5m2 (the reference's fp8 view at load,
+// code2vec_tpu/release/runtime.py:352) or packed int4 (ops/quant.py
+// unpack_int4 on each block, topk.py:142-147), each quantized format with
+// per-row f32 scales. Every int8, fp8 and int4 value is exact in bf16, so
+// decoding in registers into the same bf16 tile the f32 path fills is the
+// reference's decode-to-f32-then-cast, bit for bit.
+//
+// What bounds it on an H100: bytes. At the serve shape the int8 (or fp8)
+// table is 100 MB against 12.8 GFLOP, ~130 flops per byte, under the
+// card's ~295, so the floor is one pass over the table (~30 us); int4
+// halves the bytes (~15 us) and doubles the flops per byte. Design: split-V. The
 // TPU version walks the table in a sequential loop; here every CTA owns a
 // contiguous chunk of table rows and streams it once in 64-row tiles,
 // computing the logits of all (up to 64) code vectors per tile on the
@@ -45,9 +53,16 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kTileB / kWarps;
 constexpr int kPad = 8;
 constexpr int kMaxK = 64;
-// 16-byte table vectors a thread holds in registers: a whole int8 tile of
-// rows up to 512 wide, prefetched while the previous tile is processed.
+// 16-byte table vectors a thread holds in registers: a whole tile of int8
+// or fp8 rows up to 512 wide (int4: 1024), prefetched while the previous
+// tile is processed. A vector holds 4 f32, 16 int8 or fp8, or 32 int4
+// values.
 constexpr int kPrefetch = 8;
+
+template <int kFmt>
+__host__ __device__ constexpr int values_per_vector() {
+  return kFmt == c2v::kF32 ? 4 : 4 * c2v::values_per_word<kFmt>();
+}
 
 struct Layout {
   int ld, ldl;
@@ -154,7 +169,7 @@ __device__ __forceinline__ void write_partials(
   }
 }
 
-template <bool kInt8>
+template <int kFmt>
 __global__ void __launch_bounds__(kThreads, 2)
 topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
                     const float* scales, int64_t v_rows, int64_t valid_rows,
@@ -198,9 +213,11 @@ topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
     run_s[i] = 0.f;
   }
 
-  // The table tile moves as raw 16-byte vectors: 16 int8 or 4 f32 values.
-  const int64_t row_bytes = static_cast<int64_t>(d) * (kInt8 ? 1 : 4);
-  const int vpr = static_cast<int>(row_bytes / 16);  // vectors per row
+  // The table tile moves as raw 16-byte vectors.
+  constexpr bool kScaled = kFmt != c2v::kF32;
+  constexpr int kVals = values_per_vector<kFmt>();
+  const int vpr = d / kVals;  // vectors per row
+  const int64_t row_bytes = static_cast<int64_t>(vpr) * 16;
   const int nv = kTileV * vpr;
   const int passes = (nv + kPrefetch * kThreads - 1) / (kPrefetch * kThreads);
   const unsigned char* tbytes = static_cast<const unsigned char*>(table);
@@ -220,7 +237,7 @@ topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
       pre[q] = val;
     }
     if (pass == 0)
-      pre_scale = (kInt8 && tid < kTileV && t0 + tid < v_end)
+      pre_scale = (kScaled && tid < kTileV && t0 + tid < v_end)
                       ? scales[t0 + tid] : 1.f;
   };
   auto store_pass = [&](int pass) {
@@ -229,7 +246,29 @@ topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
       const int e = (pass * kPrefetch + q) * kThreads + tid;
       if (e >= nv) continue;
       const int r = e / vpr, c = e - r * vpr;
-      if (kInt8) {
+      if constexpr (kFmt == c2v::kE4M3 || kFmt == c2v::kE5M2 ||
+                    kFmt == c2v::kInt4) {
+        // decoded exactly in registers, stored as bf16 (exact)
+        const uint32_t* words = reinterpret_cast<const uint32_t*>(&pre[q]);
+        __align__(16) __nv_bfloat162 o[kVals / 2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float v[4];
+          c2v::decode4<kFmt>(words[i], v);
+          constexpr int per = kVals / 8;  // bf16 pairs per word
+          o[per * i] = __floats2bfloat162_rn(v[0], v[1]);
+          o[per * i + 1] = __floats2bfloat162_rn(v[2], v[3]);
+          if constexpr (kFmt == c2v::kInt4) {  // the upper four nibbles
+            c2v::decode4<kFmt>(words[i] >> 16, v);
+            o[per * i + 2] = __floats2bfloat162_rn(v[0], v[1]);
+            o[per * i + 3] = __floats2bfloat162_rn(v[2], v[3]);
+          }
+        }
+        uint4* dst = reinterpret_cast<uint4*>(st + r * L.ld + c * kVals);
+#pragma unroll
+        for (int j = 0; j < kVals / 8; ++j)
+          dst[j] = reinterpret_cast<const uint4*>(o)[j];
+      } else if constexpr (kFmt == c2v::kInt8) {
         const int8_t* b8 = reinterpret_cast<const int8_t*>(&pre[q]);
         __align__(16) __nv_bfloat162 o[8];
 #pragma unroll
@@ -286,8 +325,8 @@ topk_partial_kernel(const float* cv, int b_rows, int d, const void* table,
                               L.ldl, wmma::mem_row_major);
     __syncthreads();
 
-    fold_tile<kInt8>(sl, L.ldl, sscale, t0, v_end, valid_rows, b0, b_rows, k,
-                     svals, sidx, scores, sld, run_m, run_s, warp, lane);
+    fold_tile<kScaled>(sl, L.ldl, sscale, t0, v_end, valid_rows, b0, b_rows,
+                       k, svals, sidx, scores, sld, run_m, run_s, warp, lane);
   }
   __syncthreads();
   write_partials(run_m, run_s, svals, sidx, b0, b_rows, k, chunk, n_chunks,
@@ -476,9 +515,46 @@ C2V_EXPORT int c2v_topk_tile_rows() { return kTileV; }
 
 C2V_EXPORT int64_t c2v_topk_smem(int d, int k) { return layout(d, k).total; }
 
-// cv: f32 (b, d). table: int8 (v, d) with f32 (v,) scales, or f32 (v, d)
-// with scales null. compute_f32: 0 rounds both operands to bf16 (tensor
-// cores), 1 multiplies the f32 operands in f32 (f32 tables only).
+// Whether the bf16 mode takes a table of format `fmt` and width d: rows
+// of whole 16-byte vectors, d a multiple of 16, and a tile of 64 rows
+// within the register prefetch (int8, fp8: d <= 512; int4: d <= 1024).
+static bool bf16_mode_takes(int fmt, int d) {
+  if (d % 16 != 0) return false;
+  const int prefetch_values = 16 * kPrefetch * kThreads / kTileV;
+  switch (fmt) {
+    case c2v::kF32: return true;
+    case c2v::kInt8: case c2v::kE4M3: case c2v::kE5M2:
+      return d <= prefetch_values;
+    case c2v::kInt4: return d % 32 == 0 && d <= 2 * prefetch_values;
+    default: return false;
+  }
+}
+
+template <int kFmt>
+static cudaError_t launch_partial(dim3 grid, cudaStream_t s, const float* cv,
+                                  int b, int d, const void* table,
+                                  const float* scales, int64_t v,
+                                  int64_t valid_rows, int k,
+                                  int64_t chunk_rows, int64_t n_chunks,
+                                  float* part_vals, int* part_idx,
+                                  float* part_max, float* part_sum,
+                                  float* scores, int64_t scores_ld) {
+  const int64_t smem = layout(d, k).total;
+  const cudaError_t err = cudaFuncSetAttribute(
+      topk_partial_kernel<kFmt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  topk_partial_kernel<kFmt><<<grid, kThreads, smem, s>>>(
+      cv, b, d, table, scales, v, valid_rows, k, chunk_rows, n_chunks,
+      part_vals, part_idx, part_max, part_sum, scores, scores_ld);
+  return cudaSuccess;
+}
+
+// cv: f32 (b, d). table of format `fmt` (c2v::TableFormat): f32 (v, d)
+// with scales null, or int8, e4m3, e5m2 (v, d bytes) or int4 (v, d / 2
+// bytes) with f32 (v,) scales. compute_f32: 0 rounds both operands to
+// bf16 (tensor cores), 1 multiplies the f32 operands in f32 (f32 tables
+// only).
 // Partials: (b, n_chunks, k) values/indices and (b, n_chunks)
 // max/sumexp, n_chunks = ceil(v / chunk_rows). Outputs: values f32
 // (b, k), indices int32 (b, k), lse f32 (b,). Large-k mode: `scores` f32
@@ -486,7 +562,7 @@ C2V_EXPORT int64_t c2v_topk_smem(int d, int k) { return layout(d, k).total; }
 // lists, no values or indices; lse only).
 C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
                                   const void* table, const float* scales,
-                                  int is_int8, int compute_f32, int64_t v,
+                                  int fmt, int compute_f32, int64_t v,
                                   int64_t valid_rows, int k,
                                   int64_t chunk_rows, float* part_vals,
                                   int* part_idx, float* part_max,
@@ -496,9 +572,8 @@ C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
                                   void* stream) {
   if (b <= 0 || v <= 0 || k < 0 || k > kMaxK ||
       (k == 0) != (scores != nullptr) ||
-      (scores != nullptr && scores_ld < v) || d % 16 != 0 ||
-      chunk_rows <= 0 || (is_int8 && d > 16 * kPrefetch * kThreads / kTileV) ||
-      (compute_f32 && is_int8))
+      (scores != nullptr && scores_ld < v) || chunk_rows <= 0 ||
+      !bf16_mode_takes(fmt, d) || (compute_f32 && fmt != c2v::kF32))
     return cudaErrorInvalidValue;
   const int64_t n_chunks = (v + chunk_rows - 1) / chunk_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -515,24 +590,20 @@ C2V_EXPORT int c2v_blockwise_topk(const float* cv, int b, int d,
         cv, b, d, static_cast<const float*>(table), v, valid_rows, k,
         chunk_rows, n_chunks, part_vals, part_idx, part_max, part_sum,
         scores, scores_ld);
-  } else if (is_int8) {
-    const int64_t smem = layout(d, k).total;
-    err = cudaFuncSetAttribute(topk_partial_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    topk_partial_kernel<true><<<grid, kThreads, smem, s>>>(
-        cv, b, d, table, scales, v, valid_rows, k, chunk_rows, n_chunks,
-        part_vals, part_idx, part_max, part_sum, scores, scores_ld);
   } else {
-    const int64_t smem = layout(d, k).total;
-    err = cudaFuncSetAttribute(topk_partial_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+    auto run = [&](auto launch) {
+      return launch(grid, s, cv, b, d, table, scales, v, valid_rows, k,
+                    chunk_rows, n_chunks, part_vals, part_idx, part_max,
+                    part_sum, scores, scores_ld);
+    };
+    switch (fmt) {
+      case c2v::kF32: err = run(launch_partial<c2v::kF32>); break;
+      case c2v::kInt8: err = run(launch_partial<c2v::kInt8>); break;
+      case c2v::kE4M3: err = run(launch_partial<c2v::kE4M3>); break;
+      case c2v::kE5M2: err = run(launch_partial<c2v::kE5M2>); break;
+      default: err = run(launch_partial<c2v::kInt4>); break;
+    }
     if (err != cudaSuccess) return err;
-    topk_partial_kernel<false><<<grid, kThreads, smem, s>>>(
-        cv, b, d, table, scales, v, valid_rows, k, chunk_rows, n_chunks,
-        part_vals, part_idx, part_max, part_sum, scores, scores_ld);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -29,14 +29,16 @@ does, without a saved f32 copy of the activations.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from code2vec_tpu_torch.kernels import launch
 from code2vec_tpu_torch.ops.quant import table_gather
 
-launches = 0
+launches = 0       # f32 and int8 tables, serving and train mode
+fp8_launches = 0   # fp8 (e4m3, e5m2) tables
+int4_launches = 0  # packed int4 tables
 _fns = {}
 
 DROP_NONE, DROP_DRAW, DROP_MASK = 0, 1, 2  # csrc/common.cuh c2v::Dropout
@@ -73,13 +75,32 @@ def dropout_plain(ctx: torch.Tensor, d: Optional[Dropout]) -> torch.Tensor:
                        torch.zeros((), dtype=ctx.dtype))
 
 
+def table_widths(token_table: torch.Tensor, path_table: torch.Tensor,
+                 transform: torch.Tensor) -> Tuple[int, int]:
+    """The (token, path) row widths in values. A packed int4 table (uint8)
+    holds two values a byte, the last byte half padding where its width is
+    odd; which widths are odd follows from the transform's 2 token + path
+    rows."""
+    tok, path = token_table.shape[1], path_table.shape[1]
+    if token_table.dtype != torch.uint8:
+        return tok, path
+    pad = 2 * (2 * tok) + 2 * path - transform.shape[0]
+    launch.require(0 <= pad <= 3,
+                   f"transform: {transform.shape[0]} rows fit no int4 "
+                   f"widths of {tok} and {path} bytes")
+    return 2 * tok - pad // 2, 2 * path - pad % 2
+
+
 def gathered_context_plain(token_table, token_scales, path_table,
                            path_scales, src, pth, tgt, compute_dtype,
-                           dropout: Optional[Dropout] = None):
-    """The (B, M, 3d) context in the compute dtype, after dropout."""
-    src_rows = table_gather(token_table, token_scales, src)
-    pth_rows = table_gather(path_table, path_scales, pth)
-    tgt_rows = table_gather(token_table, token_scales, tgt)
+                           dropout: Optional[Dropout] = None,
+                           widths: Tuple[Optional[int], ...] = (None, None)):
+    """The (B, M, 3d) context in the compute dtype, after dropout; a packed
+    int4 table's row width in values as `widths` (token, path)."""
+    tok_d, path_d = widths
+    src_rows = table_gather(token_table, token_scales, src, int4_dim=tok_d)
+    pth_rows = table_gather(path_table, path_scales, pth, int4_dim=path_d)
+    tgt_rows = table_gather(token_table, token_scales, tgt, int4_dim=tok_d)
     ctx = torch.cat([src_rows, pth_rows, tgt_rows], dim=-1).to(compute_dtype)
     return dropout_plain(ctx, dropout)
 
@@ -93,9 +114,10 @@ def context_encoder_plain(token_table: torch.Tensor,
                           compute_dtype: torch.dtype = torch.bfloat16,
                           dropout: Optional[Dropout] = None,
                           residual: bool = False):
-    ctx = gathered_context_plain(token_table, token_scales, path_table,
-                                 path_scales, src, pth, tgt, compute_dtype,
-                                 dropout)
+    ctx = gathered_context_plain(
+        token_table, token_scales, path_table, path_scales, src, pth, tgt,
+        compute_dtype, dropout,
+        table_widths(token_table, path_table, transform))
     w = transform.to(compute_dtype).float()
     th = torch.tanh(ctx.float() @ w)
     out = th.to(compute_dtype)
@@ -148,8 +170,15 @@ def context_encoder(token_table: torch.Tensor,
                     residual: bool = False):
     """(B, M) token/path/token ids -> (B, M, D) transformed contexts in
     `compute_dtype`, and with `residual` their residual as a second
-    result. Tables are int8 with (V, 1) f32 scales, or f32 with scales
-    None. `dropout` set: train mode (module docstring)."""
+    result. Both tables have one format, which their dtype names: f32
+    (scales None), or int8, float8_e4m3fn or float8_e5m2 with (V, 1) f32
+    scales, or packed int4 (uint8 (V, ceil(d/2)) with scales; the widths
+    follow from the transform's rows, `table_widths`). `dropout` set:
+    train mode (module docstring), which takes f32 and int8 tables only.
+
+    Widths the kernel takes: token and path rows in multiples of 4 values
+    (so an int4 row is a whole number of 2-byte words), the context and
+    code widths in multiples of 16."""
     args = (token_table, token_scales, path_table, path_scales, transform,
             src, pth, tgt)
     masks = () if dropout is None else (dropout.mask, dropout.out_mask)
@@ -160,21 +189,20 @@ def context_encoder(token_table: torch.Tensor,
     launch.require(compute_dtype == torch.bfloat16,
                    f"context_encoder kernel computes in bfloat16, "
                    f"not {compute_dtype}")
-    int8 = token_table.dtype == torch.int8
-    table_dtypes = [torch.int8] if int8 else [torch.float32]
-    launch.check_tensor(token_table, "token_table", table_dtypes, 2,
+    fmt = launch.table_format(token_table, "token_table")
+    launch.require(launch.table_format(path_table, "path_table") == fmt,
+                   "token_table and path_table: one format")
+    launch.require(fmt in (launch.FMT_F32, launch.FMT_INT8)
+                   or (dropout is None and not residual),
+                   "the train mode takes f32 and int8 tables")
+    launch.check_tensor(token_table, "token_table", [token_table.dtype], 2,
                         align=16)
-    launch.check_tensor(path_table, "path_table", table_dtypes, 2, align=16)
-    for name, s, t in (("token_scales", token_scales, token_table),
-                       ("path_scales", path_scales, path_table)):
-        if int8:
-            launch.require(s is not None, f"{name}: int8 tables need scales")
-            launch.check_tensor(s, name, [torch.float32], 2)
-            launch.require(tuple(s.shape) == (t.shape[0], 1),
-                           f"{name}: expected ({t.shape[0]}, 1)")
-        else:
-            launch.require(s is None, f"{name}: f32 tables take no scales")
-    tok_dim, path_dim = token_table.shape[1], path_table.shape[1]
+    launch.check_tensor(path_table, "path_table", [path_table.dtype], 2,
+                        align=16)
+    launch.check_scales(token_scales, fmt, token_table.shape[0],
+                        "token_scales")
+    launch.check_scales(path_scales, fmt, path_table.shape[0], "path_scales")
+    tok_dim, path_dim = table_widths(token_table, path_table, transform)
     k_dim = 2 * tok_dim + path_dim
     launch.check_tensor(transform, "transform", [torch.float32], 2,
                         align=16)
@@ -202,9 +230,9 @@ def context_encoder(token_table: torch.Tensor,
     err = fn(token_table.data_ptr(), launch.ptr(token_scales),
              token_table.shape[0], tok_dim, path_table.data_ptr(),
              launch.ptr(path_scales), path_table.shape[0], path_dim,
-             int(int8), transform.data_ptr(), d_out, src.data_ptr(),
+             fmt, transform.data_ptr(), d_out, src.data_ptr(),
              pth.data_ptr(), tgt.data_ptr(), b * m, out.data_ptr(),
              launch.ptr(out_lo), *drop, launch.stream(device))
     launch.check_launch(err, "context_encoder")
-    launch.count(__name__)
+    launch.count(__name__, launch.format_counter(fmt))
     return (out, out_lo) if residual else out

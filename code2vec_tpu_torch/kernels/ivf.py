@@ -1,9 +1,11 @@
 """K11 ivf_search: the probe and candidate scan of an IVF index.
 
-One kernel, two instantiations: f32 rows (replaces code2vec_tpu/
-retrieval/index.py `NeighborIndex._search_ivf` :319-349) and int8 rows
-with per-row f32 scales (replaces code2vec_tpu/retrieval/mips.py
-`MipsHead.topk_fn` :139-188, whose score is (cv . float(row)) * scale).
+One kernel, an instantiation per row format: f32 rows (replaces
+code2vec_tpu/retrieval/index.py `NeighborIndex._search_ivf` :319-349) and
+int8, fp8 (e4m3, e5m2) or packed int4 rows with per-row f32 scales
+(replaces code2vec_tpu/retrieval/mips.py `MipsHead.topk_fn` :139-188,
+whose score is (cv . float(row)) * scale in f32). The rows' dtype names
+their format; packed int4 rows are uint8, two values a byte.
 Per query: the inner product with every centroid, the top `nprobe` lists
 (ties to the lowest centroid index), every row of those lists scored in
 f32, and the top k with ties broken by candidate position (probe rank,
@@ -17,7 +19,9 @@ The lists are contiguous rows [list_offsets[c], list_offsets[c + 1]) of
 version below gathers from a padded (nlist, max_len) list matrix as the
 reference does (take + einsum + a stable top-k). CPU tensors take the
 plain version, CUDA tensors launch the kernel. Each instantiation keeps
-its own count: `launches` (f32 rows) and `int8_launches`.
+its own count: `launches` (f32 rows), `int8_launches`, `fp8_launches`
+(e4m3 and e5m2) and `int4_launches`. Widths it takes: multiples of 4 up
+to 512 (a lane holds 4 x 4 values of a row; an int4 row is d / 2 bytes).
 
 For k above the 64 entries a list holds (MAX_K), K11 runs its large-k
 mode: every probed row's score goes to a (B, nprobe * max_len) f32
@@ -33,10 +37,17 @@ import torch
 
 from code2vec_tpu_torch.kernels import launch, select
 from code2vec_tpu_torch.kernels.select import top_positions
+from code2vec_tpu_torch.ops.quant import decode_rows
 
 launches = 0       # f32 rows
 int8_launches = 0  # int8 rows with scales
+fp8_launches = 0   # fp8 rows with scales
+int4_launches = 0  # packed int4 rows with scales
 _fns = {}
+# each row format's counter
+COUNTERS = {launch.FMT_F32: "launches", launch.FMT_INT8: "int8_launches",
+            launch.FMT_E4M3: "fp8_launches", launch.FMT_E5M2: "fp8_launches",
+            launch.FMT_INT4: "int4_launches"}
 MAX_K = 64    # a list's length (csrc/ivf_search.cu kMaxK); above: K13
 MAX_D = 512   # the widest row a lane's registers hold (4 x 128)
 
@@ -63,7 +74,8 @@ def ivf_search_plain(queries: torch.Tensor, centroids: torch.Tensor,
     cand = padded_lists(offsets, max_len)[probe].reshape(b, -1)
     live = cand >= 0
     safe = torch.clamp(cand, min=0)
-    scores = torch.einsum("bd,bpd->bp", queries, rows[safe].float())
+    scores = torch.einsum("bd,bpd->bp", queries,
+                          decode_rows(rows[safe], queries.shape[1]))
     if scales is not None:
         scores = scores * scales.reshape(-1)[safe]
     scores = torch.where(live, scores, torch.full_like(scores, -torch.inf))
@@ -115,26 +127,26 @@ def ivf_search(queries: torch.Tensor, centroids: torch.Tensor,
     fn = _fn()  # builds the library first: raises where nvcc is missing
     launch.check_tensor(queries, "queries", [torch.float32], 2, align=16)
     launch.check_tensor(centroids, "centroids", [torch.float32], 2, align=16)
-    int8 = rows.dtype == torch.int8
-    launch.check_tensor(rows, "rows", [torch.int8] if int8 else
-                        [torch.float32], 2, align=16)
+    fmt = launch.table_format(rows, "rows")
+    launch.check_tensor(rows, "rows", [rows.dtype], 2, align=16)
     launch.check_tensor(list_offsets, "list_offsets", [torch.int64], 1)
     b, d = queries.shape
     n_cent = centroids.shape[0]
     launch.require(d % 4 == 0 and d <= MAX_D,
                    f"width {d} is not a multiple of 4 up to {MAX_D}")
-    launch.require(centroids.shape[1] == d and rows.shape[1] == d,
-                   f"centroids and rows must be {d} wide")
+    launch.require(centroids.shape[1] == d
+                   and rows.shape[1] == launch.stored_width(fmt, d),
+                   f"centroids and rows must be {d} values wide")
     launch.require(list_offsets.shape[0] == n_cent + 1,
                    f"list_offsets: expected ({n_cent + 1},)")
     launch.require(rows.shape[0] < 2 ** 31, "more than 2^31 rows")
-    if int8:
-        launch.require(scales is not None, "int8 rows need scales")
+    if fmt == launch.FMT_F32:
+        launch.require(scales is None, "f32 rows take no scales")
+    else:
+        launch.require(scales is not None, "quantized rows need scales")
         launch.check_tensor(scales, "scales", [torch.float32], scales.dim())
         launch.require(scales.numel() == rows.shape[0],
                        f"scales: expected {rows.shape[0]} values")
-    else:
-        launch.require(scales is None, "f32 rows take no scales")
     if global_ids is not None:
         launch.check_tensor(global_ids, "global_ids", [torch.int32], 1)
         launch.require(global_ids.shape[0] == rows.shape[0],
@@ -151,39 +163,38 @@ def ivf_search(queries: torch.Tensor, centroids: torch.Tensor,
     probe = torch.empty((b, nprobe), **i32)
     if k > MAX_K:
         return _large_k(queries, centroids, rows, list_offsets, nprobe, k,
-                        scales, global_ids, max_len, probe)
+                        scales, global_ids, max_len, probe, fmt)
     part_vals = torch.empty((b, nprobe, k), **f32)
     part_keys = torch.empty((b, nprobe, k), **i32)
     values = torch.empty((b, k), **f32)
     indices = torch.empty((b, k), **i32)
     err = fn(queries.data_ptr(), b, d, centroids.data_ptr(), n_cent,
-             rows.data_ptr(), launch.ptr(scales), int(int8),
+             rows.data_ptr(), launch.ptr(scales), fmt,
              list_offsets.data_ptr(), max_len, launch.ptr(global_ids),
              nprobe, k, probe.data_ptr(), part_vals.data_ptr(),
              part_keys.data_ptr(), values.data_ptr(), indices.data_ptr(),
              launch.stream(device))
     launch.check_launch(err, "ivf_search")
-    launch.count(__name__, "int8_launches" if int8 else "launches")
+    launch.count(__name__, COUNTERS[fmt])
     return values, indices
 
 
 def _large_k(queries, centroids, rows, list_offsets, nprobe, k, scales,
-             global_ids, max_len, probe):
+             global_ids, max_len, probe, fmt):
     """K11's large-k mode: the probed rows' scores, K13, the id map."""
     b, d = queries.shape
-    int8 = rows.dtype == torch.int8
     device = queries.device
     n = nprobe * max_len
     scores = torch.empty((b, select.padded_width(n)), dtype=torch.float32,
                          device=device)
     err = _fns["scores"](queries.data_ptr(), b, d, centroids.data_ptr(),
                          centroids.shape[0], rows.data_ptr(),
-                         launch.ptr(scales), int(int8),
+                         launch.ptr(scales), fmt,
                          list_offsets.data_ptr(), max_len, nprobe,
                          probe.data_ptr(), scores.data_ptr(),
                          scores.shape[1], launch.stream(device))
     launch.check_launch(err, "ivf_search scores")
-    launch.count(__name__, "int8_launches" if int8 else "launches")
+    launch.count(__name__, COUNTERS[fmt])
     k_sel = min(k, n)
     sel_vals, sel_pos = select.select_topk(scores, k_sel, n=n)
     values = torch.empty((b, k), dtype=torch.float32, device=device)

@@ -4,7 +4,9 @@ Replaces code2vec_tpu/ops/topk.py gathered_label_logits (:182-202). The
 CUDA source is csrc/label_logits.cu; what bounds it on an H100 and how its
 design answers that is written at the top of that file. The plain version
 is ops/topk.py gathered_label_logits: CPU tensors take it, CUDA tensors
-launch the kernel.
+launch the kernel. The table's dtype names its format: f32 or int8
+(counted in `launches`), fp8 e4m3 or e5m2 (`fp8_launches`), or packed
+int4, uint8 with ceil(d / 2) bytes a row (`int4_launches`), any width.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import torch
 from code2vec_tpu_torch.kernels import launch
 from code2vec_tpu_torch.ops.topk import gathered_label_logits
 
-launches = 0
+launches = 0       # f32 and int8 tables
+fp8_launches = 0   # fp8 tables
+int4_launches = 0  # packed int4 tables
 _fns = {}
 
 label_logits_plain = gathered_label_logits
@@ -47,25 +51,20 @@ def label_logits(code_vectors: torch.Tensor, target_table: torch.Tensor,
                    f"not {compute_dtype}")
     launch.check_tensor(code_vectors, "code_vectors", [torch.float32], 2)
     b, d = code_vectors.shape
-    int8 = target_table.dtype == torch.int8
-    launch.check_tensor(target_table, "target_table",
-                        [torch.int8] if int8 else [torch.float32], 2)
-    launch.require(target_table.shape[1] == d,
-                   f"target_table: expected {d} columns")
+    fmt = launch.table_format(target_table, "target_table")
+    launch.check_tensor(target_table, "target_table", [target_table.dtype],
+                        2)
+    launch.require(target_table.shape[1] == launch.stored_width(fmt, d),
+                   f"target_table: expected "
+                   f"{launch.stored_width(fmt, d)} columns")
     v = target_table.shape[0]
-    if int8:
-        launch.require(scales is not None, "int8 tables need scales")
-        launch.check_tensor(scales, "scales", [torch.float32], 2)
-        launch.require(tuple(scales.shape) == (v, 1),
-                       f"scales: expected ({v}, 1)")
-    else:
-        launch.require(scales is None, "f32 tables take no scales")
+    launch.check_scales(scales, fmt, v, "scales")
     launch.check_tensor(labels, "labels", [torch.int32], 1)
     launch.require(labels.shape[0] == b, f"labels: expected ({b},)")
     out = torch.empty((b,), dtype=torch.float32, device=code_vectors.device)
     err = fn(code_vectors.data_ptr(), b, d, target_table.data_ptr(),
-             launch.ptr(scales), int(int8), v, labels.data_ptr(),
+             launch.ptr(scales), fmt, v, labels.data_ptr(),
              out.data_ptr(), launch.stream(code_vectors.device))
     launch.check_launch(err, "label_logits")
-    launch.count(__name__)
+    launch.count(__name__, launch.format_counter(fmt))
     return out

@@ -43,6 +43,51 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+# How a table's values are stored, as the kernels' C entry points name it
+# (csrc/common.cuh c2v::TableFormat), named by the table's dtype: a uint8
+# table is packed int4, two values a byte.
+FMT_F32, FMT_INT8, FMT_E4M3, FMT_E5M2, FMT_INT4 = range(5)
+_FORMAT_OF_DTYPE = {torch.float32: FMT_F32, torch.int8: FMT_INT8,
+                    torch.float8_e4m3fn: FMT_E4M3,
+                    torch.float8_e5m2: FMT_E5M2, torch.uint8: FMT_INT4}
+# the launch counter of each format's instantiation, beside the module's
+# `launches` (f32 and int8)
+FORMAT_COUNTERS = {FMT_E4M3: "fp8_launches", FMT_E5M2: "fp8_launches",
+                   FMT_INT4: "int4_launches"}
+
+
+def table_format(table: torch.Tensor, name: str) -> int:
+    """The format of a table tensor, which its dtype names: f32, int8,
+    float8_e4m3fn, float8_e5m2, or uint8 for packed int4."""
+    fmt = _FORMAT_OF_DTYPE.get(table.dtype)
+    require(fmt is not None,
+            f"{name}: dtype {table.dtype} is no table format (f32, int8, "
+            f"float8_e4m3fn, float8_e5m2, uint8 packed int4)")
+    return fmt
+
+
+def stored_width(fmt: int, dim: int) -> int:
+    """The columns of a `dim`-value row as stored: ceil(dim / 2) bytes for
+    packed int4, else `dim`."""
+    return (dim + 1) // 2 if fmt == FMT_INT4 else dim
+
+
+def check_scales(scales: Optional[torch.Tensor], fmt: int, rows: int,
+                 name: str) -> None:
+    """A quantized table carries f32 (rows, 1) scales; an f32 one none."""
+    if fmt == FMT_F32:
+        require(scales is None, f"{name}: f32 tables take no scales")
+        return
+    require(scales is not None, f"{name}: quantized tables need scales")
+    check_tensor(scales, name, [torch.float32], 2)
+    require(tuple(scales.shape) == (rows, 1),
+            f"{name}: expected ({rows}, 1)")
+
+
+def format_counter(fmt: int) -> str:
+    return FORMAT_COUNTERS.get(fmt, "launches")
+
+
 def check_tensor(t: torch.Tensor, name: str, dtypes: Sequence[torch.dtype],
                  ndim: int, align: int = 4) -> None:
     require(t.dtype in dtypes,

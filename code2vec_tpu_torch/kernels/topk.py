@@ -13,10 +13,15 @@ mode: it writes every logit to a (B, V) f32 score matrix and folds the
 logsumexp, and K13 (kernels/select.py) selects the top k from the scores.
 
 Two modes: bf16 compute (the serving head: operands rounded to bf16,
-tensor cores, f32 accumulation; int8 or f32 tables), counted in
-`launches`, and float32 compute (the retrieval index's brute-force
-search: f32 operands, f32 FMAs, no TF32; f32 tables), counted in
-`f32_launches`.
+tensor cores, f32 accumulation), and float32 compute (the retrieval
+index's brute-force search: f32 operands, f32 FMAs, no TF32; f32 tables),
+counted in `f32_launches`. The bf16 mode reads the table in its stored
+format, which its dtype names: f32 or int8 (counted in `launches`), fp8
+e4m3 or e5m2 (`fp8_launches`), or packed int4, uint8 with two values a
+byte (`int4_launches`); quantized tables come with per-row scales. Widths it
+takes: the code width a multiple of 16, with int8 and fp8 rows up to 512
+wide and int4 rows a multiple of 32 up to 1024 (a tile's rows are whole
+16-byte vectors held in registers).
 """
 
 from __future__ import annotations
@@ -30,12 +35,14 @@ from code2vec_tpu_torch.ops.topk import (
     BlockTopKOutputs, blockwise_matmul_top_k,
 )
 
-launches = 0      # bf16 compute
-f32_launches = 0  # float32 compute
+launches = 0       # bf16 compute, f32 or int8 tables
+fp8_launches = 0   # bf16 compute, fp8 tables
+int4_launches = 0  # bf16 compute, packed int4 tables
+f32_launches = 0   # float32 compute
 _fns = {}
-MAX_K = 64        # a list's length (csrc/topk.cu kMaxK); above: K13
-TILE_ROWS = 64    # table rows per tile (csrc/topk.cu kTileV)
-MAX_INT8_D = 512  # widest int8 row a tile prefetch holds (csrc/topk.cu)
+MAX_K = 64         # a list's length (csrc/topk.cu kMaxK); above: K13
+TILE_ROWS = 64     # table rows per tile (csrc/topk.cu kTileV)
+MAX_BYTE_D = 512   # widest int8/fp8 row a tile prefetch holds (topk.cu)
 
 blockwise_topk_plain = blockwise_matmul_top_k
 
@@ -46,7 +53,7 @@ def _fn():
         P, I32, I64 = launch.P, launch.I32, launch.I64
         fn = _fns["topk"] = launch.bind(
             "topk", "c2v_blockwise_topk",
-            # cv, b, d, table, scales, is_int8, compute_f32, v, valid_rows,
+            # cv, b, d, table, scales, fmt, compute_f32, v, valid_rows,
             # k, chunk_rows, 4 partials, values, indices, lse, scores,
             # scores_ld, stream
             [P, I32, I32, P, P, I32, I32, I64, I64, I32, I64, P, P, P, P, P,
@@ -84,25 +91,25 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
     launch.check_tensor(code_vectors, "code_vectors", [torch.float32], 2,
                         align=16)
     b, d = code_vectors.shape
-    int8 = target_table.dtype == torch.int8
-    launch.check_tensor(target_table, "target_table",
-                        [torch.int8] if int8 else [torch.float32], 2,
-                        align=16)
+    fmt = launch.table_format(target_table, "target_table")
+    launch.check_tensor(target_table, "target_table", [target_table.dtype],
+                        2, align=16)
     v = target_table.shape[0]
-    launch.require(target_table.shape[1] == d,
-                   f"target_table: expected {d} columns")
+    launch.require(target_table.shape[1] == launch.stored_width(fmt, d),
+                   f"target_table: expected "
+                   f"{launch.stored_width(fmt, d)} columns")
     launch.require(d % 16 == 0, f"code width {d} is not a multiple of 16")
-    launch.require(not int8 or d <= MAX_INT8_D,
-                   f"int8 rows wider than {MAX_INT8_D} are not supported")
-    launch.require(not (int8 and compute_f32),
+    launch.require(fmt not in (launch.FMT_INT8, launch.FMT_E4M3, launch.FMT_E5M2)
+                   or d <= MAX_BYTE_D,
+                   f"int8 and fp8 rows wider than {MAX_BYTE_D} are not "
+                   f"supported")
+    launch.require(fmt != launch.FMT_INT4 or (d % 32 == 0
+                                          and d <= 2 * MAX_BYTE_D),
+                   f"int4 rows take a width in multiples of 32 up to "
+                   f"{2 * MAX_BYTE_D}, not {d}")
+    launch.require(not (fmt != launch.FMT_F32 and compute_f32),
                    "the float32 mode takes f32 tables")
-    if int8:
-        launch.require(scales is not None, "int8 tables need scales")
-        launch.check_tensor(scales, "scales", [torch.float32], 2)
-        launch.require(tuple(scales.shape) == (v, 1),
-                       f"scales: expected ({v}, 1)")
-    else:
-        launch.require(scales is None, "f32 tables take no scales")
+    launch.check_scales(scales, fmt, v, "scales")
     valid = v if valid_rows is None else int(valid_rows)
     k = min(int(k), valid)
     launch.require(k >= 1, f"k={k}: at least one live row is needed")
@@ -123,7 +130,7 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
     scores = (torch.empty((b, select.padded_width(v)), **f32) if large
               else None)
     err = fn(code_vectors.data_ptr(), b, d, target_table.data_ptr(),
-             launch.ptr(scales), int(int8), int(compute_f32), v, valid,
+             launch.ptr(scales), fmt, int(compute_f32), v, valid,
              k_list, chunk,
              part_vals.data_ptr(), part_idx.data_ptr(), part_max.data_ptr(),
              part_sum.data_ptr(), values.data_ptr(), indices.data_ptr(),
@@ -131,7 +138,8 @@ def blockwise_topk(code_vectors: torch.Tensor, target_table: torch.Tensor,
              0 if scores is None else scores.shape[1],
              launch.stream(device))
     launch.check_launch(err, "blockwise_topk")
-    launch.count(__name__, "f32_launches" if compute_f32 else "launches")
+    launch.count(__name__, "f32_launches" if compute_f32
+                 else launch.format_counter(fmt))
     if large:
         values, indices = select.select_topk(scores, k, n=valid)
     return BlockTopKOutputs(values, indices, lse)

@@ -10,7 +10,9 @@ and the Trainer.
 
 The predict part is the counterpart of BucketedPredictMixin (:66-395):
 line parsing, context bucketing, row padding, the (rows, bucket) step
-cache and the host-side assembly of results. Each device batch is padded
+cache and the host-side assembly of results; with the eval-batch
+plumbing of an evaluation from a text `.c2v` (`_count_examples` :88-105,
+`_eval_batches` :167-190; the packed `.c2vb` reader is not ported). Each device batch is padded
 to a fixed row count and its context axis cut to the smallest bucket that
 holds its deepest valid context, so the shapes the kernels see are
 bounded by len(buckets) per row count.
@@ -19,11 +21,13 @@ bounded by len(buckets) per row count.
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from code2vec_tpu_torch.common import count_lines_in_file
 from code2vec_tpu_torch.data.reader import (
     EstimatorAction, PathContextReader, RowBatch, _pad_rows,
     parse_context_lines, slice_contexts, truncate_rows,
@@ -77,6 +81,31 @@ class BucketedPredictMixin:
 
     def _default_predict_batch_size(self) -> int:
         return int(self.config.serve_batch_size)
+
+    @staticmethod
+    def _count_examples(dataset_path: str) -> int:
+        """Lines of a `.c2v` file, cached in a `.num_examples` sidecar
+        beside it, as the reference caches them."""
+        sidecar = dataset_path + ".num_examples"
+        if os.path.isfile(sidecar):
+            with open(sidecar) as f:
+                return int(f.readline())
+        n = count_lines_in_file(dataset_path)
+        try:
+            with open(sidecar, "w") as f:
+                f.write(str(n))
+        except OSError:
+            pass
+        return n
+
+    def _eval_batches(self) -> PathContextReader:
+        """The text reader's Evaluate stream over config.test_data_path:
+        file order, rows with no valid context dropped, the tail batch
+        padded with invalid rows, each row's method name kept."""
+        return PathContextReader(self.vocabs, self.config,
+                                 EstimatorAction.Evaluate,
+                                 batch_size=self.config.test_batch_size,
+                                 with_target_strings=True)
 
     def predict(self, predict_data_lines: Iterable[str],
                 batch_size: Optional[int] = None,

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from code2vec_tpu_torch.ops.quant import decode_rows
+
 NEG_INF = float("-inf")
 
 
@@ -78,9 +80,18 @@ def _as_compute(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     return x.to(compute_dtype).float()
 
 
+def _table_as_compute(rows: torch.Tensor, compute_dtype: torch.dtype,
+                      dim: int) -> torch.Tensor:
+    """`dim`-value table rows of any format decoded to f32, then cast to
+    the compute dtype, as the reference does; both steps are exact for
+    int8, fp8 and int4 values."""
+    return _as_compute(decode_rows(rows, dim), compute_dtype)
+
+
 def blockwise_matmul_top_k(
     code_vectors: torch.Tensor,        # (B, D) f32
-    target_table: torch.Tensor,        # (V, D) f32, or int8 with `scales`
+    target_table: torch.Tensor,        # (V, D) f32, or quantized + `scales`
+                                       # (packed int4: (V, ceil(D/2)) uint8)
     k: int,
     block_rows: int,
     *,
@@ -92,7 +103,7 @@ def blockwise_matmul_top_k(
 
     The last window is clamped to the table end and its already-visited
     prefix masked to -inf, so no row is counted twice."""
-    b = code_vectors.shape[0]
+    b, d = code_vectors.shape
     v = target_table.shape[0]
     k = min(k, v if valid_rows is None else valid_rows)
     block = max(1, min(int(block_rows), v))
@@ -108,7 +119,7 @@ def blockwise_matmul_top_k(
         tbl = target_table[start:start + block]
         ids = torch.arange(start, start + block, dtype=torch.int32,
                            device=dev)
-        logits = cv @ _as_compute(tbl, compute_dtype).T
+        logits = cv @ _table_as_compute(tbl, compute_dtype, d).T
         if scales is not None:
             logits = logits * scales[start:start + block, 0][None, :]
         live = ids >= i * block
@@ -143,7 +154,9 @@ def gathered_label_logits(code_vectors: torch.Tensor,
     safe = torch.where(oob, torch.zeros_like(lab), lab)
     rows = target_table[safe]
     logits = (_as_compute(code_vectors, compute_dtype)
-              * _as_compute(rows, compute_dtype)).sum(dim=-1)
+              * _table_as_compute(rows, compute_dtype,
+                                  code_vectors.shape[-1])
+              ).sum(dim=-1)
     if scales is not None:
         logits = logits * scales[safe, 0]
     logits = torch.where(oob, torch.full_like(logits, float("nan")), logits)

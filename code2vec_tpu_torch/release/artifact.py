@@ -6,14 +6,17 @@ package serves what the other wrote:
     release_meta.json            kind/format/quantization/dims/buckets/
                                  fingerprint
     dictionaries.bin             the three vocabularies (vocab.py)
-    <table>.npy                  int8 (V, D), or f32 for scheme float32
-    <table>.scale.npy            f32 (V, 1) per-row scales (int8 only)
+    <table>.npy                  int8 (V, D); uint8 fp8 bit patterns
+                                 (V, D); uint8 packed int4 (V, ceil(D/2));
+                                 or f32 for scheme float32
+    <table>.scale.npy            f32 (V, 1) per-row scales (quantized
+                                 schemes)
     transform.npy, attention.npy f32 dense params
 
 for the tables token_embedding, path_embedding and target_embedding.
 `load_artifact` validates as the reference does and raises ArtifactError
-naming the offending field. The port serves the int8 and float32
-schemes; an fp8 or int4 artifact is rejected by `require_ported_scheme`.
+naming the offending field. Every scheme the reference writes is written
+and served: int8, fp8 e4m3 and e5m2, packed int4 and float32.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
-from code2vec_tpu_torch.ops.quant import quantize_rows
+from code2vec_tpu_torch.ops import quant
 
 META_NAME = "release_meta.json"
 DICT_NAME = "dictionaries.bin"
@@ -40,13 +43,40 @@ SCHEME_FP32 = "float32"
 QUANTIZED_SCHEMES = (SCHEME_INT8, SCHEME_FP8_E4M3, SCHEME_FP8_E5M2,
                      SCHEME_INT4)
 ALL_SCHEMES = QUANTIZED_SCHEMES + (SCHEME_FP32,)
-PORTED_SCHEMES = (SCHEME_INT8, SCHEME_FP32)
+# the on-disk uint8 bit patterns of an fp8 scheme's tables, viewed at
+# load as the format they encode (code2vec_tpu/release/runtime.py:312-352)
+FP8_TABLE_DTYPES = {SCHEME_FP8_E4M3: quant.FP8_DTYPES["e4m3"],
+                    SCHEME_FP8_E5M2: quant.FP8_DTYPES["e5m2"]}
 SCHEME_BY_KNOB = {"int8": SCHEME_INT8, "fp8_e4m3": SCHEME_FP8_E4M3,
                   "fp8_e5m2": SCHEME_FP8_E5M2, "int4": SCHEME_INT4,
                   "float32": SCHEME_FP32}
 
 _TABLES = ("token_embedding", "path_embedding", "target_embedding")
 _DENSE = ("transform", "attention")
+
+
+def _quantize_table(table: np.ndarray, scheme: str):
+    """(payload, scales or None) of one table under `scheme`
+    (code2vec_tpu/release/artifact.py:77-89)."""
+    if scheme == SCHEME_INT8:
+        return quant.quantize_rows(table)
+    if scheme == SCHEME_FP8_E4M3:
+        return quant.quantize_rows_fp8(table, "e4m3")
+    if scheme == SCHEME_FP8_E5M2:
+        return quant.quantize_rows_fp8(table, "e5m2")
+    if scheme == SCHEME_INT4:
+        return quant.quantize_rows_int4(table)
+    if scheme != SCHEME_FP32:
+        raise ValueError(f"unknown artifact scheme {scheme!r} (one of "
+                         f"{list(ALL_SCHEMES)})")
+    return table, None
+
+
+def table_dim(dims: dict, name: str) -> int:
+    """Unpacked (model-side) column count of one embedding table."""
+    d_tok, d_path = int(dims["token_dim"]), int(dims["path_dim"])
+    return {"token_embedding": d_tok, "path_embedding": d_path,
+            "target_embedding": d_path + 2 * d_tok}[name]
 
 
 class ArtifactError(ValueError):
@@ -61,7 +91,7 @@ class ArtifactError(ValueError):
 class ReleaseArtifact:
     path: str
     meta: dict
-    tables: Dict[str, np.ndarray]   # int8 tables carry "<name>.scale"
+    tables: Dict[str, np.ndarray]   # quantized tables carry "<name>.scale"
 
     @property
     def scheme(self) -> str:
@@ -77,14 +107,6 @@ class ReleaseArtifact:
 
     def table_bytes(self) -> int:
         return sum(a.nbytes for a in self.tables.values())
-
-
-def require_ported_scheme(scheme: str) -> None:
-    if scheme not in PORTED_SCHEMES:
-        raise ArtifactError(
-            "quantization.scheme",
-            f"scheme {scheme!r} not yet ported to code2vec_tpu_torch "
-            f"(it serves {list(PORTED_SCHEMES)})")
 
 
 def _content_fingerprint(payloads: Mapping[str, np.ndarray],
@@ -111,9 +133,12 @@ def write_artifact(params: Mapping[str, np.ndarray], vocabs, out_dir: str,
                    real_target_vocab_size: Optional[int] = None) -> dict:
     """Write a release artifact from f32 numpy params (the Flax names and
     shapes) in the layout `export_artifact` writes; returns the meta.
-    `scheme` is a knob name ("int8", "float32") or an on-disk name."""
+    `scheme` is a knob name ("int8", "fp8_e4m3", "fp8_e5m2", "int4",
+    "float32") or an on-disk name."""
     scheme = SCHEME_BY_KNOB.get(scheme, scheme)
-    require_ported_scheme(scheme)
+    if scheme not in ALL_SCHEMES:
+        raise ValueError(f"unknown artifact scheme {scheme!r} (one of "
+                         f"{list(ALL_SCHEMES)})")
     os.makedirs(out_dir, exist_ok=True)
     payloads: Dict[str, np.ndarray] = {}
     fp32_bytes = written = 0
@@ -121,18 +146,16 @@ def write_artifact(params: Mapping[str, np.ndarray], vocabs, out_dir: str,
         table = np.asarray(params[name], np.float32)
         fp32_bytes += table.nbytes
         scale_path = os.path.join(out_dir, f"{name}.scale.npy")
-        if scheme == SCHEME_INT8:
-            q, scales = quantize_rows(table)
-            np.save(scale_path, scales)
-            payloads[f"{name}.scale"] = scales
-            written += scales.nbytes
-        else:
-            q = table
-            if os.path.exists(scale_path):
-                os.remove(scale_path)
+        q, scales = _quantize_table(table, scheme)
         np.save(os.path.join(out_dir, f"{name}.npy"), q)
         payloads[name] = q
         written += q.nbytes
+        if scales is not None:
+            np.save(scale_path, scales)
+            payloads[f"{name}.scale"] = scales
+            written += scales.nbytes
+        elif os.path.exists(scale_path):
+            os.remove(scale_path)
     for name in _DENSE:
         arr = np.asarray(params[name], np.float32)
         np.save(os.path.join(out_dir, f"{name}.npy"), arr)
@@ -150,8 +173,9 @@ def write_artifact(params: Mapping[str, np.ndarray], vocabs, out_dir: str,
             "target_vocab_size": target_rows,
             "real_target_vocab_size": int(real_target_vocab_size
                                           or target_rows),
-            "token_dim": int(payloads["token_embedding"].shape[1]),
-            "path_dim": int(payloads["path_embedding"].shape[1]),
+            # the unpacked widths (an int4 payload is half as wide)
+            "token_dim": int(np.shape(params["token_embedding"])[1]),
+            "path_dim": int(np.shape(params["path_embedding"])[1]),
             "target_oov_floor": max(tv.pad_index, tv.oov_index),
         },
         "separate_oov_and_pad": bool(separate_oov_and_pad),

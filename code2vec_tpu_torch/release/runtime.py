@@ -1,10 +1,13 @@
-"""Release-artifact runtime: the serving path on the card.
+"""Release-artifact runtime: the serving and evaluation path on the card.
 
 The counterpart of code2vec_tpu/release/runtime.py with the exact head
-only. `ReleaseModel` loads an artifact (int8 + per-row scales, or f32)
-onto one device and answers `predict` through the bucketed path of
-model_facade.py. Its step runs four hand-written kernels on CUDA tensors
-(the plain PyTorch versions on CPU tensors):
+and the MIPS head. `ReleaseModel` loads an artifact of any scheme (int8,
+fp8 e4m3 or e5m2, or packed int4 tables with per-row scales, or f32)
+onto one device, answers `predict` through the bucketed path of
+model_facade.py and scores a labelled corpus with `evaluate`. Its step
+runs four hand-written kernels on CUDA tensors (the plain PyTorch
+versions on CPU tensors), each reading the tables in their stored
+format:
 
     K1 context_encoder   gather + dequant + concat + tanh(ctx @ W)
     K2 masked_attention  attention weights and code vectors
@@ -31,11 +34,13 @@ from code2vec_tpu_torch.kernels.label_logits import label_logits
 from code2vec_tpu_torch.kernels.topk import blockwise_topk
 from code2vec_tpu_torch.model_facade import BucketedPredictMixin
 from code2vec_tpu_torch.release.artifact import (
-    QUANTIZED_SCHEMES, ArtifactError, ReleaseArtifact, load_artifact,
-    require_ported_scheme,
+    QUANTIZED_SCHEMES, SCHEME_INT4, ArtifactError, ReleaseArtifact,
+    load_artifact, table_dim,
 )
 from code2vec_tpu_torch.vocab import Code2VecVocabs
-from code2vec_tpu_torch.weights import release_params_from_artifact
+from code2vec_tpu_torch.weights import (
+    release_params_from_artifact, table_tensor,
+)
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -64,10 +69,12 @@ def make_release_step(meta: dict, mips_topk=None):
 
     `mips_topk` (a `MipsHead.topk_fn` closure) replaces the exact head
     (K3, K4) with the approximate-MIPS search; such steps report
-    loss_sum 0 (no logsumexp exists over a candidate subset)."""
-    require_ported_scheme(meta["quantization"]["scheme"])
+    loss_sum 0 (no logsumexp exists over a candidate subset). Each
+    table's format is its params' dtype; the kernels work out a packed
+    int4 table's width from the operand it meets (runtime.py:91-150)."""
     dims = meta["dims"]
-    quantized = meta["quantization"]["scheme"] in QUANTIZED_SCHEMES
+    scheme = meta["quantization"]["scheme"]
+    quantized = scheme in QUANTIZED_SCHEMES
     if meta["compute_dtype"] not in COMPUTE_DTYPES:
         raise ArtifactError("compute_dtype",
                             f"unsupported {meta['compute_dtype']!r}")
@@ -120,7 +127,6 @@ class ReleaseModel(BucketedPredictMixin):
         self.device = resolve_device(device or config.device)
         self.artifact = artifact or load_artifact(config.serve_artifact)
         meta = self.meta = self.artifact.meta
-        require_ported_scheme(self.artifact.scheme)
         # the artifact is authoritative for what shaped its export
         config.max_contexts = int(meta["max_contexts"])
         config.separate_oov_and_pad = bool(meta["separate_oov_and_pad"])
@@ -185,14 +191,21 @@ class ReleaseModel(BucketedPredictMixin):
     def _build_mips_head(self) -> None:
         from code2vec_tpu_torch.retrieval.mips import MipsHead
         dims = self.meta["dims"]
+        if self.artifact.scheme == SCHEME_INT4 and \
+                table_dim(dims, "target_embedding") % 2:
+            raise ArtifactError("target_embedding",
+                                "the MIPS head takes int4 target rows of "
+                                "even width (two values a byte)")
         scale = self.artifact.tables.get("target_embedding.scale")
+        # the host table in the dtype that names its format (fp8 viewed
+        # from its bytes, int4 packed), as runtime.py:362-386 builds it
         self.mips_head = MipsHead.build(
-            self.artifact.tables["target_embedding"],
+            table_tensor(self.artifact, "target_embedding"),
             None if scale is None else np.asarray(scale),
             real_vocab=int(dims["real_target_vocab_size"]),
             nlist=int(self.config.serve_mips_nlist or 0),
-            nprobe=self.mips_nprobe, seed=int(self.config.seed),
-            log=self.log, device=self.device)
+            nprobe=self.mips_nprobe,
+            seed=int(self.config.seed), log=self.log, device=self.device)
         k = min(int(self.meta["topk"]), int(dims["real_target_vocab_size"]))
         self._mips_step = make_release_step(
             self.meta,
@@ -247,6 +260,23 @@ class ReleaseModel(BucketedPredictMixin):
         def step(_params_unused, *arrays) -> EvalOutputs:
             return self.eval_step(*arrays)
         return step, None
+
+    def evaluate(self, log_path: Optional[str] = "log.txt",
+                 prefetch: bool = True):
+        """Score the artifact on config.test_data_path with the reference
+        metrics (runtime.py:522-533): top-k accuracy, subtoken precision,
+        recall and F1, and the mean CE over rows with an in-vocabulary
+        label; the per-example outcomes go to `log_path` (None: none)."""
+        from code2vec_tpu_torch.evaluation.evaluator import Evaluator
+        config = self.config
+        config.num_test_examples = self._count_examples(
+            config.test_data_path)
+        self.log(f"Number of test examples: {config.num_test_examples}")
+        eval_step, params = self.eval_callable()
+        evaluator = Evaluator(config, self.vocabs, eval_step, self.device,
+                              log_path=log_path)
+        return evaluator.evaluate(params, self._eval_batches(),
+                                  prefetch=prefetch)
 
     def dummy_batch(self, rows: int, m: int):
         """An all-padding batch of one serve shape."""

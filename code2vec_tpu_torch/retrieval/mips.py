@@ -1,18 +1,19 @@
 """Approximate-MIPS prediction head: the retrieval stack's IVF coarse
 quantizer pointed at the target-name classifier table.
 
-The counterpart of code2vec_tpu/retrieval/mips.py for the int8 and f32
-tables the port serves (int4 and fp8 artifacts are not ported).
+The counterpart of code2vec_tpu/retrieval/mips.py over a target table
+of any scheme: f32, int8, fp8 (e4m3, e5m2) or packed int4.
 
 - Build (once, at model load): Lloyd k-means (K9, K10; plain L2, not
   spherical) over the dequantized real-vocab rows, then the rows
   reordered list-contiguously in their quantized form, with their scales
   and their global vocab ids beside them.
-- Search (`topk_fn`): K11 ivf_search in its int8 (or f32) instantiation:
-  the top-`nprobe` lists by centroid inner product, the exact score
-  (cv . float(row)) * scale of every row in them, and the top k mapped to
-  global vocab ids. Dead slots hold id 0 and value -inf, the blockwise
-  head's sentinel.
+- Search (`topk_fn`): K11 ivf_search in the instantiation of the table's
+  format (f32, int8, fp8 or int4): the top-`nprobe` lists by centroid
+  inner product, the exact score (cv . float(row)) * scale of every row
+  in them (f32, as code2vec_tpu/retrieval/mips.py:166-172), and the top k
+  mapped to global vocab ids. Dead slots hold id 0 and value -inf, the
+  blockwise head's sentinel.
 
 Scores of returned candidates are exact; only the candidate set is
 approximate. nprobe = nlist searches every row. The reference's
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.kernels.ivf import ivf_search
-from code2vec_tpu_torch.ops.quant import dequantize_rows
+from code2vec_tpu_torch.ops.quant import decode_rows
 from code2vec_tpu_torch.retrieval.index import _on, ivf_lists
 
 
@@ -37,14 +38,13 @@ class MipsHead:
     """Coarse quantizer + list-contiguous quantized rows on one device.
     Read-only after build, so concurrent searches are safe."""
 
-    def __init__(self, centroids: np.ndarray, rows: np.ndarray,
+    def __init__(self, centroids: np.ndarray, rows: torch.Tensor,
                  scales: Optional[np.ndarray], offsets: np.ndarray,
                  global_ids: np.ndarray, *, real_vocab: int, nprobe: int,
                  build_seconds: float, device="cuda"):
         self.device = torch.device(device)
         self._centroids = _on(centroids, self.device)
-        self._rows = torch.from_numpy(np.ascontiguousarray(rows)).to(
-            self.device)
+        self._rows = rows.contiguous().to(self.device)
         self._scales = (None if scales is None else _on(
             np.asarray(scales, np.float32).reshape(-1), self.device))
         self._offsets = torch.from_numpy(
@@ -59,31 +59,33 @@ class MipsHead:
 
     @classmethod
     def build(cls, table, scales, *, real_vocab: int, nlist: int = 0,
-              nprobe: int = 8, kmeans_iters: int = 6, seed: int = 0,
-              log=None, device="cuda") -> "MipsHead":
-        """Train the coarse quantizer over the real vocab rows of an int8
-        (with (V, 1) scales) or f32 (scales None) target table and reorder
-        the rows list-contiguously. Padded classifier rows (>= real_vocab)
-        are left out: they can never be predicted."""
+              nprobe: int = 8, kmeans_iters: int = 6, seed: int = 0, log=None,
+              device="cuda") -> "MipsHead":
+        """Train the coarse quantizer over the real vocab rows of a target
+        table and reorder the rows list-contiguously. `table` is f32
+        (scales None), or int8, fp8 (a torch.float8_e4m3fn / float8_e5m2
+        tensor) or packed int4 (uint8, two values a byte: an even width)
+        with (V, 1) f32 scales. Padded classifier rows (>= real_vocab) are left out: they
+        can never be predicted."""
         t0 = time.perf_counter()
-        table_np = np.asarray(table)[:real_vocab]
+        rows = (table if isinstance(table, torch.Tensor)
+                else torch.from_numpy(np.asarray(table)))[:real_vocab].cpu()
         scales_np = None if scales is None else \
-            np.asarray(scales)[:real_vocab]
+            np.asarray(scales, np.float32)[:real_vocab]
         if scales_np is None:
-            x = np.asarray(table_np, np.float32)
-        elif table_np.dtype == np.int8:
-            x = dequantize_rows(table_np, scales_np)
+            if rows.dtype != torch.float32:
+                raise ValueError(f"a {rows.dtype} target table needs its "
+                                 f"scales")
+            x = rows.numpy()
         else:
-            raise ValueError(f"the MIPS head takes int8 or f32 tables, not "
-                             f"{table_np.dtype} (int4 and fp8 are not "
-                             f"ported)")
+            x = decode_rows(rows).numpy() * scales_np
         n = x.shape[0]
         if nlist <= 0:
             nlist = max(1, int(math.isqrt(n)))
         centroids, order, offsets = (t.cpu().numpy() for t in ivf_lists(
             x, nlist, kmeans_iters, seed, device=device))
         nlist = centroids.shape[0]
-        head = cls(centroids, table_np[order],
+        head = cls(centroids, rows[torch.from_numpy(order).long()],
                    None if scales_np is None else scales_np[order],
                    offsets, order.astype(np.int32), real_vocab=n,
                    nprobe=nprobe, device=device,

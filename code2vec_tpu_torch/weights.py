@@ -11,6 +11,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from code2vec_tpu_torch.release.artifact import FP8_TABLE_DTYPES
+
 PARAM_NAMES = ("token_embedding", "path_embedding", "target_embedding",
                "transform", "attention")
 
@@ -25,19 +27,32 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             for k in PARAM_NAMES}
 
 
+def table_tensor(artifact, name: str) -> torch.Tensor:
+    """One table of a loaded release artifact as a host tensor whose dtype
+    names its format: int8, f32, an fp8 payload as a zero-copy view of its
+    uint8 bytes as torch.float8_e4m3fn / torch.float8_e5m2, packed int4 as
+    uint8; scales and dense params f32."""
+    t = torch.from_numpy(np.array(artifact.tables[name]))  # copies the mmap
+    fp8 = FP8_TABLE_DTYPES.get(artifact.scheme)
+    if fp8 is not None and not name.endswith(".scale") \
+            and t.dtype == torch.uint8:
+        t = t.view(fp8)
+    return t
+
+
 def release_params_from_artifact(artifact, device, skip: Tuple[str, ...] = ()
                                  ) -> Dict[str, torch.Tensor]:
     """Device tensors of a loaded release artifact (release/artifact.py):
-    the tables in their stored dtype (int8 or f32), `<table>_scale` f32
-    (V, 1) for a quantized scheme, and the dense f32 params; names that
-    start with an entry of `skip` stay on the host."""
+    the tables in the dtype that names their format (`table_tensor`),
+    `<table>_scale` f32 (V, 1) for a quantized scheme, and the dense f32
+    params; names that start with an entry of `skip` stay on the host."""
     device = torch.device(device)
     params = {}
-    for name, arr in artifact.tables.items():
+    for name in artifact.tables:
         if name.startswith(tuple(skip)):
             continue
-        t = torch.from_numpy(np.array(arr))  # copies the mmap
-        params[name.replace(".scale", "_scale")] = t.to(device)
+        params[name.replace(".scale", "_scale")] = table_tensor(
+            artifact, name).to(device)
     return params
 
 

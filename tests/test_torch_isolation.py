@@ -154,6 +154,37 @@ def _cuda_calls():
             t((2, 384)), t((7, 384)), t((50, 384), torch.int8),
             t((8,), torch.int64), 3, 10, scales=t((50,)),
             global_ids=t((50,), torch.int32), max_len=20),
+        # the fp8 and int4 modes (an fp8 table is a float8 tensor, an int4
+        # one packed uint8, two values a byte)
+        "context_encoder_fp8": lambda: context_encoder(
+            t((50, 128), torch.float8_e4m3fn), t((50, 1)),
+            t((40, 128), torch.float8_e4m3fn), t((40, 1)), t((384, 384)),
+            t((2, 3), torch.int32), t((2, 3), torch.int32),
+            t((2, 3), torch.int32)),
+        "context_encoder_int4": lambda: context_encoder(
+            t((50, 64), torch.uint8), t((50, 1)), t((40, 64), torch.uint8),
+            t((40, 1)), t((384, 384)), t((2, 3), torch.int32),
+            t((2, 3), torch.int32), t((2, 3), torch.int32)),
+        "blockwise_topk_fp8": lambda: blockwise_topk(
+            t((2, 384)), t((70, 384), torch.float8_e5m2), 10, 4096,
+            scales=t((70, 1))),
+        "blockwise_topk_int4": lambda: blockwise_topk(
+            t((2, 384)), t((70, 192), torch.uint8), 10, 4096,
+            scales=t((70, 1))),
+        "label_logits_fp8": lambda: label_logits(
+            t((2, 384)), t((70, 384), torch.float8_e4m3fn),
+            t((2,), torch.int32), scales=t((70, 1))),
+        "label_logits_int4": lambda: label_logits(
+            t((2, 384)), t((70, 192), torch.uint8), t((2,), torch.int32),
+            scales=t((70, 1))),
+        "ivf_search_fp8": lambda: ivf_search(
+            t((2, 384)), t((7, 384)), t((50, 384), torch.float8_e5m2),
+            t((8,), torch.int64), 3, 10, scales=t((50,)),
+            global_ids=t((50,), torch.int32), max_len=20),
+        "ivf_search_int4": lambda: ivf_search(
+            t((2, 384)), t((7, 384)), t((50, 192), torch.uint8),
+            t((8,), torch.int64), 3, 10, scales=t((50,)),
+            global_ids=t((50,), torch.int32), max_len=20),
     }
 
 

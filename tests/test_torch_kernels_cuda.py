@@ -37,6 +37,9 @@ Tolerances, and why:
 - K12: K8's (rtol 1e-6, atol 1e-9; a bf16 mu equal or one bf16 step
   apart), on gradient rows whose duplicate sums are exact in f32 in any
   order; untouched rows and reruns bit-equal.
+- The fp8 and int4 modes of K1, K3, K4 and K11: the int8 mode's
+  tolerances (every fp8 and int4 value decodes exactly, to f32 and to
+  bf16); all 256 fp8 codes of each format exactly.
 """
 
 import math
@@ -73,6 +76,7 @@ from code2vec_tpu_torch.kernels.label_logits import (
 from code2vec_tpu_torch.kernels.topk import (
     blockwise_topk, blockwise_topk_plain,
 )
+from code2vec_tpu_torch.ops import quant
 from code2vec_tpu_torch.ops.quant import quantize_rows
 from code2vec_tpu_torch.release.artifact import write_artifact
 from code2vec_tpu_torch.release.runtime import ReleaseModel
@@ -874,3 +878,244 @@ def test_sparse_adam_kernel(dev, mu, v, n, dist):
     assert torch.equal(got_p[~touched], table[~touched])
     assert torch.equal(got_m[~touched], m0[~touched])
     assert torch.equal(got_n[~touched], n0[~touched])
+
+
+# ------------------------------------------- fp8 and int4 table formats
+
+FORMATS = ("e4m3", "e5m2", "int4")
+
+
+def _formatted(table, dev, fmt):
+    """(table tensor in the dtype that names its format, (V, 1) scales)
+    of an f32 numpy table; fp8 as a view of its bytes, int4 packed."""
+    if fmt == "int4":
+        q, s = quant.quantize_rows_int4(table)
+        return torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+    q, s = quant.quantize_rows_fp8(table, fmt)
+    return (torch.from_numpy(q).to(dev).view(quant.FP8_DTYPES[fmt]),
+            torch.from_numpy(s).to(dev))
+
+
+def _mode(name, fmt):
+    return f"{name}_{'int4' if fmt == 'int4' else 'fp8'}"
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("b,m", [(3, 5), (64, 200)])
+def test_context_encoder_quant_formats(dev, fmt, b, m):
+    """K1 reading fp8 and int4 tables against its plain version, to the
+    int8 mode's tolerance (every value decodes exactly); an id outside
+    the table gives NaN rows, as the reference's gather does."""
+    rng = np.random.default_rng(b * m + len(fmt))
+    tok, tok_s = _formatted(
+        (0.2 * rng.standard_normal((5000, 128))).astype(np.float32), dev, fmt)
+    pth, pth_s = _formatted(
+        (0.2 * rng.standard_normal((3000, 128))).astype(np.float32), dev, fmt)
+    w = torch.from_numpy((0.05 * rng.standard_normal((384, 384))
+                          ).astype(np.float32)).to(dev)
+    ids = [torch.from_numpy(rng.integers(0, n, (b, m)).astype(np.int32)
+                            ).to(dev) for n in (5000, 3000, 5000)]
+    name = _mode("context_encoder", fmt)
+    before = kernels.launch_counts()
+    got = context_encoder(tok, tok_s, pth, pth_s, w, *ids)
+    assert kernels.launch_counts() == {**before, name: before[name] + 1}
+    want = context_encoder_plain(tok, tok_s, pth, pth_s, w, *ids)
+    _close(got, want, BF16)
+    with pytest.raises(ValueError, match="train mode"):
+        context_encoder(tok, tok_s, pth, pth_s, w, *ids,
+                        dropout=Dropout(keep=0.5))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("k", [1, 10, 64, 100])
+def test_blockwise_topk_quant_formats(dev, fmt, k):
+    """K3 over fp8 and int4 tables (k 100: the large-k mode through K13)
+    against its plain version: the same indices, values and logsumexp
+    within the int8 mode's F32SUM."""
+    rng = np.random.default_rng(k + len(fmt))
+    v, valid, b = 20011, 20003, 64
+    cv, table = _separated(rng, v, b, valid)
+    if k > 64:   # 101 separated rows: widen the head
+        u = cv.mean(axis=0) / np.linalg.norm(cv.mean(axis=0))
+        hot = np.linspace(2, valid - 2, k + 1).astype(int)
+        for j, row in enumerate(hot):
+            table[row] = u * (1.0 + 0.05 * j)
+    tbl, scl = _formatted(table, dev, fmt)
+    cv = torch.from_numpy(cv).to(dev)
+    name = _mode("blockwise_topk", fmt)
+    before = kernels.launch_counts()[name]
+    got = blockwise_topk(cv, tbl, k, 4096, scales=scl, valid_rows=valid)
+    assert kernels.launch_counts()[name] == before + 1
+    want = blockwise_topk_plain(cv, tbl, k, 4096, scales=scl,
+                                valid_rows=valid,
+                                compute_dtype=torch.bfloat16)
+    assert torch.equal(got.indices, want.indices)
+    _close(got.values, want.values, F32SUM)
+    _close(got.lse, want.lse, F32SUM)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_label_logits_quant_formats(dev, fmt):
+    rng = np.random.default_rng(40 + len(fmt))
+    table = (0.2 * rng.standard_normal((700, 384))).astype(np.float32)
+    table[3] = 0.0                                # scale 0
+    tbl, scl = _formatted(table, dev, fmt)
+    cv = torch.from_numpy(rng.standard_normal((9, 384)).astype(np.float32)
+                          ).to(dev)
+    labels = torch.tensor([0, 5, 699, 700, -1, 3, 3, 100, 42],
+                          dtype=torch.int32, device=dev)
+    name = _mode("label_logits", fmt)
+    before = kernels.launch_counts()[name]
+    got = label_logits(cv, tbl, labels, scales=scl)
+    assert kernels.launch_counts()[name] == before + 1
+    _close(got, label_logits_plain(cv, tbl, labels, scales=scl,
+                                   compute_dtype=torch.bfloat16), F32SUM)
+    assert got[3] == got[4] == -1e30 and got[5] == 0.0
+
+
+@pytest.mark.parametrize("fmt", ("f32", "int8") + FORMATS)
+def test_eval_batch_every_format(dev, fmt):
+    """K1 (m 200), K3 (k 10) and K4 at the evaluation's batch of 1024 rows
+    (K3's rows span 16 row tiles) in every table format, against their
+    plain versions."""
+    rng = np.random.default_rng(1024 + len(fmt))
+    b, v, valid = 1024, 20011, 20003
+
+    def as_format(t):
+        if fmt in FORMATS:
+            return _formatted(t, dev, fmt)
+        if fmt == "f32":
+            return torch.from_numpy(t).to(dev), None
+        return tuple(torch.from_numpy(x).to(dev) for x in quantize_rows(t))
+
+    tok, tok_s = as_format(
+        (0.2 * rng.standard_normal((5000, 128))).astype(np.float32))
+    pth, pth_s = as_format(
+        (0.2 * rng.standard_normal((3000, 128))).astype(np.float32))
+    w = torch.from_numpy((0.05 * rng.standard_normal((384, 384))
+                          ).astype(np.float32)).to(dev)
+    ids = [torch.from_numpy(rng.integers(0, n, (b, 200)).astype(np.int32)
+                            ).to(dev) for n in (5000, 3000, 5000)]
+    _close(context_encoder(tok, tok_s, pth, pth_s, w, *ids),
+           context_encoder_plain(tok, tok_s, pth, pth_s, w, *ids), BF16)
+    cv, tgt = _separated(rng, v, b, valid)
+    tbl, scl = as_format(tgt)
+    cv = torch.from_numpy(cv).to(dev)
+    got = blockwise_topk(cv, tbl, 10, 4096, scales=scl, valid_rows=valid)
+    want = blockwise_topk_plain(cv, tbl, 10, 4096, scales=scl,
+                                valid_rows=valid,
+                                compute_dtype=torch.bfloat16)
+    assert torch.equal(got.indices, want.indices)
+    _close(got.values, want.values, F32SUM)
+    _close(got.lse, want.lse, F32SUM)
+    labels = torch.from_numpy(rng.integers(0, v, b).astype(np.int32)).to(dev)
+    _close(label_logits(cv, tbl, labels, scales=scl),
+           label_logits_plain(cv, tbl, labels, scales=scl,
+                              compute_dtype=torch.bfloat16), F32SUM)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_fp8_codes_decode_exactly(dev, fmt):
+    """All 256 codes through K3's large-k mode (row j holds code j in its
+    first column, the code vector picks that column): each logit is the
+    code's value exactly, NaN and infinities included; and the finite
+    ones through K4."""
+    codes = torch.arange(256, dtype=torch.uint8)
+    want = codes.view(quant.FP8_DTYPES[fmt]).float()
+    rows = torch.zeros((256, 16), dtype=torch.uint8)
+    rows[:, 0] = codes
+    tbl = rows.to(dev).view(quant.FP8_DTYPES[fmt])
+    ones = torch.ones((256, 1), device=dev)
+    cv = torch.zeros((1, 16), device=dev)
+    cv[0, 0] = 1.0
+    got = blockwise_topk(cv, tbl, 256, 4096, scales=ones)
+    logit = torch.empty(256)
+    logit[got.indices[0].cpu().long()] = got.values[0].cpu()
+    assert torch.equal(torch.isnan(logit), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert torch.equal(logit[fin], want[fin])
+    eye = torch.zeros((256, 16), device=dev)
+    eye[:, 0] = 1.0
+    k4 = label_logits(eye, tbl, torch.arange(256, dtype=torch.int32,
+                                             device=dev), scales=ones).cpu()
+    finite = torch.isfinite(want)
+    assert torch.equal(k4[finite], want[finite])
+    assert (k4[~finite] == -1e30).all()
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("k,nprobe", [(10, 3), (64, 9), (100, 9)])
+def test_ivf_search_quant_formats(dev, fmt, k, nprobe):
+    """K11's fp8 and int4 instantiations (k 100: its large-k mode)
+    against the plain version, each counted by its own counter."""
+    rng = np.random.default_rng(k + nprobe + len(fmt))
+    sizes = [0, 1, 40, 0, 25, 3, 1, 30, 17]
+    t, lo = _ivf_index(rng, dev, "f32", sizes)
+    rows, scl = _formatted(t["rows"].cpu().numpy(), dev, fmt)
+    n = int(sum(sizes))
+    q = torch.from_numpy(rng.standard_normal((6, 384)).astype(np.float32)
+                         ).to(dev)
+    gids = torch.from_numpy(rng.permutation(10 * n)[:n].astype(np.int32)
+                            ).to(dev)
+    args = (q, t["cent"], rows, t["offsets"], nprobe, k)
+    kw = dict(scales=scl[:, 0].contiguous(), global_ids=gids,
+              max_len=t["max_len"])
+    name = _mode("ivf_search", fmt)
+    before = kernels.launch_counts()[name]
+    got_v, got_i = ivf_search(*args, **kw)
+    assert kernels.launch_counts()[name] == before + 1
+    want_v, want_i = ivf_search_plain(*args, **kw)
+    assert torch.equal(got_i, want_i)
+    live = torch.isfinite(want_v)
+    _close(got_v, want_v, dict(rtol=1e-5, atol=1e-6 * float(
+        want_v[live].abs().max())))
+
+
+@pytest.mark.parametrize("scheme", ["fp8_e4m3", "fp8_e5m2", "int4"])
+def test_release_model_quant_cuda_matches_cpu(dev, tmp_path, scheme):
+    """Artifacts of the new schemes served and evaluated on the GPU and
+    on the CPU: the same top-k words (near-ties aside) and metrics."""
+    rng = np.random.default_rng(8)
+    tokens = [f"t{i}" for i in range(300)]
+    paths = [f"p{i}" for i in range(200)]
+    names = [f"name|w{i}" for i in range(5000)]
+    vocabs = Code2VecVocabs.from_words(tokens, paths, names)
+
+    def u(shape, lim):
+        return (rng.random(shape, dtype=np.float32) * 2 - 1) * lim
+
+    params = {"token_embedding": u((301, 128), 0.15),
+              "path_embedding": u((201, 128), 0.15),
+              "target_embedding": u((5001, 384), 0.09),
+              "transform": u((384, 384), 0.09),
+              "attention": u((384, 1), 0.09)}
+    art = str(tmp_path / "art")
+    write_artifact(params, vocabs, art, scheme)
+    lines = [f"name|w{i} " + " ".join(
+        f"t{rng.integers(300)},p{rng.integers(200)},t{rng.integers(300)}"
+        for _ in range(rng.integers(1, 150))) for i in range(70)]
+    gpu = ReleaseModel(Config(serve_artifact=art, verbose_mode=0))
+    cpu = ReleaseModel(Config(serve_artifact=art, device="cpu",
+                              verbose_mode=0))
+    counts = kernels.launch_counts()
+    got = gpu.predict(lines, with_code_vectors=True)
+    want = cpu.predict(lines, with_code_vectors=True)
+    mode = "int4" if scheme == "int4" else "fp8"
+    after = kernels.launch_counts()
+    for k in ("context_encoder", "blockwise_topk", "label_logits"):
+        assert after[f"{k}_{mode}"] > counts[f"{k}_{mode}"]
+    agree = 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.code_vector, w.code_vector, **BF16)
+        agree += g.topk_predicted_words == w.topk_predicted_words
+    assert agree >= len(lines) - 2
+    corpus = str(tmp_path / "test.c2v")
+    with open(corpus, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    for model in (gpu, cpu):
+        model.config.test_data_path = corpus
+        model.config.test_batch_size = 32
+    g = gpu.evaluate(log_path=None)
+    c = cpu.evaluate(log_path=None)
+    np.testing.assert_allclose(g.topk_acc, c.topk_acc, atol=2 / len(lines))
+    np.testing.assert_allclose(g.loss, c.loss, rtol=1e-3)

@@ -1,8 +1,9 @@
 """The port's release runtime against the JAX package's, on the CPU.
 
 A tiny JAX model (as tests/test_quant.py builds it, bf16 compute) is
-exported with the JAX `export_artifact`; both packages' ReleaseModels
-then serve that one artifact. The port also writes artifacts itself
+exported with the JAX `export_artifact` in each scheme (int8, fp8 e4m3
+and e5m2, packed int4, float32); both packages' ReleaseModels then serve
+that one artifact. The port also writes artifacts itself
 (`write_artifact`), which must be byte-identical to the JAX export for
 the same params, and reads the JAX `dictionaries.bin` bit for bit.
 
@@ -110,7 +111,7 @@ def _both_models(jax_model, art_dir):
     return jrm, trm
 
 
-@pytest.mark.parametrize("scheme", [jart.SCHEME_INT8, jart.SCHEME_FP32])
+@pytest.mark.parametrize("scheme", jart.ALL_SCHEMES)
 def test_release_predict_matches_jax(jax_model, tmp_path, scheme):
     jrm, trm = _both_models(jax_model, _export(jax_model, tmp_path, scheme))
     assert trm.model_fingerprint() == jrm.model_fingerprint()
@@ -141,8 +142,19 @@ def test_release_predict_matches_jax(jax_model, tmp_path, scheme):
 def test_release_eval_step_matches_jax(jax_model, tmp_path):
     """The whole step, loss_sum (K4's label logits) included, on a random
     batch whose labels include PAD/OOV rows and invalid rows."""
-    jrm, trm = _both_models(jax_model,
-                            _export(jax_model, tmp_path, jart.SCHEME_INT8))
+    _eval_step_case(jax_model, tmp_path, jart.SCHEME_INT8)
+
+
+@pytest.mark.parametrize("scheme", [jart.SCHEME_FP8_E4M3,
+                                    jart.SCHEME_FP8_E5M2, jart.SCHEME_INT4,
+                                    jart.SCHEME_FP32])
+def test_release_eval_step_matches_jax_per_scheme(jax_model, tmp_path,
+                                                  scheme):
+    _eval_step_case(jax_model, tmp_path, scheme)
+
+
+def _eval_step_case(jax_model, tmp_path, scheme):
+    jrm, trm = _both_models(jax_model, _export(jax_model, tmp_path, scheme))
     rng = np.random.default_rng(2)
     b, m = 4, 8
     arrays = (rng.integers(0, 7, (b, m)).astype(np.int32),
@@ -160,7 +172,8 @@ def test_release_eval_step_matches_jax(jax_model, tmp_path):
                                    np.asarray(getattr(jo, name)), **BF16)
 
 
-@pytest.mark.parametrize("scheme", ["int8", "float32"])
+@pytest.mark.parametrize("scheme", ["int8", "float32", "fp8_e4m3",
+                                    "fp8_e5m2", "int4"])
 def test_write_artifact_byte_identical_to_export(jax_model, tmp_path,
                                                  scheme):
     jdir = _export(jax_model, tmp_path, jart.SCHEME_BY_KNOB[scheme])
@@ -178,7 +191,7 @@ def test_write_artifact_byte_identical_to_export(jax_model, tmp_path,
         buckets=jax_model.context_buckets)
     names = sorted(n for n in os.listdir(jdir) if n.endswith(".npy"))
     assert names == sorted(n for n in os.listdir(tdir) if n.endswith(".npy"))
-    assert ("target_embedding.scale.npy" in names) == (scheme == "int8")
+    assert ("target_embedding.scale.npy" in names) == (scheme != "float32")
     for name in names + [tart.DICT_NAME]:
         assert filecmp.cmp(os.path.join(jdir, name),
                            os.path.join(tdir, name), shallow=False), name
@@ -245,16 +258,6 @@ def test_reader_matches_jax(jax_model, tmp_path, separate):
         np.testing.assert_array_equal(np.asarray(getattr(tcut, f.name)),
                                       np.asarray(getattr(jcut, f.name)),
                                       f.name)
-
-
-@pytest.mark.parametrize("scheme", [jart.SCHEME_FP8_E4M3, jart.SCHEME_INT4])
-def test_unported_scheme_raises_named_error(jax_model, tmp_path, scheme):
-    art_dir = _export(jax_model, tmp_path, scheme)
-    assert tart.load_artifact(art_dir).scheme == scheme
-    with pytest.raises(tart.ArtifactError, match="not yet ported") as e:
-        ReleaseModel(Config(serve_artifact=art_dir, device="cpu",
-                            verbose_mode=0))
-    assert e.value.field == "quantization.scheme"
 
 
 @pytest.mark.parametrize("edit,field", [
