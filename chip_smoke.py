@@ -842,6 +842,51 @@ def flagship_train():
                                  mu=c.adam_mu_dtype, nu=c.adam_nu_dtype)
 
 
+def k5_library_full(torch, dt, t, t_lo, tok, path, w, ids, mask, keep,
+                    rows):
+    """K5's whole function in PyTorch calls (a yardstick, never on the
+    port's path): the three gathers from the f32 tables, the bf16 cast and
+    dropout on the drawn mask, tanh's rule, the two products on cuBLAS
+    (dpre in bf16), dctx rounded and dropped out; then the rows, or
+    zeroed tables and three index_add_."""
+    td, pd = tok.shape[1], path.shape[1]
+    n, d = dt.numel() // dt.shape[-1], dt.shape[-1]
+    flat = [i.reshape(-1).long() for i in ids]
+    bf16 = torch.bfloat16
+    mask = mask.reshape(n, -1)
+    scale = torch.tensor(keep, dtype=bf16).float()
+    ctx = torch.cat([tok[flat[0]], path[flat[1]], tok[flat[2]]], dim=1)
+    ctx = torch.where(mask, (ctx.to(bf16).float() / scale).to(bf16),
+                      torch.zeros((), dtype=bf16))
+    tv = t.float().view(n, d) + t_lo.float().view(n, d)
+    gp = dt.float().view(n, d) * (1 - tv)
+    dpre = (gp + gp * tv).to(bf16)
+    dctx = torch.mm(dpre, w.to(bf16).T, out_dtype=torch.float32).to(bf16)
+    dctx = torch.where(mask, (dctx.float() / scale).to(bf16),
+                       torch.zeros((), dtype=bf16))
+    dw = torch.mm(ctx.T, dpre, out_dtype=torch.float32).to(bf16).float()
+    if rows:
+        return (torch.stack([dctx[:, :td], dctx[:, td + pd:]]),
+                dctx[:, td:td + pd].contiguous(), dw)
+    d_tok = torch.zeros_like(tok)
+    d_path = torch.zeros_like(path)
+    d_tok.index_add_(0, flat[0], dctx[:, :td].float())
+    d_path.index_add_(0, flat[1], dctx[:, td:td + pd].float())
+    d_tok.index_add_(0, flat[2], dctx[:, td + pd:].float())
+    return d_tok, d_path, dw
+
+
+def k5_pass_split(torch, timer, timed):
+    """The median ms of each K5 pass (`timed` returns one run's, by CUDA
+    events) over the timer's samples, the L2 flushed before each."""
+    timed()
+    runs = []
+    for _ in range(timer.samples):
+        timer.flush.zero_()
+        runs.append(timed())
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
 def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
     from code2vec_tpu_torch.kernels import adam as kadam
     from code2vec_tpu_torch.kernels import attention, encoder
@@ -990,6 +1035,11 @@ def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
 
     lib_ms = timer(library, spin_ms=20)
     del dpre, ctx_b, flat
+    full_ms = timer(lambda: k5_library_full(
+        torch, dt, t, t_lo, tok, path, w, ids, drawn, ft.keep, rows=False),
+        spin_ms=20)
+    split = k5_pass_split(torch, timer, lambda: kbwd.pass_times(
+        dt, t, t_lo, tok, path, w, *ids, dropout=drop))
     log(f"K5 encoder_backward B={b} m={m} keep={ft.keep}: max_abs_err "
         f"d_token {errs5[0][0]:.3g} d_path {errs5[1][0]:.3g} d_transform "
         f"{errs5[2][0]:.3g} (tol one bf16 step at the largest), elements "
@@ -997,10 +1047,14 @@ def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
         f"{FLIP_SHARE}); dropped "
         f"elements with a gradient {dropped_nonzero}, kept with one "
         f"{kept_nonzero:.4f}; ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+        f"library_ms {lib_ms:.4f} (2 cuBLAS mm + 3 index_add_) "
+        f"library_full_ms {full_ms:.4f} (the whole function in PyTorch "
+        f"calls) bound_ms {bms:.4f} ({by}); passes "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     report["encoder_backward"] = dict(
         max_abs_err=max(e for e, _ in errs5), ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        library_full_ms=full_ms, pass_ms=split)
 
     # K6: the backward of K2 on K1's train output
     mask = (torch.rand((b, m), generator=g, device=dev) > 0.3).float()
@@ -1250,7 +1304,13 @@ def sparse_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
     lib_ms = timer(lambda: (torch.mm(dpre, wb.T, out_dtype=torch.float32),
                             torch.mm(ctx_b.T, dpre,
                                      out_dtype=torch.float32)), spin_ms=20)
-    del dpre, ctx_b, got, t, t_lo, dt, drawn
+    del dpre, ctx_b
+    full_ms = timer(lambda: k5_library_full(
+        torch, dt, t, t_lo, tok, path, w, ids, drawn, ft.keep, rows=True),
+        spin_ms=20)
+    split = k5_pass_split(torch, timer, lambda: kbwd.pass_times(
+        *args, rows=True, dropout=drop))
+    del got, t, t_lo, dt, drawn
     log(f"K5 encoder_backward row mode B={b} m={m} keep={ft.keep}: "
         f"max_abs_err token rows {errs[0][0]:.3g} path rows "
         f"{errs[1][0]:.3g} d_transform {errs[2][0]:.3g} (tol one bf16 step "
@@ -1259,11 +1319,14 @@ def sparse_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
         f"summed by id vs the dense mode {err_sum:.3g} (tol {tol_sum:.3g}); "
         f"allocates {allocs['rows'] / 1e9:.3f} GB (dense mode "
         f"{allocs['dense'] / 1e9:.3f} GB); ms {ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {lib_ms:.4f} (2 cuBLAS mm) bound_ms "
-        f"{bms:.4f} ({by})")
+        f"{plain_ms:.4f} library_ms {lib_ms:.4f} (2 cuBLAS mm) "
+        f"library_full_ms {full_ms:.4f} (the whole function in PyTorch "
+        f"calls) bound_ms {bms:.4f} ({by}); passes "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     report["encoder_backward_rows"] = dict(
         max_abs_err=max(e for e, _ in errs), ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        library_full_ms=full_ms, pass_ms=split,
         alloc_gb=allocs["rows"] / 1e9, dense_alloc_gb=allocs["dense"] / 1e9)
     torch.cuda.empty_cache()
 
@@ -3306,7 +3369,8 @@ def main() -> None:
         # allocation beside the dense mode's
         entry.update({k: v for k, v in r.items()
                       if k.startswith(("mips", "b1", "k100", "zipf"))
-                      or k.endswith("alloc_gb") or k == "unique_rows"})
+                      or k.endswith("alloc_gb")
+                      or k in ("unique_rows", "library_full_ms", "pass_ms")})
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
         entries.append(entry)

@@ -170,12 +170,14 @@ def config_from_args(argv):
                     use_sparse_embedding_update=args.sparse_embedding_update,
                     serve=args.command == "serve",
                     predict=args.command == "predict")
+    explicit = []
     for name, field in (("epochs", "num_train_epochs"),
                         ("batch_size", "train_batch_size"),
                         ("max_contexts", "max_contexts")):
         value = getattr(args, name)
         if value is not None:
             setattr(config, field, value)
+            explicit.append(field)
     for name in ("serve_port", "serve_host", "serve_batch_size",
                  "serve_max_delay_ms", "extractor_timeout_s",
                  "serve_mips_nprobe", "serve_mips_nlist",
@@ -187,6 +189,8 @@ def config_from_args(argv):
         value = getattr(args, name)
         if value is not None:
             setattr(config, name, value)
+            explicit.append(name)
+    config.explicit_knobs = tuple(sorted(explicit))
     try:
         config.verify()
     except ValueError as e:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import sys
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -91,6 +91,10 @@ class Config:
     # the port's own
     device: str = "cuda"
     verbose_mode: int = 1
+    # the fields the command line set (filled by cli.config_from_args;
+    # code2vec_tpu/config.py:681): ReleaseModel adopts an artifact's
+    # serve_batch_size only where the flag was not given
+    explicit_knobs: Tuple[str, ...] = ()
 
     @property
     def is_training(self) -> bool:

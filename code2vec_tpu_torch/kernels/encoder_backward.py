@@ -15,7 +15,8 @@ launch the kernel. The row mode is counted apart, in `rows_launches`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -118,7 +119,8 @@ def _fn():
             "encoder_backward", "c2v_encoder_backward_rows_padded", [I64],
             restype=I64)
         _fns["slices"] = launch.bind(
-            "encoder_backward", "c2v_encoder_backward_slices", [I64])
+            "encoder_backward", "c2v_encoder_backward_slices",
+            [I64, I32, I32])
     return fn
 
 
@@ -164,7 +166,7 @@ def encoder_backward_rows(dt: torch.Tensor, t: torch.Tensor,
 
 
 def _launch(dt, t, t_lo, token_table, path_table, transform, src, pth, tgt,
-            compute_dtype, dropout, *, rows: bool):
+            compute_dtype, dropout, *, rows: bool, events=None):
     fn = _fn()  # builds the library first: raises where nvcc is missing
     launch.require(compute_dtype == torch.bfloat16,
                    f"encoder_backward kernel computes in bfloat16, "
@@ -197,13 +199,13 @@ def _launch(dt, t, t_lo, token_table, path_table, transform, src, pth, tgt,
     n_ctx = b * m
     drop = dropout_launch_args(dropout, (b, m, k_dim))
     n_pad = _fns["rows_padded"](n_ctx)
-    slices = _fns["slices"](n_ctx)
+    slices = _fns["slices"](n_ctx, k_dim, d)
     bf16 = dict(dtype=torch.bfloat16, device=device)
     f32 = dict(dtype=torch.float32, device=device)
-    wb = torch.empty((k_dim, d), **bf16)
+    w_tile = torch.empty(k_dim * d * 2 + 1024, dtype=torch.uint8,
+                         device=device)
     dpre_hi = torch.empty((n_pad, d), **bf16)
     dpre_lo = torch.empty((n_pad, d), **bf16)
-    ctx_s = torch.empty((n_pad, k_dim), **bf16)
     partial = torch.empty((slices, k_dim, d), **f32)
     if rows:
         d_tok = torch.empty((2, b, m, td), **bf16)
@@ -214,14 +216,42 @@ def _launch(dt, t, t_lo, token_table, path_table, transform, src, pth, tgt,
     dw = torch.empty((k_dim, d), **f32)
     g_out = (d_tok.data_ptr(), d_path.data_ptr()) if rows else (None, None)
     d_out = (None, None) if rows else (d_tok.data_ptr(), d_path.data_ptr())
+    marks = None
+    if events is not None:
+        marks = (ctypes.c_void_p * len(events))(
+            *[e.cuda_event for e in events])
     err = fn(dt.data_ptr(), t.data_ptr(), t_lo.data_ptr(), d,
              transform.data_ptr(),
              token_table.data_ptr(), token_table.shape[0], td,
              path_table.data_ptr(), path_table.shape[0], pd, src.data_ptr(),
-             pth.data_ptr(), tgt.data_ptr(), n_ctx, *drop, wb.data_ptr(),
-             dpre_hi.data_ptr(), dpre_lo.data_ptr(), ctx_s.data_ptr(),
-             partial.data_ptr(), *d_out, dw.data_ptr(), *g_out,
-             launch.stream(device))
+             pth.data_ptr(), tgt.data_ptr(), n_ctx, *drop, w_tile.data_ptr(),
+             dpre_hi.data_ptr(), dpre_lo.data_ptr(), partial.data_ptr(),
+             *d_out, dw.data_ptr(), *g_out, marks, launch.stream(device))
     launch.check_launch(err, "encoder_backward")
     launch.count(__name__, "rows_launches" if rows else "launches")
     return d_tok, d_path, dw
+
+
+PASSES = ("w_tiles", "dctx", "dw_partial", "dw_reduce")
+
+
+def pass_times(dt, t, t_lo, token_table, path_table, transform, src, pth,
+               tgt, *, rows: bool = False,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               dropout: Optional[Dropout] = None) -> Dict[str, float]:
+    """One launch on CUDA tensors, timed pass by pass with CUDA events:
+    the ms of each of PASSES (pass 0, W to bf16 tiles; A; B; C of
+    csrc/encoder_backward.cu) and, in dense mode, of the wrapper's zeroed
+    table gradients before them ("zero_fill")."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    for e in events[1:]:
+        e.record()  # creates each event before its handle is passed
+    events[0].record()
+    _launch(dt, t, t_lo, token_table, path_table, transform, src, pth, tgt,
+            compute_dtype, dropout, rows=rows, events=events[1:])
+    events[-1].synchronize()
+    out = {name: events[i + 1].elapsed_time(events[i + 2])
+           for i, name in enumerate(PASSES)}
+    if not rows:
+        out["zero_fill"] = events[0].elapsed_time(events[1])
+    return out

@@ -139,6 +139,7 @@ class ReleaseModel(BucketedPredictMixin):
                 int(meta["topk"])
         self.context_buckets: Tuple[int, ...] = tuple(
             int(b) for b in meta["buckets"])
+        self._adopt_serve_batch_size()
         self.vocabs = Code2VecVocabs.load(
             self.artifact.dictionaries_path,
             separate_oov_and_pad=config.separate_oov_and_pad)
@@ -161,6 +162,26 @@ class ReleaseModel(BucketedPredictMixin):
                  f"{self.artifact.table_bytes() / 1e6:.1f} MB, buckets "
                  f"{list(self.context_buckets)}, fingerprint "
                  f"{self.artifact.fingerprint[:12]}")
+
+    def _adopt_serve_batch_size(self) -> None:
+        """A config that holds the default serve_batch_size, with no
+        --serve_batch_size on the command line, takes the artifact's
+        (code2vec_tpu/release/runtime.py:275-300); an explicit size
+        always wins, even one equal to the default."""
+        config = self.config
+        art_rows = int(self.meta["serve_batch_size"])
+        if config.serve_batch_size == art_rows:
+            return
+        default_rows = type(config).__dataclass_fields__[
+            "serve_batch_size"].default
+        explicit = "serve_batch_size" in config.explicit_knobs
+        if config.serve_batch_size == default_rows and not explicit:
+            self.log(f"adopting the artifact's serve_batch_size {art_rows} "
+                     f"(config held the default {default_rows})")
+            config.serve_batch_size = art_rows
+        else:
+            self.log(f"serve_batch_size {config.serve_batch_size} differs "
+                     f"from the artifact's {art_rows}")
 
     def _resolve_mips_dispatch(self) -> None:
         """Batch-shape head dispatch: batches with <= mips_rows live rows

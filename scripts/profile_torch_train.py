@@ -13,7 +13,9 @@ contexts valid), and prints, for the dense step or (with
 one:
 
 - the step time: median over --steps steps of CUDA events around one
-  step (the step's device work, no host read-back), and examples/s;
+  step (the step's device work, no host read-back), examples/s, and the
+  peak device memory over those steps (`max_memory_allocated`) beside
+  what the state holds between steps;
 - a torch.profiler table of device time per CUDA kernel over --steps
   steps, and the share of the profiled window the device was busy.
 
@@ -78,6 +80,9 @@ def main() -> None:
           f"{'sparse' if args.sparse_embedding_update else 'dense'} step")
     for _ in range(2):
         state, _ = step(state, *batch, args.seed)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(args.steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -88,8 +93,11 @@ def main() -> None:
         end.synchronize()
         times.append(start.elapsed_time(end))
     ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
     print(f"step: {ms:.3f} ms (CUDA events, median of {args.steps}), "
-          f"{b / ms * 1e3:.0f} examples/s")
+          f"{b / ms * 1e3:.0f} examples/s; peak device memory "
+          f"{peak / 1e9:.3f} GB ({(peak - held) / 1e9:.3f} GB above the "
+          f"{held / 1e9:.3f} GB held between steps)")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

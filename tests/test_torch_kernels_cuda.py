@@ -815,6 +815,94 @@ def test_encoder_backward_rows_kernel(dev, keep, b, m, repeat):
     _close(summed, dense[0], dict(rtol=1e-5, atol=1e-6))
 
 
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("widths", [(32, 64, 128), (64, 128, 256),
+                                    (128, 128, 384)])
+@pytest.mark.parametrize("b,m", [(3, 37), (7, 200)])
+@pytest.mark.parametrize("drop_mode", ["draw", "mask"])
+def test_encoder_backward_ragged_rows_widths_and_bad_ids(dev, widths, b, m,
+                                                         drop_mode):
+    """Both K5 modes at row counts that are no multiple of any tile,
+    context widths 128, 256 and 384, dropout redrawn (Philox) or
+    injected, and ids of -1 and past the table, which gather a NaN row
+    (jnp.take's fill) and whose table gradient rows are dropped. The
+    plain reference takes tables with a NaN row appended for the bad ids;
+    its rows, scattered by the ids that are in range, give the dense
+    mode's table gradients. dW the same bits on a rerun and in both
+    modes."""
+    from code2vec_tpu_torch.kernels.encoder_backward import (
+        encoder_backward_rows, encoder_backward_rows_plain,
+    )
+    td, pd, d = widths
+    k_dim = 2 * td + pd
+    rng = np.random.default_rng(b * m + k_dim)
+    v_tok, v_path = 600, 400
+    tok = torch.from_numpy((0.3 * rng.standard_normal((v_tok, td))
+                            ).astype(np.float32)).to(dev)
+    pth = torch.from_numpy((0.3 * rng.standard_normal((v_path, pd))
+                            ).astype(np.float32)).to(dev)
+    w = torch.from_numpy((0.1 * rng.standard_normal((k_dim, d))
+                          ).astype(np.float32)).to(dev)
+    ids = [torch.from_numpy(rng.integers(0, n, (b, m)).astype(np.int32)
+                            ).to(dev) for n in (v_tok, v_path, v_tok)]
+    drawn = torch.empty((b, m, k_dim), dtype=torch.bool, device=dev)
+    context_encoder(tok, None, pth, None, w, *ids,
+                    dropout=Dropout(0.5, seed=7, step=1, out_mask=drawn))
+    bad = [x.clone() for x in ids]
+    bad[0][0, 0] = -1
+    bad[1][1, 2] = v_path
+    bad[2][2, 5] = v_tok + 3
+    th = torch.tanh(torch.from_numpy(rng.standard_normal((b, m, d)).astype(
+        np.float32)).to(dev))
+    t = th.to(torch.bfloat16)
+    lo = (th - t.float()).to(torch.bfloat16)
+    dt = torch.from_numpy((0.1 * rng.standard_normal((b, m, d))
+                           ).astype(np.float32)).to(dev).to(torch.bfloat16)
+    drop = (Dropout(0.5, seed=7, step=1) if drop_mode == "draw"
+            else Dropout(0.5, mask=drawn))
+    args = (dt, t, lo, tok, pth, w, *bad)
+    got = encoder_backward(*args, dropout=drop)
+    again = encoder_backward(*args, dropout=drop)
+    rows = encoder_backward_rows(*args, dropout=drop)
+    rows_again = encoder_backward_rows(*args, dropout=drop)
+
+    def nan_row(table):
+        return torch.cat([table, torch.full_like(table[:1], math.nan)])
+
+    def to_nan_row(x, v):
+        return torch.where((x >= 0) & (x < v), x, v)
+
+    want = encoder_backward_rows_plain(
+        dt, t, lo, nan_row(tok), nan_row(pth), w, to_nan_row(bad[0], v_tok),
+        to_nan_row(bad[1], v_path), to_nan_row(bad[2], v_tok),
+        dropout=Dropout(0.5, mask=drawn))
+    _step_close(rows[0], want[0], "token rows")
+    _step_close(rows[1], want[1], "path rows")
+    nan = torch.isnan(want[2])
+    assert nan.any()  # the bad ids reached dW
+    assert torch.equal(torch.isnan(got[2]), nan)
+    _step_close(torch.where(nan, 0, got[2]), torch.where(nan, 0, want[2]),
+                "d_transform")
+
+    def scattered(v, parts):
+        out = torch.zeros((v, parts[0][1].shape[-1]), device=dev)
+        for x, r in parts:
+            x = x.flatten().long()
+            ok = (x >= 0) & (x < v)
+            out.index_add_(0, x[ok], r.reshape(-1, r.shape[-1]).float()[ok])
+        return out
+
+    _step_close(got[0], scattered(v_tok, [(bad[0], want[0][0]),
+                                          (bad[2], want[0][1])]), "d_token")
+    _step_close(got[1], scattered(v_path, [(bad[1], want[1])]), "d_path")
+    for x in (again[2], rows[2], rows_again[2]):
+        assert torch.equal(_bits(x), _bits(got[2]))
+
+
 def _zipf_ids(rng, n, v, s=1.07):
     ranks = np.arange(1, v + 1, dtype=np.float64)
     p = ranks ** -s
