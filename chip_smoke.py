@@ -47,7 +47,10 @@ a C++ compiler. Phases, each fatal on failure:
 8. Retrieval kernels: K9 kmeans_assign, K10 kmeans_update (two runs
    bit-equal), K11 ivf_search and K3's float32 mode against their plain
    versions, timed the same way (bounds over the float32 peak of 67
-   TFLOP/s where operations bound them), at two shapes: the MIPS head
+   TFLOP/s where operations bound them; K9 and K3's float32 mode run
+   3xTF32, three tf32 products per f32 one, so theirs are over the tf32
+   peak of 495 TFLOP/s, the f32-FMA bound beside it as f32_fma_bound_ms),
+   at two shapes: the MIPS head
    over the flagship int8 classifier (261,245 rows, nlist 511, 6 Lloyd
    steps, nprobe 16, B 64 and 1, k 10; at nprobe = nlist it must return
    the exact head's indices away from near-ties) and an index of
@@ -95,6 +98,11 @@ a C++ compiler. Phases, each fatal on failure:
    tolerances, timed with their bounds, plain versions and library
    calls (the cast or torch's int4 unpack, a bf16 matmul and
    torch.topk); all 256 codes of each fp8 format through K3 and K4.
+   Then K3 over the flagship target table in every format at B 1, 12, 64
+   and 1024 (its N tiles of 8, 16, 2 x 32 and 16 x 64) and k 10 and 100,
+   against its plain version; at B 1024 each format is timed beside a
+   bf16 matmul + torch.topk and its bound (b1024_* keys of the K3
+   entries).
 14. fp8 and int4 serving (run after 5): full-width artifacts of all five
    schemes written from one set of seeded weights; the e4m3 artifact
    served over HTTP (exact head), the int4 one with the MIPS head
@@ -137,6 +145,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak, same source
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores, same
+# dense tf32 tensor-core peak, same source: the bound of K3's float32 mode
+# and K9, which run three tf32 products (3xTF32) for each f32 one
+TF32_FLOP_PER_S = 495e12
 # (atol, rtol) per kernel output, with the reason. The kernel phase's
 # inputs are scaled so the compared values are of order one.
 # K1's bf16 outputs: both sides round the same f32 value, except where the
@@ -1844,7 +1855,8 @@ def kmeans_cases(torch, timer, x, c0, spherical, what):
         fail(f"kmeans_assign {what}: {bad} assignments differ away from "
              f"near-ties ({same}/{n} equal)")
     nbytes = (n * d + c * d) * 4 + n * 4
-    bms, by = bound(nbytes, 2.0 * n * c * d, F32_FLOP_PER_S)
+    bms, by = bound(nbytes, 3 * 2.0 * n * c * d, TF32_FLOP_PER_S)
+    fma_ms, _ = bound(nbytes, 2.0 * n * c * d, F32_FLOP_PER_S)
     ms = timer(lambda: kmeans.kmeans_assign(x, c0))
     plain_ms = timer(lambda: kmeans.kmeans_assign_plain(x, c0), spin_ms=20)
     cn = (c0 * c0).sum(1)
@@ -1855,11 +1867,12 @@ def kmeans_cases(torch, timer, x, c0, spherical, what):
         f"{same}/{n} (the rest near-ties within {TOL_ASSIGN}; largest "
         f"distance gap {gap:.3g}) ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (addmm + argmin) "
-        f"bound_ms {bms:.4f} ({by})")
+        f"bound_ms {bms:.4f} ({by}; 3xTF32; f32 FMAs {fma_ms:.4f})")
     # max_abs_err: the largest gap between the distances of the two
     # centroids where the assignments differ (0 where all agree)
     k9 = dict(max_abs_err=gap, ms=ms, plain_ms=plain_ms,
-              bound_ms=bms, bound_by=by, library_ms=lib_ms)
+              bound_ms=bms, bound_by=by, library_ms=lib_ms,
+              f32_fma_bound_ms=fma_ms)
 
     upd = kmeans.kmeans_update(x, got, c0, spherical)
     again = kmeans.kmeans_update(x, got, c0, spherical)
@@ -1974,7 +1987,8 @@ def brute_case(torch, timer, q, table, k, what, timed=True):
             f"(the rest near-ties)")
         return dict(max_abs_err=max(err_v, err_l)), got
     nbytes = v * d * 4 + b * d * 4 + b * k * 8 + b * 4
-    bms, by = bound(nbytes, 2.0 * b * v * d, F32_FLOP_PER_S)
+    bms, by = bound(nbytes, 3 * 2.0 * b * v * d, TF32_FLOP_PER_S)
+    fma_ms, _ = bound(nbytes, 2.0 * b * v * d, F32_FLOP_PER_S)
     ms = timer(lambda: topk.blockwise_topk(*args, **kw))
     plain_ms = timer(lambda: topk.blockwise_topk_plain(*args, **kw),
                      spin_ms=100)
@@ -1983,9 +1997,11 @@ def brute_case(torch, timer, q, table, k, what, timed=True):
         f"max_abs_err values {err_v:.3g} lse {err_l:.3g} (tol "
         f"{TOL_F32SUM}) indices equal {same}/{got.indices.numel()} ms "
         f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-        f"(f32 matmul + topk) bound_ms {bms:.4f} ({by})")
+        f"(f32 matmul + topk) bound_ms {bms:.4f} ({by}; 3xTF32; f32 FMAs "
+        f"{fma_ms:.4f})")
     return dict(max_abs_err=max(err_v, err_l), ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=lib_ms), got
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                f32_fma_bound_ms=fma_ms), got
 
 
 def select_case(torch, timer, scores, k, what):
@@ -2825,6 +2841,93 @@ def eval_shape_phase(torch, seed: int, timer, fs, rows: int, dev="cuda"):
     return step_ms
 
 
+K3_GRID_BATCHES = (1, 12, 64, 1024)
+K3_GRID_K = (10, 100)
+K3_GRID_FORMATS = ("float32", "int8", "e4m3", "e5m2", "int4")
+
+
+def topk_grid_phase(torch, seed: int, timer, fs, dev="cuda"):
+    """K3 over the flagship target table (261,246 x 384, the last row
+    dead) in every table format at B 1, 12, 64 and 1024 (N tiles of 8
+    and 16, 2 chunks of 32, 16 chunks of 64) and k 10 and 100 (the
+    large-k mode, through K13), against its plain version on the same
+    inputs: values and logsumexp within TOL_F32SUM, indices equal away
+    from near-ties. As the serving path pads a batch, one code vector of
+    B 12 and the second half of B 64 are zero (every logit equal).
+    At B 1024, k 10 (the evaluate batch) each format is timed beside its
+    bound and a bf16 matmul + torch.topk (int4: torch's unpack first).
+    Returns {format: that B 1024 entry}."""
+    from code2vec_tpu_torch.kernels import topk
+    from code2vec_tpu_torch.ops.quant import unpack_int4
+
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    v_tgt, v_real, d = (fs.vocab["target"] + 1, fs.vocab["target"],
+                        fs.code_dim)
+    f32 = (torch.rand((v_tgt, d), generator=g, device=dev) * 2 - 1
+           ) * math.sqrt(3 / d)
+    cvs = {b: torch.rand((b, d), generator=g, device=dev) * 2 - 1
+           for b in K3_GRID_BATCHES}
+    cvs[12][11] = 0.0
+    cvs[64][32:] = 0.0
+    out = {}
+    for fmt in K3_GRID_FORMATS:
+        tbl, scl = quantize_format(torch, f32, fmt)
+        kw = dict(scales=scl, valid_rows=v_real)
+        errs, equal, total = [], 0, 0
+        for b in K3_GRID_BATCHES:
+            cv = cvs[b]
+            for k in K3_GRID_K:
+                got = topk.blockwise_topk(cv, tbl, k, fs.block, **kw)
+                # the plain version's (k+1)-th value is the k-th one's
+                # lower neighbour
+                want = topk.blockwise_topk_plain(
+                    cv, tbl, k + 1, fs.block, compute_dtype=torch.bfloat16,
+                    **kw)
+                torch.cuda.synchronize()
+                nxt, w_v, w_i = (want.values[:, k], want.values[:, :k],
+                                 want.indices[:, :k])
+                err_v, ok_v = max_err(got.values, w_v, TOL_F32SUM)
+                err_l, ok_l = max_err(got.lse, want.lse, TOL_F32SUM)
+                same, bad = topk_agreement(got.indices, w_i, w_v,
+                                           TOL_F32SUM, next_vals=nxt)
+                if not (ok_v and ok_l) or bad:
+                    fail(f"blockwise_topk {fmt} B={b} k={k}: value error "
+                         f"{err_v}, lse error {err_l}, {bad} index "
+                         f"mismatches away from near-ties: "
+                         f"{topk_detail(got.indices, w_i, w_v, nxt)}")
+                errs.append(max(err_v, err_l))
+                equal += same
+                total += got.indices.numel()
+        b, cv = 1024, cvs[1024]
+        ms = timer(lambda: topk.blockwise_topk(cv, tbl, fs.topk, fs.block,
+                                               **kw))
+        cv_bf16 = cv.to(torch.bfloat16)
+        if fmt == "int4":
+            lib_ms = timer(lambda: torch.topk(torch.matmul(
+                cv_bf16, unpack_int4(tbl, d).to(torch.bfloat16).T),
+                fs.topk), spin_ms=20)
+        else:
+            lib_ms = timer(lambda: torch.topk(torch.matmul(
+                cv_bf16, tbl.to(torch.bfloat16).T), fs.topk))
+        nbytes = (tbl.numel() * tbl.element_size()
+                  + (0 if scl is None else v_tgt * 4) + cv.numel() * 4
+                  + b * fs.topk * 8 + b * 4)
+        bms, by = bound(nbytes, 2.0 * b * v_tgt * d)
+        out[fmt] = dict(max_abs_err=max(errs), ms=ms, library_ms=lib_ms,
+                        bound_ms=bms, bound_by=by)
+        log(f"K3 blockwise_topk {fmt} V={v_tgt}: B {K3_GRID_BATCHES} x k "
+            f"{K3_GRID_K} max_abs_err {max(errs):.3g} (tol {TOL_F32SUM}) "
+            f"indices equal {equal}/{total} (the rest near-ties); B=1024 "
+            f"k={fs.topk} ms {ms:.4f} library_ms {lib_ms:.4f} (bf16 matmul "
+            f"+ topk) bound_ms {bms:.4f} ({by})")
+        del tbl, scl
+        torch.cuda.empty_cache()
+    del f32, cvs
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------- fp8 and int4 artifacts: serving path
 
 def letters(i: int) -> str:
@@ -3262,6 +3365,18 @@ def main() -> None:
     from code2vec_tpu_torch.config import Config
     eval_batch_ms = eval_shape_phase(torch, args.seed, timer, fs,
                                      Config().test_batch_size)
+    # K3 at B 1024 per format, beside each mode's B 64 entry: the int8 and
+    # float32 tables' as b1024_* and b1024_float32_* of blockwise_topk,
+    # e4m3's (e5m2's) as b1024_* (e5m2_b1024_*) of blockwise_topk_fp8,
+    # int4's as b1024_* of blockwise_topk_int4
+    grid = topk_grid_phase(torch, args.seed, timer, fs)
+    for fmt, key, prefix in (
+            ("int8", "blockwise_topk", "b1024"),
+            ("float32", "blockwise_topk", "b1024_float32"),
+            ("e4m3", "blockwise_topk_fp8", "b1024"),
+            ("e5m2", "blockwise_topk_fp8", "e5m2_b1024"),
+            ("int4", "blockwise_topk_int4", "b1024")):
+        report[key].update({f"{prefix}_{n}": x for n, x in grid[fmt].items()})
     report.update(train_kernel_phase(torch, args.seed, timer, fs, ft))
     torch.cuda.empty_cache()
     report.update(sparse_kernel_phase(torch, args.seed, timer, fs, ft))
@@ -3370,7 +3485,8 @@ def main() -> None:
         entry.update({k: v for k, v in r.items()
                       if k.startswith(("mips", "b1", "k100", "zipf"))
                       or k.endswith("alloc_gb")
-                      or k in ("unique_rows", "library_full_ms", "pass_ms")})
+                      or k in ("unique_rows", "library_full_ms", "pass_ms",
+                               "f32_fma_bound_ms")})
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
         entries.append(entry)

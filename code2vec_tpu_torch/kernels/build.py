@@ -3,7 +3,7 @@
 Each `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, compiled for Hopper (`sm_90a`) at first use into `_build/`
 beside this file (listed in .gitignore). Libraries are keyed by a hash of
-their source, the shared header and the flags, so an edited kernel is
+their source, the shared headers and the flags, so an edited kernel is
 rebuilt and an unchanged one is reused. `build_all()` starts one nvcc per
 source at once and waits for all of them.
 
@@ -51,7 +51,7 @@ def nvcc_path() -> Optional[str]:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (f"{name}.cu", "common.cuh"):
+    for fname in (f"{name}.cu", "common.cuh", "hopper.cuh"):
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

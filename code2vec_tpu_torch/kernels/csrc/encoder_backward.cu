@@ -96,9 +96,11 @@
 //      ran no faster on the H100 (PERF.md).
 //   C. dW = f32(bf16(sum of the slices)), the slices added in a fixed
 //      order: dW is the same bit for bit from run to run.
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace c2v::hopper;
 
 constexpr int kTileRows = 64;   // context rows per tile of pass A
 constexpr int kBlock = 8192;    // one [64][64] bf16 tile, 128-byte rows
@@ -106,203 +108,6 @@ constexpr int kWStages = 3;     // pass A's ring of W chunks
 constexpr int kABufs = 3;       // pass A's dpre hi/lo tile buffers
 constexpr int kChunkRows = 32;  // context rows per chunk of pass B
 constexpr int kCBufs = 3;       // pass B's bf16 context tile buffers
-
-// The 16-byte chunk j (0-7) of row r of a 128-byte-swizzled tile: the
-// chunk index XOR the row's place in its 8-row (1024-byte) group, as TMA's
-// SWIZZLE_128B and wgmma's 128B layout place it.
-__device__ __forceinline__ int swz(int r, int j) {
-  return r * 128 + ((j ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Bulk (TMA) copy of `bytes` contiguous bytes into shared memory,
-// completing on `bar`'s transaction count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Bulk (TMA) copy of shared memory to device memory, in a bulk group.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                           uint32_t bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-      "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// Wait until at most N bulk groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// Make this thread's shared-memory writes visible to the async proxy
-// (wgmma, bulk copies) once the threads have met at a barrier.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void consumers_sync(int threads) {
-  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// A wgmma shared-memory descriptor of a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (16-byte units), layout
-// 1 (SWIZZLE_128B). K-major: rows of 64 K values, 8-row groups `sbo`
-// apart (lbo unused). MN-major: rows of 64 M/N values, one per K; groups
-// of 8 K rows `sbo` apart, 64-wide M/N blocks `lbo` apart.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-// d[64] = A (64 x 16) B (16 x 128) (+ d where `accumulate`), both
-// operands by descriptor; TA, TB: 1 for an MN-major operand, 0 for a
-// K-major one.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
-      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
-      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"
-      "%64,%65,p,1,1,%67,%68;\n}\n"
-      : "+f"(d[0]),"+f"(d[1]),"+f"(d[2]),"+f"(d[3]),"+f"(d[4]),"+f"(d[5]),
-        "+f"(d[6]),"+f"(d[7]),"+f"(d[8]),"+f"(d[9]),"+f"(d[10]),"+f"(d[11]),
-        "+f"(d[12]),"+f"(d[13]),"+f"(d[14]),"+f"(d[15]),"+f"(d[16]),
-        "+f"(d[17]),"+f"(d[18]),"+f"(d[19]),"+f"(d[20]),"+f"(d[21]),
-        "+f"(d[22]),"+f"(d[23]),"+f"(d[24]),"+f"(d[25]),"+f"(d[26]),
-        "+f"(d[27]),"+f"(d[28]),"+f"(d[29]),"+f"(d[30]),"+f"(d[31]),
-        "+f"(d[32]),"+f"(d[33]),"+f"(d[34]),"+f"(d[35]),"+f"(d[36]),
-        "+f"(d[37]),"+f"(d[38]),"+f"(d[39]),"+f"(d[40]),"+f"(d[41]),
-        "+f"(d[42]),"+f"(d[43]),"+f"(d[44]),"+f"(d[45]),"+f"(d[46]),
-        "+f"(d[47]),"+f"(d[48]),"+f"(d[49]),"+f"(d[50]),"+f"(d[51]),
-        "+f"(d[52]),"+f"(d[53]),"+f"(d[54]),"+f"(d[55]),"+f"(d[56]),
-        "+f"(d[57]),"+f"(d[58]),"+f"(d[59]),"+f"(d[60]),"+f"(d[61]),
-        "+f"(d[62]),"+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// d[96] = A (64 x 16) B (16 x 192) (+ d where `accumulate`), as
-// wgmma_n128.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
-      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,"
-      "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,"
-      "%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,"
-      "%87,%88,%89,%90,%91,%92,%93,%94,%95},"
-      "%96,%97,p,1,1,%99,%100;\n}\n"
-      : "+f"(d[0]),"+f"(d[1]),"+f"(d[2]),"+f"(d[3]),"+f"(d[4]),"+f"(d[5]),
-        "+f"(d[6]),"+f"(d[7]),"+f"(d[8]),"+f"(d[9]),"+f"(d[10]),"+f"(d[11]),
-        "+f"(d[12]),"+f"(d[13]),"+f"(d[14]),"+f"(d[15]),"+f"(d[16]),
-        "+f"(d[17]),"+f"(d[18]),"+f"(d[19]),"+f"(d[20]),"+f"(d[21]),
-        "+f"(d[22]),"+f"(d[23]),"+f"(d[24]),"+f"(d[25]),"+f"(d[26]),
-        "+f"(d[27]),"+f"(d[28]),"+f"(d[29]),"+f"(d[30]),"+f"(d[31]),
-        "+f"(d[32]),"+f"(d[33]),"+f"(d[34]),"+f"(d[35]),"+f"(d[36]),
-        "+f"(d[37]),"+f"(d[38]),"+f"(d[39]),"+f"(d[40]),"+f"(d[41]),
-        "+f"(d[42]),"+f"(d[43]),"+f"(d[44]),"+f"(d[45]),"+f"(d[46]),
-        "+f"(d[47]),"+f"(d[48]),"+f"(d[49]),"+f"(d[50]),"+f"(d[51]),
-        "+f"(d[52]),"+f"(d[53]),"+f"(d[54]),"+f"(d[55]),"+f"(d[56]),
-        "+f"(d[57]),"+f"(d[58]),"+f"(d[59]),"+f"(d[60]),"+f"(d[61]),
-        "+f"(d[62]),"+f"(d[63]),"+f"(d[64]),"+f"(d[65]),"+f"(d[66]),
-        "+f"(d[67]),"+f"(d[68]),"+f"(d[69]),"+f"(d[70]),"+f"(d[71]),
-        "+f"(d[72]),"+f"(d[73]),"+f"(d[74]),"+f"(d[75]),"+f"(d[76]),
-        "+f"(d[77]),"+f"(d[78]),"+f"(d[79]),"+f"(d[80]),"+f"(d[81]),
-        "+f"(d[82]),"+f"(d[83]),"+f"(d[84]),"+f"(d[85]),"+f"(d[86]),
-        "+f"(d[87]),"+f"(d[88]),"+f"(d[89]),"+f"(d[90]),"+f"(d[91]),
-        "+f"(d[92]),"+f"(d[93]),"+f"(d[94]),"+f"(d[95])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-__device__ __forceinline__ float lo_bf16(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-
-__device__ __forceinline__ float hi_bf16(uint32_t u) {
-  return __uint_as_float(u & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
-         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
-             << 16;
-}
 
 struct Tables {
   const float* tok;
@@ -473,7 +278,7 @@ dctx_pass(const __nv_bfloat16* dt, const __nv_bfloat16* t,
                       tid, kThreads);
       fence_async_smem();
       if (tid == 0) bulk_wait_read<1>();  // the store of chunk c - 2 read
-      consumers_sync(kThreads);
+      named_sync(1, kThreads);
       if (tid == 0) {  // rows 0-31, then 32-63: pass B's 32-row chunks
         for (int h = 0; h < 2; ++h) {
           const int64_t off =
@@ -512,7 +317,7 @@ dctx_pass(const __nv_bfloat16* dt, const __nv_bfloat16* t,
     // l) holds, for each 8-column group j, columns 8 j + 2 (l % 4) +
     // {0, 1} of rows 16 w + l / 4 and + 8.
     if (tid == 0) bulk_wait_read<0>();  // the dpre stores left abuf
-    consumers_sync(kThreads);           // and every warpgroup's products
+    named_sync(1, kThreads);           // and every warpgroup's products
     {
       const int r = (wtid / 32) * 16 + lane / 4;
       uint8_t* e = abuf + r * kEpiLd + (wg * 128 + 2 * (lane % 4)) * 2;
@@ -524,7 +329,7 @@ dctx_pass(const __nv_bfloat16* dt, const __nv_bfloat16* t,
             pack2(acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
-    consumers_sync(kThreads);
+    named_sync(1, kThreads);
     const int td = tb.tok_dim, pd = tb.path_dim;
 #pragma unroll 4
     for (int i = 0; i < 16; ++i) {
@@ -573,7 +378,7 @@ dctx_pass(const __nv_bfloat16* dt, const __nv_bfloat16* t,
       atomicAdd(reinterpret_cast<float4*>(table + id * dim + tcol),
                 make_float4(v[0], v[1], v[2], v[3]));
     }
-    consumers_sync(kThreads);  // the tile is read before abuf is reused
+    named_sync(1, kThreads);  // the tile is read before abuf is reused
   }
   if (tid == 0) bulk_wait_all();
 }

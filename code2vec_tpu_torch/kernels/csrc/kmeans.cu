@@ -12,16 +12,34 @@
 //
 // What bounds them on an H100. K9 is a product: 2 N C D operations (0.77
 // TFLOP at 1M x 1000 x 384) over N D + C D floats, ~250 operations per
-// byte, so it is bound by operations. They must be float32 FMAs, not
-// TF32 or bf16: a rounding that moves the nearest centroid moves a row to
-// another list, so the card's float32 rate (67 TFLOP/s) is the roof,
-// 11.5 ms at that shape. Design: a classic register-tiled product, 128
-// rows x 128 centroids per CTA pass, 16-deep slices of both staged in
-// shared memory (k-major, so each thread reads float4s), each thread 8
-// rows x 8 centroids in registers; the distance and the running argmin
-// are folded in right after each centroid tile, so the (N, C) distances
-// never exist, and a shuffle reduction across the 16 threads that share
-// a row picks the winner with the lowest index among equals.
+// byte, so it is bound by operations. A rounding that moves the nearest
+// centroid moves a row to another list, so the products must carry f32's
+// precision: K9 runs 3xTF32 on the tensor cores (each operand split into
+// tf32 hi = rna(x) and lo = rna(x - hi), the product hi.hi + hi.lo +
+// lo.hi accumulated in f32: an error of ~2^-21 of |x||c|, the order of
+// f32 rounding at D 384; plain TF32 or bf16 would not do). Its roof is
+// three tf32 products at 495 TFLOP/s, 4.65 ms at that shape, against
+// 11.5 ms for f32 FMAs at 67 TFLOP/s.
+// Design: wgmma (m64n128k8, tf32) fed by bulk copies under a 4-stage
+// mbarrier ring. A CTA owns 128 rows at a time (one per thread's two
+// rows in each of two consumer warpgroups, 64 rows each) and walks the
+// centroids in tiles of 128 (nlist 511 and 1000 leave dead padded
+// columns, masked in the epilogue), each over 32-wide K blocks: a stage
+// holds the tile's block of centroids, already split into hi and lo and
+// laid out as wgmma's 128-byte-swizzled K-major B operand by a pre-pass
+// (3 MB at nlist 1000, read from L2; one bulk copy), and the rows' block
+// (one tensor (TMA) copy of 128 rows x 32 columns, 128-byte-swizzled: one
+// bulk copy per 128-byte row left the copy engine, not the memory, to set
+// the pace, ~4x slower). Where the rows are split:
+// again for every centroid tile, in registers, as wgmma's A fragments
+// (decode_tf32): the split is three instructions a value against 128
+// centroids' worth of products, and keeping split rows in shared memory
+// would cost twice the rows' bytes there for no fewer instructions. A
+// stage goes back to the ring once the products that read its B have
+// completed, one K block later. The epilogue folds |c|^2 - 2 acc into a
+// running argmin per row in registers
+// (centroids ascending, strict <), then across the four threads that
+// share a row, so the (N, C) distances never exist.
 //
 // K10 reads every row once (N D floats) and is bound by bytes. It must be
 // deterministic: ten Lloyd steps feed each other, and f32 atomics would
@@ -35,16 +53,21 @@
 // member list in row order, float4 columns per thread, and the G partials
 // are added in group order. Integer counts and fixed-order sums give the
 // same bits on every run.
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace c2v::hopper;
+
 // ------------------------------------------------------------------ K9
 
-constexpr int kAssignBM = 128;  // rows per CTA
-constexpr int kAssignBN = 128;  // centroids per tile
-constexpr int kAssignBK = 16;   // depth per shared-memory slice
-constexpr int kAssignThreads = 256;
+constexpr int kAssignRows = 128;  // rows of x per CTA tile (2 x 64)
+constexpr int kCentTile = 128;    // centroids per tile (wgmma's N)
+constexpr int kAssignStages = 4;
+constexpr int kCBlock = kCentTile * 128;  // a tile's tf32 block (hi or lo)
+constexpr int kXBlock = kAssignRows * 128;  // the rows' 32-column box
+constexpr int kAssignStage = 2 * kCBlock + kXBlock;
+constexpr int kAssignThreads = 2 * 128 + 32;
 
 // |c|^2 per centroid, one warp each, in f32.
 __global__ void centroid_norms_kernel(const float* c, int n_cent, int d,
@@ -59,30 +82,32 @@ __global__ void centroid_norms_kernel(const float* c, int n_cent, int d,
   if (lane == 0) norms[warp] = s;
 }
 
-// A [kAssignBK][rows] k-major slice of `src` (n_rows x d, row-major),
-// zero past n_rows and past d. 16-byte loads when d % 4 == 0.
-__device__ __forceinline__ void load_slice(float* dst, const float* src,
-                                           int64_t row0, int64_t n_rows,
-                                           int d, int k0, int tile_rows,
-                                           int tid, int n_threads) {
-  const int per_row = kAssignBK / 4;  // float4s per row of the slice
-  for (int e = tid; e < tile_rows * per_row; e += n_threads) {
-    const int r = e / per_row, q = (e - r * per_row) * 4;
-    const int64_t row = row0 + r;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row < n_rows) {
-      const float* p = src + row * d + k0 + q;
-      if ((d & 3) == 0 && k0 + q + 4 <= d) {
-        const float4 x = *reinterpret_cast<const float4*>(p);
-        v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-      } else {
+// The centroids as K9's B operand: for centroid tile ct and 32-wide K
+// block kb, a [128][32] tf32 hi tile and then its lo tile, each
+// 128-byte-swizzled and K-permuted as tf32_col says (16 KB each). Rows
+// past n_cent and columns past d are zeros.
+__global__ void centroid_tiles_kernel(const float* c, int n_cent, int d,
+                                      int n_kb, int64_t chunks,
+                                      uint8_t* tiles) {
+  for (int64_t e = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
+       e < chunks; e += int64_t(gridDim.x) * blockDim.x) {
+    const int j = static_cast<int>(e % 8);            // 16-byte chunk
+    const int n = static_cast<int>(e / 8 % kCentTile);  // row of the tile
+    const int64_t blk = e / (8 * kCentTile);            // ct * n_kb + kb
+    const int kb = static_cast<int>(blk % n_kb);
+    const int64_t cent = blk / n_kb * kCentTile + n;
+    uint32_t h[4], l[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (k0 + q + i < d) v[i] = p[i];
-      }
+    for (int t = 0; t < 4; ++t) {
+      const int col = 32 * kb + tf32_col(4 * j + t);
+      const float x = cent < n_cent && col < d ? c[cent * d + col] : 0.f;
+      h[t] = tf32_rna(x);
+      l[t] = tf32_rna(x - __uint_as_float(h[t]));
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dst[(q + i) * tile_rows + r] = v[i];
+    uint8_t* dst = tiles + blk * 2 * kCBlock + n * 128 + ((j ^ (n & 7)) << 4);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(dst + kCBlock) =
+        make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 
@@ -91,86 +116,130 @@ __device__ __forceinline__ bool dist_before(float da, int ia, float db,
   return da < db || (da == db && ia < ib);
 }
 
-__global__ void __launch_bounds__(kAssignThreads)
-kmeans_assign_kernel(const float* x, int64_t n, int d, const float* c,
-                     int n_cent, const float* norms, int* assign) {
-  __shared__ __align__(16) float sx[kAssignBK * kAssignBM];
-  __shared__ __align__(16) float sc[kAssignBK * kAssignBN];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kAssignBM;
-
-  // rows ty*4 + 64*i + q, centroids tx*4 + 64*j + q (i, j < 2, q < 4):
-  // consecutive threads read consecutive float4s of the centroid slice
-  float best[8];
-  int best_i[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best[i] = INFINITY;
-    best_i[i] = c2v::kEmptyIndex;
+// The assignment (module note): persistent CTAs over 128-row tiles of x;
+// two consumer warpgroups (rows 64 g + [0, 64)), then the producer warp.
+__global__ void __launch_bounds__(kAssignThreads, 1)
+kmeans_assign_kernel(const __grid_constant__ CUtensorMap xmap, int64_t n,
+                     int d, const uint8_t* tiles, int n_cent,
+                     const float* norms, int* assign) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem +
+                                               kAssignStages * kAssignStage);
+  uint64_t* empty = full + kAssignStages;
+  const int n_kb = (d + 31) / 32;
+  const int n_ct = (n_cent + kCentTile - 1) / kCentTile;
+  const int64_t n_xt = (n + kAssignRows - 1) / kAssignRows;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kAssignStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // the eight consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int c0 = 0; c0 < n_cent; c0 += kAssignBN) {
-    float acc[8][8];
+  __syncthreads();
+
+  const int wg = __shfl_sync(c2v::kFullMask, tid / 128, 0);
+  if (wg == 2) {  // producer: per x tile, per centroid tile, per K block
+    const int lane = tid % 32;
+    int64_t seq = 0;
+    for (int64_t xt = blockIdx.x; xt < n_xt; xt += gridDim.x) {
+      const int r0 = static_cast<int>(xt * kAssignRows);
+      for (int ct = 0; ct < n_ct; ++ct)
+        for (int kb = 0; kb < n_kb; ++kb, ++seq) {
+          const int slot = static_cast<int>(seq % kAssignStages);
+          if (seq >= kAssignStages)
+            mbar_wait(&empty[slot], ((seq / kAssignStages) - 1) & 1);
+          uint8_t* st = smem + slot * kAssignStage;
+          if (lane == 0) {
+            mbar_arrive_tx(&full[slot], 2 * kCBlock + kXBlock);
+            bulk_load(st, tiles + (static_cast<int64_t>(ct) * n_kb + kb) *
+                                      2 * kCBlock,
+                      2 * kCBlock, &full[slot]);
+            tma_load_2d(st + 2 * kCBlock, &xmap, 32 * kb, r0, &full[slot]);
+          }
+        }
+    }
+    return;
+  }
+
+  const int lane = tid % 32, warp = (tid % 128) / 32, q = lane % 4;
+  const int row0 = 64 * wg + 16 * warp + lane / 4;  // and row0 + 8
+  const uint32_t sb = smem_u32(smem);
+  float acc[64];
+  uint32_t a0[4][4], l0[4][4], a1[4][4], l1[4][4];
+  int64_t seq = 0;
+  int prev = -1;  // the stage of the last K block whose products may run
+  for (int64_t xt = blockIdx.x; xt < n_xt; xt += gridDim.x) {
+    float best[2] = {INFINITY, INFINITY};
+    int best_i[2] = {c2v::kEmptyIndex, c2v::kEmptyIndex};
+    for (int ct = 0; ct < n_ct; ++ct) {
+      auto unit = [&](int kb, uint32_t (&a)[4][4], uint32_t (&l)[4][4]) {
+        const int slot = static_cast<int>(seq % kAssignStages);
+        mbar_wait(&full[slot], (seq / kAssignStages) & 1);
+        const uint8_t* st = smem + slot * kAssignStage;
+        decode_tf32(st + 2 * kCBlock, row0, q, 32 * kb + 8 * q < d, a, l);
+        wgmma_fence();
+        const uint32_t bh = sb + slot * kAssignStage;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+        for (int s = 0; s < 4; ++s) {
+          const uint64_t dh = desc(bh + s * 32, 16, 1024);
+          const uint64_t dl = desc(bh + kCBlock + s * 32, 16, 1024);
+          wgmma_tf32_rs(acc, a[s], dl, kb > 0 || s > 0);
+          wgmma_tf32_rs(acc, l[s], dh, 1);
+          wgmma_tf32_rs(acc, a[s], dh, 1);
+        }
+        wgmma_commit();
+        // block kb - 1 is done: its registers are free, and its stage (B
+        // is read from the stage by the products) goes back to the ring
+        wgmma_wait<1>();
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = slot;
+        ++seq;
+      };
+      for (int kb = 0; kb < n_kb; kb += 2) {
+        unit(kb, a0, l0);
+        if (kb + 1 < n_kb) unit(kb + 1, a1, l1);
+      }
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      prev = -1;
+      // centroids ascending: thread columns 8 j + 2 q + h of the tile
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < d; k0 += kAssignBK) {
-      __syncthreads();  // the previous slice is consumed
-      load_slice(sx, x, r0, n, d, k0, kAssignBM, tid, kAssignThreads);
-      load_slice(sc, c, c0, n_cent, d, k0, kAssignBN, tid, kAssignThreads);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kAssignBK; ++kk) {
-        float a[8], b[8];
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float4 av = *reinterpret_cast<const float4*>(
-              sx + kk * kAssignBM + ty * 4 + 64 * h);
-          const float4 bv = *reinterpret_cast<const float4*>(
-              sc + kk * kAssignBN + tx * 4 + 64 * h);
-          a[4 * h] = av.x, a[4 * h + 1] = av.y, a[4 * h + 2] = av.z,
-          a[4 * h + 3] = av.w;
-          b[4 * h] = bv.x, b[4 * h + 1] = bv.y, b[4 * h + 2] = bv.z,
-          b[4 * h + 3] = bv.w;
+          const int ci = ct * kCentTile + 8 * j + 2 * q + h;
+          if (ci >= n_cent) continue;
+          const float cn = __ldg(norms + ci);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float dist = cn - 2.f * acc[4 * j + 2 * r + h];
+            if (dist < best[r]) best[r] = dist, best_i[r] = ci;
+          }
         }
+    }
+    // the four threads of a row (lane % 4) hold its columns
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+    for (int r = 0; r < 2; ++r) {
+      float bd = best[r];
+      int bi = best_i[r];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int off = 1; off < 4; off <<= 1) {
+        const float od = __shfl_xor_sync(c2v::kFullMask, bd, off);
+        const int oi = __shfl_xor_sync(c2v::kFullMask, bi, off);
+        if (dist_before(od, oi, bd, bi)) bd = od, bi = oi;
       }
+      const int64_t row = xt * kAssignRows + row0 + 8 * r;
+      // every distance NaN: jnp.argmin's answer for an all-NaN row is not
+      // reproduced; index 0 stands in
+      if (q == 0 && row < n) assign[row] = bi == c2v::kEmptyIndex ? 0 : bi;
     }
-    // fold this tile's distances into the running argmin, centroids in
-    // ascending order
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int ci = c0 + tx * 4 + 64 * (j >> 2) + (j & 3);
-      if (ci >= n_cent) continue;
-      const float cn = norms[ci];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float dist = cn - 2.f * acc[i][j];
-        if (dist_before(dist, ci, best[i], best_i[i])) {
-          best[i] = dist;
-          best_i[i] = ci;
-        }
-      }
-    }
-  }
-  // the 16 threads of a row group are one half-warp
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float bd = best[i];
-    int bi = best_i[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(c2v::kFullMask, bd, off);
-      const int oi = __shfl_xor_sync(c2v::kFullMask, bi, off);
-      if (dist_before(od, oi, bd, bi)) bd = od, bi = oi;
-    }
-    const int64_t row = r0 + ty * 4 + 64 * (i >> 2) + (i & 3);
-    // every distance NaN: jnp.argmin's answer for an all-NaN row is not
-    // reproduced; index 0 stands in
-    if (tx == 0 && row < n) assign[row] = bi == c2v::kEmptyIndex ? 0 : bi;
   }
 }
 
@@ -355,20 +424,48 @@ __global__ void centroid_sum_kernel(const float* x, int d,
 
 C2V_EXPORT int c2v_kmeans_tile_rows() { return kTileRows; }
 
-// x f32 (n, d), c f32 (n_cent, d), norms f32 (n_cent,) scratch; writes
-// assign int32 (n,).
+// Bytes of K9's centroid tiles for n_cent centroids of width d (the
+// scratch kernels/kmeans.py allocates for c2v_kmeans_assign).
+C2V_EXPORT int64_t c2v_kmeans_tile_bytes(int n_cent, int d) {
+  const int64_t n_ct = (n_cent + kCentTile - 1) / kCentTile;
+  return n_ct * ((d + 31) / 32) * 2 * kCBlock;
+}
+
+// x f32 (n, d), d % 4 == 0 (the tensor map's row stride is whole 16-byte
+// units; the columns of a 32-wide K block past d come in as zeros, and
+// the centroid tiles hold zeros there); c f32 (n_cent, d). Scratch: norms
+// f32 (n_cent,), tiles (c2v_kmeans_tile_bytes). Writes assign int32 (n,).
+// `sms`: CTAs at most (one per SM).
 C2V_EXPORT int c2v_kmeans_assign(const float* x, int64_t n, int d,
                                  const float* c, int n_cent, float* norms,
-                                 int* assign, void* stream) {
-  if (n <= 0 || d <= 0 || n_cent <= 0) return cudaErrorInvalidValue;
+                                 void* tiles, int sms, int* assign,
+                                 void* stream) {
+  if (n <= 0 || d <= 0 || d % 4 != 0 || n_cent <= 0 || sms <= 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   centroid_norms_kernel<<<(n_cent * 32 + 255) / 256, 256, 0, s>>>(
       c, n_cent, d, norms);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t blocks = (n + kAssignBM - 1) / kAssignBM;
-  kmeans_assign_kernel<<<static_cast<unsigned>(blocks), kAssignThreads, 0,
-                         s>>>(x, n, d, c, n_cent, norms, assign);
+  const int n_kb = (d + 31) / 32;
+  const int64_t chunks = c2v_kmeans_tile_bytes(n_cent, d) / 32;
+  centroid_tiles_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256,
+                          0, s>>>(c, n_cent, d, n_kb, chunks,
+                                  static_cast<uint8_t*>(tiles));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  CUtensorMap xmap;
+  if ((err = c2v::hopper::f32_rows_map(&xmap, x, n, d, kAssignRows)) !=
+      cudaSuccess)
+    return err;
+  const int smem = kAssignStages * (kAssignStage + 16) + 1024;
+  err = cudaFuncSetAttribute(kmeans_assign_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int64_t n_xt = (n + kAssignRows - 1) / kAssignRows;
+  const int grid = static_cast<int>(n_xt < sms ? n_xt : sms);
+  kmeans_assign_kernel<<<grid, kAssignThreads, smem, s>>>(
+      xmap, n, d, static_cast<const uint8_t*>(tiles), n_cent, norms, assign);
   return cudaGetLastError();
 }
 

@@ -4,11 +4,15 @@ K9 replaces code2vec_tpu/retrieval/index.py `_assign_jax` (:117-122),
 the nearest centroid of every row by argmin(|c|^2 - 2 x.c) with ties to
 the lowest index; K10 the update of `train_kmeans.lloyd` (:96-111), the
 mean of each cluster's rows, the old centroid where a cluster is empty,
-and the spherical renormalisation. Both compute in float32 (no TF32: a
-flipped assignment moves a row to another list). The CUDA source is
-csrc/kmeans.cu, which says what bounds each kernel on an H100 and how its
-design answers that; K10 is deterministic (a stable counting sort, then
-fixed-order sums), so two runs give the same bits.
+and the spherical renormalisation. Both carry float32's precision (a
+flipped assignment moves a row to another list): K9 by 3xTF32 on the
+tensor cores (each operand split into tf32 hi and lo parts;
+`kmeans_assign_3xtf32` is that arithmetic in plain PyTorch, for tests),
+K10 in f32. The CUDA source is csrc/kmeans.cu, which says what bounds
+each kernel on an H100 and how its design answers that; K10 is
+deterministic (a stable counting sort, then fixed-order sums), so two
+runs give the same bits. K9 takes widths in multiples of 4 (its tensor
+copies of x move whole 16-byte units).
 
 CPU tensors take the plain versions below (matmul + argmin; index_add_
 + where), CUDA tensors launch the kernels.
@@ -16,9 +20,11 @@ CPU tensors take the plain versions below (matmul + argmin; index_add_
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from code2vec_tpu_torch.kernels import launch
+from code2vec_tpu_torch.kernels import launch, tf32
 
 launches = 0         # K9
 update_launches = 0  # K10
@@ -26,6 +32,44 @@ _fns = {}
 TILE_ROWS = 1024     # rows per counting-sort tile (csrc/kmeans.cu)
 MAX_UPDATE_D = 1024  # widest row K10 takes (4 groups of d / 4 threads)
 PLAIN_CHUNK_ROWS = 65536  # rows per (rows, C) distance block of the plain K9
+ASSIGN_ROWS = 128    # rows of x a K9 CTA holds (csrc/kmeans.cu kAssignRows)
+CENTROID_TILE = 128  # centroids per K9 tile, wgmma's N (kCentTile)
+K_BLOCK = 32         # K9's depth per ring stage (a tf32 block)
+
+
+class AssignPlan(NamedTuple):
+    centroid_tiles: int  # tiles of CENTROID_TILE centroids
+    dead_columns: int    # padded centroid columns of the last tile
+    k_blocks: int        # 32-wide K blocks of a row
+    row_tiles: int       # tiles of ASSIGN_ROWS rows
+    grid: int            # persistent CTAs
+
+
+def assign_plan(n: int, d: int, n_cent: int, sms: int) -> AssignPlan:
+    """How K9 covers n rows and n_cent centroids of width d on `sms` SMs."""
+    tiles = -(-n_cent // CENTROID_TILE)
+    k_blocks = -(-d // K_BLOCK)
+    row_tiles = -(-n // ASSIGN_ROWS)
+    return AssignPlan(tiles, tiles * CENTROID_TILE - n_cent, k_blocks,
+                      row_tiles, min(row_tiles, sms))
+
+
+def kmeans_assign_3xtf32(x: torch.Tensor, centroids: torch.Tensor,
+                         sms: int = 132) -> torch.Tensor:
+    """K9's arithmetic in plain PyTorch (tests only): the centroids padded
+    with zero rows to whole tiles, x.c by 3xTF32 (kernels/tf32.py),
+    |c|^2 - 2 x.c with the padded columns dead, the first minimum."""
+    n, d = x.shape
+    c = centroids.shape[0]
+    p = assign_plan(n, d, c, sms)
+    padded = torch.zeros((c + p.dead_columns, d), dtype=torch.float32,
+                         device=x.device)
+    padded[:c] = centroids
+    cn = (centroids * centroids).sum(dim=1)
+    dist = torch.full((n, c + p.dead_columns), float("inf"),
+                      device=x.device)
+    dist[:, :c] = cn[None, :] - 2.0 * tf32.matmul_3xtf32(x, padded)[:, :c]
+    return torch.argmin(dist, dim=1).to(torch.int32)
 
 
 def kmeans_assign_plain(x: torch.Tensor, centroids: torch.Tensor
@@ -64,7 +108,18 @@ def _assign_fn():
     if fn is None:
         P, I32, I64 = launch.P, launch.I32, launch.I64
         fn = _fns["assign"] = launch.bind(
-            "kmeans", "c2v_kmeans_assign", [P, I64, I32, P, I32, P, P, P])
+            "kmeans", "c2v_kmeans_assign",
+            [P, I64, I32, P, I32, P, P, I32, P, P])
+    return fn
+
+
+def _tile_bytes_fn():
+    fn = _fns.get("tile_bytes")
+    if fn is None:
+        I32 = launch.I32
+        fn = _fns["tile_bytes"] = launch.bind(
+            "kmeans", "c2v_kmeans_tile_bytes", [I32, I32],
+            restype=launch.I64)
     return fn
 
 
@@ -96,12 +151,18 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         return kmeans_assign_plain(x, centroids)
     fn = _assign_fn()  # builds the library first: raises where nvcc is missing
     _check_rows(x, centroids)
+    n, d = x.shape
+    launch.require(d % 4 == 0,
+                   f"kmeans_assign takes widths in multiples of 4, not {d}")
     device = x.device
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     norms = torch.empty((centroids.shape[0],), dtype=torch.float32,
                         device=device)
-    assign = torch.empty((x.shape[0],), dtype=torch.int32, device=device)
-    err = fn(x.data_ptr(), x.shape[0], x.shape[1], centroids.data_ptr(),
-             centroids.shape[0], norms.data_ptr(), assign.data_ptr(),
+    tiles = torch.empty((_tile_bytes_fn()(centroids.shape[0], d),),
+                        dtype=torch.uint8, device=device)
+    assign = torch.empty((n,), dtype=torch.int32, device=device)
+    err = fn(x.data_ptr(), n, d, centroids.data_ptr(), centroids.shape[0],
+             norms.data_ptr(), tiles.data_ptr(), sms, assign.data_ptr(),
              launch.stream(device))
     launch.check_launch(err, "kmeans_assign")
     launch.count(__name__)

@@ -73,6 +73,7 @@ from code2vec_tpu_torch.kernels.softmax_xent import (
 from code2vec_tpu_torch.kernels.label_logits import (
     label_logits, label_logits_plain,
 )
+from code2vec_tpu_torch.kernels import launch, topk
 from code2vec_tpu_torch.kernels.topk import (
     blockwise_topk, blockwise_topk_plain,
 )
@@ -1207,3 +1208,162 @@ def test_release_model_quant_cuda_matches_cpu(dev, tmp_path, scheme):
     c = cpu.evaluate(log_path=None)
     np.testing.assert_allclose(g.topk_acc, c.topk_acc, atol=2 / len(lines))
     np.testing.assert_allclose(g.loss, c.loss, rtol=1e-3)
+
+
+# ------------------- K3 and K9 on wgmma: the edges the tiling creates
+#
+# K3 covers a batch in N tiles of 8-64 code vectors (32 in the float32
+# mode) and the table in runs of 64-row tiles, 64-wide K blocks (32 in
+# the float32 mode); K9 covers rows in tiles of 128 and centroids in
+# tiles of 128 with dead padded columns. The cases below cross each
+# boundary: batches of 1 to 1024, a table of 3001 rows (not a whole
+# tile) with valid_rows below it, widths 128 to 512, k 1 to 65 (65: the
+# large-k mode), every table format, identical rows (ties go to the
+# lowest index) and a NaN row (ranks first; f32 tables).
+
+EDGE_FORMATS = ("f32", "int8", "e4m3", "e5m2", "int4", "f32_mode")
+EDGE_BATCHES = (1, 8, 12, 63, 65, 256, 1024)
+
+
+def _edge_table(rng, v, b, valid, d, k):
+    """k + 1 well-separated best rows, three rows identical to the best
+    one, a masked row above valid_rows that would win."""
+    u = rng.standard_normal(d).astype(np.float32)
+    u /= np.linalg.norm(u)
+    cv = (2.0 * u[None, :] + 0.01 * rng.standard_normal((b, d))
+          ).astype(np.float32)
+    table = (0.05 * rng.standard_normal((v, d))).astype(np.float32)
+    hot = np.linspace(1, valid - 1, k + 1).astype(int)
+    rng.shuffle(hot)
+    for j, row in enumerate(hot):
+        table[row] = u * (1.0 + 0.05 * (k - j))
+    best = hot[0]
+    dups = [r for r in (0, valid // 2 + 3, valid - 7) if r not in hot]
+    table[dups] = table[best]
+    table[valid] = u * 10.0
+    return cv, table, sorted([best] + dups)
+
+
+@pytest.mark.parametrize("fmt", EDGE_FORMATS)
+@pytest.mark.parametrize("b", EDGE_BATCHES)
+def test_blockwise_topk_tiling_edges(dev, fmt, b):
+    i = EDGE_BATCHES.index(b) + EDGE_FORMATS.index(fmt)
+    d = (128, 256, 384, 512)[i % 4]
+    k = (1, 10, 64, 65)[(i // 4 + i) % 4]
+    rng = np.random.default_rng(1000 * b + i)
+    v, valid = 3001, 2990
+    cv, table, ties = _edge_table(rng, v, b, valid, d, k)
+    nan_row = None
+    if fmt in ("f32", "f32_mode"):
+        nan_row = 1500 if 1500 not in ties else 1501
+        table[nan_row, 3] = np.nan
+    tbl, scl = _edge_operands(table, dev, fmt)
+    cd = torch.float32 if fmt == "f32_mode" else torch.bfloat16
+    cv_t = torch.from_numpy(cv).to(dev)
+    got = blockwise_topk(cv_t, tbl, k, 4096, scales=scl, valid_rows=valid,
+                         compute_dtype=cd)
+    want = blockwise_topk_plain(cv_t, tbl, k, 4096, scales=scl,
+                                valid_rows=valid, compute_dtype=cd)
+    tol = F32DOT if fmt == "f32_mode" else F32SUM
+    assert torch.equal(got.indices, want.indices)
+    _close(got.values, want.values, tol)
+    _close(got.lse, want.lse, tol)
+    assert torch.isfinite(got.lse).all()
+    assert (got.indices < valid).all()
+    head = got.indices[:, :len(ties) + (nan_row is not None)].cpu()
+    first = ([nan_row] if nan_row is not None else []) + ties
+    assert head.tolist() == [first[:k]] * b
+
+
+def _edge_operands(table, dev, fmt):
+    if fmt in FORMATS:
+        return _formatted(table, dev, fmt)
+    if fmt == "int8":
+        return tuple(torch.from_numpy(x).to(dev) for x in quantize_rows(table))
+    return torch.from_numpy(table).to(dev), None
+
+
+@pytest.mark.parametrize("fmt", EDGE_FORMATS)
+@pytest.mark.parametrize("b,live", [(64, 63), (64, 12), (1024, 37)])
+def test_blockwise_topk_padded_batches(dev, fmt, b, live):
+    """The serving path pads a batch with rows whose code vector is zero
+    (a zero mask; K2 gives such a row 0): every table row then has the
+    same logit, so the top k are rows 0 to k - 1 and the logsumexp that of
+    equal logits. One NaN code vector (every logit NaN) beside them. The
+    kernel must agree with the plain version on live and padded rows."""
+    rng = np.random.default_rng(b + live + EDGE_FORMATS.index(fmt))
+    v, valid, k = 3001, 2990, 10
+    cv, table, _ = _edge_table(rng, v, b, valid, 384, k)
+    cv[live:] = 0.0
+    if live + 1 < b:
+        cv[live] = np.nan
+    tbl, scl = _edge_operands(table, dev, fmt)
+    cd = torch.float32 if fmt == "f32_mode" else torch.bfloat16
+    cv_t = torch.from_numpy(cv).to(dev)
+    got = blockwise_topk(cv_t, tbl, k, 4096, scales=scl, valid_rows=valid,
+                         compute_dtype=cd)
+    want = blockwise_topk_plain(cv_t, tbl, k, 4096, scales=scl,
+                                valid_rows=valid, compute_dtype=cd)
+    tol = F32DOT if fmt == "f32_mode" else F32SUM
+    assert torch.equal(got.indices, want.indices)
+    _close(got.values, want.values, tol)
+    _close(got.lse, want.lse, tol)
+    zero = slice(live + 1, b)
+    assert (got.indices[zero].cpu() == torch.arange(k)).all()
+    assert (got.values[zero] == 0).all()
+
+
+@pytest.mark.parametrize("fmt,f32,d,k,n_tile,stages", [
+    ("int8", False, 512, 64, 32, 4), ("int4", False, 1024, 64, 32, 2),
+    ("f32_mode", True, 512, 64, 32, 2), ("f32", False, 384, 64, 64, 4),
+])
+def test_topk_plan_fits_the_kernels_layout(dev, fmt, f32, d, k, n_tile,
+                                           stages):
+    """`plan` on the kernel's own shared-memory layout (c2v_topk_smem)
+    shrinks the ring, then the N tile, where a batch of 128 at the widest
+    rows and k 64 does not fit; the kernel launches at that plan."""
+    code = {"int8": launch.FMT_INT8, "int4": launch.FMT_INT4}.get(
+        fmt, launch.FMT_F32)
+    smem = topk._smem_fn()
+    p = topk.plan(128, f32, 3001, 132,
+                  lambda n, s: smem(code, int(f32), d, k, n, s),
+                  launch.shared_memory_limit(dev))
+    assert (p.n_tile, p.stages) == (n_tile, stages)
+    rng = np.random.default_rng(d + k)
+    cv, table, _ = _edge_table(rng, 3001, 128, 2990, d, k)
+    tbl, scl = _edge_operands(table, dev, fmt)
+    cd = torch.float32 if f32 else torch.bfloat16
+    cv_t = torch.from_numpy(cv).to(dev)
+    got = blockwise_topk(cv_t, tbl, k, 4096, scales=scl, valid_rows=2990,
+                         compute_dtype=cd)
+    want = blockwise_topk_plain(cv_t, tbl, k, 4096, scales=scl,
+                                valid_rows=2990, compute_dtype=cd)
+    assert torch.equal(got.indices, want.indices)
+    _close(got.values, want.values, F32DOT if f32 else F32SUM)
+
+
+@pytest.mark.parametrize("n,d,c", [(3001, 384, 511), (130, 128, 129),
+                                   (20001, 256, 1000), (64, 8, 3),
+                                   (257, 12, 5), (1000, 100, 37)])
+def test_kmeans_assign_tiling_edges(dev, n, d, c):
+    """nlist 511 and 1000 (dead padded centroid columns), rows not a whole
+    128-row tile, widths that end inside a 32-wide K block (12, 100),
+    duplicated centroids: ties go to the lower index, and no row lands on
+    a padded column."""
+    rng = np.random.default_rng(n + c)
+    x = _blobs(rng, n, d, c)
+    cent = x[rng.permutation(n)[:c]].copy() if c <= n else _blobs(rng, c, d,
+                                                                  c)
+    cent[2] = cent[1]
+    xt, ct = torch.from_numpy(x).to(dev), torch.from_numpy(cent).to(dev)
+    got = kmeans_assign(xt, ct).cpu().numpy()
+    want = kmeans_assign_plain(xt, ct).cpu().numpy()
+    dist = _distances(x.astype(np.float64), cent.astype(np.float64))
+    rows = np.nonzero(got != want)[0]
+    gap = np.abs(dist[rows, got[rows]] - dist[rows, want[rows]])
+    assert (gap <= 1e-4 * np.abs(dist[rows]).max(axis=1)).all()
+    assert len(rows) <= max(1, n // 1000)
+    assert got.max() < c and not (got == 2).any()
+    with pytest.raises(ValueError, match="multiples of 4"):
+        kmeans_assign(torch.zeros((10, 10), device=dev),
+                      torch.zeros((3, 10), device=dev))
