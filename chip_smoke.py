@@ -12,7 +12,9 @@ a C++ compiler. Phases, each fatal on failure:
    path extractor (`make -C cpp`).
 3. Kernels: each kernel of the serving path against its plain PyTorch
    version on the same inputs at the serving shapes (64 rows, 32 and 200
-   contexts, int8 and f32 tables at the java14m vocabulary sizes):
+   contexts, int8 and f32 tables at the java14m vocabulary sizes; K2 also
+   at the MIPS head's batch, 8 rows of which 7 are padding, and two runs
+   bit-equal):
    largest error against the stated tolerance, top-k index agreement,
    median device time over --samples runs with the L2 cache flushed,
    the plain version's and a library call's time, and the least time the
@@ -52,10 +54,14 @@ a C++ compiler. Phases, each fatal on failure:
    peak of 495 TFLOP/s, the f32-FMA bound beside it as f32_fma_bound_ms),
    at two shapes: the MIPS head
    over the flagship int8 classifier (261,245 rows, nlist 511, 6 Lloyd
-   steps, nprobe 16, B 64 and 1, k 10; at nprobe = nlist it must return
-   the exact head's indices away from near-ties) and an index of
-   1,000,000 normalised f32 vectors (nlist 1000, 10 spherical Lloyd
-   steps, nprobe 16, B 64, k 16; brute force at B 64, k 16). The large-k
+   steps, nprobe 16, B 64, B 8 with one live and seven zero queries as
+   the MIPS dispatch pads a one-method request, and B 1, k 10; at nprobe
+   = nlist it must return the exact head's indices away from near-ties)
+   and an index of 1,000,000 normalised f32 vectors (nlist 1000, 10
+   spherical Lloyd steps, nprobe 16, B 64 and 1, k 16; brute force at B
+   64, k 16). K11 twice on each batch, bit-equal, and timed beside two
+   PyTorch chains: from the candidates (gather, bmm, topk) and the whole
+   function (matmul, topk(nprobe), gather, bmm, topk(k)). The large-k
    mode (K13 select_topk): K3's float32 mode over the 1M index at B 64,
    k 1000, and K11 int8 on the MIPS head at B 64, k 100, against their
    plain versions (indices exact away from near-ties); K13 alone on the
@@ -93,7 +99,8 @@ a C++ compiler. Phases, each fatal on failure:
 13. fp8 and int4 kernels (run after 3): the e4m3, e5m2 and packed-int4
    modes of K1 (200 and 32 contexts), K3 (k 10, and k 100 through its
    large-k mode and K13), K4 and K11 (the MIPS head's lists over the
-   classifier in that format; B 64 and 1 at k 10, B 64 at k 100) against
+   classifier in that format; B 64, 8 (7 zero queries) and 1 at k 10, B
+   64 at k 100) against
    their plain versions at the serving shapes, to the int8 mode's
    tolerances, timed with their bounds, plain versions and library
    calls (the cast or torch's int4 unpack, a bf16 matmul and
@@ -163,6 +170,9 @@ TOL_F32SUM = (1e-5, 1e-4)
 # which moves one term by one bf16 step; a few such terms move an output
 # by far less than one bf16 step (2^-8) of its tensor's largest value.
 PATH_REL_TOL = 2.0 ** -8
+# the MIPS head's batch: a request of one method padded to 8 rows
+# (release/runtime.py, chip_smoke's --serve_mips_crossover 8)
+MIPS_ROWS = 8
 SERVE_KERNELS = ("context_encoder", "masked_attention", "blockwise_topk",
                  "label_logits")
 
@@ -323,20 +333,26 @@ def quantize(torch, table):
     return q, scales.float()
 
 
-def attention_case(torch, timer, t, a, mask):
+def attention_case(torch, timer, t, a, mask, dead_row=0):
     """K2 on K1's output `t` against its plain version: the weights at
     TOL_F32SUM, the code vectors exactly against the weighted sum of the
     kernel's own bf16 weights and against the plain version within two
-    bf16 weight flips, zeros for the all-invalid row 0; then timed beside
-    the plain version and scaled_dot_product_attention. Returns (report
-    entry, the kernel's code vectors, its weights)."""
+    bf16 weight flips, zeros for the all-invalid row `dead_row`, two runs
+    bit-equal; then timed beside the plain version and
+    scaled_dot_product_attention. Returns (report entry, the kernel's
+    code vectors, its weights)."""
     from code2vec_tpu_torch.kernels import attention
     import torch.nn.functional as F
 
     b, m, d = t.shape
     got_cv, got_attn = attention.masked_attention(t, a, mask)
+    again_cv, again_attn = attention.masked_attention(t, a, mask)
     want_cv, want_attn = attention.masked_attention_plain(t, a, mask)
     torch.cuda.synchronize()
+    if not (torch.equal(got_cv, again_cv) and torch.equal(got_attn,
+                                                          again_attn)):
+        fail(f"masked_attention B={b} m={m}: two runs gave different bits")
+    del again_cv, again_attn
     err_at, ok_at = max_err(got_attn, want_attn, TOL_F32SUM)
     # the weighted sum, exact given the kernel's own weights
     sum_cv = (got_attn.to(torch.bfloat16).float()[:, :, None]
@@ -352,7 +368,8 @@ def attention_case(torch, timer, t, a, mask):
     if not (ok_cv and ok_at and ok_sum):
         fail(f"masked_attention B={b} m={m}: max errors cv {err_cv} (tol "
              f"{tol_cv}) attn {err_at} weighted sum {err_sum}")
-    if got_cv[0].abs().max() != 0 or got_attn[0].abs().max() != 0:
+    if got_cv[dead_row].abs().max() != 0 or \
+            got_attn[dead_row].abs().max() != 0:
         fail("masked_attention: an all-invalid row must give zeros")
     nbytes = t.numel() * 2 + mask.numel() * 4 * 2 + d * 4 + b * d * 4
     bms, by = bound(nbytes, 4.0 * t.numel())
@@ -367,8 +384,9 @@ def attention_case(torch, timer, t, a, mask):
     log(f"K2 masked_attention B={b} m={m}: max_abs_err cv "
         f"{err_cv:.3g} (tol {tol_cv[0]:.3g}, {tol_cv[1]}) weighted sum "
         f"{err_sum:.3g} attn {err_at:.3g} (tol {TOL_F32SUM}) max|cv| "
-        f"{float(want_cv.abs().max()):.3g} ms {ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})")
+        f"{float(want_cv.abs().max()):.3g}, two runs bit-equal; ms "
+        f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA) "
+        f"bound_ms {bms:.4f} ({by})")
     entry = dict(max_abs_err=max(err_cv, err_at), ms=ms, plain_ms=plain_ms,
                  bound_ms=bms, bound_by=by, library_ms=lib_ms)
     return entry, got_cv, got_attn
@@ -440,15 +458,26 @@ def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, library_ms=None)
 
+    k2 = {}
     for m in (fs.contexts, 32):
         t = transformed[("int8", m)]
         mask = (torch.rand((fs.rows, m), generator=g, device=dev)
                 > 0.3).float()
         mask[0] = 0.0  # an all-invalid row
-        r, got_cv, _ = attention_case(torch, timer, t, a, mask)
+        k2[m], got_cv, _ = attention_case(torch, timer, t, a, mask)
         if m == fs.contexts:
-            report["masked_attention"] = r
             cv = got_cv.contiguous()
+        # the MIPS dispatch's batch: one live row, seven padded ones
+        mask8 = mask[:MIPS_ROWS].clone()
+        mask8[0] = (torch.rand((m,), generator=g, device=dev) > 0.3).float()
+        mask8[1:] = 0.0
+        k2[(MIPS_ROWS, m)], _, _ = attention_case(
+            torch, timer, t[:MIPS_ROWS].contiguous(), a, mask8, dead_row=1)
+    report["masked_attention"] = dict(k2[fs.contexts])
+    for key, prefix in ((32, "m32"), ((MIPS_ROWS, fs.contexts), "b8"),
+                        ((MIPS_ROWS, 32), "b8_m32")):
+        report["masked_attention"].update(
+            {f"{prefix}_{n}": x for n, x in k2[key].items()})
 
     valid = fs.vocab["target"] + 1
     for scheme in ("int8", "f32"):
@@ -1906,29 +1935,13 @@ def kmeans_cases(torch, timer, x, c0, spherical, what):
     return k9, k10, got
 
 
-def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
-             scales=None, global_ids=None):
-    """K11 against its plain version on one batch of queries; `rows` in
-    any format."""
-    from code2vec_tpu_torch.kernels.ivf import ivf_search, ivf_search_plain
-    from code2vec_tpu_torch.ops.quant import decode_rows
-
+def ivf_bound(torch, q, cent, rows, offsets, nprobe, k, scales=None,
+              global_ids=None):
+    """K11's least time (ms, by) on these queries: every row of the union
+    of the probed lists read once (with its scale and id), the centroids,
+    queries, offsets and results; 2 D f32 operations per centroid and
+    per scored row. Also (union rows, rows scored)."""
     b, d = q.shape
-    max_len = int((offsets[1:] - offsets[:-1]).max())
-    kw = dict(scales=scales, global_ids=global_ids, max_len=max_len)
-    args = (q, cent, rows, offsets, nprobe, k)
-    got_v, got_i = ivf_search(*args, **kw)
-    # the plain version's (k+1)-th value is the k-th one's lower neighbour
-    want_v, want_i = ivf_search_plain(*args[:-1], k + 1, **kw)
-    torch.cuda.synchronize()
-    nxt, want_v, want_i = want_v[:, k], want_v[:, :k], want_i[:, :k]
-    err, ok = max_err(got_v, want_v, TOL_F32SUM)
-    same, bad = topk_agreement(got_i, want_i, want_v, TOL_F32SUM,
-                               next_vals=nxt)
-    if not ok or bad:
-        fail(f"ivf_search {what}: value error {err}, {bad} positions differ "
-             f"away from near-ties: "
-             f"{topk_detail(got_i, want_i, want_v, nxt)}")
     union, scanned = probed_rows(torch, q, cent, offsets, nprobe)
     row_bytes = rows.shape[1] * rows.element_size() \
         + (4 if scales is not None else 0) \
@@ -1937,24 +1950,97 @@ def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
     nbytes = (union * row_bytes + c * d * 4 + b * d * 4
               + (offsets.numel() * 8) + b * k * 8)
     bms, by = bound(nbytes, 2.0 * d * (b * c + scanned), F32_FLOP_PER_S)
-    ms = timer(lambda: ivf_search(*args, **kw))
-    plain_ms = timer(lambda: ivf_search_plain(*args, **kw), spin_ms=20)
-    # the library chain from precomputed candidates: gather, bmm, topk
+    return bms, by, union, scanned
+
+
+def ivf_chains(torch, timer, q, cent, rows, offsets, nprobe, k,
+               scales=None):
+    """K11's two PyTorch yardsticks: (library_ms, library_full_ms). The
+    first starts from the candidates (gather, bmm, topk; the probe is
+    given); the second is the whole function in PyTorch calls: the
+    centroid matmul, topk(nprobe), the padded lists' gather, bmm, the
+    scales and dead slots, topk(k)."""
     from code2vec_tpu_torch.kernels.ivf import padded_lists, top_positions
+    from code2vec_tpu_torch.ops.quant import decode_rows
+
+    b, d = q.shape
+    max_len = int((offsets[1:] - offsets[:-1]).max())
+    pad = padded_lists(offsets, max_len)
     _, probe = top_positions(q @ cent.T, nprobe)
-    cand = padded_lists(offsets, max_len)[probe].reshape(b, -1)
+    cand = pad[probe].reshape(b, -1)
     safe = cand.clamp(min=0)
+    kk = min(k, cand.shape[1])
     lib_ms = timer(lambda: torch.topk(torch.bmm(
-        decode_rows(rows[safe], d), q[:, :, None]).squeeze(-1), k),
+        decode_rows(rows[safe], d), q[:, :, None]).squeeze(-1), kk),
         spin_ms=20)
     del cand, safe
+    flat_scales = None if scales is None else scales.reshape(-1)
+
+    def full():
+        _, pr = torch.topk(q @ cent.T, nprobe)
+        c = pad[pr].reshape(b, -1)
+        sf = c.clamp(min=0)
+        sc = torch.bmm(decode_rows(rows[sf], d), q[:, :, None]).squeeze(-1)
+        if flat_scales is not None:
+            sc = sc * flat_scales[sf]
+        return torch.topk(sc.masked_fill(c < 0, -math.inf), kk)
+
+    full_ms = timer(full, spin_ms=20)
+    return lib_ms, full_ms
+
+
+def ivf_case(torch, timer, q, cent, rows, offsets, nprobe, k, what,
+             scales=None, global_ids=None):
+    """K11 against its plain version on one batch of queries; `rows` in
+    any format."""
+    from code2vec_tpu_torch.kernels.ivf import ivf_search, ivf_search_plain
+
+    b, d = q.shape
+    max_len = int((offsets[1:] - offsets[:-1]).max())
+    kw = dict(scales=scales, global_ids=global_ids, max_len=max_len)
+    args = (q, cent, rows, offsets, nprobe, k)
+    got_v, got_i = ivf_search(*args, **kw)
+    again_v, again_i = ivf_search(*args, **kw)
+    # the plain version's (k+1)-th value is the k-th one's lower neighbour
+    want_v, want_i = ivf_search_plain(*args[:-1], k + 1, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_i, again_i) and torch.equal(got_v, again_v)):
+        fail(f"ivf_search {what} B={b}: two runs gave different results")
+    del again_v, again_i
+    nxt, want_v, want_i = want_v[:, k], want_v[:, :k], want_i[:, :k]
+    err, ok = max_err(got_v, want_v, TOL_F32SUM)
+    same, bad = topk_agreement(got_i, want_i, want_v, TOL_F32SUM,
+                               next_vals=nxt)
+    if not ok or bad:
+        fail(f"ivf_search {what}: value error {err}, {bad} positions differ "
+             f"away from near-ties: "
+             f"{topk_detail(got_i, want_i, want_v, nxt)}")
+    bms, by, union, scanned = ivf_bound(torch, q, cent, rows, offsets,
+                                        nprobe, k, scales, global_ids)
+    ms = timer(lambda: ivf_search(*args, **kw))
+    plain_ms = timer(lambda: ivf_search_plain(*args, **kw), spin_ms=20)
+    lib_ms, full_ms = ivf_chains(torch, timer, q, cent, rows, offsets,
+                                 nprobe, k, scales)
     log(f"K11 ivf_search {what} B={b} nprobe={nprobe} k={k}: max_abs_err "
         f"{err:.3g} (tol {TOL_F32SUM}) positions equal {same}/"
-        f"{got_i.numel()}; {union} rows in the probed lists, {scanned} "
-        f"scored; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{lib_ms:.4f} (gather + bmm + topk) bound_ms {bms:.4f} ({by})")
+        f"{got_i.numel()}, two runs equal; {union} rows in the probed "
+        f"lists, {scanned} scored; ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {lib_ms:.4f} (from the candidates: gather + bmm + "
+        f"topk) library_full_ms {full_ms:.4f} (the whole function: matmul "
+        f"+ topk(nprobe) + gather + bmm + topk(k)) bound_ms {bms:.4f} "
+        f"({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, library_full_ms=full_ms)
+
+
+def mips_batches(q, fs):
+    """The MIPS head's batches of `q`: B 64 (the serving batch), B 8 with
+    one live row and seven zero rows (a one-method request as the
+    dispatch pads it, release/runtime.py) and B 1."""
+    q8 = q[:MIPS_ROWS].clone()
+    q8[1:] = 0.0
+    return {fs.rows: q[:fs.rows].contiguous(), "b8": q8,
+            1: q[:1].contiguous()}
 
 
 def brute_case(torch, timer, q, table, k, what, timed=True):
@@ -2100,12 +2186,11 @@ def retrieval_kernel_phase(torch, seed: int, timer, fs, work_dir: str,
         f"steps + assignment + list reorder): nlist {head.nlist}, longest "
         f"list {head.max_len}")
     cv = (torch.rand((fs.rows, d), generator=g, device=dev) * 2 - 1)
-    mips = {}
-    for b in (fs.rows, 1):
-        mips[b] = ivf_case(torch, timer, cv[:b].contiguous(),
-                           head._centroids, head._rows, head._offsets,
-                           nprobe, fs.topk, f"MIPS int8 {v_real}x{d}",
-                           scales=head._scales, global_ids=head._global_ids)
+    mips = {b: ivf_case(torch, timer, x, head._centroids, head._rows,
+                        head._offsets, nprobe, fs.topk,
+                        f"MIPS int8 {v_real}x{d}", scales=head._scales,
+                        global_ids=head._global_ids)
+            for b, x in mips_batches(cv, fs).items()}
     # the large-k mode: K11 int8 at B 64, k 100, through K13
     mips_k100 = ivf_case(torch, timer, cv, head._centroids, head._rows,
                          head._offsets, nprobe, 100,
@@ -2169,6 +2254,8 @@ def retrieval_kernel_phase(torch, seed: int, timer, fs, work_dir: str,
           ).contiguous()
     k11 = ivf_case(torch, timer, qi, cent, rows, offsets, nprobe, 16,
                    f"index f32 {index_rows}x{d}")
+    k11_b1 = ivf_case(torch, timer, qi[:1].contiguous(), cent, rows,
+                      offsets, nprobe, 16, f"index f32 {index_rows}x{d}")
     k3f, brute = brute_case(torch, timer, qi, rows, 16,
                             f"index {index_rows}x{d}")
     # the large-k mode: K3's float32 mode at k 1000 through K13, then
@@ -2197,9 +2284,9 @@ def retrieval_kernel_phase(torch, seed: int, timer, fs, work_dir: str,
 
     report["kmeans_assign"] = merged(k9, k9m, "mips")
     report["kmeans_update"] = merged(k10, k10m, "mips")
-    report["ivf_search"] = k11
-    report["ivf_search_int8"] = merged(merged(mips[fs.rows], mips[1], "b1"),
-                                       mips_k100, "k100")
+    report["ivf_search"] = merged(k11, k11_b1, "b1")
+    report["ivf_search_int8"] = merged(merged(merged(
+        mips[fs.rows], mips[1], "b1"), mips["b8"], "b8"), mips_k100, "k100")
     report["blockwise_topk_f32"] = merged(k3f, k3_large, "k1000")
     report["select_topk"] = k13
     return report, dict(index_build_1m_s=build_s,
@@ -2721,14 +2808,15 @@ def quant_kernel_phase(torch, seed: int, timer, slow_timer, fs,
         q = (torch.rand((fs.rows, d), generator=g, device=dev) * 2 - 1)
         what = f"MIPS {fmt} {v_real}x{d}"
         kw = dict(scales=rs, global_ids=gids)
-        mips = {b: ivf_case(torch, timer, q[:b].contiguous(), cent, rows,
-                            offsets, nprobe, fs.topk, what, **kw)
-                for b in (fs.rows, 1)}
+        mips = {b: ivf_case(torch, timer, x, cent, rows, offsets, nprobe,
+                            fs.topk, what, **kw)
+                for b, x in mips_batches(q, fs).items()}
         k100 = ivf_case(torch, timer, q, cent, rows, offsets, nprobe, 100,
                         f"{what} (large-k mode)", **kw)
         entries["ivf_search"] = dict(mips[fs.rows])
-        entries["ivf_search"].update({f"b1_{n}": x
-                                      for n, x in mips[1].items()})
+        for b, prefix in ((1, "b1"), ("b8", "b8")):
+            entries["ivf_search"].update({f"{prefix}_{n}": x
+                                          for n, x in mips[b].items()})
         entries["ivf_search"].update({f"k100_{n}": x
                                       for n, x in k100.items()})
         del rows, rs, q, cv
@@ -3478,12 +3566,15 @@ def main() -> None:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")})
         # K9/K10: the index shape above, the MIPS shape's numbers as
-        # mips_*; the int8 K11: B 64 above, B 1 as b1_*, its large-k mode
+        # mips_*; K2: B 64 x 200 above, 32 contexts as m32_*, the MIPS
+        # batch (B 8) as b8_* and b8_m32_*; K11: B 64 above, B 1 as b1_*,
+        # the int8 one's B 8 (7 zero queries) as b8_*, its large-k mode
         # (k 100) as k100_*; K3's float32 mode at k 1000 as k1000_*; K12:
         # uniform ids above, Zipf(1.07) as zipf_*; K5's row mode: its
         # allocation beside the dense mode's
         entry.update({k: v for k, v in r.items()
-                      if k.startswith(("mips", "b1", "k100", "zipf"))
+                      if k.startswith(("mips", "b1", "b8", "m32", "k100",
+                                       "zipf"))
                       or k.endswith("alloc_gb")
                       or k in ("unique_rows", "library_full_ms", "pass_ms",
                                "f32_fma_bound_ms")})
@@ -3523,7 +3614,8 @@ def main() -> None:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
             entry.update({k: v for k, v in r.items()
-                          if k.startswith(("e5m2", "b1", "k100"))})
+                          if k.startswith(("e5m2", "b1", "b8", "k100"))
+                          or k == "library_full_ms"})
             if mode == "fp8":
                 entry.update(e4m3_launches=per_scheme["fp8_e4m3"],
                              e5m2_launches=per_scheme["fp8_e5m2"])

@@ -9,11 +9,17 @@ reference's rounding points are written at the top of those files. The
 plain versions are ops/attention.py masked_single_query_attention and
 masked_single_query_attention_backward: CPU tensors take them, CUDA
 tensors launch the kernels. K6 keeps its own count, `backward_launches`.
+
+K2 runs a thread-block cluster of C CTAs per batch row, each CTA owning
+a chunk of the row's contexts; `plan` picks C and the chunk on the host
+(plain Python, held on the CPU by tests/test_torch_attention_ivf_plans.py)
+and `split_softmax` is the kernel's arithmetic, chunk by chunk, in plain
+PyTorch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -25,9 +31,103 @@ from code2vec_tpu_torch.ops.attention import (
 launches = 0
 backward_launches = 0
 _fns = {}
+MAX_CLUSTER = 8        # portable cluster size (csrc/attention.cu kMaxCluster)
+WARPS = 8              # a CTA's warps (csrc/attention.cu kWarps)
+SMEM_LIMIT = 232448    # an H100's shared memory a block may opt into
+SMS = 132              # an H100 SXM's SMs
 
 masked_attention_plain = masked_single_query_attention
 masked_attention_backward_plain = masked_single_query_attention_backward
+
+
+class AttentionPlan(NamedTuple):
+    cluster: int   # CTAs per batch row (a thread-block cluster)
+    chunk: int     # contexts a CTA owns: ceil(m / cluster)
+    staged: bool   # the chunk lives in shared memory (else read twice)
+    smem: int      # dynamic shared memory per CTA
+    grid: int      # CTAs: b * cluster
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(chunk: int, d: int, staged: bool) -> int:
+    """A CTA's shared memory (csrc/attention.cu `Layout`): the
+    mbarrier's 128 bytes, the staged contexts, the query, the chunk's
+    mask and scores, the slices of partial code vectors pushed here, the
+    reduction slots and the ranks' posts."""
+    return (128 + (chunk * d * 2 if staged else 0) + d * 4
+            + 2 * _align16(chunk * 4) + _align16((d + 2 * MAX_CLUSTER) * 4)
+            + _align16(WARPS * 4) + 2 * MAX_CLUSTER * 4)
+
+
+def plan(b: int, m: int, d: int, smem_limit: int = SMEM_LIMIT,
+         sms: int = SMS) -> AttentionPlan:
+    """How K2 covers b rows of m contexts of width d: the cluster size C
+    doubles from 1 (up to 8, and while C < m) until b x C CTAs cover the
+    SMs and a staged chunk takes at most a quarter of the shared memory a
+    block may use (four CTAs an SM, some loading while others compute); a
+    chunk that does not fit at all is read from device memory instead."""
+    cluster = 1
+    while (cluster < MAX_CLUSTER and cluster < m
+           and (b * cluster < sms or smem_bytes(-(-m // cluster), d, True)
+                > smem_limit // 4)):
+        cluster *= 2
+    chunk = -(-m // cluster)
+    staged = smem_bytes(chunk, d, True) <= smem_limit
+    smem = smem_bytes(chunk, d, staged)
+    if smem > smem_limit:
+        raise ValueError(f"masked_attention: {m} contexts of width {d} need "
+                         f"{smem} bytes of shared memory a CTA")
+    return AttentionPlan(cluster, chunk, staged, smem, b * cluster)
+
+
+def split_softmax(transformed: torch.Tensor, attention_param: torch.Tensor,
+                  context_valid_mask: torch.Tensor, cluster: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's arithmetic in plain PyTorch, chunk by chunk (tests only): each
+    of `cluster` chunks posts its max and its sum of exp(s - max) (an
+    all-masked chunk's max pinned to 0 there); the denominator is the
+    posts' sums rescaled to the row's max, exp(max_r - max), added in rank
+    order; the weights exp(s - max) / denominator; the code vector the
+    chunks' partial sums added in rank order."""
+    t = transformed.float()
+    b, m, _ = t.shape
+    a = attention_param.to(transformed.dtype).float()
+    scores = torch.einsum("bmd,d->bm", t, a)
+    scores = torch.where(context_valid_mask > 0, scores,
+                         torch.full_like(scores, float("-inf")))
+    chunk = -(-m // cluster)
+    spans = [(min(m, r * chunk), min(m, (r + 1) * chunk))
+             for r in range(cluster)]
+    neg = torch.full((b,), float("-inf"), dtype=torch.float32,
+                     device=t.device)
+    posts = []
+    for lo, hi in spans:
+        mx = scores[:, lo:hi].amax(dim=1) if hi > lo else neg
+        local = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+        posts.append((mx, torch.exp(scores[:, lo:hi] - local[:, None]
+                                    ).sum(dim=1)))
+    gmax = neg
+    for mx, _ in posts:
+        gmax = torch.maximum(gmax, mx)
+    safe = torch.where(torch.isfinite(gmax), gmax, torch.zeros_like(gmax))
+    total = torch.zeros_like(gmax)
+    for mx, sm in posts:
+        total = total + torch.where(
+            torch.isnan(sm), sm, torch.where(torch.isfinite(mx),
+                                             sm * torch.exp(mx - safe),
+                                             torch.zeros_like(sm)))
+    unnorm = torch.exp(scores - safe[:, None])
+    denom = torch.where(torch.isnan(total), total,
+                        torch.clamp(total, min=1e-30))
+    attention = unnorm / denom[:, None]
+    w = attention.to(transformed.dtype).float()
+    cv = torch.zeros((b, t.shape[2]), dtype=torch.float32, device=t.device)
+    for lo, hi in spans:
+        cv = cv + torch.einsum("bm,bmd->bd", w[:, lo:hi], t[:, lo:hi])
+    return cv, attention
 
 
 def _fn():
@@ -36,8 +136,17 @@ def _fn():
         P, I32 = launch.P, launch.I32
         fn = _fns["attention"] = launch.bind(
             "attention", "c2v_masked_attention",
-            [P, P, P, I32, I32, I32, P, P, P])
+            [P, P, P, I32, I32, I32, I32, I32, I32, P, P, P])
+        _fns["smem"] = launch.bind("attention", "c2v_attention_smem",
+                                   [I32, I32, I32], restype=launch.I64)
     return fn
+
+
+def kernel_smem_bytes(chunk: int, d: int, staged: bool) -> int:
+    """The kernel's own count of a CTA's shared memory (tests hold
+    `smem_bytes` to it)."""
+    _fn()
+    return int(_fns["smem"](chunk, d, int(staged)))
 
 
 def masked_attention(transformed: torch.Tensor,
@@ -62,15 +171,15 @@ def masked_attention(transformed: torch.Tensor,
                         [torch.float32], 2)
     launch.require(tuple(context_valid_mask.shape) == (b, m),
                    f"context_valid_mask: expected ({b}, {m})")
-    smem = 4 * (m + d + 8)
-    launch.require(smem <= launch.shared_memory_limit(transformed.device),
-                   f"{m} contexts need {smem} bytes of shared memory")
-    cv = torch.empty((b, d), dtype=torch.float32, device=transformed.device)
-    attn = torch.empty((b, m), dtype=torch.float32,
-                       device=transformed.device)
+    device = transformed.device
+    p = plan(b, m, d, launch.shared_memory_limit(device),
+             torch.cuda.get_device_properties(device).multi_processor_count)
+    cv = torch.empty((b, d), dtype=torch.float32, device=device)
+    attn = torch.empty((b, m), dtype=torch.float32, device=device)
     err = fn(transformed.data_ptr(), attention_param.data_ptr(),
-             context_valid_mask.data_ptr(), b, m, d, cv.data_ptr(),
-             attn.data_ptr(), launch.stream(transformed.device))
+             context_valid_mask.data_ptr(), b, m, d, p.cluster, p.chunk,
+             int(p.staged), cv.data_ptr(), attn.data_ptr(),
+             launch.stream(device))
     launch.check_launch(err, "masked_attention")
     launch.count(__name__)
     return cv, attn

@@ -51,6 +51,8 @@ import torch
 from code2vec_tpu_torch import kernels
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.kernels.adam import AdamHyper, adam, adam_plain
+from code2vec_tpu_torch.kernels import attention as kattention
+from code2vec_tpu_torch.kernels import ivf as kivf
 from code2vec_tpu_torch.kernels.attention import (
     masked_attention, masked_attention_backward,
     masked_attention_backward_plain, masked_attention_plain,
@@ -1367,3 +1369,169 @@ def test_kmeans_assign_tiling_edges(dev, n, d, c):
     with pytest.raises(ValueError, match="multiples of 4"):
         kmeans_assign(torch.zeros((10, 10), device=dev),
                       torch.zeros((3, 10), device=dev))
+
+
+# ------------------------------ K2 on clusters, K11 at small batches
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 1024])
+@pytest.mark.parametrize("m", [1, 25, 32, 200, 201])
+def test_masked_attention_cluster_edges(dev, b, m):
+    """K2's cluster of C CTAs a row (C from `plan`: 8 at B 1 and 8, 4 at
+    B 64, 2 at B 1024; empty chunks where m < C or m is no multiple of
+    C): an all-masked row gives zero weights and a zero code vector, a
+    row with one valid context gives it weight 1, the weights match the
+    plain version's and the chunked emulation's, the code vector is the
+    weighted sum of the kernel's own bf16 weights, and reruns are
+    bit-equal."""
+    rng = np.random.default_rng(b * 1000 + m)
+    t = torch.from_numpy(np.tanh(rng.standard_normal((b, m, 384))).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    a = torch.from_numpy((0.3 * rng.standard_normal(384)).astype(
+        np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((b, m)) > 0.3).astype(np.float32)
+                            ).to(dev)
+    mask[0] = 0.0
+    if b > 1:
+        mask[1] = 0.0
+        mask[1, m // 2] = 1.0
+    before = kernels.launch_counts()["masked_attention"]
+    cv, attn = masked_attention(t, a, mask)
+    assert kernels.launch_counts()["masked_attention"] == before + 1
+    cv2, attn2 = masked_attention(t, a, mask)
+    assert torch.equal(cv, cv2) and torch.equal(attn, attn2)
+    want_cv, want_attn = masked_attention_plain(t, a, mask)
+    _close(attn, want_attn, dict(rtol=1e-4, atol=1e-5))
+    p = kattention.plan(b, m, 384, launch.shared_memory_limit(dev),
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    emu_cv, emu_attn = kattention.split_softmax(t, a, mask, p.cluster)
+    _close(attn, emu_attn, dict(rtol=1e-5, atol=1e-6))
+    own = (attn.to(torch.bfloat16).float()[:, :, None] * t.float()).sum(1)
+    _close(cv, own, F32SUM)
+    _close(cv, want_cv, BF16)
+    assert not cv[0].any() and not attn[0].any()
+    if b > 1:
+        assert float(attn[1, m // 2]) == 1.0 and float(attn[1].sum()) == 1.0
+        assert torch.equal(cv[1], t[1, m // 2].float())
+
+
+def test_attention_plan_fits_the_kernels_layout(dev):
+    """`plan`'s shared memory is the kernel's own (c2v_attention_smem),
+    and a row too long to stage (60,000 contexts) runs from device
+    memory, against the plain version."""
+    for chunk, d, staged in ((25, 384, True), (100, 384, True),
+                             (7500, 384, False), (1, 8, True)):
+        assert kattention.smem_bytes(chunk, d, staged) == \
+            kattention.kernel_smem_bytes(chunk, d, staged)
+    rng = np.random.default_rng(3)
+    b, m = 2, 60000
+    p = kattention.plan(b, m, 384, launch.shared_memory_limit(dev))
+    assert not p.staged and p.cluster == 8
+    t = torch.from_numpy(np.tanh(rng.standard_normal((b, m, 384))).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    a = torch.from_numpy((0.3 * rng.standard_normal(384)).astype(
+        np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((b, m)) > 0.3).astype(np.float32)
+                            ).to(dev)
+    cv, attn = masked_attention(t, a, mask)
+    want_cv, want_attn = masked_attention_plain(t, a, mask)
+    _close(attn, want_attn, dict(rtol=1e-4, atol=1e-7))
+    _close(cv, want_cv, BF16)
+
+
+def _ivf_edge_index(rng, d, r):
+    """Nine lists of 0, 1 and up to 300 rows (longer than any chunk; the
+    first three hold 4 rows, what a zero query probes at nprobe 3), rows
+    near their list's centroid; in the 300-row list the rows at offsets
+    r - 2 .. r + 1 (across the boundary of the first chunk of r rows) are
+    one row, and a row of the 140-row list is its copy too."""
+    sizes = [0, 1, 3, 300, 25, 0, 1, 140, 17]
+    nlist = len(sizes)
+    cent = (3.0 * rng.standard_normal((nlist, d))).astype(np.float32)
+    owner = np.repeat(np.arange(nlist), sizes)
+    rows = (cent[owner] + rng.standard_normal((len(owner), d))
+            ).astype(np.float32)
+    offsets = np.zeros(nlist + 1, np.int64)
+    np.cumsum(sizes, out=offsets[1:])
+    lo = int(offsets[3])
+    rows[lo + r - 2:lo + r + 2] = rows[lo + r - 2]
+    rows[int(offsets[7]) + 5] = rows[lo + r - 2]
+    return cent, rows, offsets, lo + r - 2, max(sizes)
+
+
+@pytest.mark.parametrize("fmt", ["f32", "int8", "e4m3", "e5m2", "int4"])
+@pytest.mark.parametrize("b", [1, 2, 8, 64])
+@pytest.mark.parametrize("d", [12, 100, 384])
+@pytest.mark.parametrize("r", [16, 128])
+def test_ivf_search_small_batch_edges(dev, monkeypatch, fmt, b, d, r):
+    """K11 at B 1, 2, 8 and 64 in every format, at widths whose rows are
+    not whole 16-byte units (int8 12 and 100, int4 12 and 100: the span's
+    head and tail bytes by plain loads), in chunks of r rows (`plan`
+    held to r): empty lists, lists of one row and lists longer than a
+    chunk; nprobe = nlist at B 2 and 64; duplicate rows across the first
+    chunk boundary and in another list come back in candidate order;
+    zero queries (B 8: one live query and seven zero ones, as the MIPS
+    dispatch pads a batch), k above the candidates at B 8."""
+    monkeypatch.setattr(kivf, "CHUNK_ROWS", (r,))
+    rng = np.random.default_rng(b * 100 + d + r + len(fmt))
+    cent, rows, offsets, dup, max_len = _ivf_edge_index(rng, d, r)
+    nlist, n = len(cent), len(rows)
+    nprobe = nlist if b in (2, 64) else 3
+    k = 64 if b == 8 else 10
+    if fmt == "f32":
+        tbl, scl, gids = torch.from_numpy(rows).to(dev), None, None
+        q_dup = rows[dup]
+    else:
+        if fmt == "int8":
+            qr, s8 = quantize_rows(rows)
+            tbl, scl = torch.from_numpy(qr).to(dev), torch.from_numpy(s8)
+            scl = scl.to(dev)
+        else:
+            tbl, scl = _formatted(rows, dev, fmt)
+        scl = scl[:, 0].contiguous()
+        gids = torch.from_numpy(rng.permutation(10 * n)[:n].astype(np.int32)
+                                ).to(dev)
+        q_dup = rows[dup]
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q[0] = 3.0 * q_dup
+    if b == 8:
+        q[1:] = 0.0
+    elif b > 1:
+        q[-1] = 0.0
+    qt = torch.from_numpy(q).to(dev)
+    args = (qt, torch.from_numpy(cent).to(dev), tbl,
+            torch.from_numpy(offsets).to(dev), nprobe, k)
+    kw = dict(scales=scl, global_ids=gids, max_len=max_len)
+    name = {"f32": "ivf_search", "int8": "ivf_search_int8"}.get(
+        fmt, _mode("ivf_search", fmt))
+    before = kernels.launch_counts()[name]
+    got_v, got_i = ivf_search(*args, **kw)
+    assert kernels.launch_counts()[name] == before + 1
+    again_v, again_i = ivf_search(*args, **kw)
+    assert torch.equal(got_i, again_i) and torch.equal(got_v, again_v)
+    want_v, want_i = ivf_search_plain(*args, **kw)
+    assert torch.equal(got_i, want_i)
+    live = torch.isfinite(want_v)
+    _close(got_v, want_v, dict(rtol=1e-5, atol=1e-6 * float(
+        want_v[live].abs().max())))
+    if b == 8:  # the zero queries: the 4 rows of lists 0-2, all 0
+        assert (got_v[1:, :4] == 0).all()
+        assert torch.isneginf(got_v[1:, 4:]).all()
+        assert (got_i[1:, 4:] == (-1 if gids is None else 0)).all()
+
+
+def test_ivf_plan_fits_the_kernels_layout(dev):
+    """`plan`'s shared memory is the kernel's own (c2v_ivf_select_smem,
+    c2v_ivf_scan_smem) for every format, width and chunk."""
+    for fmt in (launch.FMT_F32, launch.FMT_INT8, launch.FMT_E4M3,
+                launch.FMT_INT4):
+        for d in (12, 100, 384, 512):
+            for r in kivf.CHUNK_ROWS:
+                for b, nlist, nprobe in ((1, 511, 16), (64, 1000, 16),
+                                         (64, 511, 511), (3, 9, 9)):
+                    for grouped in (False, True):
+                        assert (kivf.select_smem(b, nlist, nprobe, grouped),
+                                kivf.scan_smem(fmt, d, r, min(b, 16))) == \
+                            kivf.kernel_smem(b, nlist, nprobe, grouped, fmt,
+                                             d, r)
