@@ -333,6 +333,40 @@ def quantize(torch, table):
     return q, scales.float()
 
 
+def k1_library(torch, tok, tok_s, path, path_s, w, ids, mask=None,
+               keep=1.0, residual=False):
+    """K1's whole function in PyTorch calls, its `library_ms` yardstick
+    (no single call computes it): per gather an index_select and the
+    format's decode times the rows' scales, cat, the bf16 cast, dropout on
+    a given mask, torch.mm of the bf16 context and W with f32
+    accumulation, tanh, the bf16 cast (and the residual)."""
+    from code2vec_tpu_torch.kernels.encoder import table_widths
+    td, pd = table_widths(tok, path, w)
+
+    def rows(table, scales, idx, dim):
+        r = table.index_select(0, idx)
+        if table.dtype == torch.uint8:   # packed int4, low nibble first
+            r = torch.stack([(r & 15).to(torch.int8) - 8,
+                             (r >> 4).to(torch.int8) - 8],
+                            dim=-1).flatten(1)[:, :dim]
+        r = r.float()
+        return r if scales is None else r * scales.index_select(0, idx)
+
+    flat = [i.flatten() for i in ids]
+    ctx = torch.cat([rows(tok, tok_s, flat[0], td),
+                     rows(path, path_s, flat[1], pd),
+                     rows(tok, tok_s, flat[2], td)], dim=1).to(torch.bfloat16)
+    if mask is not None:
+        ctx = torch.where(mask.view(ctx.shape),
+                          (ctx.float() / keep).to(torch.bfloat16),
+                          torch.zeros((), dtype=torch.bfloat16,
+                                      device=ctx.device))
+    th = torch.tanh(torch.mm(ctx, w.to(torch.bfloat16),
+                             out_dtype=torch.float32))
+    hi = th.to(torch.bfloat16)
+    return (hi, (th - hi.float()).to(torch.bfloat16)) if residual else hi
+
+
 def attention_case(torch, timer, t, a, mask, dead_row=0):
     """K2 on K1's output `t` against its plain version: the weights at
     TOL_F32SUM, the code vectors exactly against the weighted sum of the
@@ -449,14 +483,17 @@ def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
             ms = timer(lambda: encoder.context_encoder(*args))
             plain_ms = timer(lambda: encoder.context_encoder_plain(*args),
                              spin_ms=20)
+            lib_ms = timer(lambda: k1_library(
+                torch, tok, tok_s, path, path_s, w, (src, pth, tgt)))
             log(f"K1 context_encoder {scheme} B={fs.rows} m={m}: "
                 f"max_abs_err {err:.3g} (tol {TOL_K1}) ms "
-                f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+                f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+                f"(the whole function in PyTorch calls) bound_ms "
                 f"{bms:.4f} ({by})")
             if (scheme, m) == ("int8", fs.contexts):
                 report["context_encoder"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+                    bound_by=by, library_ms=lib_ms)
 
     k2 = {}
     for m in (fs.contexts, 32):
@@ -1000,14 +1037,18 @@ def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
     plain_ms = timer(lambda: encoder.context_encoder_plain(
         tok, None, path, None, w, *ids, residual=True,
         dropout=encoder.Dropout(ft.keep, mask=drawn)), spin_ms=20)
+    lib_ms = timer(lambda: k1_library(torch, tok, None, path, None, w, ids,
+                                      drawn, ft.keep, residual=True),
+                   spin_ms=5)
     log(f"K1 context_encoder train B={b} m={m} keep={ft.keep}: max_abs_err "
         f"{err:.3g} (tol {TOL_K1}) with residual {err_lo:.3g} (tol one "
         f"bf16 step at the largest value) kept {share:.5f} (5 sigma "
-        f"{5 * sigma:.2g}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+        f"{5 * sigma:.2g}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{lib_ms:.4f} (the whole function in PyTorch calls) bound_ms "
         f"{bms:.4f} ({by})")
     report["context_encoder_train"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None)
+        library_ms=lib_ms)
 
     # K5: against the plain version on the drawn mask; then exact zeros
     # for every dropped element, with every context row its own table row
@@ -2718,12 +2759,15 @@ def quant_kernel_phase(torch, seed: int, timer, slow_timer, fs,
             ms = timer(lambda: encoder.context_encoder(*args))
             plain_ms = timer(lambda: encoder.context_encoder_plain(*args),
                              spin_ms=20)
+            lib_ms = timer(lambda: k1_library(
+                torch, tok, tok_s, path, path_s, w, (src, pth, tgt)))
             log(f"K1 context_encoder {fmt} B={fs.rows} m={m}: max_abs_err "
                 f"{err:.3g} (tol {TOL_K1}) ms {ms:.4f} plain_ms "
-                f"{plain_ms:.4f} bound_ms {bms:.4f} ({by})")
+                f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+                f"{bms:.4f} ({by})")
             entries["context_encoder"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=lib_ms)
         del tok, path, tok_s, path_s
         cv, _ = attention.masked_attention(transformed, a, mask)
         cv = cv.contiguous()
@@ -2845,7 +2889,8 @@ def eval_shape_phase(torch, seed: int, timer, fs, rows: int, dev="cuda"):
     and K4 against their plain versions on the same inputs on the card, to
     the serving shape's tolerances (K3's rows span rows / 64 row tiles),
     and the device time of one batch's K1 + K2 + K3 + K4 (CUDA events).
-    Returns {scheme: that time in ms}."""
+    Returns ({scheme: that time in ms}, {format: K1's time alone, its
+    whole function in PyTorch calls (`k1_library`) and its bound})."""
     from code2vec_tpu_torch.kernels import attention, encoder, label_logits
     from code2vec_tpu_torch.kernels import topk
 
@@ -2873,7 +2918,7 @@ def eval_shape_phase(torch, seed: int, timer, fs, rows: int, dev="cuda"):
     mask = (torch.arange(fs.contexts, device=dev)[None, :] < live).float()
     labels = torch.randint(0, v_tgt, (rows,), generator=g, device=dev,
                            dtype=torch.int32)
-    step_ms = {}
+    step_ms, k1 = {}, {}
     for scheme, fmt in EVAL_FORMATS.items():
         tok, tok_s = quantize_format(torch, f32["tok"], fmt)
         path, path_s = quantize_format(torch, f32["path"], fmt)
@@ -2917,6 +2962,25 @@ def eval_shape_phase(torch, seed: int, timer, fs, rows: int, dev="cuda"):
             label_logits.label_logits(c, tbl, labels, scales=scl)
 
         step_ms[scheme] = timer(batch, spin_ms=10)
+        # K1 alone at this shape, beside its bound and its whole function
+        # in PyTorch calls
+        uniq_tok = torch.unique(torch.cat([src, tgt])).numel()
+        uniq_path = torch.unique(pth).numel()
+        esize, ssize = VALUE_BYTES[fmt], (0 if fmt == "float32" else 4)
+        nbytes = (uniq_tok * (fs.token_dim * esize + ssize)
+                  + uniq_path * (fs.path_dim * esize + ssize)
+                  + 3 * src.numel() * 4 + w.numel() * 4 + src.numel() * d * 2)
+        bms, by = bound(nbytes, 2.0 * src.numel() * w.shape[0] * d)
+        k1[fmt] = dict(
+            ms=timer(lambda: encoder.context_encoder(*args)),
+            library_ms=timer(lambda: k1_library(
+                torch, tok, tok_s, path, path_s, w, (src, pth, tgt)),
+                spin_ms=5),
+            bound_ms=bms, bound_by=by)
+        log(f"evaluate shape {fmt} B={rows} m={fs.contexts}: K1 alone ms "
+            f"{k1[fmt]['ms']:.4f} library_ms {k1[fmt]['library_ms']:.4f} "
+            f"(the whole function in PyTorch calls) bound_ms {bms:.4f} "
+            f"({by})")
         log(f"evaluate shape {fmt} B={rows} m={fs.contexts}: K1 max_abs_err "
             f"{err_k1:.3g} (tol {TOL_K1}); K3 k={k} values {err_v:.3g} lse "
             f"{err_l:.3g} (tol {TOL_F32SUM}) indices equal {same}/"
@@ -2926,7 +2990,7 @@ def eval_shape_phase(torch, seed: int, timer, fs, rows: int, dev="cuda"):
         torch.cuda.empty_cache()
     del f32, w, src, pth, tgt, mask
     torch.cuda.empty_cache()
-    return step_ms
+    return step_ms, k1
 
 
 K3_GRID_BATCHES = (1, 12, 64, 1024)
@@ -3451,8 +3515,8 @@ def main() -> None:
                                      Timer(torch, 5), fs))
     torch.cuda.empty_cache()
     from code2vec_tpu_torch.config import Config
-    eval_batch_ms = eval_shape_phase(torch, args.seed, timer, fs,
-                                     Config().test_batch_size)
+    eval_batch_ms, k1_eval = eval_shape_phase(torch, args.seed, timer, fs,
+                                              Config().test_batch_size)
     # K3 at B 1024 per format, beside each mode's B 64 entry: the int8 and
     # float32 tables' as b1024_* and b1024_float32_* of blockwise_topk,
     # e4m3's (e5m2's) as b1024_* (e5m2_b1024_*) of blockwise_topk_fp8,
@@ -3578,6 +3642,10 @@ def main() -> None:
                       or k.endswith("alloc_gb")
                       or k in ("unique_rows", "library_full_ms", "pass_ms",
                                "f32_fma_bound_ms")})
+        if name == "context_encoder":
+            # K1 alone at the evaluate batch, per format, as eval_<format>_*
+            entry.update({f"eval_{fmt}_{k}": x for fmt, r in k1_eval.items()
+                          for k, x in r.items()})
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
         entries.append(entry)

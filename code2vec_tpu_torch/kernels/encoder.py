@@ -29,7 +29,7 @@ does, without a saved f32 copy of the activations.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,6 +42,11 @@ int4_launches = 0  # packed int4 tables
 _fns = {}
 
 DROP_NONE, DROP_DRAW, DROP_MASK = 0, 1, 2  # csrc/common.cuh c2v::Dropout
+# csrc/encoder.cu's tiling of the product: context columns a K-chunk and
+# output columns a column group (kChunk, kCols); `w_tiles_plain` and
+# `chunked_product` (tests only) follow it. The wrapper takes its sizes
+# from the kernel itself (c2v_context_encoder_smem, _scratch).
+CHUNK, COLS = 64, 384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +131,34 @@ def context_encoder_plain(token_table: torch.Tensor,
     return out
 
 
+def w_tiles_plain(transform: torch.Tensor) -> torch.Tensor:
+    """W as csrc/encoder.cu `w_tiles` lays it out, without the swizzle
+    (tests only): bf16 (chunks, groups x 384, 64), [kc, n, i] =
+    bf16(W[64 kc + i, n]), zero past the widths."""
+    k_dim, d_out = transform.shape
+    p = plan(k_dim, d_out)
+    padded = torch.zeros((p.chunks * CHUNK, p.groups * COLS),
+                         dtype=torch.bfloat16)
+    padded[:k_dim, :d_out] = transform.to(torch.bfloat16)
+    return padded.view(p.chunks, CHUNK, -1).transpose(1, 2).contiguous()
+
+
+def chunked_product(ctx: torch.Tensor, transform: torch.Tensor
+                    ) -> torch.Tensor:
+    """K1's product in plain PyTorch, chunk by chunk (tests only): the
+    bf16 (n, k_dim) context, zero past k_dim, times W's tiles
+    (`w_tiles_plain`) one 64-column K-chunk at a time, summed in f32; the
+    first d_out columns of the (n, groups x 384) result."""
+    tiles = w_tiles_plain(transform).float()
+    n, k_dim = ctx.shape
+    a = torch.zeros((n, tiles.shape[0] * CHUNK), dtype=torch.float32)
+    a[:, :k_dim] = ctx.float()
+    acc = torch.zeros((n, tiles.shape[1]), dtype=torch.float32)
+    for kc in range(tiles.shape[0]):
+        acc += a[:, kc * CHUNK:(kc + 1) * CHUNK] @ tiles[kc].T
+    return acc[:, :transform.shape[1]]
+
+
 def dropout_launch_args(d: Optional[Dropout], shape):
     """(mode, keep, seed, step, mask pointer) for a kernel's C entry point,
     after checking the masks against the (B, M, 3d) `shape`."""
@@ -153,10 +186,27 @@ def _fn():
         fn = _fns["encoder"] = launch.bind(
             "encoder", "c2v_context_encoder",
             [P, P, I64, I32, P, P, I64, I32, I32, P, I32, P, P, P, I64, P,
-             P, I32, F32, U64, U64, P, P])
+             P, I32, F32, U64, U64, P, P, P])
         _fns["smem"] = launch.bind("encoder", "c2v_context_encoder_smem",
-                                   [I32], restype=I64)
+                                   [], restype=I64)
+        _fns["scratch"] = launch.bind(
+            "encoder", "c2v_context_encoder_scratch", [I32, I32],
+            restype=I64)
     return fn
+
+
+class EncoderPlan(NamedTuple):
+    chunks: int        # K-chunks of 64 context columns (the last padded)
+    groups: int        # column groups of 384 output columns
+
+
+def plan(k_dim: int, d_out: int) -> EncoderPlan:
+    """How K1 (csrc/encoder.cu) cuts the product of a k_dim-wide context
+    by W to d_out columns: K-chunks of 64 context columns, each computed
+    over all of a 384-column group (four warpgroups of 96); W as bf16
+    K-major chunks of the padded widths (`w_tiles_plain`, whose bytes a
+    CUDA test holds against c2v_context_encoder_scratch)."""
+    return EncoderPlan(-(-k_dim // CHUNK), -(-d_out // COLS))
 
 
 def context_encoder(token_table: torch.Tensor,
@@ -178,7 +228,8 @@ def context_encoder(token_table: torch.Tensor,
 
     Widths the kernel takes: token and path rows in multiples of 4 values
     (so an int4 row is a whole number of 2-byte words), the context and
-    code widths in multiples of 16."""
+    code widths in multiples of 16; its shared memory does not depend on
+    them."""
     args = (token_table, token_scales, path_table, path_scales, transform,
             src, pth, tgt)
     masks = () if dropout is None else (dropout.mask, dropout.out_mask)
@@ -218,21 +269,26 @@ def context_encoder(token_table: torch.Tensor,
         launch.check_tensor(ids, name, [torch.int32], 2)
         launch.require(ids.shape == src.shape, f"{name}: shape mismatch")
     device = src.device
-    smem = _fns["smem"](k_dim)
-    launch.require(smem <= launch.shared_memory_limit(device),
-                   f"context width {k_dim} needs {smem} bytes of shared "
-                   f"memory per block")
     b, m = src.shape
     d_out = transform.shape[1]
+    smem = int(_fns["smem"]())
+    launch.require(smem <= launch.shared_memory_limit(device),
+                   f"context_encoder needs {smem} bytes of shared memory "
+                   f"per block")
     drop = dropout_launch_args(dropout, (b, m, k_dim))
     out = torch.empty((b, m, d_out), dtype=torch.bfloat16, device=device)
     out_lo = torch.empty_like(out) if residual else None
+    # the bf16 W tiles (1024-byte aligned: the caching allocator's blocks
+    # start on 512-byte boundaries, so one spare KB is asked for)
+    scratch = torch.empty(int(_fns["scratch"](k_dim, d_out)) + 1024,
+                          dtype=torch.uint8, device=device)
+    w_tiles = scratch.data_ptr() + (-scratch.data_ptr()) % 1024
     err = fn(token_table.data_ptr(), launch.ptr(token_scales),
              token_table.shape[0], tok_dim, path_table.data_ptr(),
              launch.ptr(path_scales), path_table.shape[0], path_dim,
              fmt, transform.data_ptr(), d_out, src.data_ptr(),
              pth.data_ptr(), tgt.data_ptr(), b * m, out.data_ptr(),
-             launch.ptr(out_lo), *drop, launch.stream(device))
+             launch.ptr(out_lo), *drop, w_tiles, launch.stream(device))
     launch.check_launch(err, "context_encoder")
     launch.count(__name__, launch.format_counter(fmt))
     return (out, out_lo) if residual else out

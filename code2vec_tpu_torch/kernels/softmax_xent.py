@@ -7,11 +7,18 @@ csrc/softmax_xent.cu; what bounds it on an H100 and how its design
 answers that is written at the top of that file. `softmax_xent_plain`
 below is the same function in plain PyTorch: CPU tensors take it, CUDA
 tensors launch the kernel.
+
+The kernel runs a thread-block cluster of C CTAs per row, each holding a
+slice of the row in shared memory; `plan` picks C on the host from the
+kernel's own shared-memory layout (`c2v_softmax_xent_smem`), and
+`row_slices` cuts a row as the kernel does (plain Python, held on the CPU
+by tests/test_torch_encoder_xent_plans.py), and `split_softmax_xent` is
+the kernel's merge, slice by slice, in plain PyTorch.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -19,6 +26,113 @@ from code2vec_tpu_torch.kernels import launch
 
 launches = 0
 _fns = {}
+MAX_CLUSTER = 16       # csrc/softmax_xent.cu kMaxCluster (16: non-portable)
+SMEM_LIMIT = 232448    # an H100's shared memory a block may opt into
+# A CTA's slice takes at most this share of the shared memory a block may
+# use: 1 allows one CTA an SM (C 8 at the flagship's 261,246 columns), 2
+# two or more (C 16: three CTAs an SM, 0.869 ms against C 8's 1.12 at
+# 1024 rows on the H100; PERF.md)
+SLICE_SHARE = 2
+
+
+class XentPlan(NamedTuple):
+    cluster: int   # CTAs a row (0: one CTA a row reading it twice)
+    units: int     # 16-byte units of the row's aligned interior a CTA owns
+    smem: int      # dynamic shared memory a CTA
+    grid: int      # CTAs: b x cluster
+
+
+def plan(b: int, v: int, sms: int, smem: Callable[[int], int],
+         smem_limit: int = SMEM_LIMIT) -> XentPlan:
+    """How K7 covers b rows of v logits on `sms` SMs, where smem(units)
+    is the shared memory of a CTA owning that many 16-byte units, or -1
+    where the kernel cannot stage them (its own layout,
+    c2v_softmax_xent_smem): C doubles from 1 (up to 16) while a CTA's
+    slice of ceil((v // 4) / C) units takes more than smem_limit /
+    SLICE_SHARE, or b x C CTAs do not cover the SMs. A row that 16 CTAs
+    cannot hold goes to the two-read kernel (cluster 0)."""
+    def units(c):
+        return -(-(v // 4) // c)
+
+    def need(c):
+        n = smem(units(c))
+        return n if n >= 0 else smem_limit + 1
+
+    cluster = 1
+    while cluster < MAX_CLUSTER and (
+            need(cluster) > smem_limit // SLICE_SHARE or b * cluster < sms):
+        cluster *= 2
+    if need(cluster) > smem_limit:
+        return XentPlan(0, 0, 0, b)
+    return XentPlan(cluster, units(cluster), need(cluster), b * cluster)
+
+
+def row_slices(row: int, v: int, cluster: int, units: int
+               ) -> List[Tuple[int, int]]:
+    """The columns [lo, hi) each rank of the kernel reads of row `row`:
+    rank r the 16-byte units [r units, (r + 1) units) of the interior
+    that starts h = (-row v) mod 4 columns in (16-byte aligned in memory),
+    rank 0 also the h columns before it and rank C - 1 the fewer than 4
+    after it. Together they cover [0, v) once, in rank order."""
+    h = min(v, (4 - (row * v) % 4) % 4)
+    n = (v - h) // 4
+    out = []
+    for r in range(cluster):
+        u0, u1 = min(n, r * units), min(n, (r + 1) * units)
+        lo, hi = h + 4 * u0, h + 4 * u1
+        if r == 0:
+            lo = 0
+        if r == cluster - 1:
+            hi = v
+        out.append((lo, hi))
+    return out
+
+
+def split_softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                       valid: torch.Tensor, n_real: int, cluster: int,
+                       units: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's arithmetic in plain PyTorch, slice by slice (tests only):
+    each rank's slice of a row (`row_slices`, columns at or past n_real
+    left out) posts its max and its sum of exp(x - max) (an empty or
+    wholly masked slice posts (-inf, 0)); the posts are folded in rank
+    order, each rescaled to the running max; the gradient and loss then
+    follow from that (max, sum) as in `softmax_xent_plain`. Returns the
+    loss and the f32 (B, V) gradient."""
+    b, v = logits.shape
+    x = logits.float()
+    grad = torch.zeros((b, v), dtype=torch.float32)
+    ce = torch.zeros(b, dtype=torch.float32)
+    nan = torch.tensor(float("nan"))
+    for row in range(b):
+        mx, sm = torch.tensor(float("-inf")), torch.tensor(0.0)
+        for lo, hi in row_slices(row, v, cluster, units):
+            part = x[row, lo:min(hi, n_real)]
+            pm = part.max() if part.numel() else torch.tensor(float("-inf"))
+            safe = pm if torch.isfinite(pm) else torch.tensor(0.0)
+            ps = torch.exp(part - safe).sum() if torch.isfinite(pm) \
+                else torch.tensor(0.0)
+            if torch.isnan(part).any():
+                ps = nan
+            nm = torch.maximum(mx, pm)
+            if torch.isnan(sm) or torch.isnan(ps):
+                mx, sm = nm, nan
+                continue
+            base = nm if torch.isfinite(nm) else torch.tensor(0.0)
+            zero = torch.tensor(0.0)
+            sm = ((sm * torch.exp(mx - base) if torch.isfinite(mx) else zero)
+                  + (ps * torch.exp(pm - base) if torch.isfinite(pm)
+                     else zero))
+            mx = nm
+        scale = valid[row].float() / b
+        g = torch.exp(x[row, :n_real] - mx) / sm * scale
+        lab = int(labels[row])
+        if 0 <= lab < n_real:
+            g[lab] = g[lab] - scale
+            ce[row] = (mx + torch.log(sm) - x[row, lab]) * valid[row]
+        else:
+            ce[row] = nan * valid[row]
+        grad[row, :n_real] = g
+    return ce.sum() / b, grad
 
 
 def softmax_xent_plain(logits: torch.Tensor, labels: torch.Tensor,
@@ -67,8 +181,20 @@ def _fn():
         P, I32, I64 = launch.P, launch.I32, launch.I64
         fn = _fns["softmax_xent"] = launch.bind(
             "softmax_xent", "c2v_softmax_xent",
-            [P, I32, I64, I64, P, P, P, P, P, P])
+            [P, I32, I64, I64, P, P, P, P, P, I32, I32, P])
+        _fns["smem"] = launch.bind("softmax_xent", "c2v_softmax_xent_smem",
+                                   [I32], restype=launch.I64)
     return fn
+
+
+def device_plan(b: int, v: int, device: torch.device) -> XentPlan:
+    """`plan` on the card's SMs and shared memory and the kernel's layout
+    (builds the library first)."""
+    _fn()
+    return plan(b, v,
+                torch.cuda.get_device_properties(device).multi_processor_count,
+                lambda units: int(_fns["smem"](units)),
+                launch.shared_memory_limit(device))
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -82,7 +208,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         return softmax_xent_plain(logits, labels, valid, n_real=n_real,
                                   grad_dtype=grad_dtype)
     fn = _fn()  # builds the library first: raises where nvcc is missing
-    launch.check_tensor(logits, "logits", [torch.float32], 2)
+    launch.check_tensor(logits, "logits", [torch.float32], 2, align=16)
     b, v = logits.shape
     n = v if n_real is None else int(n_real)
     launch.require(0 < n <= v, f"n_real {n} outside (0, {v}]")
@@ -94,12 +220,13 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                    f"softmax_xent kernel writes bfloat16 hi/lo planes, "
                    f"not {grad_dtype}")
     device = logits.device
+    p = device_plan(b, v, device)
     grad = torch.empty((2, b, v), dtype=grad_dtype, device=device)
     ce = torch.empty((b,), dtype=torch.float32, device=device)
     loss = torch.empty((), dtype=torch.float32, device=device)
     err = fn(logits.data_ptr(), b, v, n, labels.data_ptr(), valid.data_ptr(),
-             grad.data_ptr(), ce.data_ptr(), loss.data_ptr(),
-             launch.stream(device))
+             grad.data_ptr(), ce.data_ptr(), loss.data_ptr(), p.cluster,
+             p.units, launch.stream(device))
     launch.check_launch(err, "softmax_xent")
     launch.count(__name__)
     return loss, grad

@@ -1535,3 +1535,213 @@ def test_ivf_plan_fits_the_kernels_layout(dev):
                                 kivf.scan_smem(fmt, d, r, min(b, 16))) == \
                             kivf.kernel_smem(b, nlist, nprobe, grouped, fmt,
                                              d, r)
+
+
+# ------------------------------------- K1 and K7 redesigned (tiles, clusters)
+
+K1_EDGE_FORMATS = ("f32", "int8") + FORMATS
+
+
+def _k1_tables(rng, dev, fmt, rows, dim):
+    t = (0.2 * rng.standard_normal((rows, dim))).astype(np.float32)
+    if fmt == "f32":
+        return torch.from_numpy(t).to(dev), None
+    if fmt == "int8":
+        q, s = quantize_rows(t)
+        return torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+    return _formatted(t, dev, fmt)
+
+
+@pytest.mark.parametrize("fmt", K1_EDGE_FORMATS)
+@pytest.mark.parametrize("td,pd,d_out", [(4, 8, 16), (12, 8, 32),
+                                         (20, 24, 400), (128, 128, 384),
+                                         (256, 1024, 48)])
+@pytest.mark.parametrize("b,m", [(1, 1), (3, 37), (5, 200)])
+def test_context_encoder_tile_edges(dev, fmt, td, pd, d_out, b, m):
+    """K1 in serve mode against its plain version: context counts that
+    are no multiple of the 64-context tile, row widths that are no whole
+    16-byte unit (token rows of 4 or 12 values, int4 rows of 20: 10
+    bytes), context widths that are no multiple of the 64-column chunk,
+    code widths below and above one 384-column group, and ids of -1 and
+    past each table (NaN rows, as the reference's gather); reruns are
+    bit-equal. A 1,536-wide context (24 chunks) was the widest the kernel
+    before tiles took."""
+    k_dim = 2 * td + pd
+    rng = np.random.default_rng(b * m + 7 * k_dim + len(fmt))
+    v_tok, v_path = 700, 300
+    tok, tok_s = _k1_tables(rng, dev, fmt, v_tok, td)
+    pth, pth_s = _k1_tables(rng, dev, fmt, v_path, pd)
+    w = torch.from_numpy((rng.standard_normal((k_dim, d_out)) / np.sqrt(
+        k_dim)).astype(np.float32)).to(dev)
+    ids = [torch.from_numpy(rng.integers(0, n, (b, m)).astype(np.int32)
+                            ).to(dev) for n in (v_tok, v_path, v_tok)]
+    ids[0][0, 0] = -1
+    ids[1][-1, -1] = v_path
+    if b * m > 2:
+        ids[2][b // 2, m // 2] = v_tok + 5
+    args = (tok, tok_s, pth, pth_s, w, *ids)
+    got = context_encoder(*args)
+    assert got.shape == (b, m, d_out)
+    assert torch.equal(got.view(torch.int16),
+                       context_encoder(*args).view(torch.int16))
+
+    # the plain version on tables with a NaN row appended (a zero row
+    # with a NaN scale where quantized), the bad ids pointed at it
+    def nan_row(table, scales):
+        if scales is None:
+            return (torch.cat([table, torch.full_like(table[:1], math.nan)]),
+                    None)
+        return (torch.cat([table, torch.zeros_like(table[:1])]),
+                torch.cat([scales, torch.full_like(scales[:1], math.nan)]))
+
+    def to_nan_row(x, v):
+        return torch.where((x >= 0) & (x < v), x, v)
+
+    want = context_encoder_plain(
+        *nan_row(tok, tok_s), *nan_row(pth, pth_s), w,
+        to_nan_row(ids[0], v_tok), to_nan_row(ids[1], v_path),
+        to_nan_row(ids[2], v_tok))
+    assert torch.isnan(want[0, 0]).all() and torch.isnan(want[-1, -1]).all()
+    _close(got, want, BF16)
+
+
+@pytest.mark.parametrize("widths", [(32, 64, 128), (128, 128, 384),
+                                    (12, 8, 400)])
+@pytest.mark.parametrize("b,m", [(3, 37), (7, 200)])
+def test_context_encoder_dropout_bits_match_k5(dev, widths, b, m):
+    """K1's train mode draws the mask K5 redraws: the mask K1 writes out
+    (mode 1) gives the plain version K1's output when it is injected, K1
+    given that mask (mode 2) gives the same bits, and K5 on K1's output
+    with the bits redrawn from (seed, step) gives the plain backward's
+    gradients on that mask; reruns are bit-equal."""
+    td, pd, d = widths
+    k_dim = 2 * td + pd
+    rng = np.random.default_rng(b * m + k_dim)
+    v_tok, v_path = 900, 500
+    tok = torch.from_numpy((0.3 * rng.standard_normal((v_tok, td))
+                            ).astype(np.float32)).to(dev)
+    pth = torch.from_numpy((0.3 * rng.standard_normal((v_path, pd))
+                            ).astype(np.float32)).to(dev)
+    w = torch.from_numpy((0.1 * rng.standard_normal((k_dim, d))
+                          ).astype(np.float32)).to(dev)
+    ids = [torch.from_numpy(rng.integers(0, n, (b, m)).astype(np.int32)
+                            ).to(dev) for n in (v_tok, v_path, v_tok)]
+    drawn = torch.empty((b, m, k_dim), dtype=torch.bool, device=dev)
+    t, lo = context_encoder(tok, None, pth, None, w, *ids, residual=True,
+                            dropout=Dropout(0.75, seed=11, step=4,
+                                            out_mask=drawn))
+    t2, lo2 = context_encoder(tok, None, pth, None, w, *ids, residual=True,
+                              dropout=Dropout(0.75, seed=11, step=4))
+    injected, lo3 = context_encoder(tok, None, pth, None, w, *ids,
+                                    residual=True,
+                                    dropout=Dropout(0.75, mask=drawn))
+    for x, y in ((t2, t), (lo2, lo), (injected, t), (lo3, lo)):
+        assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+    want, want_lo = context_encoder_plain(
+        tok, None, pth, None, w, *ids, residual=True,
+        dropout=Dropout(0.75, mask=drawn))
+    _step_close(t, want, "K1 train")
+    _step_close(t.float() + lo.float(), want.float() + want_lo.float(),
+                "K1 train + residual")
+    share = float(drawn.float().mean())
+    assert abs(share - 0.75) <= 5 * (0.75 * 0.25 / drawn.numel()) ** 0.5
+    if k_dim % 128 or d % 128:
+        return  # K5 takes context and code widths in multiples of 128
+    dt = torch.from_numpy((0.1 * rng.standard_normal((b, m, d))
+                           ).astype(np.float32)).to(dev).to(torch.bfloat16)
+    got = encoder_backward(dt, t, lo, tok, pth, w, *ids,
+                           dropout=Dropout(0.75, seed=11, step=4))
+    ref = encoder_backward_plain(dt, t, lo, tok, pth, w, *ids,
+                                 dropout=Dropout(0.75, mask=drawn))
+    for name, g, x in zip(("d_token", "d_path", "d_transform"), got, ref):
+        _step_close(g, x, name)
+
+
+# (b, v, n_real, the cluster size `plan` takes for them on an H100: 132
+# SMs, 232,448 bytes of shared memory a block)
+XENT_EDGES = [
+    (1, 261246, 261246, 16), (3, 261245, 261245, 16), (5, 30011, 29000, 16),
+    (2, 5, 5, 16), (4, 4099, 100, 16), (9, 1001, 1001, 16),
+    (17, 100003, 100003, 8), (24, 100000, 90000, 8),
+    (33, 100002, 100002, 4), (132, 30011, 30011, 2), (132, 28001, 27000, 1),
+    (1, 1_000_000, 1_000_000, 0), (3, 1_000_001, 999_000, 0)]
+
+
+@pytest.mark.parametrize("b,v,n_real,cluster", XENT_EDGES)
+def test_softmax_xent_cluster_edges(dev, b, v, n_real, cluster):
+    """K7 against its plain version at every cluster size, each reached
+    through shapes for which `plan` takes it (C 16 at the flagship width,
+    8 and 4 at ~100K columns and B 17-33, 2 and 1 at B 132 and ~30K, the
+    two-read kernel at a million columns, even and odd): odd widths (rows
+    starting 4, 8 or 12 bytes off a 16-byte boundary, 8 of them at row 1
+    of 261,245), n_real < V with slices wholly past it, a label out of
+    range (NaN loss term, no one-hot term), an all-masked row, valid = 0,
+    B 1; reruns bit-equal."""
+    from code2vec_tpu_torch.kernels import softmax_xent as kxent
+    assert kxent.device_plan(b, v, dev).cluster == cluster
+    rng = np.random.default_rng(b * 31 + v % 97 + cluster)
+    logits = (3 * rng.standard_normal((b, v))).astype(np.float32)
+    labels = rng.integers(0, n_real, b).astype(np.int32)
+    valid = np.ones(b, np.float32)
+    if b > 2:
+        valid[1] = 0.0
+        labels[2] = n_real + 1   # out of range
+    if b > 3:
+        logits[3, :n_real] = -np.inf   # all masked
+    x = torch.from_numpy(logits).to(dev)
+    lab = torch.from_numpy(labels).to(dev)
+    val = torch.from_numpy(valid).to(dev)
+    loss, grad = softmax_xent(x, lab, val, n_real=n_real)
+    loss2, grad2 = softmax_xent(x, lab, val, n_real=n_real)
+    assert torch.equal(_bits(loss.view(1)), _bits(loss2.view(1)))
+    assert torch.equal(grad.view(torch.int16), grad2.view(torch.int16))
+    want_loss, want_grad = softmax_xent_plain(x, lab, val, n_real=n_real)
+    if b > 2:
+        assert torch.isnan(loss) and torch.isnan(want_loss)
+    else:
+        _close(loss, want_loss, dict(rtol=1e-5, atol=1e-7))
+    got_g = grad[0].float() + grad[1].float()
+    want_g = want_grad[0].float() + want_grad[1].float()
+    fin = torch.isfinite(want_g)
+    assert torch.equal(torch.isfinite(got_g), fin)
+    _close(got_g[fin], want_g[fin], dict(rtol=4e-5, atol=1e-3 * float(
+        want_g[fin & (want_g != 0)].abs().median())))
+    assert not grad[:, :, n_real:].any()
+    if b > 2:
+        assert not grad[:, 1].any()
+        assert (got_g[2, :n_real] >= 0).all()   # no one-hot term
+
+
+def test_softmax_xent_plan_fits_the_kernels_layout(dev):
+    """`plan` on the kernel's own layout (c2v_softmax_xent_smem) and this
+    card: the slices cover each row, a CTA's shared memory fits a block,
+    a slice of more bulk copies than the kernel makes is refused (-1),
+    and the edge shapes above reach every cluster size."""
+    from code2vec_tpu_torch.kernels import softmax_xent as kxent
+    limit = launch.shared_memory_limit(dev)
+    kxent._fn()
+    assert kxent._fns["smem"](-1) == -1
+    assert kxent._fns["smem"](8 * 2048) > 0 > kxent._fns["smem"](8 * 2048 + 1)
+    for b in (1, 64, 1024):
+        for v in (17, 30011, 261245, 261246):
+            p = kxent.device_plan(b, v, dev)
+            assert p.cluster > 0 and p.cluster * p.units >= v // 4
+            assert kxent._fns["smem"](p.units) == p.smem <= limit
+    assert {kxent.device_plan(b, v, dev).cluster
+            for b, v, _, _ in XENT_EDGES} == {0, 1, 2, 4, 8, 16}
+
+
+def test_context_encoder_plan_fits_the_kernels_layout(dev):
+    """K1's shared memory (c2v_context_encoder_smem, one size for every
+    width) fits what the card lets a block use, and its W-tile bytes
+    (c2v_context_encoder_scratch, what the wrapper allocates) are those
+    of `w_tiles_plain`, the layout the tests' product emulation uses, for
+    every kind of width."""
+    from code2vec_tpu_torch.kernels import encoder as kenc
+    kenc._fn()
+    assert 0 < kenc._fns["smem"]() <= launch.shared_memory_limit(dev)
+    for k_dim, d_out in ((16, 16), (32, 32), (64, 400), (384, 384),
+                         (1536, 2048)):
+        w = torch.zeros((k_dim, d_out))
+        assert kenc.w_tiles_plain(w).numel() * 2 == \
+            kenc._fns["scratch"](k_dim, d_out)
