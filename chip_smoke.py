@@ -333,6 +333,29 @@ def quantize(torch, table):
     return q, scales.float()
 
 
+def decoded_rows(torch, table, scales, idx, dim):
+    """Rows `idx` of a table in its stored format, in PyTorch calls: an
+    index_select, the format's decode (packed int4 unpacked, low nibble
+    first) and the rows' scales."""
+    r = table.index_select(0, idx)
+    if table.dtype == torch.uint8:
+        r = torch.stack([(r & 15).to(torch.int8) - 8,
+                         (r >> 4).to(torch.int8) - 8],
+                        dim=-1).flatten(1)[:, :dim]
+    r = r.float()
+    return r if scales is None else r * scales.index_select(0, idx)
+
+
+def k4_library(torch, cv, table, labels, scales):
+    """K4's whole function in PyTorch calls, its `library_ms` yardstick
+    (no single call computes it): the label rows decoded
+    (`decoded_rows`), cast to bf16 with the code vectors, and the
+    row-wise dot in f32."""
+    r = decoded_rows(torch, table, scales, labels.long(), cv.shape[1])
+    return (cv.to(torch.bfloat16).float()
+            * r.to(torch.bfloat16).float()).sum(dim=1)
+
+
 def k1_library(torch, tok, tok_s, path, path_s, w, ids, mask=None,
                keep=1.0, residual=False):
     """K1's whole function in PyTorch calls, its `library_ms` yardstick
@@ -344,13 +367,7 @@ def k1_library(torch, tok, tok_s, path, path_s, w, ids, mask=None,
     td, pd = table_widths(tok, path, w)
 
     def rows(table, scales, idx, dim):
-        r = table.index_select(0, idx)
-        if table.dtype == torch.uint8:   # packed int4, low nibble first
-            r = torch.stack([(r & 15).to(torch.int8) - 8,
-                             (r >> 4).to(torch.int8) - 8],
-                            dim=-1).flatten(1)[:, :dim]
-        r = r.float()
-        return r if scales is None else r * scales.index_select(0, idx)
+        return decoded_rows(torch, table, scales, idx, dim)
 
     flat = [i.flatten() for i in ids]
     ctx = torch.cat([rows(tok, tok_s, flat[0], td),
@@ -575,13 +592,15 @@ def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
         plain_ms = timer(lambda: label_logits.label_logits_plain(
             cv, tbl, labels, scales=scl, compute_dtype=torch.bfloat16),
             spin_ms=20)
+        lib_ms = timer(lambda: k4_library(torch, cv, tbl, labels, scl))
         log(f"K4 label_logits {scheme} B={fs.rows}: max_abs_err "
             f"{err:.3g} (tol {TOL_F32SUM}) ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} bound_ms {bms:.4f} ({by})")
+            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (gather, decode, "
+            f"row-wise dot in PyTorch calls) bound_ms {bms:.4f} ({by})")
         if scheme == "int8":
             report["label_logits"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=lib_ms)
     del tables, transformed
     torch.cuda.empty_cache()
     return report
@@ -964,6 +983,114 @@ def k5_pass_split(torch, timer, timed):
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
 
+def device_passes(torch, fn, passes, calls=10):
+    """Mean device microseconds a call of `fn` spends in each pass, by
+    torch.profiler over `calls` calls after one more: `passes` maps a
+    substring of a kernel's name to the name of its pass. None where the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for pat, name in passes:
+            if e.device_time_total > 0 and pat in e.key:
+                out[name] = out.get(name, 0.0) + e.device_time_total / calls
+                break
+    return out or None
+
+
+K6_PASSES = (("attention_backward_kernel", "main"), ("rows_sum", "da_sum"),
+             ("da_sum", "da_sum"))
+
+
+def k6_bound(t):
+    """K6's least time (ms, and what bounds it): T read once and dT
+    written once in bf16, the weights and the mask read, dcv read, the
+    query read and da written; ~6 flops an element of T."""
+    b, m, d = t.shape
+    nbytes = 2 * t.numel() * 2 + 2 * b * m * 4 + b * d * 4 + 2 * d * 4
+    return bound(nbytes, 6.0 * t.numel())
+
+
+def k6_library(torch, timer, t, a, mask, dcv):
+    """K6's yardstick (ms): the backward alone, by autograd, of K2's
+    yardstick, scaled_dot_product_attention with T as key and value, one
+    bf16 query a row and the context mask; the forward is run once
+    before and not timed."""
+    import torch.nn.functional as F
+    b, m, d = t.shape
+    q = a.to(torch.bfloat16).view(1, 1, 1, d).expand(b, 1, 1, d
+                                                     ).contiguous()
+    q.requires_grad_(True)
+    kv = t.detach().clone().view(b, 1, m, d).requires_grad_(True)
+    keep = (mask > 0).view(b, 1, 1, m)
+    out = F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep,
+                                         scale=1.0)
+    dout = dcv.to(torch.bfloat16).view(b, 1, 1, d)
+    ms = timer(lambda: torch.autograd.grad(out, (q, kv), dout,
+                                           retain_graph=True), spin_ms=10)
+    del out, q, kv
+    return ms
+
+
+def k6_case(torch, timer, t, a, mask, attn, dcv, timed=True):
+    """K6 on `t` against its plain version: dT and da within one bf16 step
+    at their largest and few elements moved past 2^-12 (`check_flips`),
+    zeros in dT for every all-masked row, two runs bit-equal; with
+    `timed`, timed beside the plain version and `k6_library`, with each
+    launch's device time. Returns the report entry."""
+    from code2vec_tpu_torch.kernels import attention
+
+    b, m, d = t.shape
+    what = f"masked_attention_backward B={b} m={m}"
+    got = attention.masked_attention_backward(t, a, mask, attn, dcv)
+    again = attention.masked_attention_backward(t, a, mask, attn, dcv)
+    want = attention.masked_attention_backward_plain(t, a, mask, attn, dcv)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{what}: two runs gave different bits")
+    del again
+    dead = (mask > 0).sum(dim=1) == 0
+    dead_max = float(got[0][dead].abs().max()) if bool(dead.any()) else 0.
+    errs = [step_err(x, y) for x, y in zip(got, want)]
+    if not all(ok for _, ok in errs) or dead_max != 0:
+        fail(f"{what}: max errors {[e for e, _ in errs]} of largest values "
+             f"{[float(y.abs().max()) for y in want]} (tol one bf16 step "
+             f"there), all-masked rows' max {dead_max}")
+    flips = [check_flips(x, y, f"{what} {name}")
+             for x, y, name in zip(got, want, ("dT", "da"))]
+    del got, want
+    entry = dict(max_abs_err=max(e for e, _ in errs))
+    msg = (f"K6 {what}: max_abs_err dT {errs[0][0]:.3g} da {errs[1][0]:.3g} "
+           f"(tol one bf16 step at the largest), elements moved "
+           f"{flips[0]:.2e} {flips[1]:.2e} (tol {FLIP_SHARE}), "
+           f"{int(dead.sum())} all-masked rows zero, two runs bit-equal")
+    if timed:
+        def run():
+            attention.masked_attention_backward(t, a, mask, attn, dcv)
+
+        bms, by = k6_bound(t)
+        ms = timer(run)
+        plain_ms = timer(lambda: attention.masked_attention_backward_plain(
+            t, a, mask, attn, dcv), spin_ms=20)
+        lib_ms = k6_library(torch, timer, t, a, mask, dcv)
+        split = device_passes(torch, run, K6_PASSES)
+        msg += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                f"{lib_ms:.4f} (SDPA backward by autograd) bound_ms "
+                f"{bms:.4f} ({by}); launches (us): "
+                + (", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                   if split else "not measured"))
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=lib_ms, pass_us=split)
+    log(msg)
+    return entry
+
+
 def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
     from code2vec_tpu_torch.kernels import adam as kadam
     from code2vec_tpu_torch.kernels import attention, encoder
@@ -1137,37 +1264,25 @@ def train_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
         bound_ms=bms, bound_by=by, library_ms=lib_ms,
         library_full_ms=full_ms, pass_ms=split)
 
-    # K6: the backward of K2 on K1's train output
+    # K6: the backward of K2 on K1's train output, then at B 64 and at 1
+    # and 32 contexts (row 0 all masked in each)
     mask = (torch.rand((b, m), generator=g, device=dev) > 0.3).float()
     mask[0] = 0.0
     report["masked_attention_train"], _, attn = attention_case(
         torch, timer, t, a, mask)
     dcv = uniform((b, d), 0.05).to(torch.bfloat16).float()
-    got = attention.masked_attention_backward(t, a, mask, attn, dcv)
-    want = attention.masked_attention_backward_plain(t, a, mask, attn, dcv)
-    torch.cuda.synchronize()
-    errs6 = [step_err(x, y) for x, y in zip(got, want)]
-    if not all(ok for _, ok in errs6) or got[0][0].abs().max() != 0:
-        fail(f"masked_attention_backward: max errors "
-             f"{[e for e, _ in errs6]}, all-masked row max "
-             f"{float(got[0][0].abs().max())}")
-    flips6 = [check_flips(x, y, f"masked_attention_backward {name}")
-              for x, y, name in zip(got, want, ("dT", "da"))]
-    nbytes = 2 * t.numel() * 2 + 2 * b * m * 4 + b * d * 4 + 2 * d * 4
-    bms, by = bound(nbytes, 6.0 * t.numel())
-    ms = timer(lambda: attention.masked_attention_backward(t, a, mask, attn,
-                                                           dcv))
-    plain_ms = timer(lambda: attention.masked_attention_backward_plain(
-        t, a, mask, attn, dcv), spin_ms=20)
-    log(f"K6 masked_attention_backward B={b} m={m}: max_abs_err dT "
-        f"{errs6[0][0]:.3g} da {errs6[1][0]:.3g} (tol one bf16 step at "
-        f"the largest), elements moved {flips6[0]:.2e} {flips6[1]:.2e} (tol "
-        f"{FLIP_SHARE}) ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-        f"{bms:.4f} ({by})")
-    report["masked_attention_backward"] = dict(
-        max_abs_err=max(e for e, _ in errs6), ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None)
-    del t, t_lo, dt, got, want, drawn, again, other, attn, mask, dcv
+    k6 = report["masked_attention_backward"] = k6_case(
+        torch, timer, t, a, mask, attn, dcv)
+    for rows, ctx in ((64, m), (b, 1), (b, 32), (64, 1), (64, 32)):
+        t_s = t[:rows, :ctx].contiguous()
+        mask_s = mask[:rows, :ctx].contiguous()
+        _, attn_s = attention.masked_attention(t_s, a, mask_s)
+        entry = k6_case(torch, timer, t_s, a, mask_s, attn_s,
+                        dcv[:rows].contiguous(), timed=ctx == m)
+        k6["max_abs_err"] = max(k6["max_abs_err"], entry.pop("max_abs_err"))
+        k6.update({f"b{rows}_m{ctx}_{k}": v for k, v in entry.items()})
+        del t_s, mask_s, attn_s
+    del t, t_lo, dt, drawn, again, other, attn, mask, dcv
 
     # K7 at 1024 x 261,246 f32 logits
     logits = torch.randn((b, v_tgt), generator=g, device=dev) * 3
@@ -1279,6 +1394,41 @@ def zipf_ids(torch, g, n, v, dev):
     p = torch.arange(1, v + 1, dtype=torch.float64, device=dev) ** -ZIPF_S
     return torch.multinomial(p / p.sum(), n, replacement=True,
                              generator=g).to(torch.int32)
+
+
+K12_PASSES = (("sort_", "sort"), ("segment_kernel", "segment"),
+              ("combine_kernel", "combine"))
+
+
+def k12_bound(torch, tables, mu_size):
+    """K12's least time (ms, and what bounds it) over `tables`, each (ids,
+    rows of the table, width): every id and bf16 gradient row read once,
+    and each named row's table, mu (`mu_size` bytes a value) and nu read
+    and written once; ~20 flops a value of a named row."""
+    nbytes, values = 0, 0
+    for idx, v, width in tables:
+        uniq = torch.unique(idx[(idx >= 0) & (idx < v)]).numel()
+        nbytes += (idx.numel() * (width * 2 + 4)
+                   + uniq * width * (2 * 4 + 2 * mu_size + 2 * 4))
+        values += uniq * width
+    return bound(nbytes, 20.0 * values)
+
+
+def k12_library(torch, timer, tables, hyper):
+    """K12's yardstick (ms): torch.optim.SparseAdam.step over `tables`,
+    each (table, ids, bf16 gradient rows), with coalesced COO gradients of
+    the same rows (f32 moments)."""
+    params = [torch.nn.Parameter(table.clone()) for table, _, _ in tables]
+    for p, (_, idx, rows) in zip(params, tables):
+        p.grad = torch.sparse_coo_tensor(idx.long()[None, :], rows.float(),
+                                         p.shape).coalesce()
+    opt = torch.optim.SparseAdam(params, lr=hyper["lr"],
+                                 betas=(hyper["b1"], hyper["b2"]),
+                                 eps=hyper["eps"])
+    ms = timer(opt.step, spin_ms=20)
+    del opt, params
+    torch.cuda.empty_cache()
+    return ms
 
 
 def sparse_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
@@ -1411,7 +1561,9 @@ def sparse_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
         alloc_gb=allocs["rows"] / 1e9, dense_alloc_gb=allocs["dense"] / 1e9)
     torch.cuda.empty_cache()
 
-    # K12 on both tables: ids uniform and Zipf(1.07) over the real sizes
+    # K12 on both tables in one call, as the sparse step makes it: ids
+    # uniform and Zipf(1.07) over the real sizes (timed), every id the
+    # same, and a quarter of the ids out of range
     mu_dtype = DTYPES[ft.mu]
     hyper = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
     tables = {"token": (v_tok, 2 * n), "path": (v_path, n)}
@@ -1422,96 +1574,114 @@ def sparse_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
               ).to(mu_dtype)
         n0 = torch.rand((v, 128), generator=g, device=dev) * 1e-6
         states[name] = (p0, m0, n0)
-    cases = {}
-    for dist in ("uniform", "zipf"):
+
+    def case_ids(dist, v, cnt):
+        if dist == "zipf":
+            return zipf_ids(torch, g, cnt, v, dev)
+        idx = torch.randint(0, v, (cnt,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if dist == "same":
+            return idx[:1].expand(cnt).contiguous()
+        if dist == "out_of_range":
+            bad = torch.tensor([-1, v, v + 7, 2 ** 31 - 1], device=dev,
+                               dtype=torch.int32)
+            pick = torch.randint(0, 4, (cnt,), generator=g, device=dev)
+            out = torch.rand((cnt,), generator=g, device=dev) < 0.25
+            idx = torch.where(out, bad[pick], idx)
+        return idx
+
+    def fresh(case):
+        return [(states[name][0].clone(), RowAdamSlots(
+            mu=states[name][1].clone(), nu=states[name][2].clone()),
+            *case[name]) for name in tables]
+
+    k12 = {}
+    for dist in ("uniform", "zipf", "same", "out_of_range"):
         case = {}
         for name, (v, cnt) in tables.items():
-            idx = (zipf_ids(torch, g, cnt, v, dev) if dist == "zipf"
-                   else torch.randint(0, v, (cnt,), generator=g, device=dev,
-                                      dtype=torch.int32))
             rows = (torch.randint(-127, 128, (cnt, 128), generator=g,
                                   device=dev).float() * 2.0 ** -12
                     ).to(torch.bfloat16)
-            case[name] = (idx, rows)
-        cases[dist] = case
-    k12 = {}
-    for dist, case in cases.items():
+            case[name] = (case_ids(dist, v, cnt), rows)
+        runs = []
+        for _ in range(2):
+            work = fresh(case)
+            ksa.sparse_adam_tables(work, t=7, **hyper)
+            runs.append(work)
         errs_p, errs_m, uniq = [], [], {}
-        for name, (idx, rows) in case.items():
-            p0, m0, n0 = states[name]
-            runs = []
-            for _ in range(2):
-                p, slots = p0.clone(), RowAdamSlots(mu=m0.clone(),
-                                                    nu=n0.clone())
-                ksa.sparse_adam(p, slots, idx, rows, t=7, **hyper)
-                runs.append((p, slots.mu, slots.nu))
-            if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        for i, (name, (v, _)) in enumerate(tables.items()):
+            (got_p, got_s, idx, rows), (p2, s2, _, _) = runs[0][i], runs[1][i]
+            if not (torch.equal(got_p, p2) and torch.equal(got_s.mu, s2.mu)
+                    and torch.equal(got_s.nu, s2.nu)):
                 fail(f"sparse_adam {name} {dist}: two runs gave different "
                      f"bits")
+            p0, m0, n0 = states[name]
             p, slots = p0.clone(), RowAdamSlots(mu=m0.clone(), nu=n0.clone())
             ksa.sparse_adam_plain(p, slots, idx, rows, t=7, **hyper)
             torch.cuda.synchronize()
-            got_p, got_m, got_n = runs[0]
-            del runs
-            touched = torch.zeros(p0.shape[0], dtype=torch.bool, device=dev)
-            touched[idx.long()] = True
+            touched = torch.zeros(v, dtype=torch.bool, device=dev)
+            touched[idx[(idx >= 0) & (idx < v)].long()] = True
             uniq[name] = int(touched.sum())
-            for x, x0 in ((got_p, p0), (got_m, m0), (got_n, n0)):
+            for x, x0 in ((got_p, p0), (got_s.mu, m0), (got_s.nu, n0)):
                 if not torch.equal(x[~touched], x0[~touched]):
                     fail(f"sparse_adam {name} {dist}: an untouched row "
                          f"changed")
             e, ok = max_err(got_p[touched], p[touched], TOL_ADAM)
-            en, ok_n = max_err(got_n[touched], slots.nu[touched], TOL_ADAM)
-            em, ok_m = max_err(got_m[touched], slots.mu[touched], TOL_MOMENT)
+            en, ok_n = max_err(got_s.nu[touched], slots.nu[touched],
+                               TOL_ADAM)
+            em, ok_m = max_err(got_s.mu[touched], slots.mu[touched],
+                               TOL_MOMENT)
             if not (ok and ok_n and ok_m):
                 fail(f"sparse_adam {name} {dist}: max errors table {e} nu "
                      f"{en} (tol {TOL_ADAM}) mu {em} (tol {TOL_MOMENT})")
             errs_p.append(max(e, en))
             errs_m.append(em)
-            del got_p, got_m, got_n, p, slots, touched
-        msz = 2 if mu_dtype == torch.bfloat16 else 4
-        nbytes = sum(cnt * 128 * 2 + cnt * 4 + uniq[name] * 128 * (
-            2 * 4 + 2 * msz + 2 * 4) for name, (_, cnt) in tables.items())
-        bms, by = bound(nbytes, 20.0 * 128 * sum(uniq.values()))
-        work = {name: (states[name][0].clone(), RowAdamSlots(
-            mu=states[name][1].clone(), nu=states[name][2].clone()))
-            for name in tables}
+            del p, slots, touched
+        del runs
+        msg = (f"K12 sparse_adam {dist} ids, both tables in one call: token "
+               f"{tables['token'][1]} ids -> {uniq['token']} unique rows of "
+               f"{tables['token'][0]}, path {tables['path'][1]} ids -> "
+               f"{uniq['path']} unique rows of {tables['path'][0]}; mu "
+               f"{ft.mu}: max_abs_err table/nu {max(errs_p):.3g} (tol "
+               f"{TOL_ADAM}) mu {max(errs_m):.3g} (tol {TOL_MOMENT}); "
+               f"untouched rows bit-equal, two runs bit-equal")
+        entry = dict(max_abs_err=max(errs_p), unique_rows=sum(uniq.values()))
+        if dist in ("uniform", "zipf"):
+            work = fresh(case)
+            bms, by = k12_bound(torch, [(idx, v, 128) for (idx, _), (v, _)
+                                        in zip(case.values(),
+                                               tables.values())],
+                                2 if mu_dtype == torch.bfloat16 else 4)
 
-        def run(fn):
-            for name, (idx, rows) in case.items():
-                fn(work[name][0], work[name][1], idx, rows, t=7, **hyper)
+            def run():
+                ksa.sparse_adam_tables(work, t=7, **hyper)
 
-        ms = timer(lambda: run(ksa.sparse_adam))
-        plain_ms = timer(lambda: run(ksa.sparse_adam_plain), spin_ms=20)
-        # yardstick: torch.optim.SparseAdam.step on coalesced COO
-        # gradients of the same ids and rows (f32 moments)
-        lib_params = [torch.nn.Parameter(states[name][0].clone())
-                      for name in tables]
-        for lp, (idx, rows) in zip(lib_params, case.values()):
-            lp.grad = torch.sparse_coo_tensor(
-                idx.long()[None, :], rows.float(), lp.shape).coalesce()
-        opt = torch.optim.SparseAdam(lib_params, lr=hyper["lr"],
-                                     betas=(hyper["b1"], hyper["b2"]),
-                                     eps=hyper["eps"])
-        lib_ms = timer(opt.step, spin_ms=20)
-        del opt, lib_params, work
+            def run_plain():
+                for p, slots, idx, rows in work:
+                    ksa.sparse_adam_plain(p, slots, idx, rows, t=7, **hyper)
+
+            ms = timer(run)
+            plain_ms = timer(run_plain, spin_ms=20)
+            lib_ms = k12_library(torch, timer, [
+                (states[name][0], *case[name]) for name in tables], hyper)
+            split = device_passes(torch, run, K12_PASSES)
+            del work
+            msg += (f"; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                    f"{lib_ms:.4f} (torch.optim.SparseAdam, f32 moments) "
+                    f"bound_ms {bms:.4f} ({by}); passes (us): "
+                    + (", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                       if split else "not measured"))
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms, pass_us=split)
+        log(msg)
+        k12[dist] = entry
         torch.cuda.empty_cache()
-        log(f"K12 sparse_adam {dist} ids: token {tables['token'][1]} ids -> "
-            f"{uniq['token']} unique rows of {tables['token'][0]}, path "
-            f"{tables['path'][1]} ids -> {uniq['path']} unique rows of "
-            f"{tables['path'][0]}; mu {ft.mu}: max_abs_err table/nu "
-            f"{max(errs_p):.3g} (tol {TOL_ADAM}) mu {max(errs_m):.3g} (tol "
-            f"{TOL_MOMENT}); untouched rows bit-equal, two runs bit-equal; "
-            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-            f"(torch.optim.SparseAdam, f32 moments) bound_ms {bms:.4f} "
-            f"({by})")
-        k12[dist] = dict(max_abs_err=max(errs_p), ms=ms, plain_ms=plain_ms,
-                         bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                         unique_rows=uniq["token"] + uniq["path"])
     report["sparse_adam"] = dict(k12["uniform"])
     report["sparse_adam"].update({f"zipf_{k}": v
                                   for k, v in k12["zipf"].items()})
-    del states, cases, tok, path, w, ids
+    report["sparse_adam"]["max_abs_err"] = max(
+        e["max_abs_err"] for e in k12.values())
+    del states, tok, path, w, ids
     torch.cuda.empty_cache()
     return report
 
@@ -1624,7 +1794,7 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
              f"the first's {means[0]}")
     names = (kernels.SPARSE_TRAIN_KERNELS if sparse
              else kernels.TRAIN_KERNELS)
-    want = {k: steps * (2 if k == "sparse_adam" else 1) for k in names}
+    want = {k: steps for k in names}  # K12: both tables in one launch
     if sparse:  # no dense K5: no table-shaped gradient
         want["encoder_backward"] = 0
     train_counts = {k: counts[k] for k in want}
@@ -2839,12 +3009,14 @@ def quant_kernel_phase(torch, seed: int, timer, slow_timer, fs,
         plain_ms = timer(lambda: label_logits.label_logits_plain(
             cv, tbl, labels, compute_dtype=torch.bfloat16, **kw),
             spin_ms=20)
+        lib_ms = timer(lambda: k4_library(torch, cv, tbl, labels, scl))
         log(f"K4 label_logits {fmt} B={fs.rows}: max_abs_err {err:.3g} "
             f"(tol {TOL_F32SUM}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"bound_ms {bms:.4f} ({by})")
+            f"library_ms {lib_ms:.4f} (gather, decode, row-wise dot in "
+            f"PyTorch calls) bound_ms {bms:.4f} ({by})")
         entries["label_logits"] = dict(max_abs_err=err, ms=ms,
                                        plain_ms=plain_ms, bound_ms=bms,
-                                       bound_by=by, library_ms=None)
+                                       bound_by=by, library_ms=lib_ms)
         # -- K11 on the MIPS head's lists, rows in this format
         rows = tbl[:v_real][order].contiguous()
         rs = scl[:v_real][order].reshape(-1).contiguous()
@@ -3634,14 +3806,15 @@ def main() -> None:
         # batch (B 8) as b8_* and b8_m32_*; K11: B 64 above, B 1 as b1_*,
         # the int8 one's B 8 (7 zero queries) as b8_*, its large-k mode
         # (k 100) as k100_*; K3's float32 mode at k 1000 as k1000_*; K12:
-        # uniform ids above, Zipf(1.07) as zipf_*; K5's row mode: its
+        # uniform ids above, Zipf(1.07) as zipf_*; K6: B 1024 x 200 above,
+        # B 64 and 1 and 32 contexts as b<B>_m<M>_*; K5's row mode: its
         # allocation beside the dense mode's
         entry.update({k: v for k, v in r.items()
-                      if k.startswith(("mips", "b1", "b8", "m32", "k100",
-                                       "zipf"))
+                      if k.startswith(("mips", "b1", "b8", "b64", "m32",
+                                       "k100", "zipf"))
                       or k.endswith("alloc_gb")
                       or k in ("unique_rows", "library_full_ms", "pass_ms",
-                               "f32_fma_bound_ms")})
+                               "pass_us", "f32_fma_bound_ms")})
         if name == "context_encoder":
             # K1 alone at the evaluate batch, per format, as eval_<format>_*
             entry.update({f"eval_{fmt}_{k}": x for fmt, r in k1_eval.items()

@@ -10,10 +10,12 @@ plain versions are ops/attention.py masked_single_query_attention and
 masked_single_query_attention_backward: CPU tensors take them, CUDA
 tensors launch the kernels. K6 keeps its own count, `backward_launches`.
 
-K2 runs a thread-block cluster of C CTAs per batch row, each CTA owning
-a chunk of the row's contexts; `plan` picks C and the chunk on the host
-(plain Python, held on the CPU by tests/test_torch_attention_ivf_plans.py)
-and `split_softmax` is the kernel's arithmetic, chunk by chunk, in plain
+K2 and K6 each run a thread-block cluster of C CTAs per batch row, each
+CTA owning a chunk of the row's contexts; `plan` and `backward_plan` pick
+C and the chunk on the host (plain Python, held on the CPU by
+tests/test_torch_attention_ivf_plans.py and
+tests/test_torch_sparse_adam_attention_plans.py), and `split_softmax` and
+`split_backward` are the kernels' arithmetic, chunk by chunk, in plain
 PyTorch.
 """
 
@@ -33,6 +35,8 @@ backward_launches = 0
 _fns = {}
 MAX_CLUSTER = 8        # portable cluster size (csrc/attention.cu kMaxCluster)
 WARPS = 8              # a CTA's warps (csrc/attention.cu kWarps)
+THREADS = 32 * WARPS
+SUM_RUNS = 32          # runs of rows K6's da sum takes (kSumRuns)
 SMEM_LIMIT = 232448    # an H100's shared memory a block may opt into
 SMS = 132              # an H100 SXM's SMs
 
@@ -62,6 +66,22 @@ def smem_bytes(chunk: int, d: int, staged: bool) -> int:
             + _align16(WARPS * 4) + 2 * MAX_CLUSTER * 4)
 
 
+def _cluster_plan(b: int, m: int, d: int, smem_bytes_fn, smem_limit: int,
+                  sms: int, what: str) -> AttentionPlan:
+    cluster = 1
+    while (cluster < MAX_CLUSTER and cluster < m
+           and (b * cluster < sms or smem_bytes_fn(-(-m // cluster), d, True)
+                > smem_limit // 4)):
+        cluster *= 2
+    chunk = -(-m // cluster)
+    staged = smem_bytes_fn(chunk, d, True) <= smem_limit
+    smem = smem_bytes_fn(chunk, d, staged)
+    if smem > smem_limit:
+        raise ValueError(f"{what}: {m} contexts of width {d} need {smem} "
+                         f"bytes of shared memory a CTA")
+    return AttentionPlan(cluster, chunk, staged, smem, b * cluster)
+
+
 def plan(b: int, m: int, d: int, smem_limit: int = SMEM_LIMIT,
          sms: int = SMS) -> AttentionPlan:
     """How K2 covers b rows of m contexts of width d: the cluster size C
@@ -69,18 +89,34 @@ def plan(b: int, m: int, d: int, smem_limit: int = SMEM_LIMIT,
     SMs and a staged chunk takes at most a quarter of the shared memory a
     block may use (four CTAs an SM, some loading while others compute); a
     chunk that does not fit at all is read from device memory instead."""
-    cluster = 1
-    while (cluster < MAX_CLUSTER and cluster < m
-           and (b * cluster < sms or smem_bytes(-(-m // cluster), d, True)
-                > smem_limit // 4)):
-        cluster *= 2
-    chunk = -(-m // cluster)
-    staged = smem_bytes(chunk, d, True) <= smem_limit
-    smem = smem_bytes(chunk, d, staged)
-    if smem > smem_limit:
-        raise ValueError(f"masked_attention: {m} contexts of width {d} need "
-                         f"{smem} bytes of shared memory a CTA")
-    return AttentionPlan(cluster, chunk, staged, smem, b * cluster)
+    return _cluster_plan(b, m, d, smem_bytes, smem_limit, sms,
+                         "masked_attention")
+
+
+def da_groups(d: int) -> int:
+    """K6's groups of contexts for a CTA's da share: a thread per 8
+    columns of a group, as many groups as fill the CTA (csrc/
+    attention_backward.cu `da_groups`)."""
+    return 1 if d // 8 >= THREADS else THREADS // (d // 8)
+
+
+def backward_smem_bytes(chunk: int, d: int, staged: bool) -> int:
+    """A K6 CTA's shared memory (csrc/attention_backward.cu `Layout`): the
+    mbarrier's 128 bytes, the staged contexts, dcv and the query, the
+    chunk's weights, mask and fs, the groups' da shares, the column
+    slices of da pushed here, the reduction slots and the ranks' posts."""
+    return (128 + (chunk * d * 2 if staged else 0) + 2 * d * 4
+            + 3 * _align16(chunk * 4) + da_groups(d) * d * 4
+            + _align16((d + 2 * MAX_CLUSTER) * 4) + _align16(WARPS * 4)
+            + MAX_CLUSTER * 4)
+
+
+def backward_plan(b: int, m: int, d: int, smem_limit: int = SMEM_LIMIT,
+                  sms: int = SMS) -> AttentionPlan:
+    """How K6 covers b rows of m contexts of width d: K2's rule (`plan`)
+    over K6's shared memory."""
+    return _cluster_plan(b, m, d, backward_smem_bytes, smem_limit, sms,
+                         "masked_attention_backward")
 
 
 def split_softmax(transformed: torch.Tensor, attention_param: torch.Tensor,
@@ -128,6 +164,53 @@ def split_softmax(transformed: torch.Tensor, attention_param: torch.Tensor,
     for lo, hi in spans:
         cv = cv + torch.einsum("bm,bmd->bd", w[:, lo:hi], t[:, lo:hi])
     return cv, attention
+
+
+def split_backward(transformed: torch.Tensor, attention_param: torch.Tensor,
+                   context_valid_mask: torch.Tensor, attention: torch.Tensor,
+                   d_code_vectors: torch.Tensor, cluster: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's arithmetic in plain PyTorch, chunk by chunk (tests only): each
+    of `cluster` chunks posts its sum of w fs, added in rank order; ds and
+    dT as the plain version; a chunk's da share is `da_groups` groups of
+    contexts (group r takes contexts r, r + groups, ...), added in group
+    order, the chunks' shares added in rank order; the rows' da in
+    SUM_RUNS contiguous runs, each in row order, then the runs in order,
+    rounded to bf16."""
+    cd = transformed.dtype
+    t = transformed.float()
+    b, m, d = t.shape
+    g = d_code_vectors.float()
+    fs = torch.einsum("bd,bmd->bm", g, t).to(cd).float()
+    chunk = -(-m // cluster)
+    spans = [(min(m, r * chunk), min(m, (r + 1) * chunk))
+             for r in range(cluster)]
+    wfs = torch.zeros((b,), dtype=torch.float32)
+    for lo, hi in spans:
+        wfs = wfs + (attention[:, lo:hi] * fs[:, lo:hi]).sum(dim=1)
+    ds = torch.where(context_valid_mask > 0,
+                     attention * (fs - wfs[:, None]), torch.zeros_like(fs))
+    a = attention_param.to(cd).float()
+    w = attention.to(cd).float()
+    dt = ((w[:, :, None] * g[:, None, :]).to(cd).float()
+          + (ds[:, :, None] * a).to(cd).float()).to(cd)
+    groups = da_groups(d)
+    rows = torch.zeros((b, d), dtype=torch.float32)
+    for lo, hi in spans:
+        share = torch.zeros((b, d), dtype=torch.float32)
+        for gr in range(groups):
+            js = list(range(lo + gr, hi, groups))
+            share = share + (torch.einsum("bm,bmd->bd", ds[:, js], t[:, js])
+                             if js else 0.0)
+        rows = rows + share
+    per = -(-b // SUM_RUNS)
+    da = torch.zeros((d,), dtype=torch.float32)
+    for r0 in range(0, b, per):
+        run = torch.zeros((d,), dtype=torch.float32)
+        for q in range(r0, min(b, r0 + per)):
+            run = run + rows[q]
+        da = da + run
+    return dt, da.to(cd).float()
 
 
 def _fn():
@@ -191,8 +274,18 @@ def _backward_fn():
         P, I32 = launch.P, launch.I32
         fn = _fns["attention_backward"] = launch.bind(
             "attention_backward", "c2v_attention_backward",
-            [P, P, P, P, P, I32, I32, I32, P, P, P, P])
+            [P, P, P, P, P, I32, I32, I32, I32, I32, I32, P, P, P, P])
+        _fns["backward_smem"] = launch.bind(
+            "attention_backward", "c2v_attention_backward_smem",
+            [I32, I32, I32], restype=launch.I64)
     return fn
+
+
+def kernel_backward_smem_bytes(chunk: int, d: int, staged: bool) -> int:
+    """K6's own count of a CTA's shared memory (tests hold
+    `backward_smem_bytes` to it)."""
+    _backward_fn()
+    return int(_fns["backward_smem"](chunk, d, int(staged)))
 
 
 def masked_attention_backward(transformed: torch.Tensor,
@@ -225,17 +318,18 @@ def masked_attention_backward(transformed: torch.Tensor,
     launch.check_tensor(d_code_vectors, "d_code_vectors", [torch.float32], 2)
     launch.require(tuple(d_code_vectors.shape) == (b, d),
                    f"d_code_vectors: expected ({b}, {d})")
-    smem = 4 * (m + 2 * d + 8)
-    launch.require(smem <= launch.shared_memory_limit(transformed.device),
-                   f"{m} contexts need {smem} bytes of shared memory")
     device = transformed.device
+    p = backward_plan(
+        b, m, d, launch.shared_memory_limit(device),
+        torch.cuda.get_device_properties(device).multi_processor_count)
     dt = torch.empty_like(transformed)
     da_rows = torch.empty((b, d), dtype=torch.float32, device=device)
     da = torch.empty((d,), dtype=torch.float32, device=device)
     err = fn(transformed.data_ptr(), attention_param.data_ptr(),
              context_valid_mask.data_ptr(), attention.data_ptr(),
-             d_code_vectors.data_ptr(), b, m, d, dt.data_ptr(),
-             da_rows.data_ptr(), da.data_ptr(), launch.stream(device))
+             d_code_vectors.data_ptr(), b, m, d, p.cluster, p.chunk,
+             int(p.staged), dt.data_ptr(), da_rows.data_ptr(), da.data_ptr(),
+             launch.stream(device))
     launch.check_launch(err, "masked_attention_backward")
     launch.count(__name__, "backward_launches")
     return dt, da

@@ -28,7 +28,8 @@ SOURCES = ("encoder", "attention", "topk", "label_logits",
            "encoder_backward", "attention_backward", "softmax_xent", "adam",
            "kmeans", "ivf_search", "sparse_adam", "select")
 # csrc/gather_probe.cu is no kernel of the port: a measurement that
-# scripts/profile_torch_encoder_xent.py builds by name (`load`)
+# scripts/profile_torch_encoder_xent.py and
+# scripts/profile_torch_sparse_adam_attention.py build by name (`load`)
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")

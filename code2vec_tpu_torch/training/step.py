@@ -22,7 +22,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from code2vec_tpu_torch.kernels.adam import AdamHyper, adam
-from code2vec_tpu_torch.kernels.sparse_adam import sparse_adam
+from code2vec_tpu_torch.kernels.sparse_adam import sparse_adam_tables
 from code2vec_tpu_torch.models.code2vec import Code2VecModule, RowGrads
 from code2vec_tpu_torch.training.sparse_adam import HybridOptState
 from code2vec_tpu_torch.training.state import (
@@ -130,14 +130,15 @@ class TrainStepBuilder:
                      [dense.mu[n] for n in names],
                      [dense.nu[n] for n in names], count, hyper)
                 # the source positions first, then the targets: the
-                # reference's concat of the token ids
-                sparse_adam(tok, slots["token_embedding"],
-                            torch.cat([src.reshape(-1), tgt.reshape(-1)]),
-                            rows.tok.reshape(-1, tok.shape[1]), t=t,
-                            **row_adam)
-                sparse_adam(path, slots["path_embedding"], pth.reshape(-1),
-                            rows.path.reshape(-1, path.shape[1]), t=t,
-                            **row_adam)
+                # reference's concat of the token ids; both tables in one
+                # launch sequence where their widths agree
+                sparse_adam_tables(
+                    [(tok, slots["token_embedding"],
+                      torch.cat([src.reshape(-1), tgt.reshape(-1)]),
+                      rows.tok.reshape(-1, tok.shape[1])),
+                     (path, slots["path_embedding"], pth.reshape(-1),
+                      rows.path.reshape(-1, path.shape[1]))],
+                    t=t, **row_adam)
             for p in params:
                 p.grad = None
             dense.count = count

@@ -922,7 +922,8 @@ def test_sparse_adam_kernel(dev, mu, v, n, dist):
     tolerance, untouched rows bit-equal, ids past the table dropped, two
     runs bit-equal. The gradient rows are bf16 integers times 2^-12, so
     every partial sum of a duplicated id is exact in f32 and the kernel's
-    order of the sums (fixed 64-row slices) gives the plain version's g."""
+    order of the sums (32-pair chunks, a long id's partials in 16 runs)
+    gives the plain version's g."""
     from code2vec_tpu_torch.kernels.sparse_adam import (
         sparse_adam, sparse_adam_plain,
     )
@@ -1745,3 +1746,192 @@ def test_context_encoder_plan_fits_the_kernels_layout(dev):
         w = torch.zeros((k_dim, d_out))
         assert kenc.w_tiles_plain(w).numel() * 2 == \
             kenc._fns["scratch"](k_dim, d_out)
+
+
+# ------------------------------------ K12 and K6 redesigned: edge cases
+
+def _row_adam_case(rng, dev, v, n, dist, d, mdt):
+    """A table, its slots, ids (`dist`: uniform, zipf, same, or
+    out_of_range: a quarter outside [0, v)) and gradient rows that are
+    bf16 integers times 2^-12 (every partial sum exact in f32)."""
+    if dist == "zipf":
+        ids = _zipf_ids(rng, n, v)
+    elif dist == "same":
+        ids = np.full(n, rng.integers(0, v), np.int32)
+    else:
+        ids = rng.integers(0, v, n).astype(np.int32)
+    if dist == "out_of_range":
+        bad = np.array([-1, v, v + 7, 2 ** 31 - 1], np.int32)
+        out = rng.random(n) < 0.25
+        ids[out] = bad[rng.integers(0, 4, int(out.sum()))]
+    grads = (rng.integers(-127, 128, (n, d)) * 2.0 ** -12).astype(np.float32)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(
+        np.float32)).to(dev)
+    m0 = torch.from_numpy((rng.standard_normal((v, d)) * 1e-3).astype(
+        np.float32)).to(dev).to(mdt)
+    n0 = torch.from_numpy((rng.random((v, d)) * 1e-6).astype(
+        np.float32)).to(dev)
+    return (table, m0, n0, torch.from_numpy(ids).to(dev),
+            torch.from_numpy(grads).to(dev).to(torch.bfloat16))
+
+
+def _check_row_adam(got, want, table, m0, n0, ids, v, mdt):
+    got_p, got_m, got_n = got
+    want_p, want_m, want_n = want
+    _close(got_p, want_p, dict(rtol=1e-6, atol=1e-9))
+    _close(got_n, want_n, dict(rtol=1e-6, atol=1e-12))
+    step = 2.0 ** -7 if mdt == torch.bfloat16 else 1e-6
+    assert ((got_m.float() - want_m.float()).abs()
+            <= step * want_m.float().abs() + 1e-12).all()
+    touched = torch.zeros(v, dtype=torch.bool, device=table.device)
+    ok = (ids >= 0) & (ids < v)
+    touched[ids[ok].long()] = True
+    assert torch.equal(got_p[~touched], table[~touched])
+    assert torch.equal(got_m[~touched], m0[~touched])
+    assert torch.equal(got_n[~touched], n0[~touched])
+
+
+@pytest.mark.parametrize("mu", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [128, 256, 384, 512])
+@pytest.mark.parametrize("dist", ["uniform", "zipf", "same",
+                                  "out_of_range"])
+def test_sparse_adam_tables_kernel(dev, mu, d, dist):
+    """K12 over two tables in one launch sequence (the sparse step's
+    call), at every width it takes and both mu dtypes, with uniform,
+    Zipf, all-equal and out-of-range ids: each table within Adam's
+    tolerance of the plain version, untouched rows bit-equal, reruns
+    bit-equal, one launch counted."""
+    from code2vec_tpu_torch.kernels.sparse_adam import (
+        sparse_adam_plain, sparse_adam_tables,
+    )
+    from code2vec_tpu_torch.training.sparse_adam import RowAdamSlots
+    rng = np.random.default_rng(d + len(dist))
+    mdt = torch.bfloat16 if mu == "bfloat16" else torch.float32
+    cases = [_row_adam_case(rng, dev, v, n, dist, d, mdt)
+             for v, n in ((20011, 9000), (7001, 4500))]
+    runs = []
+    for _ in range(2):
+        work = [(c[0].clone(), RowAdamSlots(mu=c[1].clone(),
+                                            nu=c[2].clone()), c[3], c[4])
+                for c in cases]
+        before = kernels.launch_counts()["sparse_adam"]
+        sparse_adam_tables(work, t=5, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+        assert kernels.launch_counts()["sparse_adam"] == before + 1
+        runs.append(work)
+    for (p1, s1, _, _), (p2, s2, _, _) in zip(*runs):
+        assert torch.equal(p1, p2) and torch.equal(s1.mu, s2.mu)
+        assert torch.equal(s1.nu, s2.nu)
+    for (table, m0, n0, ids, grads), (p, s, _, _) in zip(cases, runs[0]):
+        want = RowAdamSlots(mu=m0.clone(), nu=n0.clone())
+        want_p = table.clone()
+        sparse_adam_plain(want_p, want, ids, grads, t=5, lr=1e-3, b1=0.9,
+                          b2=0.999, eps=1e-8)
+        _check_row_adam((p, s.mu, s.nu), (want_p, want.mu, want.nu), table,
+                        m0, n0, ids, table.shape[0], mdt)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 65, 4095, 4096, 4097,
+                               614400])
+def test_sparse_adam_sums_follow_the_emulation(dev, n):
+    """K12's duplicate sums are `segment_sums`' to the bit (rows of random
+    bf16 values, so the order of the additions shows): ids Zipf over
+    3,000 rows (one id where n <= 64), so that ids span one, two and many
+    32-pair chunks. The sums are read back as mu' with b1 = 0: an f32 mu
+    then stores g exactly."""
+    from code2vec_tpu_torch.kernels import sparse_adam as ksa
+    from code2vec_tpu_torch.training.sparse_adam import RowAdamSlots
+    rng = np.random.default_rng(n)
+    v = 3000
+    ids = _zipf_ids(rng, n, v) if n > 64 else np.zeros(n, np.int32)
+    grads = torch.from_numpy(rng.standard_normal((n, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    table = torch.zeros((v, 128), device=dev)
+    slots = RowAdamSlots(mu=torch.zeros((v, 128), device=dev),
+                         nu=torch.zeros((v, 128), device=dev))
+    ksa.sparse_adam(table, slots, torch.from_numpy(ids).to(dev),
+                    grads.to(dev), t=1, lr=0.0, b1=0.0, b2=0.0, eps=1e-8)
+    order = torch.from_numpy(np.argsort(ids, kind="stable"))
+    want = ksa.segment_sums(torch.from_numpy(ids)[order].long(),
+                            grads[order], dead=v)
+    got = slots.mu.cpu()
+    for key, row in want.items():
+        assert torch.equal(got[key], row), key
+
+
+def test_sparse_adam_plan_fits_the_kernels_layout(dev):
+    """`plan`'s digit passes and scratch bytes are the kernel's own
+    (c2v_sparse_adam_passes, c2v_sparse_adam_scratch_bytes) for every
+    width, for n from 1 to the two tables' 614,400 ids and for key spaces
+    of one to 22 bits."""
+    from code2vec_tpu_torch.kernels import sparse_adam as ksa
+    for n in (1, 32, 2048, 2049, 409600, 614400):
+        for keys in (1, 300, 70000, 1301137, 2212555):
+            for d in (128, 256, 384, 512):
+                p = ksa.plan(n, keys, d)
+                assert ksa.kernel_plan(n, keys, d) == \
+                    (p.passes, p.digit_bits, p.scratch_bytes)
+
+
+@pytest.mark.parametrize("b,m", [(1024, 200), (64, 200), (1024, 1),
+                                 (1024, 32), (64, 1), (64, 32), (3, 5)])
+def test_masked_attention_backward_cluster_edges(dev, b, m):
+    """K6's cluster of C CTAs a row (C from `backward_plan`: 4 at B 64
+    and 1024 x 200, 1 at 1 and 32 contexts of B 1024): dT and da within
+    one bf16 step of the plain version, within f32 rounding of the
+    chunked emulation, all-masked rows zero, reruns bit-equal."""
+    rng = np.random.default_rng(b + m)
+    t = torch.from_numpy(np.tanh(rng.standard_normal((b, m, 384))).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    a = torch.from_numpy((0.3 * rng.standard_normal(384)).astype(
+        np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((b, m)) > 0.3).astype(np.float32)
+                            ).to(dev)
+    mask[0] = 0.0
+    _, attn = masked_attention(t, a, mask)
+    dcv = torch.from_numpy((0.05 * rng.standard_normal((b, 384))).astype(
+        np.float32)).to(dev)
+    before = kernels.launch_counts()["masked_attention_backward"]
+    dt, da = masked_attention_backward(t, a, mask, attn, dcv)
+    assert kernels.launch_counts()["masked_attention_backward"] == before + 1
+    dt2, da2 = masked_attention_backward(t, a, mask, attn, dcv)
+    assert torch.equal(dt, dt2) and torch.equal(da, da2)
+    want_dt, want_da = masked_attention_backward_plain(t, a, mask, attn, dcv)
+    _step_close(dt, want_dt, "dT")
+    _step_close(da, want_da, "da")
+    dead = (mask > 0).sum(dim=1) == 0
+    assert not dt[dead].any()
+    p = kattention.backward_plan(b, m, 384, launch.shared_memory_limit(dev),
+                                 torch.cuda.get_device_properties(dev)
+                                 .multi_processor_count)
+    emu_dt, emu_da = kattention.split_backward(
+        t.cpu(), a.cpu(), mask.cpu(), attn.cpu(), dcv.cpu(), p.cluster)
+    _step_close(dt, emu_dt, "dT against the emulation")
+    _step_close(da, emu_da, "da against the emulation")
+
+
+def test_attention_backward_plan_fits_the_kernels_layout(dev):
+    """`backward_smem_bytes` is K6's own count (c2v_attention_backward_smem)
+    at every width kind, and a row too long to stage (60,000 contexts)
+    runs from device memory, against the plain version."""
+    for chunk, d, staged in ((50, 384, True), (1, 384, True),
+                             (7500, 384, False), (1, 8, True),
+                             (3, 4096, True)):
+        assert kattention.backward_smem_bytes(chunk, d, staged) == \
+            kattention.kernel_backward_smem_bytes(chunk, d, staged)
+    rng = np.random.default_rng(4)
+    b, m = 2, 60000
+    p = kattention.backward_plan(b, m, 384, launch.shared_memory_limit(dev))
+    assert not p.staged and p.cluster == 8
+    t = torch.from_numpy(np.tanh(rng.standard_normal((b, m, 384))).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    a = torch.from_numpy((0.3 * rng.standard_normal(384)).astype(
+        np.float32)).to(dev)
+    mask = torch.from_numpy((rng.random((b, m)) > 0.3).astype(np.float32)
+                            ).to(dev)
+    _, attn = masked_attention(t, a, mask)
+    dcv = torch.from_numpy((0.05 * rng.standard_normal((b, 384))).astype(
+        np.float32)).to(dev)
+    dt, da = masked_attention_backward(t, a, mask, attn, dcv)
+    want_dt, want_da = masked_attention_backward_plain(t, a, mask, attn, dcv)
+    _step_close(dt, want_dt, "dT")
+    _step_close(da, want_da, "da")
