@@ -245,10 +245,198 @@ kmeans_assign_kernel(const __grid_constant__ CUtensorMap xmap, int64_t n,
 
 // ----------------------------------------------------------------- K10
 
-constexpr int kTileRows = 1024;  // rows per counting-sort tile
-constexpr int kGroups = 4;       // member-list slices summed in parallel
+// The stable sort of the row ids by assignment. One pass of a digit of
+// up to 11 bits takes n_cent <= kMaxBins:
+constexpr int kSortThreads = 256;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kPerThread = 8;                     // rows a thread ranks
+constexpr int kWarpRows = 32 * kPerThread;        // 256
+constexpr int kSortTile = kSortThreads * kPerThread;  // 2,048 rows a CTA
+constexpr int kMaxBins = 2048;
+constexpr int kScanDigits = 8;   // clusters a scan CTA takes
+constexpr int kScanStage = 4096;  // counts it stages, at most
+// a larger n_cent takes the counting sort of 1,024-row tiles with a
+// serial scan of each cluster's tile counts:
+constexpr int kTileRows = 1024;
+// The sums: a CTA streams its range of the sorted rows through a ring of
+// kStages stages of at most kStageRows rows of one cluster.
+constexpr int kStageRows = 8;
+constexpr int kStages = 4;
+constexpr int kMaxConsumerWarps = 8;  // d <= 1024: 256 float4 columns
+constexpr int kCombineGroups = 4;
+// a stage's flags: the first and last stage of a cluster's rows in the
+// CTA's range, and where that segment's sum goes
+enum { kFirst = 1, kLast = 2, kWhole = 4, kHead = 8 };
 
-// tile_pos[t][c] += rows of tile t assigned to c (tile_pos zeroed).
+__device__ __forceinline__ uint32_t warp_incl_scan(uint32_t v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t y = __shfl_up_sync(c2v::kFullMask, v, off);
+    if (lane >= off) v += y;
+  }
+  return v;
+}
+
+// The exclusive prefix of v over the CTA's kSortThreads threads, and the
+// total.
+__device__ __forceinline__ uint32_t block_excl_scan(uint32_t v,
+                                                    uint32_t* red,
+                                                    uint32_t* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t incl = warp_incl_scan(v, lane);
+  __syncthreads();  // red may still be read by a previous scan
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  uint32_t off = incl - v, all = 0;
+  for (int w = 0; w < kSortWarps; ++w) {
+    if (w < warp) off += red[w];
+    all += red[w];
+  }
+  *total = all;
+  return off;
+}
+
+__device__ __forceinline__ int row_cluster(const int* assign, int64_t r,
+                                           int64_t n, int n_cent) {
+  const int a = r < n ? assign[r] : -1;
+  return a >= 0 && a < n_cent ? a : -1;  // -1: no cluster, dropped
+}
+
+// (1) a CTA per tile of kSortTile rows: the tile's count of each cluster
+// (lanes of a warp that share a cluster add once) in a row of `cs`
+// (n_cent rounded up to 8) counts, and every cluster's total.
+__global__ void __launch_bounds__(kSortThreads)
+sort_hist_kernel(const int* assign, int64_t n, int n_cent, int cs,
+                 uint32_t* tile_hist, uint32_t* totals) {
+  __shared__ uint32_t h[kMaxBins];
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int i = tid; i < cs; i += kSortThreads) h[i] = 0u;
+  __syncthreads();
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kSortTile;
+  int a[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    a[j] = row_cluster(assign, t0 + j * kSortThreads + tid, n, n_cent);
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const unsigned peers = __match_any_sync(c2v::kFullMask, a[j]);
+    if (a[j] >= 0 && (peers & below) == 0) atomicAdd(&h[a[j]], __popc(peers));
+  }
+  __syncthreads();
+  uint32_t* th = tile_hist + static_cast<int64_t>(blockIdx.x) * cs;
+  for (int i = tid; i < cs; i += kSortThreads) {
+    th[i] = h[i];
+    if (h[i] != 0u) atomicAdd(&totals[i], h[i]);
+  }
+}
+
+// (2) a CTA per kScanDigits clusters: each (tile, cluster)'s first slot
+// (the rows of lower clusters plus the cluster's rows in earlier tiles),
+// in place of its count, and each cluster's first row. A tile's 8 counts
+// are one 32-byte sector: read a sector a thread into shared memory,
+// cluster-major, where they fit, and scanned there.
+__global__ void __launch_bounds__(kSortThreads)
+sort_scan_kernel(uint32_t* tile_hist, const uint32_t* totals, int64_t tiles,
+                 int n_cent, int cs, int* offsets) {
+  __shared__ uint32_t red[kSortWarps];
+  __shared__ __align__(16) uint32_t cnt[kScanStage];
+  const int tid = threadIdx.x, b0 = blockIdx.x * kScanDigits;
+  uint32_t low = 0, total;
+  for (int b = tid; b < b0; b += kSortThreads) low += totals[b];
+  block_excl_scan(low, red, &total);
+  low = total;
+  const int nd = min(kScanDigits, n_cent - b0);
+  if (tid == 0) {
+    uint32_t first = low;
+    for (int q = 0; q < nd; ++q) {
+      offsets[b0 + q] = static_cast<int>(first);
+      first += totals[b0 + q];
+    }
+    if (b0 + nd == n_cent) offsets[n_cent] = static_cast<int>(first);
+  }
+  const int64_t all = kScanDigits * tiles;
+  const bool staged = all <= kScanStage;
+  auto at = [&](int64_t e) { return (e % tiles) * cs + b0 + e / tiles; };
+  if (staged)
+    for (int64_t t = tid; t < tiles; t += kSortThreads) {
+      const uint4* src = reinterpret_cast<const uint4*>(tile_hist + t * cs + b0);
+      const uint4 x = src[0], y = src[1];
+      const uint32_t v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int q = 0; q < 8; ++q) cnt[q * tiles + t] = v[q];
+    }
+  __syncthreads();
+  // the (cluster, tile) counts cluster-major, a contiguous run a thread
+  const int64_t per = (all + kSortThreads - 1) / kSortThreads;
+  const int64_t e0 = tid * per, e1 = e0 + per < all ? e0 + per : all;
+  uint32_t run = 0;
+  for (int64_t e = e0; e < e1; ++e) run += staged ? cnt[e] : tile_hist[at(e)];
+  uint32_t slot = low + block_excl_scan(run, red, &total);
+  for (int64_t e = e0; e < e1; ++e) {
+    const uint32_t c = staged ? cnt[e] : tile_hist[at(e)];
+    if (staged)
+      cnt[e] = slot;
+    else
+      tile_hist[at(e)] = slot;
+    slot += c;
+  }
+  if (!staged) return;
+  __syncthreads();
+  for (int64_t t = tid; t < tiles; t += kSortThreads) {
+    uint4* dst = reinterpret_cast<uint4*>(tile_hist + t * cs + b0);
+    dst[0] = make_uint4(cnt[t], cnt[tiles + t], cnt[2 * tiles + t],
+                        cnt[3 * tiles + t]);
+    dst[1] = make_uint4(cnt[4 * tiles + t], cnt[5 * tiles + t],
+                        cnt[6 * tiles + t], cnt[7 * tiles + t]);
+  }
+}
+
+// (3) a CTA per tile ranks its rows by cluster, stably (a warp per 256
+// rows in row order, __match_any_sync), and places their ids from (2)'s
+// slots (the warps' counts: 8 x n_cent, up to 64 KB of shared memory).
+__global__ void __launch_bounds__(kSortThreads)
+sort_scatter_kernel(const int* assign, int64_t n, int n_cent, int cs,
+                    const uint32_t* slots, int* order) {
+  extern __shared__ __align__(16) uint32_t wcnt[];  // (kSortWarps, n_cent)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < kSortWarps * n_cent; i += kSortThreads) wcnt[i] = 0;
+  __syncthreads();
+  const int64_t tile = blockIdx.x;
+  const int64_t t0 = tile * kSortTile + warp * kWarpRows;
+  int a[kPerThread];
+  uint32_t rank[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    a[j] = row_cluster(assign, t0 + j * 32 + lane, n, n_cent);
+  const unsigned below = (1u << lane) - 1u;
+  uint32_t* mine = wcnt + warp * n_cent;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const unsigned peers = __match_any_sync(c2v::kFullMask, a[j]);
+    rank[j] = a[j] >= 0 ? mine[a[j]] + __popc(peers & below) : 0;
+    __syncwarp();
+    if (a[j] >= 0 && (peers & below) == 0) mine[a[j]] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int b = tid; b < n_cent; b += kSortThreads) {
+    uint32_t r = slots[tile * cs + b];
+    for (int w = 0; w < kSortWarps; ++w) {
+      const uint32_t c = wcnt[w * n_cent + b];
+      wcnt[w * n_cent + b] = r;
+      r += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    if (a[j] >= 0)
+      order[mine[a[j]] + rank[j]] = static_cast<int>(t0 + j * 32 + lane);
+}
+
+// The counting sort for n_cent > kMaxBins: tile_pos[t][c] += rows of
+// 1,024-row tile t assigned to c (tile_pos zeroed).
 __global__ void tile_hist_kernel(const int* assign, int64_t n, int n_cent,
                                  int* tile_pos) {
   const int64_t t = blockIdx.x;
@@ -263,7 +451,7 @@ __global__ void tile_hist_kernel(const int* assign, int64_t n, int n_cent,
 // For each cluster: tile_pos[t][c] becomes the exclusive prefix of its
 // counts over the tiles, and counts[c] the total.
 __global__ void tile_scan_kernel(int* tile_pos, int64_t n_tiles, int n_cent,
-                                 int* counts) {
+                                 uint32_t* counts) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_cent) return;
   int run = 0;
@@ -277,7 +465,7 @@ __global__ void tile_scan_kernel(int* tile_pos, int64_t n_tiles, int n_cent,
 
 // offsets[0..n_cent] = exclusive prefix sum of counts (one CTA).
 __global__ void __launch_bounds__(1024)
-offsets_scan_kernel(const int* counts, int n_cent, int* offsets) {
+offsets_scan_kernel(const uint32_t* counts, int n_cent, int* offsets) {
   __shared__ int warp_sums[32];
   __shared__ int carry;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -285,24 +473,13 @@ offsets_scan_kernel(const int* counts, int n_cent, int* offsets) {
   __syncthreads();
   for (int base = 0; base < n_cent; base += 1024) {
     const int c = base + tid;
-    const int v = c < n_cent ? counts[c] : 0;
-    int incl = v;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(c2v::kFullMask, incl, off);
-      if (lane >= off) incl += y;
-    }
+    const int v = c < n_cent ? static_cast<int>(counts[c]) : 0;
+    const int incl = static_cast<int>(warp_incl_scan(v, lane));
     if (lane == 31) warp_sums[warp] = incl;
     __syncthreads();
-    if (warp == 0) {
-      int w = warp_sums[lane];
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(c2v::kFullMask, w, off);
-        if (lane >= off) w += y;
-      }
-      warp_sums[lane] = w;  // inclusive over warps
-    }
+    if (warp == 0)
+      warp_sums[lane] =
+          static_cast<int>(warp_incl_scan(warp_sums[lane], lane));
     __syncthreads();
     const int before = carry + (warp > 0 ? warp_sums[warp - 1] : 0);
     if (c < n_cent) offsets[c] = before + incl - v;
@@ -341,88 +518,285 @@ scatter_rows_kernel(const int* assign, int64_t n, int n_cent,
   }
 }
 
-// One CTA of kGroups x d4 threads per centroid (d4 = d / 4 float4
-// columns): group g sums the g-th contiguous slice of the member list in
-// row order, the partials are added in group order, then the mean, the
-// empty-cluster rule and the spherical renormalisation.
-__global__ void centroid_sum_kernel(const float* x, int d,
-                                    const float* old_c, const int* order,
-                                    const int* offsets, int spherical,
-                                    float* new_c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float4* part = reinterpret_cast<float4*>(smem);  // [kGroups][d4]
-  __shared__ float red[32];
-  const int c = blockIdx.x;
-  const int d4 = d / 4;
-  const int tid = threadIdx.x, g = tid / d4, col = tid - g * d4;
-  const int lo = offsets[c], cnt = offsets[c + 1] - offsets[c];
-  if (g < kGroups) {
-    const int s0 = lo + static_cast<int>(static_cast<int64_t>(cnt) * g /
-                                         kGroups);
-    const int s1 = lo + static_cast<int>(static_cast<int64_t>(cnt) *
-                                         (g + 1) / kGroups);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    int m = s0;
-    for (; m + 4 <= s1; m += 4) {  // four loads in flight, added in order
-      float4 v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        v[u] = reinterpret_cast<const float4*>(
-            x + static_cast<int64_t>(order[m + u]) * d)[col];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        acc.x += v[u].x, acc.y += v[u].y, acc.z += v[u].z, acc.w += v[u].w;
-      }
+// The mean of a cluster's summed float4 column `s` (this thread's; `live`
+// where the thread has one) over `cnt` rows, renormalised where
+// `spherical` (the 1e-12 guard) over the `warps` warps whose threads hold
+// the row's columns in order, their partial squares in `red`; every
+// thread of those warps calls it. `bar`: a barrier over exactly those
+// warps.
+template <typename Bar>
+__device__ __forceinline__ float4 cluster_mean(float4 s, bool live, int cnt,
+                                               int spherical, float* red,
+                                               int warps, Bar bar) {
+  const float den = fmaxf(static_cast<float>(cnt), 1.f);
+  float4 m = make_float4(s.x / den, s.y / den, s.z / den, s.w / den);
+  if (!spherical) return m;
+  float sq = live ? m.x * m.x + m.y * m.y + m.z * m.z + m.w * m.w : 0.f;
+  sq = c2v::warp_sum(sq);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = sq;
+  bar();
+  float t = 0.f;
+  for (int w = 0; w < warps; ++w) t += red[w];
+  bar();  // red is read before it is written again
+  const float nrm = fmaxf(sqrtf(t), 1e-12f);
+  return make_float4(m.x / nrm, m.y / nrm, m.z / nrm, m.w / nrm);
+}
+
+// The first cluster c with offsets[c + 1] > r (offsets nondecreasing).
+__device__ __forceinline__ int cluster_of(const int* offsets, int n_cent,
+                                          int r) {
+  int lo = 0, hi = n_cent - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (offsets[mid + 1] > r)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+struct SumArgs {
+  const float* x;
+  int d, n_cent, spherical;
+  const int* order;    // the row ids in stable cluster order
+  const int* offsets;  // (n_cent + 1,) each cluster's first sorted row
+  float* head;         // (grid, d) a range's first cluster's segment sum
+  float* tail;         // (grid, d) its last cluster's, where another
+  int* tail_of;        // (grid,) the cluster of a range's tail, or -1
+  float* new_c;
+};
+
+// (4) the sums, a CTA a few per SM, each over its own contiguous range of
+// ceil(rows / grid) sorted rows: the producer warp (the last) walks the
+// range cluster by cluster and copies rows whole (bulk copies) into a
+// ring of kStages stages, a stage at most kStageRows rows of one cluster;
+// each consumer thread sums one float4 column over a cluster's rows in
+// sorted (row) order. A cluster that lies in the range gets its mean
+// here; one that crosses the range's start or end leaves its segment's
+// sum in `head` (the range's first cluster) or `tail` (its last) for (5).
+__global__ void __launch_bounds__(32 * (kMaxConsumerWarps + 1))
+range_sum_kernel(SumArgs a) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ uint64_t full[kStages], empty[kStages];
+  __shared__ int meta[kStages][4];  // cluster (-1: no more), rows, flags, cnt
+  __shared__ float red[kMaxConsumerWarps];
+  const float4* ring4 = reinterpret_cast<const float4*>(ring);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cw = blockDim.x / 32 - 1;  // consumer warps
+  const int d = a.d, d4 = d / 4;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], cw);
     }
-    for (; m < s1; ++m) {
-      const float4 v = reinterpret_cast<const float4*>(
-          x + static_cast<int64_t>(order[m]) * d)[col];
-      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
-    }
-    part[g * d4 + col] = acc;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  float4 fresh = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (g == 0) {
-    float4 s = part[col];
-#pragma unroll
-    for (int h = 1; h < kGroups; ++h) {
-      const float4 p = part[h * d4 + col];
-      s.x += p.x, s.y += p.y, s.z += p.z, s.w += p.w;
+  if (warp == cw) {  // producer
+    const int nv = a.offsets[a.n_cent];
+    const int per = (nv + gridDim.x - 1) / gridDim.x;
+    const int r0 = min(nv, static_cast<int>(blockIdx.x) * per);
+    const int r1 = min(nv, r0 + per);
+    const uint32_t row_bytes = static_cast<uint32_t>(d) * 4u;
+    int seq = 0;
+    int c = r0 < r1 ? cluster_of(a.offsets, a.n_cent, r0) : 0;
+    int c_lo = a.offsets[c], c_hi = a.offsets[c + 1];
+    int w0 = r0, ids = r0 < r1 ? a.order[r0 + min(lane, r1 - r0 - 1)] : 0;
+    for (int r = r0; r < r1;) {
+      while (c_hi <= r) {  // the next cluster with rows
+        ++c;
+        c_lo = c_hi;
+        c_hi = a.offsets[c + 1];
+      }
+      const int end = min(c_hi, r1);
+      const int nr = min(kStageRows, end - r);
+      if (r + nr > w0 + 32) {  // the next 32 row ids, one a lane
+        w0 = r;
+        ids = a.order[r + min(lane, r1 - r - 1)];
+      }
+      const int id = __shfl_sync(c2v::kFullMask, ids, (r - w0 + lane) & 31);
+      const int slot = seq % kStages;
+      if (seq >= kStages) mbar_wait(&empty[slot], ((seq / kStages) - 1) & 1);
+      if (lane == 0) {
+        meta[slot][0] = c;
+        meta[slot][1] = nr;
+        meta[slot][2] = (r == max(c_lo, r0) ? kFirst : 0) |
+                        (r + nr == end ? kLast : 0) |
+                        (c_lo >= r0 && c_hi <= r1 ? kWhole : 0) |
+                        (c_lo < r0 ? kHead : 0);
+        meta[slot][3] = c_hi - c_lo;
+        mbar_arrive_tx(&full[slot], nr * row_bytes);
+      }
+      __syncwarp();
+      if (lane < nr)
+        bulk_load(ring + (slot * kStageRows + lane) * row_bytes,
+                  a.x + static_cast<int64_t>(id) * d, row_bytes, &full[slot]);
+      r += nr;
+      ++seq;
     }
-    const float den = fmaxf(static_cast<float>(cnt), 1.f);
-    fresh = make_float4(s.x / den, s.y / den, s.z / den, s.w / den);
-  }
-  if (spherical) {  // |fresh| over the d4 threads of group 0, fixed order
-    float sq = 0.f;
-    if (g == 0)
-      sq = fresh.x * fresh.x + fresh.y * fresh.y + fresh.z * fresh.z +
-           fresh.w * fresh.w;
-    sq = c2v::warp_sum(sq);
-    const int lane = tid & 31, warp = tid >> 5;
-    if (lane == 0) red[warp] = sq;
-    __syncthreads();
-    if (tid == 0) {
-      float t = 0.f;
-      for (int w = 0; w < (blockDim.x + 31) / 32; ++w) t += red[w];
-      red[0] = t;
+    if (lane == 0)
+      a.tail_of[blockIdx.x] = r0 < r1 && c_lo >= r0 && c_hi > r1 ? c : -1;
+    const int slot = seq % kStages;
+    if (seq >= kStages) mbar_wait(&empty[slot], ((seq / kStages) - 1) & 1);
+    if (lane == 0) {
+      meta[slot][0] = -1;
+      mbar_arrive(&full[slot]);
     }
-    __syncthreads();
-    const float nrm = fmaxf(sqrtf(red[0]), 1e-12f);
-    fresh = make_float4(fresh.x / nrm, fresh.y / nrm, fresh.z / nrm,
-                        fresh.w / nrm);
+    return;
   }
-  if (g == 0) {
-    float4* out = reinterpret_cast<float4*>(new_c + static_cast<int64_t>(c) * d);
-    out[col] = cnt > 0 ? fresh
-                       : reinterpret_cast<const float4*>(
-                             old_c + static_cast<int64_t>(c) * d)[col];
+  const bool live = tid < d4;
+  const int nthreads = 32 * cw;
+  auto bar = [nthreads]() {
+    asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+  };
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int seq = 0;; ++seq) {
+    const int slot = seq % kStages;
+    mbar_wait(&full[slot], (seq / kStages) & 1);
+    const int c = meta[slot][0];
+    if (c < 0) break;
+    const int nr = meta[slot][1], flags = meta[slot][2], cnt = meta[slot][3];
+    if (flags & kFirst) acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live)
+      for (int r = 0; r < nr; ++r) {  // in row order
+        const float4 v = ring4[(slot * kStageRows + r) * d4 + tid];
+        acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+      }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (!(flags & kLast)) continue;
+    if (flags & kWhole) {
+      const float4 m =
+          cluster_mean(acc, live, cnt, a.spherical, red, cw, bar);
+      if (live)
+        reinterpret_cast<float4*>(a.new_c + static_cast<int64_t>(c) * d)[tid] =
+            m;
+    } else if (live) {
+      float* seg = (flags & kHead) ? a.head : a.tail;
+      reinterpret_cast<float4*>(seg + static_cast<int64_t>(blockIdx.x) *
+                                          d)[tid] = acc;
+    }
   }
 }
 
-}  // namespace
+// (5) a CTA per range of (4): its share of the empty clusters keep their
+// old centroids; the cluster that starts in the range and runs past it
+// (its tail), if any, adds its segments' sums in range order (G groups
+// of d4p threads each add a contiguous run of them, then the runs in
+// group order), then the mean and the spherical renormalisation.
+__global__ void __launch_bounds__(1024)
+combine_kernel(const float* head, const float* tail, const int* tail_of,
+               const int* offsets, int n_cent, const float* old_c, int d,
+               int spherical, float* new_c) {
+  extern __shared__ __align__(16) float4 part[];  // [groups][d4p]
+  __shared__ float red[32];
+  const int d4 = d / 4, d4p = (d4 + 31) / 32 * 32;
+  const int groups = blockDim.x / d4p;
+  const int tid = threadIdx.x, g = tid / d4p, col = tid - g * d4p;
+  for (int e = blockIdx.x; e < n_cent; e += gridDim.x)
+    if (offsets[e] == offsets[e + 1] && g == 0 && col < d4)
+      reinterpret_cast<float4*>(new_c + static_cast<int64_t>(e) * d)[col] =
+          reinterpret_cast<const float4*>(
+              old_c + static_cast<int64_t>(e) * d)[col];
+  const int c = tail_of[blockIdx.x];
+  if (c < 0) return;
+  const int lo = offsets[c], hi = offsets[c + 1];
+  const int per = (offsets[n_cent] + gridDim.x - 1) / gridDim.x;
+  const int i0 = lo / per, i1 = (hi - 1) / per;
+  // segment j: range i0 + j's, the range's tail for j = 0 (where the
+  // cluster starts) and its head after that
+  const int m = i1 - i0 + 1;
+  const int s0 = static_cast<int>(static_cast<int64_t>(m) * g / groups);
+  const int s1 = static_cast<int>(static_cast<int64_t>(m) * (g + 1) / groups);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < d4) {
+#pragma unroll 4
+    for (int j = s0; j < s1; ++j) {
+      const float* seg = j == 0 ? tail : head;
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+                                  seg + static_cast<int64_t>(i0 + j) * d) +
+                              col);
+      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+    }
+  }
+  part[g * d4p + col] = acc;
+  __syncthreads();
+  if (g != 0) return;
+  float4 s = part[col];
+  for (int h = 1; h < groups; ++h) {
+    const float4 p = part[h * d4p + col];
+    s.x += p.x, s.y += p.y, s.z += p.z, s.w += p.w;
+  }
+  const int nthreads = d4p;
+  auto bar = [nthreads]() {
+    asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+  };
+  const float4 mean =
+      cluster_mean(s, col < d4, hi - lo, spherical, red, d4p / 32, bar);
+  if (col < d4)
+    reinterpret_cast<float4*>(new_c + static_cast<int64_t>(c) * d)[col] =
+        mean;
+}
 
-C2V_EXPORT int c2v_kmeans_tile_rows() { return kTileRows; }
+int64_t align16(int64_t b) { return (b + 15) / 16 * 16; }
+
+// The sum launch's shape for width d: consumer warps, threads and ring
+// bytes.
+struct SumShape {
+  int cw, threads, ring;
+};
+
+SumShape sum_shape(int d) {
+  SumShape sh;
+  sh.cw = (d / 4 + 31) / 32;
+  sh.threads = 32 * (sh.cw + 1);
+  sh.ring = kStages * kStageRows * d * 4;
+  return sh;
+}
+
+cudaError_t allow_ring(const SumShape& sh) {
+  return cudaFuncSetAttribute(range_sum_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              sh.ring);
+}
+
+// The scratch of c2v_kmeans_update, in 16-byte-aligned parts.
+struct UpdateLayout {
+  int64_t zeroed, totals, tile_hist, offsets, order, head, tail, tail_of,
+      bytes;
+  int64_t tiles;
+  int cs;
+  bool one_pass;
+};
+
+UpdateLayout update_layout(int64_t n, int d, int n_cent, int grid) {
+  UpdateLayout l;
+  l.one_pass = n_cent <= kMaxBins;
+  l.tiles = l.one_pass ? (n + kSortTile - 1) / kSortTile
+                       : (n + kTileRows - 1) / kTileRows;
+  l.cs = l.one_pass ? (n_cent + 7) / 8 * 8 : n_cent;
+  int64_t at = 0;
+  auto part = [&](int64_t bytes) {
+    const int64_t p = at;
+    at += align16(bytes);
+    return p;
+  };
+  // zeroed each call: the totals, and the counting sort's tile counts
+  // where n_cent > kMaxBins
+  l.totals = part(4 * int64_t{n_cent});
+  l.tile_hist = part(4 * l.tiles * l.cs);
+  l.zeroed = l.one_pass ? l.tile_hist : at;
+  l.offsets = part(4 * (int64_t{n_cent} + 1));
+  l.order = part(4 * n);
+  l.head = part(4 * int64_t{grid} * d);
+  l.tail = part(4 * int64_t{grid} * d);
+  l.tail_of = part(4 * int64_t{grid});
+  l.bytes = at;
+  return l;
+}
+
+}  // namespace
 
 // Bytes of K9's centroid tiles for n_cent centroids of width d (the
 // scratch kernels/kmeans.py allocates for c2v_kmeans_assign).
@@ -469,35 +843,96 @@ C2V_EXPORT int c2v_kmeans_assign(const float* x, int64_t n, int d,
   return cudaGetLastError();
 }
 
-// x f32 (n, d), d % 4 == 0; assign int32 (n,) in [0, n_cent); old_c f32
-// (n_cent, d). Scratch: tile_pos int32 (n_tiles, n_cent) zeroed, counts
-// int32 (n_cent,), offsets int32 (n_cent + 1,), order int32 (n,). Writes
-// new_c f32 (n_cent, d).
+// CTAs of K10's sum launch for width d on a card of `sms` SMs, every SM
+// filled to its occupancy (each takes an equal range of the sorted rows;
+// the order of a cluster's sums follows them); -1 on an error.
+C2V_EXPORT int c2v_kmeans_update_grid(int d, int sms) {
+  const SumShape sh = sum_shape(d);
+  int per_sm = 0;
+  if (d <= 0 || sms <= 0 || allow_ring(sh) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, range_sum_kernel, sh.threads, sh.ring) != cudaSuccess)
+    return -1;
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+// Bytes of scratch c2v_kmeans_update takes (16-byte aligned) with `grid`
+// sum CTAs (c2v_kmeans_update_grid).
+C2V_EXPORT int64_t c2v_kmeans_update_scratch_bytes(int64_t n, int d,
+                                                   int n_cent, int grid) {
+  return update_layout(n, d, n_cent, grid).bytes;
+}
+
+// x f32 (n, d), 16-byte aligned, d % 4 == 0, d <= 1024; assign int32 (n,)
+// in [0, n_cent) (others are dropped); old_c f32 (n_cent, d). grid: the
+// sum CTAs, c2v_kmeans_update_grid(d, sms) (the caller keeps it a card).
+// scratch: c2v_kmeans_update_scratch_bytes(n, d, n_cent, grid), 16-byte
+// aligned. Writes new_c f32 (n_cent, d).
 C2V_EXPORT int c2v_kmeans_update(const float* x, int64_t n, int d,
                                  const int* assign, const float* old_c,
-                                 int n_cent, int spherical, int* tile_pos,
-                                 int* counts, int* offsets, int* order,
-                                 float* new_c, void* stream) {
-  if (n <= 0 || d <= 0 || d % 4 != 0 || d / 4 * kGroups > 1024 ||
-      n_cent <= 0)
+                                 int n_cent, int spherical, int grid,
+                                 void* scratch, float* new_c, void* stream) {
+  if (n <= 0 || n >= (int64_t{1} << 31) || d <= 0 || d % 4 != 0 ||
+      d / 4 > 32 * kMaxConsumerWarps || n_cent <= 0 || grid <= 0 ||
+      scratch == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_tiles = (n + kTileRows - 1) / kTileRows;
-  tile_hist_kernel<<<static_cast<unsigned>(n_tiles), 256, 0, s>>>(
-      assign, n, n_cent, tile_pos);
-  cudaError_t err = cudaGetLastError();
+  const SumShape sh = sum_shape(d);
+  cudaError_t err = allow_ring(sh);
   if (err != cudaSuccess) return err;
-  tile_scan_kernel<<<(n_cent + 255) / 256, 256, 0, s>>>(tile_pos, n_tiles,
-                                                        n_cent, counts);
+  const UpdateLayout l = update_layout(n, d, n_cent, grid);
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  auto i32 = [&](int64_t off) { return reinterpret_cast<int*>(base + off); };
+  auto u32 = [&](int64_t off) {
+    return reinterpret_cast<uint32_t*>(base + off);
+  };
+  auto f32 = [&](int64_t off) {
+    return reinterpret_cast<float*>(base + off);
+  };
+  if ((err = cudaMemsetAsync(base, 0, l.zeroed, s)) != cudaSuccess)
+    return err;
+  const unsigned tiles = static_cast<unsigned>(l.tiles);
+  if (l.one_pass) {
+    sort_hist_kernel<<<tiles, kSortThreads, 0, s>>>(
+        assign, n, n_cent, l.cs, u32(l.tile_hist), u32(l.totals));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    sort_scan_kernel<<<(n_cent + kScanDigits - 1) / kScanDigits,
+                       kSortThreads, 0, s>>>(u32(l.tile_hist), u32(l.totals),
+                                             l.tiles, n_cent, l.cs,
+                                             i32(l.offsets));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int smem = 4 * kSortWarps * n_cent;
+    err = cudaFuncSetAttribute(sort_scatter_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    sort_scatter_kernel<<<tiles, kSortThreads, smem, s>>>(
+        assign, n, n_cent, l.cs, u32(l.tile_hist), i32(l.order));
+  } else {
+    tile_hist_kernel<<<tiles, 256, 0, s>>>(assign, n, n_cent,
+                                           i32(l.tile_hist));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    tile_scan_kernel<<<(n_cent + 255) / 256, 256, 0, s>>>(
+        i32(l.tile_hist), l.tiles, n_cent, u32(l.totals));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    offsets_scan_kernel<<<1, 1024, 0, s>>>(u32(l.totals), n_cent,
+                                           i32(l.offsets));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    scatter_rows_kernel<<<tiles, 32, 0, s>>>(assign, n, n_cent,
+                                             i32(l.offsets), i32(l.tile_hist),
+                                             i32(l.order));
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  offsets_scan_kernel<<<1, 1024, 0, s>>>(counts, n_cent, offsets);
+  SumArgs args{x,           d,           n_cent,      spherical,
+               i32(l.order), i32(l.offsets), f32(l.head), f32(l.tail),
+               i32(l.tail_of), new_c};
+  range_sum_kernel<<<grid, sh.threads, sh.ring, s>>>(args);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  scatter_rows_kernel<<<static_cast<unsigned>(n_tiles), 32, 0, s>>>(
-      assign, n, n_cent, offsets, tile_pos, order);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int threads = kGroups * (d / 4);
-  const size_t smem = sizeof(float4) * kGroups * (d / 4);
-  centroid_sum_kernel<<<n_cent, threads, smem, s>>>(
-      x, d, old_c, order, offsets, spherical, new_c);
+  const int d4p = (d / 4 + 31) / 32 * 32;
+  const int groups = kCombineGroups * d4p <= 1024 ? kCombineGroups
+                                                  : 1024 / d4p;
+  combine_kernel<<<grid, groups * d4p, sizeof(float4) * groups * d4p,
+                   s>>>(f32(l.head), f32(l.tail), i32(l.tail_of),
+                        i32(l.offsets), n_cent, old_c, d, spherical, new_c);
   return cudaGetLastError();
 }

@@ -10,9 +10,14 @@ tensor cores (each operand split into tf32 hi and lo parts;
 `kmeans_assign_3xtf32` is that arithmetic in plain PyTorch, for tests),
 K10 in f32. The CUDA source is csrc/kmeans.cu, which says what bounds
 each kernel on an H100 and how its design answers that; K10 is
-deterministic (a stable counting sort, then fixed-order sums), so two
-runs give the same bits. K9 takes widths in multiples of 4 (its tensor
-copies of x move whole 16-byte units).
+deterministic (a stable sort of the row ids by cluster, one 11-bit digit
+pass for up to 2,048 clusters, then each CTA of the sum launch sums its
+own equal range of the sorted rows, cluster by cluster, and a cluster
+that crosses ranges adds its segments in range order), so two runs give
+the same bits. `update_plan` gives its combine runs and scratch,
+`sort_order` and `ranged_update` its arithmetic in plain PyTorch (tests
+only). K9 takes widths in multiples of 4 (its tensor copies of x move
+whole 16-byte units), K10 those up to MAX_UPDATE_D.
 
 CPU tensors take the plain versions below (matmul + argmin; index_add_
 + where), CUDA tensors launch the kernels.
@@ -29,8 +34,12 @@ from code2vec_tpu_torch.kernels import launch, tf32
 launches = 0         # K9
 update_launches = 0  # K10
 _fns = {}
-TILE_ROWS = 1024     # rows per counting-sort tile (csrc/kmeans.cu)
-MAX_UPDATE_D = 1024  # widest row K10 takes (4 groups of d / 4 threads)
+MAX_UPDATE_D = 1024  # widest row K10 takes (8 consumer warps of float4s)
+SORT_TILE = 2048     # rows a K10 sort CTA ranks (csrc/kmeans.cu kSortTile)
+SORT_WARPS = 8       # its warps, 256 rows each in row order
+MAX_SORT_CLUSTERS = 2048  # clusters of the one-pass sort (kMaxBins)
+TILE_ROWS = 1024     # rows a counting-sort tile takes above that
+COMBINE_GROUPS = 4   # runs of segment sums a combine CTA adds in parallel
 PLAIN_CHUNK_ROWS = 65536  # rows per (rows, C) distance block of the plain K9
 ASSIGN_ROWS = 128    # rows of x a K9 CTA holds (csrc/kmeans.cu kAssignRows)
 CENTROID_TILE = 128  # centroids per K9 tile, wgmma's N (kCentTile)
@@ -52,6 +61,136 @@ def assign_plan(n: int, d: int, n_cent: int, sms: int) -> AssignPlan:
     row_tiles = -(-n // ASSIGN_ROWS)
     return AssignPlan(tiles, tiles * CENTROID_TILE - n_cent, k_blocks,
                       row_tiles, min(row_tiles, sms))
+
+
+class UpdatePlan(NamedTuple):
+    combine_groups: int  # runs of segment sums a combine CTA adds
+    scratch_bytes: int   # c2v_kmeans_update_scratch_bytes
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def update_plan(n: int, d: int, n_cent: int, grid: int) -> UpdatePlan:
+    """K10's combine runs and scratch for n rows of width d, n_cent
+    clusters and `grid` sum CTAs (c2v_kmeans_update_grid; csrc/kmeans.cu
+    update_layout and c2v_kmeans_update): the one-pass sort's tiles of
+    SORT_TILE rows and counts padded to 8 up to MAX_SORT_CLUSTERS
+    clusters, else TILE_ROWS-row tiles; a combine CTA holds
+    COMBINE_GROUPS runs of a row's float4 columns (in whole warps) within
+    1,024 threads."""
+    one_pass = n_cent <= MAX_SORT_CLUSTERS
+    tiles = -(-n // (SORT_TILE if one_pass else TILE_ROWS))
+    cs = -(-n_cent // 8) * 8 if one_pass else n_cent
+    scratch = sum(_align16(b) for b in (
+        4 * n_cent, 4 * tiles * cs, 4 * (n_cent + 1), 4 * n,
+        4 * grid * d, 4 * grid * d, 4 * grid))
+    d4p = -(-(d // 4) // 32) * 32
+    groups = COMBINE_GROUPS if COMBINE_GROUPS * d4p <= 1024 else 1024 // d4p
+    return UpdatePlan(groups, scratch)
+
+
+def sort_order(assign: torch.Tensor, n_cent: int) -> torch.Tensor:
+    """The one-pass sort's placement in plain PyTorch (tests only): each
+    (tile, cluster)'s first slot from the scan (cluster-major over the
+    tiles' counts), each warp's offset within its tile's run, each row's
+    rank among its warp's earlier rows of the cluster; returns the row
+    ids in sorted order. Rows outside [0, n_cent) are dropped."""
+    n = assign.shape[0]
+    a = assign.long()
+    ok = (a >= 0) & (a < n_cent)
+    rows = torch.arange(n)
+    tile = rows // SORT_TILE
+    warp = rows % SORT_TILE // (SORT_TILE // SORT_WARPS)
+    unit = tile * SORT_WARPS + warp           # (tile, warp) in row order
+    counts = torch.zeros((-(-n // SORT_TILE) * SORT_WARPS, n_cent),
+                         dtype=torch.long)
+    counts.index_put_((unit[ok], a[ok]), torch.ones_like(a[ok]),
+                      accumulate=True)
+    # the scan's slots over (cluster, tile, warp) in that order, a
+    # cluster's rows then in row order
+    flat = counts.T.reshape(-1)
+    first = (torch.cumsum(flat, 0) - flat).reshape(n_cent, -1).T
+    out = torch.full((int(ok.sum()),), -1, dtype=torch.long)
+    seen = torch.zeros_like(counts)
+    for r in rows[ok].tolist():
+        u, c = int(unit[r]), int(a[r])
+        out[first[u, c] + seen[u, c]] = r
+        seen[u, c] += 1
+    return out
+
+
+def segments(offsets: torch.Tensor, grid: int) -> list:
+    """Each cluster's segments over `grid` equal ranges of the sorted rows
+    (ceil(rows / grid) a range): [(range, first row, end row)] in range
+    order, [] for an empty cluster."""
+    nv = int(offsets[-1])
+    per = max(1, -(-nv // grid))
+    out = []
+    for c in range(offsets.numel() - 1):
+        lo, hi = int(offsets[c]), int(offsets[c + 1])
+        out.append([(i, max(lo, i * per), min(hi, (i + 1) * per))
+                    for i in range(lo // per, (hi - 1) // per + 1)]
+                   if hi > lo else [])
+    return out
+
+
+def ranged_update(x: torch.Tensor, assign: torch.Tensor,
+                  centroids: torch.Tensor, spherical: bool = False,
+                  grid: int = 528) -> torch.Tensor:
+    """K10's arithmetic in plain PyTorch (tests only): the rows in stable
+    cluster order, cut into `grid` equal ranges; each cluster's rows in a
+    range summed in row order; a cluster within one range takes its mean
+    from that sum, one that crosses ranges adds its segments' sums in the
+    combine's contiguous runs (`update_plan`'s groups for this width) and
+    the runs in order; empty clusters keep their centroid; the spherical
+    renormalisation (1e-12 guard). Each f32 add is one rounding, as the
+    kernel's are."""
+    c = centroids.shape[0]
+    groups = update_plan(1, x.shape[1], c, grid).combine_groups
+    a = assign.long()
+    keep = (a >= 0) & (a < c)
+    rows = torch.nonzero(keep).flatten()[
+        torch.argsort(a[keep], stable=True)]
+    counts = torch.bincount(a[keep], minlength=c)
+    offsets = torch.zeros(c + 1, dtype=torch.long)
+    offsets[1:] = torch.cumsum(counts, 0)
+    segs = segments(offsets, grid)
+    spans = torch.tensor([(lo, hi) for cs in segs for _, lo, hi in cs],
+                         dtype=torch.long).reshape(-1, 2)
+    sums = torch.zeros((spans.shape[0], x.shape[1]), dtype=x.dtype)
+    size = spans[:, 1] - spans[:, 0]
+    for j in range(int(size.max()) if spans.numel() else 0):
+        live = size > j     # every segment's j-th row, in row order
+        sums[live] = sums[live] + x[rows[spans[live, 0] + j]]
+    out = centroids.clone()
+    at = 0
+    for k, cs in enumerate(segs):
+        m = len(cs)
+        if m == 0:
+            continue
+        part = sums[at:at + m]
+        at += m
+        if m == 1:
+            s = part[0]
+        else:
+            runs = []
+            for g in range(groups):
+                acc = torch.zeros_like(x[0])
+                for j in range(m * g // groups, m * (g + 1) // groups):
+                    acc = acc + part[j]
+                runs.append(acc)
+            s = runs[0]
+            for r in runs[1:]:
+                s = s + r
+        mean = s / torch.tensor(float(max(int(counts[k]), 1)),
+                                dtype=x.dtype)
+        if spherical:
+            mean = mean / torch.clamp(torch.linalg.vector_norm(mean),
+                                      min=1e-12)
+        out[k] = mean
+    return out
 
 
 def kmeans_assign_3xtf32(x: torch.Tensor, centroids: torch.Tensor,
@@ -129,8 +268,30 @@ def _update_fn():
         P, I32, I64 = launch.P, launch.I32, launch.I64
         fn = _fns["update"] = launch.bind(
             "kmeans", "c2v_kmeans_update",
-            [P, I64, I32, P, P, I32, I32, P, P, P, P, P, P])
+            [P, I64, I32, P, P, I32, I32, I32, P, P, P])
+        _fns["update_scratch"] = launch.bind(
+            "kmeans", "c2v_kmeans_update_scratch_bytes",
+            [I64, I32, I32, I32], restype=I64)
+        _fns["update_grid"] = launch.bind(
+            "kmeans", "c2v_kmeans_update_grid", [I32, I32])
     return fn
+
+
+def update_grid(device: torch.device, d: int) -> int:
+    """K10's sum CTAs for width d on `device` (c2v_kmeans_update_grid: the
+    SMs times the sum kernel's occupancy), asked once a card and width."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    key = ("update_grid", index, int(d))
+    grid = _fns.get(key)
+    if grid is None:
+        _update_fn()
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        grid = _fns["update_grid"](int(d), sms)
+        launch.require(grid > 0, "kmeans_update: no occupancy for its sums")
+        _fns[key] = grid
+    return grid
 
 
 def _check_rows(x: torch.Tensor, centroids: torch.Tensor) -> None:
@@ -185,16 +346,12 @@ def kmeans_update(x: torch.Tensor, assign: torch.Tensor,
                    f"kmeans_update takes widths that are multiples of 4 up "
                    f"to {MAX_UPDATE_D}, not {d}")
     device = x.device
-    n_tiles = -(-n // TILE_ROWS)
-    i32 = dict(dtype=torch.int32, device=device)
-    tile_pos = torch.zeros((n_tiles, c), **i32)
-    counts = torch.empty((c,), **i32)
-    offsets = torch.empty((c + 1,), **i32)
-    order = torch.empty((n,), **i32)
+    grid = update_grid(device, d)
+    scratch = torch.empty((_fns["update_scratch"](n, d, c, grid),),
+                          dtype=torch.uint8, device=device)
     out = torch.empty_like(centroids)
     err = fn(x.data_ptr(), n, d, assign.data_ptr(), centroids.data_ptr(), c,
-             int(bool(spherical)), tile_pos.data_ptr(), counts.data_ptr(),
-             offsets.data_ptr(), order.data_ptr(), out.data_ptr(),
+             int(bool(spherical)), grid, scratch.data_ptr(), out.data_ptr(),
              launch.stream(device))
     launch.check_launch(err, "kmeans_update")
     launch.count(__name__, "update_launches")

@@ -3,19 +3,25 @@ k up to the row's length.
 
 The large-k mode of K3 (kernels/topk.py) and K11 (kernels/ivf.py): past
 the 64 entries their shared-memory lists hold, they write every
-candidate's score and this kernel selects the top k (radix select,
-compaction in position order, a bitonic sort of the winners). The order
-is `lax.top_k`'s: NaN first, then values descending, equal values by
+candidate's score and this kernel selects the top k. The order is
+`lax.top_k`'s: NaN first, then values descending, equal values by
 ascending position. The CUDA source is csrc/select.cu, which says what
-bounds it on an H100 and how its design answers that.
-`select_topk_plain` below is the same function in plain PyTorch (a
-stable descending sort): CPU tensors take it, CUDA tensors launch the
+bounds it on an H100 and how its design answers that: an 11-bit radix
+select over each element's unique (score key, inverted position) key, a
+row cut into slices across many CTAs (`plan`), two reads of the scores
+(a histogram, then a filter into each slice's winners and candidates),
+the rest picked from the candidates by a CTA a row, which also sorts the
+k winners; a row whose candidates overflow a slice's buffer is refined
+by all its CTAs, reading the row again. `sliced_select` is that
+arithmetic in plain PyTorch and `slice_candidates` the filter's counts
+(tests only). `select_topk_plain` below is the same function in plain PyTorch
+(a stable descending sort): CPU tensors take it, CUDA tensors launch the
 kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,6 +29,160 @@ from code2vec_tpu_torch.kernels import launch
 
 launches = 0
 _fns = {}
+DIGIT_BITS = 11      # radix digit (csrc/select.cu)
+BINS = 1 << DIGIT_BITS
+TOP_SHIFT = 32 - DIGIT_BITS   # the first digit: the score key's top bits
+STATE_WORDS = 4      # a row's state words after its BINS counts
+REFINE_WORDS = 8     # a row's refine words after its BINS counts
+MIN_SLICE = 4096     # fewest columns a CTA takes
+CTAS_PER_SM = 3      # hist / filter CTAs resident on an SM (kCtasPerSm)
+MAX_CAP = 8192       # candidates a slice's buffer holds at most
+MAX_SLICES = 1024    # slices a row (csrc/select.cu kMaxSlices)
+
+
+class SelectPlan(NamedTuple):
+    slices: int         # CTAs a row in the hist and filter launches
+    slice: int          # columns a CTA reads (a multiple of 4)
+    cap: int            # candidates a slice's buffer holds
+    pos_bits: int       # bits of a position (of n - 1, at least 1)
+    sort_len: int       # the power of two >= k (>= 32) the winners sort in
+    scratch_bytes: int  # c2v_select_scratch_bytes
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def plan(rows: int, n: int, k: int, sms: int = 132,
+         min_slice: int = MIN_SLICE, max_cap: int = MAX_CAP) -> SelectPlan:
+    """How K13 cuts `rows` rows of n columns for top k on `sms` SMs: as
+    many slices a row as fit one wave of CTAS_PER_SM CTAs on every SM (a
+    partial second wave would idle SMs; a row's CTAs refining it wait on
+    each other, so all must be resident), none under `min_slice` columns
+    (rounded up to whole 16-byte groups)."""
+    want = max(1, min(MAX_SLICES, CTAS_PER_SM * sms // rows))
+    slices = max(1, min(want, -(-n // min_slice)))
+    width = -(-(-(-n // slices)) // 4) * 4
+    slices = -(-n // width)
+    cap = min(width, max_cap)
+    sort_len = max(32, 1 << (k - 1).bit_length())
+    cells = rows * slices
+    refine = 4 * rows * (BINS + REFINE_WORDS) if cap < width else 0
+    scratch = (_align16(4 * rows * (BINS + STATE_WORDS)) + _align16(refine)
+               + _align16(8 * cells)
+               + _align16(8 * cells * min(k, width))
+               + _align16(8 * cells * cap) + 8 * rows * sort_len)
+    return SelectPlan(slices, width, cap, max(1, (n - 1).bit_length()),
+                      sort_len, scratch)
+
+
+def score_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order-preserving uint32 key of each f32 score (int64):
+    a larger float has a larger key, every NaN the largest, -0 that of
+    +0."""
+    x = torch.where(x == 0, torch.zeros_like(x), x).contiguous()
+    u = x.view(torch.int32).to(torch.int64) & 0xffffffff
+    key = torch.where(u >= 2 ** 31, ~u & 0xffffffff, u | 2 ** 31)
+    return torch.where(torch.isnan(x), torch.full_like(u, 0xffffffff), key)
+
+
+def choose_digit(hist: torch.Tensor, want: int) -> Tuple[int, int, int]:
+    """(digit d, the count of larger digits, hist[d]) where the count from
+    the top digit down reaches `want`."""
+    rev = hist.flip(0)
+    run = torch.cumsum(rev, 0)
+    j = int(torch.nonzero(run >= want)[0])
+    return hist.numel() - 1 - j, int(run[j] - rev[j]), int(rev[j])
+
+
+def slice_candidates(scores: torch.Tensor, k: int, p: SelectPlan,
+                     n: Optional[int] = None) -> torch.Tensor:
+    """The candidates the filter finds in each (row, slice) of the first
+    `n` columns (tests only): the keys of the first digit d0, none where
+    d0's whole bin is wanted. (rows, slices) int64, on the scores' device;
+    a row with a slice above `p.cap` overflows, and all its CTAs refine
+    it."""
+    n = scores.shape[1] if n is None else int(n)
+    digit = score_keys(scores[:, :n]) >> TOP_SHIFT
+    rows = digit.shape[0]
+    hist = torch.zeros((rows, BINS), dtype=torch.int64,
+                       device=digit.device).scatter_add_(
+        1, digit, torch.ones_like(digit))
+    from_top = torch.cumsum(hist.flip(1), 1)   # keys of digit >= d, d falling
+    j = torch.argmax((from_top >= k).to(torch.int8), 1)
+    d0 = BINS - 1 - j
+    take_all = from_top.gather(1, j[:, None])[:, 0] == k
+    is_cand = (digit == d0[:, None]) & ~take_all[:, None]
+    is_cand = torch.nn.functional.pad(is_cand, (0, p.slices * p.slice - n))
+    return is_cand.view(rows, p.slices, p.slice).sum(2)
+
+
+def sliced_select(scores: torch.Tensor, k: int, n: Optional[int] = None,
+                  p: Optional[SelectPlan] = None, sms: int = 132):
+    """K13's arithmetic in plain PyTorch (tests only), row by row: the
+    first digits counted slice by slice and added, d0 picked; the filter
+    slice by slice (winners above d0, candidates at d0, buffered where
+    every slice's fit `p.cap`, else read from the row again); the radix
+    passes over the candidates' (low key bits, inverted position bits);
+    the winners sorted by (key, -position). Returns (values, positions int32,
+    one dict a row: d0, bin0, buffered, take_all, passes)."""
+    rows = scores.shape[0]
+    n = scores.shape[1] if n is None else int(n)
+    p = plan(rows, n, k, sms) if p is None else p
+    vals = torch.empty((rows, k), dtype=scores.dtype)
+    out = torch.empty((rows, k), dtype=torch.int32)
+    info = []
+    pos_mask = (1 << p.pos_bits) - 1
+    for r in range(rows):
+        x = scores[r, :n]
+        key = score_keys(x)
+        digit = key >> TOP_SHIFT
+        hist = torch.zeros(BINS, dtype=torch.int64)
+        cuts = [(lo, min(lo + p.slice, n)) for lo in range(0, n, p.slice)]
+        assert len(cuts) == p.slices
+        for lo, hi in cuts:
+            hist += torch.bincount(digit[lo:hi], minlength=BINS)
+        d0, above0, bin0 = choose_digit(hist, k)
+        want = k - above0
+        take_all = bin0 == want
+        wins, cands = [], []
+        for lo, hi in cuts:
+            idx = torch.arange(lo, hi)
+            dg = digit[lo:hi]
+            wins.append(idx[(dg > d0) | ((dg == d0) & take_all)])
+            cands.append(idx[dg == d0])
+        # every slice's candidates fit its buffer, or the row's CTAs
+        # refine it, reading the row again
+        buffered = not take_all and max(c.numel() for c in cands) <= p.cap
+        passes = 0
+        if not take_all:
+            src = (torch.cat(cands) if buffered
+                   else torch.nonzero(digit == d0).flatten())
+            rr = (((key[src] & ((1 << TOP_SHIFT) - 1)) << p.pos_bits)
+                  | (~src & pos_mask))
+            top, prefix = TOP_SHIFT + p.pos_bits, 0
+            while True:
+                width = min(DIGIT_BITS, top)
+                shift = top - width
+                live = (rr >> top) == prefix
+                d, above, c = choose_digit(torch.bincount(
+                    (rr[live] >> shift) & ((1 << width) - 1),
+                    minlength=BINS), want)
+                prefix = (prefix << width) | d
+                want -= above
+                top = shift
+                passes += 1
+                if c == want or top == 0:
+                    break
+            wins.append(src[(rr >> top) >= prefix])
+        w = torch.sort(torch.cat(wins)).values
+        assert w.numel() == k
+        w = w[torch.sort(key[w], descending=True, stable=True).indices]
+        out[r] = w.to(torch.int32)
+        vals[r] = x[w]
+        info.append(dict(d0=d0, bin0=bin0, buffered=buffered,
+                         take_all=take_all, passes=passes))
+    return vals, out, info
 
 
 def top_positions(scores: torch.Tensor, k: int
@@ -47,9 +207,10 @@ def _fn():
         P, I32, I64 = launch.P, launch.I32, launch.I64
         fn = _fns["select"] = launch.bind(
             "select", "c2v_select_topk",
-            [P, I32, I64, I32, I32, I32, P, P, P, P])
-        _fns["smem_entries"] = launch.bind(
-            "select", "c2v_select_smem_entries", [])
+            [P, I32, I64, I32, I32, I32, I32, I32, I32, I32, P, P, P, P])
+        _fns["scratch_bytes"] = launch.bind(
+            "select", "c2v_select_scratch_bytes",
+            [I32, I32, I32, I32, I32, I32], restype=I64)
     return fn
 
 
@@ -74,21 +235,22 @@ def select_topk(scores: torch.Tensor, k: int, n: Optional[int] = None
     k = int(k)
     launch.require(ld % 4 == 0, f"scores: row stride {ld} is not a "
                                 f"multiple of 4 (padded_width)")
-    launch.require(0 < n <= ld and n < 2 ** 31 - 1,
+    launch.require(0 < n <= ld and n < 2 ** 31 - 4,
                    f"n={n} outside 1..{ld}")
     launch.require(1 <= k <= n, f"k={k} outside 1..{n}")
     launch.require(rows < 2 ** 31, "more than 2^31 rows")
-    sort_len = max(2, 1 << (k - 1).bit_length())
     device = scores.device
-    scratch = None
-    if sort_len > _fns["smem_entries"]():
-        scratch = torch.empty((rows, sort_len), dtype=torch.int64,
-                              device=device)
+    p = plan(rows, n, k,
+             torch.cuda.get_device_properties(device).multi_processor_count)
+    scratch = torch.empty(
+        (_fns["scratch_bytes"](rows, p.slices, p.slice, k, p.cap,
+                               p.sort_len),),
+        dtype=torch.uint8, device=device)
     values = torch.empty((rows, k), dtype=torch.float32, device=device)
     positions = torch.empty((rows, k), dtype=torch.int32, device=device)
-    err = fn(scores.data_ptr(), rows, ld, n, k, sort_len,
-             launch.ptr(scratch), values.data_ptr(), positions.data_ptr(),
-             launch.stream(device))
+    err = fn(scores.data_ptr(), rows, ld, n, k, p.slices, p.slice, p.cap,
+             p.pos_bits, p.sort_len, scratch.data_ptr(), values.data_ptr(),
+             positions.data_ptr(), launch.stream(device))
     launch.check_launch(err, "select_topk")
     launch.count(__name__)
     return values, positions

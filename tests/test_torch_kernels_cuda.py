@@ -573,6 +573,84 @@ def test_kmeans_update_kernel(dev, n, d, c, spherical):
                dict(rtol=1e-5, atol=1e-6))
 
 
+
+K10_EDGES = {
+    # name: (n, d, c, how the rows are assigned)
+    "one_cluster": (3001, 16, 1, "uniform"),
+    "c_equals_n": (300, 8, 300, "identity"),
+    "all_but_one": (5000, 12, 7, "all_but_one"),
+    "empty_and_skewed": (100003, 384, 511, "skewed"),
+    "width_4": (4099, 4, 9, "uniform"),
+    "width_1024": (3000, 1024, 40, "uniform"),
+    "short_lists": (2000, 384, 100, "uniform"),
+    "above_2048_clusters": (20000, 32, 3000, "uniform"),
+    "one_pass_edge": (12289, 64, 2048, "uniform"),
+}
+
+
+def _k10_assign(rng, n, c, how):
+    if how == "identity":
+        a = np.arange(n)
+    elif how == "all_but_one":
+        a = np.full(n, 3)
+        a[n // 2] = 5
+    elif how == "skewed":   # half in one list, every eighth list empty
+        live = np.array([j for j in range(1, c) if j % 8 != 0])
+        a = live[rng.integers(0, len(live), n)]
+        a[rng.permutation(n)[:n // 2]] = 0
+    else:
+        a = rng.integers(0, c, n)
+        if c > 2:
+            a[a == 2] = 0
+    return a.astype(np.int32)
+
+
+@pytest.mark.parametrize("spherical", [False, True])
+@pytest.mark.parametrize("case", sorted(K10_EDGES))
+def test_kmeans_update_range_edges(dev, case, spherical):
+    """The range sums at their edges: one cluster (across every range), as
+    many clusters as rows, one list holding all rows but one, half the
+    rows in one list with empty lists beside it, widths 4 and 1024, lists
+    shorter than a range, more than 2,048 clusters (the counting sort of
+    1,024-row tiles) and exactly 2,048: within the
+    plain version's tolerance, empty lists kept, two runs bit-equal, and
+    without the renormalisation bit-equal to the emulation's fixed-order
+    sums (kmeans.ranged_update over the launch's grid)."""
+    from code2vec_tpu_torch.kernels import kmeans as kk
+    n, d, c, how = K10_EDGES[case]
+    rng = np.random.default_rng(n + d + c)
+    x = _blobs(rng, n, d, c)
+    a = _k10_assign(rng, n, c, how)
+    old = rng.standard_normal((c, d)).astype(np.float32)
+    xt, at, ot = (torch.from_numpy(v).to(dev) for v in (x, a, old))
+    got = kmeans_update(xt, at, ot, spherical)
+    assert torch.equal(got, kmeans_update(xt, at, ot, spherical))
+    _close(got, kmeans_update_plain(xt, at, ot, spherical),
+           dict(rtol=1e-4, atol=1e-5))
+    empty = np.bincount(a, minlength=c) == 0
+    assert torch.equal(got[torch.from_numpy(empty).to(dev)],
+                       ot[torch.from_numpy(empty).to(dev)])
+    if not spherical:
+        want = kk.ranged_update(torch.from_numpy(x), torch.from_numpy(a),
+                                torch.from_numpy(old),
+                                grid=kk.update_grid(dev, d))
+        assert torch.equal(got.cpu(), want)
+
+
+def test_kmeans_update_plan_fits_the_kernels_layout(dev):
+    """update_plan's scratch is the kernel's own (its layout export), and
+    the sum launch fills every SM."""
+    from code2vec_tpu_torch.kernels import kmeans as kk
+    kk._update_fn()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, d, c in ((1, 4, 1), (261245, 384, 511), (1000000, 384, 1000),
+                    (20000, 32, 3000), (4099, 1024, 2048)):
+        grid = kk.update_grid(dev, d)
+        assert grid >= sms and grid % sms == 0
+        assert kk.update_plan(n, d, c, grid).scratch_bytes == \
+            kk._fns["update_scratch"](n, d, c, grid)
+
+
 def _ivf_index(rng, dev, scheme, sizes, d=384, dup=True):
     """An IVF layout with the given list sizes (0 and 1 included), rows
     near their list's centroid, exact duplicates (inside one list and
@@ -711,6 +789,108 @@ def test_select_topk_kernel(dev, b, n, k):
     _select_close(got, select_topk_plain(scores, k, n=n))
     again = select_topk(scores, k, n=n)
     assert torch.equal(got[1], again[1])
+
+
+
+def _k13_scores(rng, case):
+    """(scores (B, n) f32 numpy, k) of one K13 edge case."""
+    from code2vec_tpu_torch.kernels import select as ks
+    if case == "k1_odd_n":
+        return rng.standard_normal((3, 4097)).astype(np.float32), 1
+    if case == "k_is_n":
+        return rng.standard_normal((2, 1001)).astype(np.float32), 1001
+    if case == "all_equal":
+        return np.full((3, 200003), 0.25, np.float32), 1000
+    if case == "one_bin":   # distinct values in [1, 1.25): one 11-bit bin
+        return (1.0 + 0.24 * rng.random((2, 200003))).astype(np.float32), 999
+    # B 64 x 1M, the main path's batch: slices of 174,764 columns, wider
+    # than a slice's candidate buffer, so these rows overflow it
+    wide = (64, 1000000)
+    if case in ("all_equal_wide_k5", "all_equal_wide_k1000"):
+        return np.full(wide, 0.25, np.float32), int(case.rsplit("k", 1)[1])
+    if case in ("one_bin_wide_k5", "one_bin_wide_k1000"):
+        return ((1.0 + 0.24 * rng.random(wide)).astype(np.float32),
+                int(case.rsplit("k", 1)[1]))
+    if case == "mixed_wide":   # overflowing rows beside buffered ones
+        x = rng.standard_normal(wide).astype(np.float32)
+        x[::2] = 0.25
+        return x, 1000
+    if case == "all_equal_b1024":   # one slice a row, wider than its buffer
+        return np.full((1024, 20000), -3.0, np.float32), 100
+    if case == "nan_inf_zero":
+        x = rng.standard_normal((4, 50001)).astype(np.float32)
+        x[:, ::5] = np.nan
+        x[:, 1::97] = np.inf
+        x[:, 2::89] = -np.inf
+        x[:, 3::7] = 0.0
+        x[:, 4::11] = -0.0
+        return x, 20000
+    if case == "ties_across_slices":
+        b, n = 2, 300000
+        x = rng.standard_normal((b, n)).astype(np.float32)
+        cut = ks.plan(b, n, 4, 132).slice
+        x[:, cut - 3:cut + 4] = 9.0   # seven ties across a slice boundary
+        x[:, 2 * cut - 1:2 * cut + 1] = 9.0
+        return x, 5
+    if case == "b1_1m":
+        return rng.standard_normal((1, 1000000)).astype(np.float32), 1000
+    if case == "b64_wide":
+        return rng.standard_normal((64, 10432)).astype(np.float32), 100
+    raise ValueError(case)
+
+
+# the cases whose candidates overflow a slice's buffer, by how many rows
+K13_OVERFLOW = {"all_equal_wide_k5": 64, "all_equal_wide_k1000": 64,
+                "one_bin_wide_k5": 64, "one_bin_wide_k1000": 64,
+                "mixed_wide": 32, "all_equal_b1024": 1024}
+
+
+@pytest.mark.parametrize("case", [
+    "k1_odd_n", "k_is_n", "all_equal", "one_bin", "nan_inf_zero",
+    "ties_across_slices", "b1_1m", "b64_wide", *K13_OVERFLOW])
+def test_select_topk_slice_edges(dev, case):
+    """The sliced radix select at its edges: k 1 on a width that is no
+    multiple of 4, k = n, a row of one repeated value and one packed into
+    one 11-bit bin (at B 2-3 x 200,003 their slices are no wider than the
+    candidate buffer, so the candidates stay buffered; at B 64 x 1M,
+    k 5 and 1000, they overflow it and all the row's CTAs refine the row,
+    as they do beside buffered rows in one call, and at B 1024 a row's one
+    CTA does), NaN, +-inf and +-0 spread over the row, equal values
+    across slice boundaries that the k-th falls in, B 1 x 1M and K11's
+    candidate width: positions and value bits equal to the plain
+    version's, on every run; the overflowing cases are shown to overflow
+    by the filter's candidate counts against the plan's cap."""
+    from code2vec_tpu_torch.kernels.select import (
+        padded_width, plan, select_topk, select_topk_plain, slice_candidates,
+    )
+    rng = np.random.default_rng(len(case))
+    x, k = _k13_scores(rng, case)
+    b, n = x.shape
+    scores = torch.full((b, padded_width(n)), np.inf, device=dev)
+    scores[:, :n] = torch.from_numpy(x).to(dev)  # padding never selected
+    del x
+    p = plan(b, n, k,
+             torch.cuda.get_device_properties(dev).multi_processor_count)
+    over = int((slice_candidates(scores, k, p, n).max(1).values > p.cap)
+               .sum())
+    assert over == K13_OVERFLOW.get(case, 0)
+    before = kernels.launch_counts()["select_topk"]
+    got = select_topk(scores, k, n=n)
+    assert kernels.launch_counts()["select_topk"] == before + 1
+    _select_close(got, select_topk_plain(scores, k, n=n))
+    again = select_topk(scores, k, n=n)
+    assert torch.equal(got[1], again[1])
+
+
+def test_select_plan_fits_the_kernels_layout(dev):
+    """select.plan's scratch is the kernel's own (its layout export)."""
+    from code2vec_tpu_torch.kernels import select as ks
+    ks._fn()
+    for b, n, k in ((1, 1, 1), (64, 1000000, 1000), (1, 1000000, 1000),
+                    (64, 261245, 100), (2, 40000, 20000)):
+        p = ks.plan(b, n, k, 132)
+        assert p.scratch_bytes == ks._fns["scratch_bytes"](
+            b, p.slices, p.slice, k, p.cap, p.sort_len)
 
 
 @pytest.mark.parametrize("f32", [False, True])
