@@ -19,7 +19,9 @@ a C++ compiler. Phases, each fatal on failure:
    median device time over --samples runs with the L2 cache flushed,
    the plain version's and a library call's time, and the least time the
    card could take (bytes over 3.35 TB/s, or bf16 operations over 989
-   TFLOP/s, whichever is larger).
+   TFLOP/s, whichever is larger). Then K3 again and again on the same
+   inputs (k3_repeat_check): every call's large-k scores, values,
+   indices and logsumexp must be the first call's bits.
 4. Train kernels: K1 in train mode, K2 and K5-K8 against their plain
    versions at the flagship train shapes (1024 rows x 200 contexts x 384;
    1024 x 261,246 logits; Adam over all 383.7M parameters with bf16
@@ -37,9 +39,17 @@ a C++ compiler. Phases, each fatal on failure:
 6. Train path: a synthetic corpus at full width (a `.dict.c2v` with the
    java14m vocabulary sizes, 4 x 1024 methods whose name follows their
    tokens) trained for 2 epochs by the `train` command of the port's CLI
-   on the GPU: every loss finite, the second epoch's mean loss below the
-   first's, every train kernel launched once per step; then the step
-   time and examples/s of a steady step.
+   on the GPU, with --save and --test (2,048 more methods of the same
+   writer): every loss finite, the second epoch's mean loss below the
+   first's, every train kernel launched once per step; then the
+   lifecycle (lifecycle_phase): the three checkpoints verify, each
+   epoch-end evaluation launched each of K1-K4 once per batch, the final
+   checkpoint reloads bit for bit and answers /predict from `serve
+   --load` through K1-K4, `--release` drops the optimizer state, `train
+   --load` of epoch 1's checkpoint runs epoch 2, `export` as float32 and
+   int8, whose `evaluate` gives the epoch-end evaluation exactly
+   (float32) and agrees on top-1 (int8); save, load, export seconds and
+   bytes; then the step time and examples/s of a steady step.
 7. One train step at 64 rows with full vocabulary widths and an injected
    dropout mask, on the GPU against the same step on the CPU (plain
    versions): the loss and the five gradients within one bf16 step of
@@ -143,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import gc
 import json
 import logging
 import math
@@ -610,9 +621,47 @@ def kernel_phase(torch, seed: int, timer, fs, dev="cuda"):
             report["label_logits"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms)
+    report["blockwise_topk"]["repeat_calls"] = k3_repeat_check(
+        torch, cv, tables["f32"]["tgt"][0], valid)
     del tables, transformed
     torch.cuda.empty_cache()
     return report
+
+
+def k3_repeat_check(torch, cv, table, valid: int,
+                    calls: int = 500, flagship_calls: int = 100) -> int:
+    """K3 called again and again on the same inputs must write the same
+    bits: the large-k mode's scores (captured where K3 hands them to K13),
+    values, indices and logsumexp, on the data of
+    tests/test_torch_kernels_cuda.py test_blockwise_topk_large_k_kernel
+    (B 9 x 20,011 rows, k 1000; `calls` calls) and on the serving batch
+    against the flagship f32 target table (k 1000, and k 10 in the list
+    mode; `flagship_calls` calls each), through
+    scripts/repeat_topk_large_k.py `repeat`. Before K3 gave a ring stage
+    back only once the loads that read it had returned, 999 of 1,000
+    calls on the test's data wrote other scores than the first call (that
+    script, on an H100). Returns the calls made."""
+    import numpy as np
+
+    from scripts.repeat_topk_large_k import repeat, test_case_inputs
+
+    made = 0
+    for what, c, t, v, k, n in (
+            ("test data", *test_case_inputs(np, torch, cv.device), 1000,
+             calls),
+            ("serving batch", cv, table, valid, 1000, flagship_calls),
+            ("serving batch list mode", cv, table, valid, 10,
+             flagship_calls)):
+        res = repeat(torch, c, t, v, k, n)
+        made += n
+        outputs = ", ".join(res["calls_differing_from_the_first"])
+        log(f"K3 repeat ({what}, B={c.shape[0]} V={t.shape[0]} k={k}): "
+            f"{res['calls_differing']} of {n} calls differ from the first "
+            f"in a bit of their {outputs}")
+        if res["calls_differing"]:
+            fail(f"K3 repeat ({what}): {res['calls_differing']} of {n} calls "
+                 f"differ from the first")
+    return made
 
 
 # -------------------------------------------------------------- path phase
@@ -1700,9 +1749,11 @@ def sparse_kernel_phase(torch, seed: int, timer, fs, ft, dev="cuda"):
 
 def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
                        n_names: int = 64, tokens_per_name: int = 64,
-                       stems=("t", "p", "name|w"), with_dict: bool = True):
+                       stems=("t", "p", "name|w"), with_dict: bool = True,
+                       name: str = "corpus"):
     """PREFIX.dict.c2v with the java14m vocabulary sizes (unless
-    `with_dict` is false) and PREFIX.train.c2v of `n_rows` methods whose
+    `with_dict` is false) and PREFIX.train.c2v (PREFIX: `name` under
+    `work_dir`) of `n_rows` methods whose
     name follows their tokens (the pattern of tests/test_end_to_end.py at
     full width): each of `n_names` names owns `tokens_per_name` tokens
     spread over the token vocabulary; paths are drawn from the whole path
@@ -1715,7 +1766,7 @@ def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
     v_tok, v_path, v_tgt = (fs.vocab["token"], fs.vocab["path"],
                             fs.vocab["target"])
     st, sp, sn = stems
-    prefix = os.path.join(work_dir, "corpus")
+    prefix = os.path.join(work_dir, name)
     if with_dict:
         with open(prefix + ".dict.c2v", "wb") as f:
             # descending counts: the vocabulary order is the word order
@@ -1740,14 +1791,19 @@ def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
 
 def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
                      epochs: int = 2, steps_per_epoch: int = 4,
-                     dev: str = "cuda", sparse: bool = False):
+                     dev: str = "cuda", sparse: bool = False,
+                     lifecycle: bool = False):
     """The `train` command (with --sparse_embedding_update when `sparse`)
     on the synthetic corpus under `work_dir` (written by the first call):
     the epochs' losses, one launch per step of each kernel of the step,
-    then a steady step's time, examples/s and peak device memory."""
+    then a steady step's time, examples/s and peak device memory. With
+    `lifecycle`, the run also saves and evaluates (--save, --test), and
+    lifecycle_phase checks what it left before the steady step. Returns
+    (the launch counts of the run, its stats)."""
     from code2vec_tpu_torch import cli, kernels
     from code2vec_tpu_torch.data.reader import parse_context_lines
     from code2vec_tpu_torch.model_facade import Code2VecModel
+    from code2vec_tpu_torch.training import checkpoint as ckpt
     from code2vec_tpu_torch.training.state import SPARSE_PARAM_NAMES
 
     # The reference's `.repeat(epochs).shuffle(buffer)` moves an epoch's
@@ -1770,6 +1826,18 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
             str(ft.contexts), "--device", dev]
     if sparse:
         argv.append("--sparse_embedding_update")
+    base = os.path.join(work_dir, "ckpt", "model")
+    test = os.path.join(work_dir, "test.train.c2v")
+    if lifecycle:
+        t0 = time.perf_counter()
+        # the same seed: the same names own the same tokens, the methods
+        # past the names' draw are others
+        write_train_corpus(work_dir, seed, fs, ft, LIFECYCLE_TEST_ROWS,
+                           with_dict=False, name="test")
+        log(f"lifecycle: wrote a {LIFECYCLE_TEST_ROWS}-method test corpus "
+            f"in {time.perf_counter() - t0:.1f}s")
+        argv += ["--save", base, "--test", test, "--eval_log",
+                 os.path.join(work_dir, "train_eval.log")]
     _, config = cli.config_from_args(argv)
     config.shuffle_buffer_size = buffer
     config.verbose_mode = 0
@@ -1780,12 +1848,42 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     log(f"{what}: built vocabularies and a {n_params}-"
         f"parameter model on {model.device} in "
         f"{time.perf_counter() - t0:.1f}s")
+    # the saves' and the evaluations' host seconds, and each evaluation's
+    # launches
+    saves, evals = [], []
+    save_model, evaluate = ckpt.save_model, model._evaluate_with_params
+
+    def timed_save(*args, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = save_model(*args, **kw)
+        saves.append((out, time.perf_counter() - t1))
+        return out
+
+    def timed_eval(params):
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        t1 = time.perf_counter()
+        res = evaluate(params)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        evals.append((res, time.perf_counter() - t1,
+                      {k: after[k] - before[k] for k in after}))
+        return res
+
+    ckpt.save_model, model._evaluate_with_params = timed_save, timed_eval
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    model.train()
-    torch.cuda.synchronize()
+    try:
+        model.train()
+        torch.cuda.synchronize()
+    finally:
+        ckpt.save_model = save_model
+        del model._evaluate_with_params   # the wrapper held the model
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    # the epoch-end evaluations' K1 and K2 launches are not the steps'
+    eval_launches = {k: sum(e[2][k] for e in evals) for k in counts}
     losses = model.trainer.epoch_losses
     steps = model.state.step
     means = [statistics.mean(e) if e else float("nan") for e in losses]
@@ -1806,7 +1904,7 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     want = {k: steps for k in names}  # K12: both tables in one launch
     if sparse:  # no dense K5: no table-shaped gradient
         want["encoder_backward"] = 0
-    train_counts = {k: counts[k] for k in want}
+    train_counts = {k: counts[k] - eval_launches[k] for k in want}
     if train_counts != want:
         fail(f"{what}: launches {train_counts}, expected {want} (one per "
              f"step, K12 once per table)")
@@ -1818,6 +1916,10 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
             fail(f"{what}: K8 ran over {dense_names}, or a table got a "
                  f"gradient")
 
+    stats = {}
+    if lifecycle:
+        model, stats = lifecycle_phase(torch, seed, work_dir, fs, ft, model,
+                                       config, base, test, saves, evals, dev)
     # a steady step on one batch: host clock around synchronised steps
     with open(config.train_data_path) as f:
         lines = [next(f) for _ in range(ft.rows)]
@@ -1846,10 +1948,242 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
         f"{(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held "
         f"between steps")
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, dict(step_ms=step_ms, examples_per_s=ft.rows / step_ms
                         * 1e3, epoch_means=means, peak_gb=peak / 1e9,
-                        step_gb=(peak - held) / 1e9, held_gb=held / 1e9)
+                        step_gb=(peak - held) / 1e9, held_gb=held / 1e9,
+                        **stats)
+
+
+LIFECYCLE_TEST_ROWS = 2048   # two batches at test_batch_size 1024
+# the int8 artifact's top-1 agreement with the float32 one it was
+# exported beside: the evaluate phase's int8 artifact agreed with float32
+# on 0.9819 of its rows (measured on one H100), on random weights as here
+INT8_AGREEMENT_BAR = 0.95
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def lifecycle_phase(torch, seed: int, work_dir: str, fs, ft, model, config,
+                    base: str, test: str, saves, evals, dev: str = "cuda"):
+    """What the `train --save BASE --test TEST` run of train_path_phase
+    left, at full width: BASE_iter1, BASE_iter2 and BASE verify, and the
+    two epoch-end evaluations launched each of K1-K4 once per batch with
+    finite metrics; BASE loaded as `serve --load BASE` builds it is bit
+    for bit the live state, and answers one /predict through K1-K4;
+    `evaluate --load BASE --release` writes BASE.release (no optimizer
+    state); `train --load BASE_iter1` runs epoch 2 (one epoch of the same
+    steps, finite losses), and BASE.release loaded params-only into it
+    gives back BASE's params; `export --load BASE` as float32
+    (--no_quantize) and int8: `evaluate --artifact` of the float32 one
+    gives the epoch-2 evaluation's metrics and log lines exactly (the
+    same kernels on the same tables), the int8 one's top-1 agrees with it
+    on at least INT8_AGREEMENT_BAR of the rows. Save, load and export
+    seconds (host clock, warm page cache), bytes and eval examples/s are
+    printed. Returns (model, stats)."""
+    import numpy as np
+
+    from code2vec_tpu_torch import cli, kernels
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.reader import (
+        EstimatorAction, PathContextReader,
+    )
+    from code2vec_tpu_torch.model_facade import Code2VecModel
+    from code2vec_tpu_torch.release.runtime import ReleaseModel
+    from code2vec_tpu_torch.serving.server import PredictionServer
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    ctx = str(ft.contexts)
+    paths = [base + "_iter1", base + "_iter2", base]
+    if [p for p, _ in saves] != paths:
+        fail(f"lifecycle: saves {[p for p, _ in saves]}, expected {paths}")
+    for p in paths:
+        ckpt.verify_checkpoint(p)
+    ckpt_bytes = dir_bytes(base)
+    batches = -(-LIFECYCLE_TEST_ROWS // config.test_batch_size)
+    if [e for e, _ in model.trainer.eval_results] != [1, 2] or \
+            len(evals) != 2:
+        fail(f"lifecycle: evaluations after epochs "
+             f"{[e for e, _ in model.trainer.eval_results]}, expected [1, 2]")
+    for res, _, launched in evals:
+        got = {k: launched[k] for k in SERVE_KERNELS}
+        if got != dict.fromkeys(SERVE_KERNELS, batches):
+            fail(f"lifecycle: an evaluation launched {got}, expected "
+                 f"{batches} of each (one a batch)")
+        if not (np.isfinite(res.loss) and np.isfinite(res.topk_acc).all()
+                and np.isfinite(res.subtoken_f1)):
+            fail(f"lifecycle: evaluation {res}")
+    eval_eps = [LIFECYCLE_TEST_ROWS / secs for _, secs, _ in evals]
+    log(f"lifecycle: saved {[os.path.basename(p) for p in paths]} in "
+        f"{[round(t, 2) for _, t in saves]} s, {ckpt_bytes / 1e9:.3f} GB "
+        f"each; epoch-end evaluations of {LIFECYCLE_TEST_ROWS} methods at "
+        f"{[round(x) for x in eval_eps]} examples/s, K1-K4 {batches} each; "
+        f"after epoch 2: {evals[-1][0]}")
+    shutil.rmtree(base + "_iter2")
+
+    # `serve --load BASE`: the state it restores, then one /predict
+    _, scfg = cli.config_from_args(["serve", "--load", base,
+                                    "--max_contexts", ctx, "--device", dev])
+    scfg.verbose_mode = 0
+    t0 = time.perf_counter()
+    loaded = Code2VecModel(scfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.load_model(base, loaded.state, config=scfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    live, got = (ckpt.state_leaves(m.state) for m in (model, loaded))
+    bad = [k for k, x in live.items()
+           if not (torch.equal(x, got[k]) if isinstance(x, torch.Tensor)
+                   else x == got[k])]
+    if bad or loaded.initial_epoch != 2:
+        fail(f"lifecycle: the loaded state differs from the saved one in "
+             f"{bad[:5]} (epoch {loaded.initial_epoch})")
+    log(f"lifecycle: `serve --load` built its model in {build_s:.2f}s; "
+        f"load_model alone {load_s:.2f}s ({ckpt_bytes / 1e9 / load_s:.2f} "
+        f"GB/s); all {len(live)} leaves (params, mu, nu, step, count) "
+        f"bit-equal to the live state")
+    loaded.warmup()
+    server = PredictionServer(loaded)
+    url = f"http://127.0.0.1:{server.start(port=0)}"
+    try:
+        with open(os.path.join(REPO, "Input.java")) as f:
+            source = f.read()
+        kernels.reset_launch_counts()
+        status, body, dt = post(f"{url}/predict", source)
+        counts = kernels.launch_counts()
+    finally:
+        server.shutdown()
+    if status != 200:
+        fail(f"lifecycle: /predict from --load: HTTP {status}")
+    check_predict_body(body, loaded.model_fingerprint())
+    served = {k: counts[k] for k in SERVE_KERNELS}
+    if not all(served.values()):
+        fail(f"lifecycle: /predict from --load launched {served}")
+    log(f"lifecycle: /predict of Input.java from --load in "
+        f"{dt * 1e3:.1f} ms, launches {served}, fingerprint "
+        f"{loaded.model_fingerprint()}")
+    del loaded, server, live, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --release
+    t0 = time.perf_counter()
+    cli.main(["evaluate", "--load", base, "--release", "--max_contexts",
+              ctx, "--device", dev])
+    release_s = time.perf_counter() - t0
+    rel = base + ckpt.RELEASED_SUFFIX
+    meta = ckpt.verify_checkpoint(rel)
+    tree = ckpt.load_manifest(rel)["param_tree"]
+    if not meta["released"] or any(k.startswith("opt_state") for k in tree):
+        fail(f"lifecycle: {rel} holds {sorted(tree)}")
+    release_bytes = dir_bytes(rel)
+
+    # `train --load BASE_iter1`: epoch 2 again
+    argv = ["train", "--data", config.train_data_path_prefix, "--epochs",
+            "2", "--seed", str(seed), "--batch_size", str(ft.rows),
+            "--max_contexts", ctx, "--load", base + "_iter1", "--device", dev]
+    _, rcfg = cli.config_from_args(argv)
+    rcfg.shuffle_buffer_size, rcfg.verbose_mode = config.shuffle_buffer_size, 0
+    resumed = Code2VecModel(rcfg)
+    if resumed.initial_epoch != 1:
+        fail(f"lifecycle: --load {base}_iter1 restored epoch "
+             f"{resumed.initial_epoch}")
+    resumed.train()
+    losses = resumed.trainer.epoch_losses
+    if resumed.trainer.final_epoch != 2 or len(losses) != 1 or \
+            len(losses[0]) != len(model.trainer.epoch_losses[1]) or \
+            not all(math.isfinite(x) for x in losses[0]):
+        fail(f"lifecycle: the resumed run ended at epoch "
+             f"{resumed.trainer.final_epoch} with losses {losses}")
+    ckpt.load_model(rel, resumed.state, params_only=True)
+    bad = [k for k, p in model.state.params.items()
+           if not torch.equal(resumed.state.params[k], p)]
+    if bad or resumed.state.step != model.state.step:
+        fail(f"lifecycle: {rel} loaded params-only differs in {bad}")
+    log(f"lifecycle: `evaluate --load --release` in {release_s:.2f}s, "
+        f"{release_bytes / 1e9:.3f} GB without optimizer state; `train "
+        f"--load {os.path.basename(base)}_iter1` ran epoch 2 "
+        f"({len(losses[0])} steps, losses "
+        f"{[round(x, 4) for x in losses[0]]}; the first run's "
+        f"{[round(x, 4) for x in model.trainer.epoch_losses[1]]}); the "
+        f"released params loaded params-only bit-equal to the saved ones")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(base + "_iter1")
+    shutil.rmtree(rel)
+
+    # export, float32 and int8
+    arts, export_s = {}, {}
+    for scheme, flags in (("float32", ["--no_quantize"]),
+                          ("int8", ["--release_scheme", "int8"])):
+        arts[scheme] = os.path.join(work_dir, f"export-{scheme}")
+        t0 = time.perf_counter()
+        meta = cli.main(["export", "--load", base, "--artifact_out",
+                         arts[scheme], "--max_contexts", ctx, "--device",
+                         dev] + flags)
+        export_s[scheme] = time.perf_counter() - t0
+        if meta["source"] != {"checkpoint": base,
+                              "step": int(model.state.step), "epoch": 2}:
+            fail(f"lifecycle: export {scheme} source {meta['source']}")
+    log32 = os.path.join(work_dir, "a32_eval.log")
+    kernels.reset_launch_counts()
+    res = cli.main(["evaluate", "--artifact", arts["float32"], "--test",
+                    test, "--test_batch_size", str(config.test_batch_size),
+                    "--eval_log", log32, "--device", dev])
+    want = evals[-1][0]
+    with open(log32) as f, \
+            open(os.path.join(work_dir, "train_eval.log")) as g:
+        same_log = f.read() == g.read()
+    if not (np.array_equal(res.topk_acc, want.topk_acc)
+            and (res.subtoken_precision, res.subtoken_recall,
+                 res.subtoken_f1, res.loss)
+            == (want.subtoken_precision, want.subtoken_recall,
+                want.subtoken_f1, want.loss) and same_log):
+        fail(f"lifecycle: evaluate --artifact (float32) {res} (log.txt "
+             f"equal: {same_log}) against the epoch-end {want}")
+    models = {k: ReleaseModel(Config(serve_artifact=a, device=dev,
+                                     verbose_mode=0))
+              for k, a in arts.items()}
+    top1 = {k: [] for k in models}
+    for batch in PathContextReader(models["int8"].vocabs,
+                                   models["int8"].config,
+                                   EstimatorAction.Evaluate, data_path=test,
+                                   batch_size=1024):
+        arrays = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in batch.model_arrays())
+        for k, m in models.items():
+            out = m.eval_step(*arrays)
+            top1[k].append(out.topk_indices[:, 0].cpu().numpy()[
+                batch.example_valid])
+    agree = float(np.mean(np.concatenate(top1["int8"])
+                          == np.concatenate(top1["float32"])))
+    log(f"lifecycle: export --load in {export_s['float32']:.2f}s (float32, "
+        f"{dir_bytes(arts['float32']) / 1e9:.3f} GB) and "
+        f"{export_s['int8']:.2f}s (int8, {dir_bytes(arts['int8']) / 1e9:.3f}"
+        f" GB); evaluate --artifact float32 equal to the epoch-end "
+        f"evaluation ({res}), log lines equal; int8 top-1 agrees with "
+        f"float32 on {agree:.4f} of {LIFECYCLE_TEST_ROWS} rows (bar "
+        f"{INT8_AGREEMENT_BAR})")
+    if agree < INT8_AGREEMENT_BAR:
+        fail(f"lifecycle: int8 top-1 agreement {agree} < "
+             f"{INT8_AGREEMENT_BAR}")
+    del models
+    for a in arts.values():
+        shutil.rmtree(a)
+    shutil.rmtree(base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model, dict(save_s=[t for _, t in saves], ckpt_gb=ckpt_bytes / 1e9,
+                       load_s=load_s, build_s=build_s, export_s=export_s,
+                       release_s=release_s, release_gb=release_bytes / 1e9,
+                       eval_eps=eval_eps, int8_agreement=agree)
 
 
 def train_step_check(torch, seed: int, fs, ft, rows: int = 64,
@@ -3333,8 +3667,8 @@ def topk_grid_phase(torch, seed: int, timer, fs, dev="cuda"):
     from near-ties. As the serving path pads a batch, one code vector of
     B 12 and the second half of B 64 are zero (every logit equal).
     At B 1024, k 10 (the evaluate batch) each format is timed beside its
-    bound and a bf16 matmul + torch.topk (int4: torch's unpack first).
-    Returns {format: that B 1024 entry}."""
+    bound, its plain version (3 samples) and a bf16 matmul + torch.topk
+    (int4: torch's unpack first). Returns {format: that B 1024 entry}."""
     from code2vec_tpu_torch.kernels import topk
     from code2vec_tpu_torch.ops.quant import unpack_int4
 
@@ -3349,6 +3683,7 @@ def topk_grid_phase(torch, seed: int, timer, fs, dev="cuda"):
     cvs[12][11] = 0.0
     cvs[64][32:] = 0.0
     out = {}
+    slow = Timer(torch, 3)   # the plain version at B 1024: 3 samples
     for fmt in K3_GRID_FORMATS:
         tbl, scl = quantize_format(torch, f32, fmt)
         kw = dict(scales=scl, valid_rows=v_real)
@@ -3388,17 +3723,20 @@ def topk_grid_phase(torch, seed: int, timer, fs, dev="cuda"):
         else:
             lib_ms = timer(lambda: torch.topk(torch.matmul(
                 cv_bf16, tbl.to(torch.bfloat16).T), fs.topk))
+        plain_ms = slow(lambda: topk.blockwise_topk_plain(
+            cv, tbl, fs.topk, fs.block, compute_dtype=torch.bfloat16, **kw),
+            spin_ms=20)
         nbytes = (tbl.numel() * tbl.element_size()
                   + (0 if scl is None else v_tgt * 4) + cv.numel() * 4
                   + b * fs.topk * 8 + b * 4)
         bms, by = bound(nbytes, 2.0 * b * v_tgt * d)
         out[fmt] = dict(max_abs_err=max(errs), ms=ms, library_ms=lib_ms,
-                        bound_ms=bms, bound_by=by)
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         log(f"K3 blockwise_topk {fmt} V={v_tgt}: B {K3_GRID_BATCHES} x k "
             f"{K3_GRID_K} max_abs_err {max(errs):.3g} (tol {TOL_F32SUM}) "
             f"indices equal {equal}/{total} (the rest near-ties); B=1024 "
-            f"k={fs.topk} ms {ms:.4f} library_ms {lib_ms:.4f} (bf16 matmul "
-            f"+ topk) bound_ms {bms:.4f} ({by})")
+            f"k={fs.topk} ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+            f"{lib_ms:.4f} (bf16 matmul + topk) bound_ms {bms:.4f} ({by})")
         del tbl, scl
         torch.cuda.empty_cache()
     del f32, cvs
@@ -3889,8 +4227,8 @@ def main() -> None:
         for scheme, (art, _) in arts.items():
             if scheme != "int8":   # the retrieval path serves that one
                 shutil.rmtree(art)
-        train_counts, train_stats = train_path_phase(torch, args.seed,
-                                                     work_dir, fs, ft)
+        train_counts, train_stats = train_path_phase(
+            torch, args.seed, work_dir, fs, ft, lifecycle=True)
         sparse_counts, sparse_stats = train_path_phase(
             torch, args.seed, work_dir, fs, ft, sparse=True)
         retrieval_counts, retrieval_stats = retrieval_path_phase(
@@ -4036,6 +4374,15 @@ def main() -> None:
         f"{sparse_stats['examples_per_s']:.0f} examples/s, peak "
         f"{sparse_stats['peak_gb']:.3f} GB ({sparse_stats['step_gb']:.3f} "
         f"GB above {sparse_stats['held_gb']:.3f} GB held)")
+    log(f"lifecycle: saves {[round(x, 2) for x in train_stats['save_s']]} s "
+        f"of {train_stats['ckpt_gb']:.3f} GB (trainable); load "
+        f"{train_stats['load_s']:.2f} s (model built in "
+        f"{train_stats['build_s']:.2f} s); --release "
+        f"{train_stats['release_s']:.2f} s, {train_stats['release_gb']:.3f} "
+        f"GB; export float32 {train_stats['export_s']['float32']:.2f} s, "
+        f"int8 {train_stats['export_s']['int8']:.2f} s; evaluation during "
+        f"training {[round(x) for x in train_stats['eval_eps']]} examples/s; "
+        f"int8 top-1 agreement {train_stats['int8_agreement']:.4f}")
     log(f"retrieval: embed {retrieval_stats['embed_rows_per_s']:.0f} rows/s; "
         f"index-build {retrieval_stats['index_build_s']:.2f}s at 20K rows, "
         f"{index_stats['index_build_1m_s']:.2f}s at 1M rows (load "

@@ -1,29 +1,48 @@
-"""Command line of the port: `train` from a preprocessed dataset;
-`serve`, `predict`, `evaluate` and `embed` against a release artifact of
-any scheme; `index-build` over a vector store. Flag names, defaults and
-checks are those of code2vec_tpu/cli.py and config.py, plus a command
-word and `--device` (default cuda).
+"""Command line of the port: `train` from a preprocessed dataset (saving
+and evaluating as it goes, or resuming a checkpoint); `serve`,
+`predict`, `evaluate` and `embed` against a release artifact of any
+scheme or a checkpoint; `export` and `export-embeddings` of a
+checkpoint; `index-build` over a vector store. Flag names, destinations,
+defaults and checks are those of code2vec_tpu/cli.py and config.py, plus
+a command word and `--device` (default cuda).
 
     python -m code2vec_tpu_torch train --data PREFIX --epochs N
-        [--batch_size B] [--max_contexts M] [--seed S] [--device cpu]
-        [--sparse_embedding_update]
+        [--save M] [--test T] [--load M_iter<N>] [--batch_size B]
+        [--max_contexts M] [--seed S] [--device cpu]
+        [--sparse_embedding_update] [--save_w2v F] [--save_t2v F]
+    python -m code2vec_tpu_torch export --load M --artifact_out DIR
+        [--release_scheme int8|fp8_e4m3|fp8_e5m2|int4|float32]
+        [--no_quantize]
+    python -m code2vec_tpu_torch export-embeddings --load M
+        --embeddings_out DIR
+    python -m code2vec_tpu_torch evaluate --load M --release
     python -m code2vec_tpu_torch serve --artifact DIR [--serve_port P]
         [--retrieval_index IDX [--retrieval_topk K]]
         [--serve_mips_nprobe P [--serve_mips_nlist N]
          [--serve_mips_crossover R]]
-    python -m code2vec_tpu_torch predict --artifact DIR [--device cpu]
-    python -m code2vec_tpu_torch evaluate --artifact DIR --test FILE
-        [--test_batch_size N] [--eval_log FILE] [--device cpu]
-    python -m code2vec_tpu_torch embed --artifact DIR --test CORPUS.c2v
-        --embed_out STORE [--embed_dtype float16] [--embed_shard_rows N]
+    python -m code2vec_tpu_torch serve --load M [--serve_port P]
+    python -m code2vec_tpu_torch predict (--artifact DIR | --load M)
+    python -m code2vec_tpu_torch evaluate (--artifact DIR | --load M)
+        --test FILE [--test_batch_size N] [--eval_log FILE]
+        [--export_code_vectors [--vectors_text]] [--device cpu]
+    python -m code2vec_tpu_torch embed (--artifact DIR | --load M)
+        --test CORPUS.c2v --embed_out STORE [--embed_dtype float16]
+        [--embed_shard_rows N]
     python -m code2vec_tpu_torch index-build --vectors STORE
         --index_out IDX [--nlist N] [--nprobe P] [--kmeans_iters I]
         [--index_metric cosine|dot]
 
-`train` neither saves nor evaluates yet. `evaluate` is the reference's
-`--artifact DIR --test FILE`: it prints the top-k accuracy, subtoken
-precision, recall and F1 and the loss, and writes each example's outcome
-to `--eval_log` (default log.txt).
+`train --save M` saves `M_iter<N>` at the end of every
+`save_every_epochs`-th epoch and of the last (keeping `max_to_keep`) and
+`M` when it ends; with `--test T` it evaluates T after each of those
+saves. `--load` takes an artifact directory or a save base (its newest
+valid `_iter<N>`); a resumed run numbers its epochs on from the loaded
+one. `evaluate` prints the top-k accuracy, subtoken precision, recall
+and F1 and the loss, and writes each example's outcome to `--eval_log`
+(default log.txt). `evaluate --load M --release` writes `M.release`, the
+model without its optimizer state (the reference's `--load M
+--release`); `--save_w2v`/`--save_t2v` run after training, or on
+`evaluate --load`.
 """
 
 from __future__ import annotations
@@ -40,14 +59,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("command", choices=COMMANDS)
     p.add_argument("--artifact", dest="serve_artifact", metavar="DIR",
                    help="`serve`, `predict`, `evaluate`, `embed`: release "
-                        "artifact directory")
+                        "artifact directory (or --load a checkpoint)")
     p.add_argument("-d", "--data", dest="data_path", metavar="PREFIX",
                    help="`train`: path prefix of the preprocessed dataset "
                         "(PREFIX.train.c2v, PREFIX.dict.c2v)")
     p.add_argument("--epochs", type=int, default=None,
                    help="`train`: epochs (default 20)")
     p.add_argument("--batch_size", type=int, default=None,
-                   help="`train`: rows per step (default 1024)")
+                   help="rows per train step and per evaluation batch "
+                        "(default 1024)")
     p.add_argument("--max_contexts", type=int, default=None,
                    help="`train`: contexts per method (default 200)")
     p.add_argument("--seed", type=int, default=42,
@@ -56,6 +76,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sparse_embedding_update", action="store_true",
                    help="`train`: touched-rows (lazy) Adam for the "
                         "token/path tables (training/sparse_adam.py)")
+    p.add_argument("-s", "--save", dest="save_path", metavar="FILE",
+                   help="`train`: save the model here (M_iter<N> after "
+                        "each scheduled epoch, M at the end)")
+    p.add_argument("-l", "--load", dest="load_path", metavar="FILE",
+                   help="the model to resume, evaluate, serve, export or "
+                        "release: a checkpoint directory or a save base")
+    p.add_argument("--release", action="store_true",
+                   help="`evaluate --load M`: write M.release, the model "
+                        "without its optimizer state")
+    p.add_argument("--save_w2v", metavar="FILE",
+                   help="save token embeddings in word2vec format")
+    p.add_argument("--save_t2v", metavar="FILE",
+                   help="save target embeddings in word2vec format")
+    p.add_argument("--vectors_text", action="store_true",
+                   help="--export_code_vectors compat: write the "
+                        "reference's `.vectors` text layout instead of "
+                        "the sharded store format")
+    p.add_argument("--artifact_out", dest="export_artifact_path",
+                   metavar="DIR",
+                   help="`export`: write a release artifact of the "
+                        "--load'ed model here")
+    p.add_argument("--no_quantize", action="store_true",
+                   help="`export`: float32 tables instead of the "
+                        "scheme's")
+    p.add_argument("--release_scheme",
+                   choices=["int8", "fp8_e4m3", "fp8_e5m2", "int4",
+                            "float32"], default=None,
+                   help="`export`: quantization scheme of the tables "
+                        "(default int8)")
+    p.add_argument("--embeddings_out", metavar="DIR",
+                   help="`export-embeddings`: write the token and target "
+                        "tables in word2vec text format here")
+    p.add_argument("--adam_mu_dtype", choices=["bfloat16", "float32"],
+                   default=None,
+                   help="`train`: storage dtype of Adam's first moment "
+                        "(default bfloat16)")
+    p.add_argument("--adam_nu_dtype", choices=["bfloat16", "float32"],
+                   default=None,
+                   help="`train`: storage dtype of Adam's second moment "
+                        "(default bfloat16)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -92,14 +152,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "only)")
     # retrieval
     p.add_argument("-te", "--test", dest="test_data_path", metavar="FILE",
-                   help="`evaluate`: the labelled .c2v corpus to score; "
-                        "`embed`: the .c2v corpus to embed")
+                   help="`train`, `evaluate`: the labelled .c2v corpus to "
+                        "score; `embed`: the .c2v corpus to embed")
     p.add_argument("--test_batch_size", type=int, default=None,
                    metavar="ROWS", help="`evaluate`, `embed`: rows per "
                                         "device batch (default 1024)")
     p.add_argument("--eval_log", default="log.txt", metavar="FILE",
-                   help="`evaluate`: each example's outcome (default "
-                        "log.txt)")
+                   help="`evaluate`, `train --test`: each example's "
+                        "outcome (default log.txt)")
     p.add_argument("--embed_out", metavar="DIR",
                    help="`embed`: write the corpus's code vectors into a "
                         "sharded vector store here (resumable per shard)")
@@ -140,44 +200,75 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 COMMANDS = ("train", "serve", "predict", "evaluate", "embed",
-            "index-build")
+            "index-build", "export", "export-embeddings")
+# the commands that run a model: a release artifact or a checkpoint
+MODEL_COMMANDS = ("serve", "predict", "evaluate", "embed")
 
 
 def config_from_args(argv):
     """(parsed args, Config), checked by Config.verify."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.command == "train" and not args.data_path:
+    cmd = args.command
+    if cmd == "train" and not args.data_path:
         parser.error("train needs --data PREFIX")
-    if args.command in ("serve", "predict", "evaluate", "embed") and \
-            not args.serve_artifact:
-        parser.error(f"{args.command} needs --artifact DIR")
-    if args.test_data_path and args.command not in ("evaluate", "embed"):
-        parser.error("--test is the `embed` command's corpus and the "
-                     "`evaluate` command's labelled one")
-    if args.command == "evaluate" and not args.test_data_path:
+    if cmd in MODEL_COMMANDS and not (args.serve_artifact or args.load_path):
+        parser.error(f"{cmd} needs --artifact DIR or --load MODEL")
+    if cmd == "export" and not args.export_artifact_path:
+        parser.error("the `export` subcommand requires --artifact_out DIR")
+    if cmd == "export-embeddings" and not args.embeddings_out:
+        parser.error("the `export-embeddings` subcommand requires "
+                     "--embeddings_out DIR (plus --load MODEL)")
+    if args.export_artifact_path and cmd != "export":
+        parser.error("--artifact_out is the `export` command's output")
+    if args.embeddings_out and cmd != "export-embeddings":
+        parser.error("--embeddings_out is the `export-embeddings` "
+                     "command's output")
+    if args.save_path and cmd != "train":
+        parser.error("--save is the `train` command's output")
+    if args.release and not (cmd == "evaluate" and args.load_path):
+        parser.error("--release re-saves a checkpoint: `evaluate --load M "
+                     "--release`")
+    if (args.save_w2v or args.save_t2v) and cmd not in ("train",
+                                                         "evaluate"):
+        parser.error("--save_w2v/--save_t2v dump a checkpoint's tables: "
+                     "after `train`, or on `evaluate --load M`")
+    if args.test_data_path and cmd in ("serve", "predict"):
+        parser.error("--test is the corpus of `train` and `evaluate` "
+                     "(labelled) and of `embed`")
+    if cmd == "evaluate" and not (args.test_data_path or args.release
+                                  or args.save_w2v or args.save_t2v):
         parser.error("evaluate needs --test FILE (a labelled .c2v corpus)")
-    if args.command == "embed" and not args.embed_out:
+    if cmd == "embed" and not args.embed_out:
         parser.error("the `embed` subcommand requires --embed_out DIR "
-                     "(plus --test CORPUS and --artifact DIR)")
-    if args.command == "index-build" and not (args.index_vectors
-                                              and args.index_out):
+                     "(plus --test CORPUS and --artifact DIR or --load "
+                     "MODEL)")
+    if cmd == "index-build" and not (args.index_vectors and args.index_out):
         parser.error("the `index-build` subcommand requires --vectors DIR "
                      "and --index_out DIR")
     config = Config(serve_artifact=args.serve_artifact, device=args.device,
                     export_code_vectors=args.export_code_vectors,
                     train_data_path_prefix=args.data_path, seed=args.seed,
                     use_sparse_embedding_update=args.sparse_embedding_update,
-                    serve=args.command == "serve",
-                    predict=args.command == "predict")
+                    model_save_path=args.save_path,
+                    model_load_path=args.load_path, release=args.release,
+                    save_w2v=args.save_w2v, save_t2v=args.save_t2v,
+                    vectors_text=args.vectors_text,
+                    release_quantize=not args.no_quantize,
+                    eval_log_path=args.eval_log,
+                    serve=cmd == "serve", predict=cmd == "predict")
     explicit = []
-    for name, field in (("epochs", "num_train_epochs"),
-                        ("batch_size", "train_batch_size"),
-                        ("max_contexts", "max_contexts")):
+    # --batch_size sets the test batch too, unless --test_batch_size
+    # does (code2vec_tpu/cli.py:1058-1062)
+    for name, fields in (("epochs", ("num_train_epochs",)),
+                         ("batch_size", ("train_batch_size",
+                                         "test_batch_size")),
+                         ("max_contexts", ("max_contexts",))):
         value = getattr(args, name)
         if value is not None:
-            setattr(config, field, value)
-            explicit.append(field)
+            for field in fields:
+                setattr(config, field, value)
+                explicit.append(field)
     for name in ("serve_port", "serve_host", "serve_batch_size",
                  "serve_max_delay_ms", "extractor_timeout_s",
                  "serve_mips_nprobe", "serve_mips_nlist",
@@ -185,7 +276,8 @@ def config_from_args(argv):
                  "embed_out", "embed_dtype", "embed_shard_rows",
                  "index_vectors", "index_out", "index_nlist", "index_nprobe",
                  "index_kmeans_iters", "index_metric", "retrieval_index",
-                 "retrieval_topk"):
+                 "retrieval_topk", "export_artifact_path", "release_scheme",
+                 "embeddings_out", "adam_mu_dtype", "adam_nu_dtype"):
         value = getattr(args, name)
         if value is not None:
             setattr(config, name, value)
@@ -199,15 +291,12 @@ def config_from_args(argv):
 
 
 def main(argv=None):
-    """Runs a command; `train` returns its Code2VecModel, `evaluate` its
-    ModelEvaluationResults, `embed` the embed job's summary and
-    `index-build` the index meta."""
+    """Runs a command in the reference's order (code2vec_tpu/cli.py
+    :1090-1143). `train` returns its Code2VecModel, `evaluate` its
+    ModelEvaluationResults (None for --release), `embed` the embed job's
+    summary, `index-build` the index meta, `export` the artifact's meta,
+    `export-embeddings` the written paths."""
     args, config = config_from_args(sys.argv[1:] if argv is None else argv)
-    if args.command == "train":
-        from code2vec_tpu_torch.model_facade import Code2VecModel
-        model = Code2VecModel(config)
-        model.train()
-        return model
     if args.command == "index-build":
         from code2vec_tpu_torch.release.runtime import resolve_device
         from code2vec_tpu_torch.retrieval.index import build_index
@@ -218,21 +307,51 @@ def main(argv=None):
                            seed=config.seed, metric=config.index_metric,
                            log=config.log,
                            device=resolve_device(config.device))
-    from code2vec_tpu_torch.release.runtime import ReleaseModel
     t0 = time.perf_counter()
-    model = ReleaseModel(config)
+    if config.serve_artifact:
+        from code2vec_tpu_torch.release.runtime import ReleaseModel
+        model, what = ReleaseModel(config), "artifact"
+    else:
+        from code2vec_tpu_torch.model_facade import Code2VecModel
+        model, what = Code2VecModel(config), "checkpoint"
     load_s = time.perf_counter() - t0
+    if args.command == "export":
+        from code2vec_tpu_torch.release.artifact import export_artifact
+        t0 = time.perf_counter()
+        meta = export_artifact(model, config.export_artifact_path)
+        config.log(f"export timing: checkpoint load {load_s:.3f}s, "
+                   f"artifact written in {time.perf_counter() - t0:.3f}s")
+        return meta
     if args.command == "embed":
         from code2vec_tpu_torch.retrieval.embed_job import run_embed_job
         return run_embed_job(model)
+    if args.command == "export-embeddings":
+        return model.export_embeddings(config.embeddings_out)
+    if args.command == "train":
+        model.train()
+    for path, vocab_type in ((config.save_w2v, "Token"),
+                             (config.save_t2v, "Target")):
+        if path:
+            from code2vec_tpu_torch.vocab import VocabType
+            model.save_word2vec_format(path, VocabType[vocab_type])
+            config.log(f"{'Origin' if vocab_type == 'Token' else 'Target'} "
+                       f"word vectors saved in word2vec text format in: "
+                       f"{path}")
+    if args.command == "train":
+        return model
     if args.command == "evaluate":
+        if config.release:
+            return model.evaluate()
+        if not config.is_testing:
+            return None
         t0 = time.perf_counter()
-        results = model.evaluate(log_path=args.eval_log)
+        results = (model.evaluate(log_path=args.eval_log) if what ==
+                   "artifact" else model.evaluate())
         eval_s = time.perf_counter() - t0
         config.log(str(results).replace(
             "topk", f"top{config.top_k_words_considered_during_prediction}"))
         n = config.num_test_examples
-        config.log(f"evaluate timing: artifact load {load_s:.3f}s, "
+        config.log(f"evaluate timing: {what} load {load_s:.3f}s, "
                    f"{n} examples scored in {eval_s:.3f}s "
                    f"({n / max(eval_s, 1e-9):.1f} examples/s)")
         return results

@@ -1,5 +1,5 @@
-"""The train, predict, serve and retrieval knobs of the port, with the
-names and defaults of code2vec_tpu/config.py.
+"""The train, checkpoint, predict, serve and retrieval knobs of the port,
+with the names and defaults of code2vec_tpu/config.py.
 
 A release artifact is authoritative for what shaped its export
 (max_contexts, topk, buckets, vocab sizes, compute dtype): ReleaseModel
@@ -11,14 +11,18 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import sys
 from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
 class Config:
-    # training schedule (code2vec_tpu/config.py:27, :43, :83, :86)
+    # training schedule (code2vec_tpu/config.py:27-28, :43, :83, :86,
+    # :91)
     num_train_epochs: int = 20
+    save_every_epochs: int = 1
+    max_to_keep: int = 10
     on_nonfinite_loss: str = "halt"
     train_batch_size: int = 1024
     num_batches_to_log_progress: int = 100
@@ -30,6 +34,24 @@ class Config:
     test_data_path: Optional[str] = None
     test_batch_size: int = 1024
     num_test_examples: int = 0
+    # checkpoints and their exports (code2vec_tpu/config.py:112-119,
+    # :485, :492, :566, :570): `--save`, `--load`, `--release` (re-save
+    # the loaded model without its optimizer state), the word2vec text
+    # dumps, `export --artifact_out` (release_quantize False = float32
+    # tables), `--vectors_text` (the `.vectors` text layout of
+    # --export_code_vectors) and `export-embeddings --embeddings_out`
+    model_save_path: Optional[str] = None
+    model_load_path: Optional[str] = None
+    release: bool = False
+    save_w2v: Optional[str] = None
+    save_t2v: Optional[str] = None
+    export_artifact_path: Optional[str] = None
+    release_quantize: bool = True
+    vectors_text: bool = False
+    embeddings_out: Optional[str] = None
+    # each evaluated example's outcome (the reference writes log.txt in
+    # the working directory; None writes none)
+    eval_log_path: Optional[str] = "log.txt"
     dropout_keep_rate: float = 0.75
     # Adam (code2vec_tpu/config.py:136-139, :163, :172)
     learning_rate: float = 0.001
@@ -105,6 +127,33 @@ class Config:
         return bool(self.test_data_path)
 
     @property
+    def is_loading(self) -> bool:
+        return bool(self.model_load_path)
+
+    @property
+    def is_saving(self) -> bool:
+        return bool(self.model_save_path)
+
+    @property
+    def model_load_dir(self) -> str:
+        return os.path.dirname(self.model_load_path or "")
+
+    @property
+    def code_vector_size(self) -> int:
+        return self.path_embeddings_size + 2 * self.token_embeddings_size
+
+    @staticmethod
+    def get_vocabularies_path_from_model_path(model_file_path: str) -> str:
+        # a model directory carries its own dictionaries.bin; the
+        # reference's layout keeps it beside the model file
+        # (code2vec_tpu/config.py:773-782)
+        inside = os.path.join(model_file_path, "dictionaries.bin")
+        if os.path.isfile(inside):
+            return inside
+        return os.path.join(os.path.dirname(model_file_path),
+                            "dictionaries.bin")
+
+    @property
     def train_data_path(self) -> Optional[str]:
         # `<prefix>.train.c2v` (code2vec_tpu/config.py:753-758)
         if not self.is_training:
@@ -119,8 +168,17 @@ class Config:
         return f"{self.train_data_path_prefix}.dict.c2v"
 
     def verify(self) -> None:
-        """The checks of code2vec_tpu/config.py:822-840 and :1114-1278
+        """The checks of code2vec_tpu/config.py:800-840 and :1109-1289
         that the port's knobs share."""
+        if not (self.is_training or self.is_loading or self.serve_artifact
+                or self.index_out):
+            raise ValueError(
+                "Must train or load a model (or serve a release "
+                "artifact via --artifact; `index-build` alone needs no "
+                "model).")
+        if self.is_loading and not os.path.isdir(self.model_load_dir):
+            raise ValueError(
+                f"Model load dir `{self.model_load_dir}` does not exist.")
         for name in ("compute_dtype", "adam_mu_dtype", "adam_nu_dtype"):
             if getattr(self, name) not in ("bfloat16", "float32"):
                 raise ValueError(f"{name} must be bfloat16 or float32.")
@@ -128,8 +186,72 @@ class Config:
             raise ValueError("on_nonfinite_loss must be halt or warn.")
         if not 0.0 < self.dropout_keep_rate <= 1.0:
             raise ValueError("dropout_keep_rate must be in (0, 1].")
+        if self.save_every_epochs < 1:
+            raise ValueError("save_every_epochs must be >= 1.")
+        if self.max_to_keep < 0:
+            raise ValueError("max_to_keep must be >= 0 (0 keeps every "
+                             "epoch checkpoint).")
+        if self.release_scheme not in ("int8", "fp8_e4m3", "fp8_e5m2",
+                                       "int4", "float32"):
+            raise ValueError(
+                "release_scheme must be one of int8, fp8_e4m3, "
+                "fp8_e5m2, int4, float32.")
         self._verify_mips()
+        self._verify_exports()
         self._verify_retrieval()
+
+    def _verify_exports(self) -> None:
+        if self.export_artifact_path and not self.is_loading:
+            raise ValueError(
+                "export (--artifact_out) requires --load: the artifact "
+                "is built from a trained checkpoint.")
+        if self.export_artifact_path and self.is_training:
+            raise ValueError(
+                "export (--artifact_out) cannot be combined with training "
+                "(--data): main() exports the --load'ed checkpoint and "
+                "exits, so the training run would be silently skipped. "
+                "Train first, then `export --load CKPT --artifact_out "
+                "DIR`.")
+        if self.export_artifact_path and (self.serve or self.predict
+                                          or self.is_testing):
+            raise ValueError(
+                "export (--artifact_out) is a one-shot job and cannot be "
+                "combined with serve/--predict/--test in the same run; "
+                "run those against the exported artifact (--artifact) or "
+                "the checkpoint (--load) separately.")
+        if self.serve_artifact and self.is_loading:
+            raise ValueError(
+                "--artifact and --load are mutually exclusive: a release "
+                "artifact carries its own tables and vocabularies.")
+        if self.serve_artifact and (self.save_w2v or self.save_t2v):
+            raise ValueError(
+                "--artifact cannot be combined with --save_w2v/--save_t2v: "
+                "the vector writers read the fp32 checkpoint tables and "
+                "the artifact branch in main() would silently skip them; "
+                "run them against --load.")
+        if self.serve_artifact and self.is_training:
+            raise ValueError(
+                "--artifact is inference-only (serve/--predict/--test) "
+                "and cannot be combined with training (--data): a "
+                "release artifact has no optimizer state to train.")
+        if self.embeddings_out and (self.is_training or self.serve
+                                    or self.predict or self.is_testing
+                                    or self.embed_out):
+            raise ValueError(
+                "export-embeddings (--embeddings_out) is a one-shot "
+                "job and cannot be combined with training/serve/"
+                "--predict/--test/--embed_out: main() writes the "
+                "tables and exits, silently skipping the rest. Run "
+                "them as separate invocations.")
+        if self.embeddings_out and not self.is_loading:
+            raise ValueError(
+                "export-embeddings (--embeddings_out) requires --load: "
+                "the tables come from a trained checkpoint.")
+        if self.embeddings_out and self.serve_artifact:
+            raise ValueError(
+                "export-embeddings (--embeddings_out) reads the fp32 "
+                "checkpoint tables; a release artifact's are quantized "
+                "— run it against --load.")
 
     def _verify_mips(self) -> None:
         if self.serve_mips_nprobe < 0:
@@ -161,6 +283,12 @@ class Config:
                 "serve_mips_crossover > 0 requires serve_mips_nprobe > 0: "
                 "there is no MIPS head to dispatch small batches to "
                 "without an IVF probe budget.")
+        if self.serve_mips_nprobe > 0 and self.is_loading:
+            raise ValueError(
+                "--serve_mips_nprobe takes a release artifact here: the "
+                "port builds the MIPS head over an artifact's tables "
+                "(--artifact DIR), not over a --load'ed checkpoint; "
+                "`export` the checkpoint first.")
 
     def _verify_retrieval(self) -> None:
         if self.embed_dtype not in ("float32", "float16"):
@@ -172,10 +300,11 @@ class Config:
         if self.embed_out and not self.is_testing:
             raise ValueError(
                 "embed (--embed_out) needs a corpus: pass --test FILE.")
-        if self.embed_out and not self.serve_artifact:
+        if self.embed_out and not (self.is_loading or self.serve_artifact):
             raise ValueError(
-                "embed (--embed_out) needs a model: --artifact DIR (an "
-                "untrained model's vectors index noise).")
+                "embed (--embed_out) needs a model: --load CKPT or "
+                "--artifact DIR (an untrained model's vectors index "
+                "noise).")
         if self.embed_out and self.is_training:
             raise ValueError(
                 "embed (--embed_out) is a one-shot job and cannot be "
@@ -188,11 +317,12 @@ class Config:
                 "invocations.")
         if self.index_out and (self.is_training or self.serve
                                or self.predict or self.is_testing
-                               or self.embed_out):
+                               or self.embed_out or self.embeddings_out):
             raise ValueError(
                 "index-build (--index_out) is a standalone job and cannot "
                 "be combined with training/serve/predict/--test/"
-                "--embed_out. Run them as separate invocations.")
+                "--embed_out/--embeddings_out. Run them as separate "
+                "invocations.")
         if self.index_out and not self.index_vectors:
             raise ValueError(
                 "index-build (--index_out) requires --vectors DIR (the "

@@ -307,7 +307,9 @@ class PathContextReader:
     partial batch of the run is dropped. Evaluate: one pass in file
     order, the partial tail batch padded with invalid rows;
     `with_target_strings` keeps each row's method name (the embed job's
-    ids). Rows are parsed in chunks of `parse_chunk_lines` and filtered.
+    ids). `start_epoch` is the absolute index of the first epoch (a
+    resumed run's completed epochs): the shuffle is keyed by the absolute
+    epoch, so a resumed run orders epoch N as an unbroken one does. Rows are parsed in chunks of `parse_chunk_lines` and filtered.
     Chunks are parsed in order on the calling thread (the reference
     parses them on a worker pool, which yields the same order)."""
 
@@ -318,7 +320,8 @@ class PathContextReader:
                  batch_size: Optional[int] = None,
                  num_epochs: Optional[int] = None,
                  yield_epoch_markers: bool = False,
-                 with_target_strings: bool = False):
+                 with_target_strings: bool = False,
+                 start_epoch: int = 0):
         if estimator_action.is_predict:
             raise ValueError("the reader streams the Train and Evaluate "
                              "actions; predict parses its lines directly")
@@ -337,6 +340,7 @@ class PathContextReader:
         self.num_epochs = (config.num_train_epochs if num_epochs is None
                            else num_epochs)
         self.yield_epoch_markers = yield_epoch_markers
+        self.start_epoch = start_epoch
 
     def __iter__(self) -> Iterator:
         if self.estimator_action.is_train:
@@ -348,12 +352,14 @@ class PathContextReader:
 
     def _shuffled_lines(self, epochs: int) -> Iterator:
         """Repeat + bounded shuffle buffer; an EpochEnd after every pass
-        (the buffer is drained before the final one)."""
+        (the buffer is drained before the final one), numbered from 1
+        within this reader's run."""
         buf: List[str] = []
         buf_size = self.config.shuffle_buffer_size
         epoch = 0
         while epoch < epochs:
-            rng = _epoch_shuffle_rng(self.config.seed, epoch)
+            rng = _epoch_shuffle_rng(self.config.seed,
+                                     self.start_epoch + epoch)
             for line in _iter_file_lines(self.data_path,
                                          self.config.csv_buffer_size):
                 if len(buf) < buf_size:

@@ -13,10 +13,13 @@ batch N. After each step the host copies of what scoring reads start at
 once, behind the step on the stream, so that scoring batch N waits for
 step N alone and not for step N+1, which is already queued.
 
-Left out of the reference's: the `obs` spans, counters and gauges, the
-multi-host reduction of the counts (the port runs on one device), and the
-code-vector outputs (`code_vectors_path`, `code_vectors_sink`), which no
-caller of the port uses.
+The code vectors of the valid rows go, in eval order, to a text file
+(`code_vectors_path`: one space-joined vector a line, the reference's
+`.vectors` layout) or to a sink (`code_vectors_sink(vectors, names)`,
+e.g. a retrieval/store.py VectorStoreWriter's `append`), as the
+reference's do (:54-55, :124-132). Left out of the reference's: the `obs`
+spans, counters and gauges, and the multi-host reduction of the counts
+(the port runs on one device).
 """
 
 from __future__ import annotations
@@ -127,7 +130,10 @@ class Evaluator:
         self.tables = TargetWordTables(vocabs.target_vocab)
 
     def evaluate(self, params, batches: Iterable,
-                 prefetch: bool = True) -> ModelEvaluationResults:
+                 prefetch: bool = True,
+                 code_vectors_path: Optional[str] = None,
+                 code_vectors_sink: Optional[Callable] = None
+                 ) -> ModelEvaluationResults:
         """Pipelined (`prefetch`) or serial evaluation; both give the same
         results."""
         config = self.config
@@ -138,10 +144,14 @@ class Evaluator:
         # divides by the same row count
         oov_floor = max(self.vocabs.target_vocab.pad_index,
                         self.vocabs.target_vocab.oov_index)
-        names_read = ("topk_indices", "loss_sum")
+        with_vectors = bool(code_vectors_path or code_vectors_sink)
+        names_read = ("topk_indices", "loss_sum") + (
+            ("code_vectors",) if with_vectors else ())
         totals = dict(loss_sum=0.0, loss_rows=0, predictions=0, batches=0)
         start_time = time.time()
         log_file = open(self.log_path, "w") if self.log_path else None
+        vectors_file = (open(code_vectors_path, "w") if code_vectors_path
+                        else None)
 
         def consume(batch, host: _HostCopy) -> None:
             out = host.get()
@@ -162,6 +172,13 @@ class Evaluator:
             totals["batches"] += 1
             if log_file is not None:
                 self._log_predictions(log_file, names, info)
+            if with_vectors:
+                vectors = out["code_vectors"].numpy()[valid]
+                if vectors_file is not None:
+                    for vec in vectors:
+                        vectors_file.write(" ".join(map(str, vec)) + "\n")
+                if code_vectors_sink is not None:
+                    code_vectors_sink(vectors, names)
             if totals["batches"] % config.num_batches_to_log_progress == 0:
                 elapsed = time.time() - start_time
                 config.log(f"Evaluated {totals['predictions']} examples... "
@@ -189,6 +206,8 @@ class Evaluator:
                 log_file.write(str(topk_metric.topk_correct_predictions)
                                + "\n")
         finally:
+            if vectors_file is not None:
+                vectors_file.close()
             if log_file is not None:
                 log_file.close()
         return ModelEvaluationResults(

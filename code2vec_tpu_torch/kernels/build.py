@@ -27,9 +27,10 @@ from typing import Dict, Iterable, List, Optional
 SOURCES = ("encoder", "attention", "topk", "label_logits",
            "encoder_backward", "attention_backward", "softmax_xent", "adam",
            "kmeans", "ivf_search", "sparse_adam", "select")
-# csrc/gather_probe.cu is no kernel of the port: a measurement that
-# scripts/profile_torch_encoder_xent.py and
-# scripts/profile_torch_sparse_adam_attention.py build by name (`load`)
+# csrc/gather_probe.cu is no kernel of the port: measurements that
+# scripts/profile_torch_encoder_xent.py,
+# scripts/profile_torch_sparse_adam_attention.py and
+# scripts/profile_torch_label_logits.py build by name (`load`)
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")

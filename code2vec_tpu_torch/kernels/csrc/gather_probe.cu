@@ -5,7 +5,9 @@
 // it (it is not in kernels/build.py SOURCES, so the port never does) and
 // times it over the whole table and over its first 32 MB of rows. The
 // row read-modify-write probe moves K12's row bytes alone, for
-// scripts/profile_torch_sparse_adam_attention.py.
+// scripts/profile_torch_sparse_adam_attention.py. The empty kernel is the
+// device time of a launch that does nothing, for
+// scripts/profile_torch_label_logits.py.
 #include "common.cuh"
 
 namespace {
@@ -122,7 +124,16 @@ row_rmw_probe_kernel(float* table, __nv_bfloat16* mu, float* nu,
   if (acc == 1.2345e-30f) sink[0] = acc;  // keeps the loads
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+// One launch of a kernel that does nothing: `blocks` CTAs of `threads`
+// threads. Returns a cudaError_t.
+C2V_EXPORT int c2v_empty_kernel(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
 
 // n sorted row ids of 128-wide tables (f32 table and nu, bf16 mu), each
 // with one bf16 gradient row at pos[i]: K12's row bytes, read only

@@ -110,6 +110,28 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// One arrival on an mbarrier, issued only once `dep` is known. The
+// count is computed from `dep` inside the asm: 2 where dep is all ones
+// and `nonneg` < 0, else 1. Callers pass a `nonneg` that is never
+// negative at run time, so the count is always 1, but no compiler pass
+// sees that (the asm is opaque to the front end, and ptxas cannot know
+// `nonneg`): the arrive waits for `dep`, and so for the loads it was
+// computed from.
+__device__ __forceinline__ void mbar_arrive_after(uint64_t* bar,
+                                                  uint32_t dep,
+                                                  int nonneg) {
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\t.reg .b32 c;\n\t"
+      "setp.eq.b32 p, %1, 0xFFFFFFFF;\n\t"
+      "setp.lt.s32 q, %2, 0;\n\t"
+      "and.pred p, p, q;\n\t"
+      "selp.b32 c, 2, 1, p;\n\t"
+      "mbarrier.arrive.shared::cta.b64 _, [%0], c;\n\t}" ::"r"(
+          smem_u32(bar)),
+      "r"(dep), "r"(nonneg)
+      : "memory");
+}
+
 // Bytes of one table row as stored.
 __host__ __device__ inline int row_bytes(int fmt, int d) {
   return fmt == c2v::kF32 ? 4 * d : fmt == c2v::kInt4 ? d / 2 : d;
@@ -580,8 +602,15 @@ topk_partial_kernel(const __grid_constant__ Params P) {
       sc0 = v0 < P.v_rows ? __ldg(P.scales + v0) : 0.f;
       sc1 = v1 < P.v_rows ? __ldg(P.scales + v1) : 0.f;
     }
-    // unit u: wait for its stage, decode, release the stage after its
-    // last unit, then the products
+    // unit u: wait for its stage, decode, give the stage back after its
+    // last unit, then the products. The stage goes back only once the
+    // loads that read it have returned: every lane's decoded registers
+    // feed the arrive (an OR over the warp, then mbar_arrive_after), so
+    // it cannot issue before them. A plain arrive after the decode let a
+    // refill overwrite rows a warp had not read yet: rows 8-15 and 24-31
+    // of a tile came out wrong in up to 999 calls of 1,000
+    // (scripts/repeat_topk_large_k.py). The units before a stage's last
+    // one issued their products, so their registers had arrived.
     auto unit = [&](int u, uint32_t (&a)[4][4], uint32_t (&l)[4][4]) {
       const int sl = u / ups;
       const int64_t seq = i / kWarpgroups * spt + sl;
@@ -602,8 +631,13 @@ topk_partial_kernel(const __grid_constant__ Params P) {
                           col < d, a);
       }
       if (u % ups == ups - 1 || u == n_units - 1) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[slot]);
+        uint32_t dep = 0;
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dep |= a[s][e] | (kF32 ? l[s][e] : 0u);
+        dep = __reduce_or_sync(c2v::kFullMask, dep);
+        if (lane == 0) mbar_arrive_after(&empty[slot], dep, P.b_rows);
       }
       wgmma_fence();
 #pragma unroll

@@ -17,6 +17,9 @@ for the tables token_embedding, path_embedding and target_embedding.
 `load_artifact` validates as the reference does and raises ArtifactError
 naming the offending field. Every scheme the reference writes is written
 and served: int8, fp8 e4m3 and e5m2, packed int4 and float32.
+`export_artifact` writes one from a live training facade (the `export`
+command), without the reference's AOT lowerings and MIPS crossover
+calibration.
 """
 
 from __future__ import annotations
@@ -130,11 +133,13 @@ def write_artifact(params: Mapping[str, np.ndarray], vocabs, out_dir: str,
                    topk_block_size: int = 4096, serve_batch_size: int = 64,
                    buckets: Sequence[int] = (32, 64, 128, 200),
                    separate_oov_and_pad: bool = False,
-                   real_target_vocab_size: Optional[int] = None) -> dict:
+                   real_target_vocab_size: Optional[int] = None,
+                   source: Optional[dict] = None) -> dict:
     """Write a release artifact from f32 numpy params (the Flax names and
-    shapes) in the layout `export_artifact` writes; returns the meta.
-    `scheme` is a knob name ("int8", "fp8_e4m3", "fp8_e5m2", "int4",
-    "float32") or an on-disk name."""
+    shapes) in the layout of the reference's `export_artifact`; returns
+    the meta. `scheme` is a knob name ("int8", "fp8_e4m3", "fp8_e5m2",
+    "int4", "float32") or an on-disk name; `source` records the
+    checkpoint, step and epoch the params came from."""
     scheme = SCHEME_BY_KNOB.get(scheme, scheme)
     if scheme not in ALL_SCHEMES:
         raise ValueError(f"unknown artifact scheme {scheme!r} (one of "
@@ -185,7 +190,8 @@ def write_artifact(params: Mapping[str, np.ndarray], vocabs, out_dir: str,
         "topk_block_size": int(topk_block_size),
         "serve_batch_size": int(serve_batch_size),
         "buckets": [int(b) for b in buckets],
-        "source": {"checkpoint": None, "step": 0, "epoch": None},
+        "source": dict(source or {"checkpoint": None, "step": 0,
+                                  "epoch": None}),
         "table_bytes": {"fp32": fp32_bytes, "artifact": written},
         "aot": None,
     }
@@ -193,6 +199,41 @@ def write_artifact(params: Mapping[str, np.ndarray], vocabs, out_dir: str,
     with open(os.path.join(out_dir, META_NAME), "w") as f:
         json.dump(meta, f, indent=2, sort_keys=True)
         f.write("\n")
+    return meta
+
+
+def export_artifact(model, out_dir: str, *, quantize: Optional[bool] = None,
+                    scheme: Optional[str] = None, log=None) -> dict:
+    """Write a release artifact from a live facade model (the `export`
+    command; reference :155-265); returns its meta. `scheme` is an
+    on-disk scheme name; unset, it follows config.release_scheme, with
+    `quantize` False (--no_quantize) forcing float32 tables."""
+    config = model.config
+    log = log or config.log
+    quantize = config.release_quantize if quantize is None else quantize
+    if scheme is None:
+        scheme = (SCHEME_BY_KNOB[config.release_scheme] if quantize
+                  else SCHEME_FP32)
+    params = {k: v.detach().cpu().numpy()
+              for k, v in model.state.params.items()}
+    meta = write_artifact(
+        params, model.vocabs, out_dir, scheme,
+        max_contexts=config.max_contexts,
+        compute_dtype=config.compute_dtype,
+        topk=config.top_k_words_considered_during_prediction,
+        topk_block_size=config.topk_block_size,
+        serve_batch_size=config.serve_batch_size,
+        buckets=model.context_buckets,
+        separate_oov_and_pad=config.separate_oov_and_pad,
+        real_target_vocab_size=model.dims.real_target_vocab_size,
+        source={"checkpoint": (os.path.abspath(config.model_load_path)
+                               if config.model_load_path else None),
+                "step": int(model.state.step),
+                "epoch": model.initial_epoch})
+    log(f"Release artifact written to {out_dir}: scheme {scheme}, "
+        f"{meta['table_bytes']['artifact'] / 1e6:.1f} MB of tables "
+        f"({meta['table_bytes']['fp32'] / 1e6:.1f} MB as float32), "
+        f"fingerprint {meta['fingerprint'][:12]}")
     return meta
 
 

@@ -23,34 +23,23 @@ AOT lowerings and the export-time crossover calibration of the reference
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from code2vec_tpu_torch.kernels.attention import masked_attention
-from code2vec_tpu_torch.kernels.encoder import context_encoder
-from code2vec_tpu_torch.kernels.label_logits import label_logits
-from code2vec_tpu_torch.kernels.topk import blockwise_topk
 from code2vec_tpu_torch.model_facade import BucketedPredictMixin
 from code2vec_tpu_torch.release.artifact import (
     QUANTIZED_SCHEMES, SCHEME_INT4, ArtifactError, ReleaseArtifact,
     load_artifact, table_dim,
 )
+from code2vec_tpu_torch.training.step import EvalOutputs, make_eval_step
 from code2vec_tpu_torch.vocab import Code2VecVocabs
 from code2vec_tpu_torch.weights import (
     release_params_from_artifact, table_tensor,
 )
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-class EvalOutputs(NamedTuple):
-    topk_values: torch.Tensor    # (B, k) f32
-    topk_indices: torch.Tensor   # (B, k) int32
-    code_vectors: torch.Tensor   # (B, D) f32
-    attention: torch.Tensor      # (B, M) f32
-    loss_sum: torch.Tensor       # () f32, CE summed over valid rows
 
 
 def resolve_device(device) -> torch.device:
@@ -65,56 +54,23 @@ def resolve_device(device) -> torch.device:
 
 
 def make_release_step(meta: dict, mips_topk=None):
-    """(params, src, pth, tgt, mask, labels, valid) -> EvalOutputs.
-
-    `mips_topk` (a `MipsHead.topk_fn` closure) replaces the exact head
-    (K3, K4) with the approximate-MIPS search; such steps report
-    loss_sum 0 (no logsumexp exists over a candidate subset). Each
-    table's format is its params' dtype; the kernels work out a packed
-    int4 table's width from the operand it meets (runtime.py:91-150)."""
+    """The eval step (training/step.py `make_eval_step`) over an
+    artifact's tables, shaped by its meta; `mips_topk` as there. The
+    kernels work out a packed int4 table's width from the operand it
+    meets (runtime.py:91-150)."""
     dims = meta["dims"]
-    scheme = meta["quantization"]["scheme"]
-    quantized = scheme in QUANTIZED_SCHEMES
     if meta["compute_dtype"] not in COMPUTE_DTYPES:
         raise ArtifactError("compute_dtype",
                             f"unsupported {meta['compute_dtype']!r}")
-    compute_dtype = COMPUTE_DTYPES[meta["compute_dtype"]]
-    real_v = int(dims["real_target_vocab_size"])
-    k = min(int(meta["topk"]), real_v)
     raw_block = meta.get("topk_block_size")
-    block = 4096 if raw_block is None else int(raw_block)
-    if block <= 0:
-        block = int(dims["target_vocab_size"])
-    oov_floor = int(dims["target_oov_floor"])
-
-    def scale(params, name):
-        return params[f"{name}_scale"] if quantized else None
-
-    def step(params, src, pth, tgt, mask, labels, valid) -> EvalOutputs:
-        transformed = context_encoder(
-            params["token_embedding"], scale(params, "token_embedding"),
-            params["path_embedding"], scale(params, "path_embedding"),
-            params["transform"], src, pth, tgt, compute_dtype=compute_dtype)
-        code_vectors, attention = masked_attention(
-            transformed, params["attention"][:, 0], mask)
-        if mips_topk is not None:
-            values, indices = mips_topk(code_vectors)
-            return EvalOutputs(values, indices, code_vectors, attention,
-                               torch.zeros((), dtype=torch.float32,
-                                           device=code_vectors.device))
-        target, target_s = (params["target_embedding"],
-                            scale(params, "target_embedding"))
-        out = blockwise_topk(code_vectors, target, k, block, scales=target_s,
-                             valid_rows=real_v, compute_dtype=compute_dtype)
-        label_logit = label_logits(code_vectors, target, labels,
-                                   scales=target_s,
-                                   compute_dtype=compute_dtype)
-        loss_rows = valid & (labels > oov_floor)
-        ce = (out.lse - label_logit) * loss_rows.float()
-        return EvalOutputs(out.values, out.indices, code_vectors, attention,
-                           ce.sum())
-
-    return step
+    return make_eval_step(
+        real_target_vocab_size=int(dims["real_target_vocab_size"]),
+        target_oov_floor=int(dims["target_oov_floor"]),
+        compute_dtype=COMPUTE_DTYPES[meta["compute_dtype"]],
+        topk=int(meta["topk"]),
+        block_size=4096 if raw_block is None else int(raw_block),
+        quantized=meta["quantization"]["scheme"] in QUANTIZED_SCHEMES,
+        mips_topk=mips_topk)
 
 
 class ReleaseModel(BucketedPredictMixin):
@@ -241,6 +197,11 @@ class ReleaseModel(BucketedPredictMixin):
     def model_fingerprint(self) -> str:
         return f"artifact:{self.artifact.fingerprint[:16]}"
 
+    @property
+    def code_vector_size(self) -> int:
+        dims = self.meta["dims"]
+        return int(dims["path_dim"]) + 2 * int(dims["token_dim"])
+
     def _make_predict_step(self, batch_rows: int, m: int):
         return self._mips_step if self._mips_all else self._step_fn
 
@@ -299,23 +260,8 @@ class ReleaseModel(BucketedPredictMixin):
         return evaluator.evaluate(params, self._eval_batches(),
                                   prefetch=prefetch)
 
-    def dummy_batch(self, rows: int, m: int):
-        """An all-padding batch of one serve shape."""
-        i32 = dict(dtype=torch.int32, device=self.device)
-        return (torch.zeros((rows, m), **i32), torch.zeros((rows, m), **i32),
-                torch.zeros((rows, m), **i32),
-                torch.ones((rows, m), dtype=torch.float32,
-                           device=self.device),
-                torch.zeros((rows,), **i32),
-                torch.ones((rows,), dtype=torch.bool, device=self.device))
-
-    def warmup(self, rows: Optional[int] = None) -> None:
-        """Run every (rows, bucket) serve shape once on a dummy batch."""
-        rows = int(rows or self.config.serve_batch_size)
-        for m in self.context_buckets:
-            self.eval_step(*self.dummy_batch(rows, m))
-            if self.mips_rows > 0:
-                self._call_predict_step(self._mips_step,
-                                        self.dummy_batch(self.mips_rows, m))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _warm_shape(self, rows: int, m: int) -> None:
+        self.eval_step(*self.dummy_batch(rows, m))
+        if self.mips_rows > 0:
+            self._call_predict_step(self._mips_step,
+                                    self.dummy_batch(self.mips_rows, m))

@@ -4,7 +4,8 @@ The counterpart of code2vec_tpu/retrieval/embed_job.py, the body of the
 `embed` command. It runs the corpus through the release model's eval step
 (K1, K2 and the exact head on the card) in `test_batch_size` rows and
 writes the code vectors into a sharded store (retrieval/store.py) whose
-manifest records the model's fingerprint (`artifact:<hash16>`).
+manifest records the model's fingerprint (`artifact:<hash16>`, or
+`ckpt:<path>@step<N>#p<params>` for a --load'ed checkpoint).
 
 The reference reads a packed `.c2vb` that it writes beside the corpus on
 first use; the port reads the text file itself, in the same row order
@@ -31,7 +32,7 @@ from code2vec_tpu_torch.retrieval.store import VectorStoreWriter
 def run_embed_job(model, corpus_path: Optional[str] = None,
                   out_dir: Optional[str] = None, log=None) -> dict:
     """Embed `corpus_path` (default config.test_data_path) with `model` (a
-    ReleaseModel) into a vector store at `out_dir` (default
+    ReleaseModel, or a Code2VecModel from --load) into a vector store at `out_dir` (default
     config.embed_out). Returns {rows, resumed_rows, embedded_rows, shards,
     seconds, rows_per_sec, fingerprint, path}."""
     config = model.config
@@ -43,9 +44,8 @@ def run_embed_job(model, corpus_path: Optional[str] = None,
     if not out:
         raise ValueError("embed needs --embed_out DIR")
     fingerprint = model.model_fingerprint()
-    dims = model.meta["dims"]
     writer = VectorStoreWriter(
-        out, dim=int(dims["path_dim"]) + 2 * int(dims["token_dim"]),
+        out, dim=model.code_vector_size,
         dtype=config.embed_dtype, model_fingerprint=fingerprint,
         source=corpus, shard_rows=config.embed_shard_rows, log=log)
     resumed_rows = writer.rows_done

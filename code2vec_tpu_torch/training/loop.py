@@ -1,20 +1,25 @@
-"""The training loop: batches to the device, the train step, loss windows
-and epoch boundaries.
+"""The training loop: batches to the device, the train step, loss windows,
+epoch boundaries, and the saves and evaluations they schedule.
 
 The counterpart of code2vec_tpu/training/loop.py Trainer.train (:114-...)
-cut to the dense single-device path: epochs end at the reader's EpochEnd
-markers; the host reads the losses back only at log boundaries and epoch
-ends (each read waits for the device), logs the window's average loss
-with examples/s every `num_batches_to_log_progress` batches, and checks
-every batch's loss for NaN/Inf there (`on_nonfinite_loss`: "halt" raises
-NonFiniteLossError, "warn" logs and goes on). Checkpoints, evaluation,
-preemption, profiling and the metrics exporters are not ported yet.
+on one device: epochs end at the reader's EpochEnd markers and are
+numbered from `initial_epoch` (a resumed run continues the numbering);
+the host reads the losses back only at log boundaries and epoch ends
+(each read waits for the device), logs the window's average loss with
+examples/s every `num_batches_to_log_progress` batches, and checks every
+batch's loss for NaN/Inf there (`on_nonfinite_loss`: "halt" raises
+NonFiniteLossError, "warn" logs and goes on). At the end of epoch N with
+N % save_every_epochs == 0, and at the final epoch, it calls `save_fn`,
+then `evaluate_fn` (:458-467); an error in either is raised, not
+swallowed. The mid-epoch evaluation every num_train_batches_to_evaluate
+batches, preemption, the heartbeat, profiling and the metrics exporters
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,13 +33,23 @@ class NonFiniteLossError(RuntimeError):
 
 
 class Trainer:
-    def __init__(self, config, train_step: Callable, device):
+    def __init__(self, config, train_step: Callable, device,
+                 evaluate_fn: Optional[Callable] = None,
+                 save_fn: Optional[Callable] = None,
+                 initial_epoch: int = 0):
         self.config = config
         self.train_step = train_step
         self.device = torch.device(device)
-        self.final_epoch = 0
+        # evaluate_fn(state) -> results (logged); save_fn(state, epoch)
+        self.evaluate_fn = evaluate_fn
+        self.save_fn = save_fn
+        self.initial_epoch = initial_epoch
+        # the epoch count reached (initial + passes seen)
+        self.final_epoch = initial_epoch
         # per finished epoch: its batches' losses
         self.epoch_losses: List[List[float]] = []
+        # (epoch, results) of each epoch-end evaluation
+        self.eval_results: List[Tuple[int, object]] = []
 
     def _to_device(self, batch):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -47,8 +62,10 @@ class Trainer:
               dropout_seed: int) -> TrainState:
         config = self.config
         log = config.log
-        log("Starting training")
-        epoch = 0
+        log("Starting training"
+            + (f" (resuming from epoch {self.initial_epoch})"
+               if self.initial_epoch else ""))
+        epoch = self.initial_epoch
         batch_num = 0
         pending: List[torch.Tensor] = []
         epoch_losses: List[float] = []
@@ -81,7 +98,7 @@ class Trainer:
         for item in batches:
             if isinstance(item, EpochEnd):
                 drain("epoch boundary")
-                epoch = item.epoch
+                epoch = self.initial_epoch + item.epoch
                 self.epoch_losses.append(epoch_losses)
                 mean = (float(np.mean(epoch_losses)) if epoch_losses
                         else float("nan"))
@@ -89,6 +106,16 @@ class Trainer:
                     f"mean loss {mean:.6f}")
                 epoch_losses, window_losses = [], []
                 window_start = None
+                # the absolute epoch's cadence, stable across resumes; the
+                # final epoch always saves and evaluates
+                if (epoch % config.save_every_epochs == 0
+                        or epoch >= config.num_train_epochs):
+                    if self.save_fn is not None:
+                        self.save_fn(state, epoch)
+                    if self.evaluate_fn is not None:
+                        results = self.evaluate_fn(state)
+                        self.eval_results.append((epoch, results))
+                        log(f"After {epoch} epochs -- {results}")
                 continue
             if window_start is None:
                 window_start = time.perf_counter()

@@ -1,5 +1,6 @@
 """The single-device train steps: dense, and sparse (touched-rows Adam
-for the token and path tables).
+for the token and path tables); and the eval step, which the release
+runtime shares.
 
 The counterpart of code2vec_tpu/training/step.py TrainStepBuilder with
 mesh=None: `_make_gspmd_train_step` (:177-199) and
@@ -13,16 +14,29 @@ correction from the global step. On CUDA tensors every stage runs a
 hand-written kernel (K1, K2, K7, then K6, K5 and K8, and K12) or raises;
 on CPU tensors their plain versions run. The tensor- and
 context-parallel steps are not ported yet.
+
+`make_eval_step` is the counterpart of `make_eval_step` (:487-560) with
+the blockwise head, and the one body of both eval steps of the port: the
+trainer's (the live f32 tables in the config's compute dtype) and a
+release artifact's (its tables in their stored format,
+release/runtime.py `make_release_step`): encode (K1, K2), the top-k and
+logsumexp over the live target rows (K3) and each row's label logit
+(K4), and the cross-entropy summed over rows with an in-vocabulary
+label. On CUDA tensors it launches those kernels or raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from code2vec_tpu_torch.kernels.adam import AdamHyper, adam
+from code2vec_tpu_torch.kernels.attention import masked_attention
+from code2vec_tpu_torch.kernels.encoder import context_encoder
+from code2vec_tpu_torch.kernels.label_logits import label_logits
 from code2vec_tpu_torch.kernels.sparse_adam import sparse_adam_tables
+from code2vec_tpu_torch.kernels.topk import blockwise_topk
 from code2vec_tpu_torch.models.code2vec import Code2VecModule, RowGrads
 from code2vec_tpu_torch.training.sparse_adam import HybridOptState
 from code2vec_tpu_torch.training.state import (
@@ -36,6 +50,60 @@ DROPOUT_SEED_SALT = 2
 
 def dropout_seed(config) -> int:
     return int(config.seed) + DROPOUT_SEED_SALT
+
+
+class EvalOutputs(NamedTuple):
+    topk_values: torch.Tensor    # (B, k) f32
+    topk_indices: torch.Tensor   # (B, k) int32
+    code_vectors: torch.Tensor   # (B, D) f32
+    attention: torch.Tensor      # (B, M) f32
+    loss_sum: torch.Tensor       # () f32, CE summed over valid rows
+
+
+def make_eval_step(*, real_target_vocab_size: int, target_oov_floor: int,
+                   compute_dtype: torch.dtype, topk: int, block_size: int,
+                   quantized: bool = False, mips_topk=None) -> Callable:
+    """(params, src, pth, tgt, mask, labels, valid) -> EvalOutputs.
+
+    `params` holds the Flax names; with `quantized`, also
+    `<table>_scale` for each table. Each table's format is its tensor's
+    dtype. k is clamped to the live target rows; `block_size` <= 0 is
+    one block of the whole table. `mips_topk` (a `MipsHead.topk_fn`
+    closure) replaces the exact head (K3, K4) with the approximate-MIPS
+    search; such steps report loss_sum 0 (no logsumexp exists over a
+    candidate subset)."""
+    real_v = int(real_target_vocab_size)
+    k = min(int(topk), real_v)
+
+    def scale(params, name):
+        return params[f"{name}_scale"] if quantized else None
+
+    def step(params, src, pth, tgt, mask, labels, valid) -> EvalOutputs:
+        transformed = context_encoder(
+            params["token_embedding"], scale(params, "token_embedding"),
+            params["path_embedding"], scale(params, "path_embedding"),
+            params["transform"], src, pth, tgt, compute_dtype=compute_dtype)
+        code_vectors, attention = masked_attention(
+            transformed, params["attention"][:, 0], mask)
+        if mips_topk is not None:
+            values, indices = mips_topk(code_vectors)
+            return EvalOutputs(values, indices, code_vectors, attention,
+                               torch.zeros((), dtype=torch.float32,
+                                           device=code_vectors.device))
+        target, target_s = (params["target_embedding"],
+                            scale(params, "target_embedding"))
+        block = block_size if block_size > 0 else target.shape[0]
+        out = blockwise_topk(code_vectors, target, k, block, scales=target_s,
+                             valid_rows=real_v, compute_dtype=compute_dtype)
+        label_logit = label_logits(code_vectors, target, labels,
+                                   scales=target_s,
+                                   compute_dtype=compute_dtype)
+        loss_rows = valid & (labels > target_oov_floor)
+        ce = (out.lse - label_logit) * loss_rows.float()
+        return EvalOutputs(out.values, out.indices, code_vectors, attention,
+                           ce.sum())
+
+    return step
 
 
 class TrainStepBuilder:
@@ -92,6 +160,18 @@ class TrainStepBuilder:
             return state, loss.detach()
 
         return train_step
+
+    def make_eval_step(self, k: Optional[int] = None) -> Callable:
+        """The eval step over the module's live f32 parameters in its
+        compute dtype: top-k with k from the config (clamped to the
+        vocabulary, reference: tensorflow_model.py:298-299)."""
+        dims = self.module.dims
+        return make_eval_step(
+            real_target_vocab_size=dims.real_target_vocab_size,
+            target_oov_floor=dims.target_oov_floor,
+            compute_dtype=self.module.compute_dtype,
+            topk=k or self.config.top_k_words_considered_during_prediction,
+            block_size=int(self.config.topk_block_size))
 
     def _adam_kwargs(self) -> dict:
         """K12's hyper-parameters: those of the dense subtree's Adam, so

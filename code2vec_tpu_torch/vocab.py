@@ -12,6 +12,7 @@ target vocab only `<OOV>`.
 from __future__ import annotations
 
 import enum
+import os
 import pickle
 from typing import Dict, Iterable, List, NamedTuple
 
@@ -176,13 +177,21 @@ class Code2VecVocabs:
 
     @classmethod
     def load_or_create(cls, config) -> "Code2VecVocabs":
-        """Vocabularies of a training run, built from the data's
-        `.dict.c2v` (code2vec_tpu/vocab.py:192-209 without `--load`,
-        which the port does not take yet)."""
+        """The vocabularies of a run (code2vec_tpu/vocab.py:192-209): a
+        loaded model's `dictionaries.bin`, else built from the training
+        data's `.dict.c2v`."""
+        if config.is_loading:
+            path = config.get_vocabularies_path_from_model_path(
+                config.model_load_path)
+            if not os.path.isfile(path):
+                raise ValueError(
+                    f"Model dictionaries file is not found in model load "
+                    f"dir. Expecting file `{path}`.")
+            return cls.load(path,
+                            separate_oov_and_pad=config.separate_oov_and_pad)
         if not config.is_training:
             raise ValueError("load_or_create needs a training data prefix "
-                             "(--data); loading a saved model is not "
-                             "ported yet")
+                             "(--data) or a model to load (--load)")
         freq = load_word_freq_dicts(config.word_freq_dict_path)
         return cls.create_from_freq_dicts(
             freq, max_token_vocab_size=config.max_token_vocab_size,
@@ -204,6 +213,11 @@ class Code2VecVocabs:
                 VocabType.Path, f,
                 special_words_for(VocabType.Path, separate_oov_and_pad))
         return cls(token_vocab, path_vocab, target_vocab)
+
+    def get(self, vocab_type: VocabType) -> Vocab:
+        return {VocabType.Token: self.token_vocab,
+                VocabType.Target: self.target_vocab,
+                VocabType.Path: self.path_vocab}[vocab_type]
 
     def save(self, path: str) -> None:
         with open(path, "wb") as f:

@@ -578,11 +578,13 @@ def test_cli_train_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,message", [
     (["train"], "needs --data"),
-    (["train", "--data", "x", "--save", "m"], "unrecognized"),
-    # --test is now the embed command's corpus, refused for train (the
-    # id keeps its name from when argparse did not know the flag)
-    pytest.param(["train", "--data", "x", "--test", "t.c2v"],
-                 "--test is the `embed` command's corpus",
+    # --save is a `train` flag now: an unknown one is refused (the ids
+    # keep their names from when argparse did not know --save and --test)
+    pytest.param(["train", "--data", "x", "--profile_dir", "p"],
+                 "unrecognized", id="argv1-unrecognized"),
+    # --test is train's, evaluate's and embed's corpus, refused for serve
+    pytest.param(["serve", "--artifact", "a", "--test", "t.c2v"],
+                 "--test is the corpus of `train` and `evaluate`",
                  id="argv2-unrecognized"),
     (["serve"], "needs --artifact"),
 ])
