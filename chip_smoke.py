@@ -9,7 +9,8 @@ a C++ compiler. Phases, each fatal on failure:
 1. The card: `nvidia-smi` name and power limit, torch's device name.
 2. Build: every kernel under code2vec_tpu_torch/kernels/csrc with nvcc
    (one process per source, in parallel) and, where missing, the native
-   path extractor (`make -C cpp`).
+   path extractor and data core (`make -C cpp`); the data core must load,
+   so every data phase below takes the native route.
 3. Kernels: each kernel of the serving path against its plain PyTorch
    version on the same inputs at the serving shapes (64 rows, 32 and 200
    contexts, int8 and f32 tables at the java14m vocabulary sizes; K2 also
@@ -141,6 +142,26 @@ a C++ compiler. Phases, each fatal on failure:
    float32 artifact's top-1 names (so float32 must score top-1 1.0, and
    each scheme's top-1 is its agreement with float32): examples/s,
    table bytes, top-1/top-10, F1; then a 64-row subset GPU against CPU.
+16. Data path (run after 9): a 65,536-method synthetic corpus with the
+   java14m vocabularies (M 200) packed by pack_c2v natively and by its
+   Python route on every host core, the two byte-identical; the pack,
+   a PackedDataset gather of a batch and the text parse (native and
+   Python) timed alone; `train` from the `.c2vb` for 2 epochs of 64
+   steps (B 1024), dense and sparse: examples/s over the second epoch
+   and the device's busy share (CUDA events around each step), beside
+   8 steps read from text with --no_packed_data; every train kernel
+   once a step; the prefetcher's check (each batch of the dense run's
+   first epoch has, on the device, the host's id checksum). Where an
+   earlier phase's text corpus now goes through the packed default, its
+   one-time pack is timed on a line of its own.
+17. Capstone: the in-repo generated Java corpus (experiments/javagen.py,
+   seed 17, 2,400/260/260 files) through the port's extract_dir and
+   preprocess (M 200), `train --test val --epochs 14 --batch_size 1024`
+   dense and sparse, `evaluate --load` on the test split: the val F1 of
+   each epoch, test F1 >= 0.62 and top-1 >= 0.42 (the reference: 0.660 /
+   0.467 dense, 0.654 / 0.464 sparse), each stage's seconds, train
+   examples/s; compile_corpus on 4 workers row for row against the pack
+   of the serial preprocess's text.
 
 Prints one line per kernel, then a JSON line {"kernels": [...]}, the
 card's name and power limit, and as the last line
@@ -1777,15 +1798,17 @@ def write_train_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
     owned = rng.choice(v_tok, size=(n_names, tokens_per_name), replace=False)
     names = rng.integers(0, n_names, n_rows)
     m = ft.contexts
-    lines = []
-    for r in range(n_rows):
-        toks = owned[names[r]][rng.integers(0, tokens_per_name, (2, m))]
-        pths = rng.integers(0, v_path, m)
-        ctx = " ".join(f"{st}{toks[0, j]},{sp}{pths[j]},{st}{toks[1, j]}"
-                       for j in range(m))
-        lines.append(f"{sn}{names[r] * 997 % v_tgt} {ctx}")
-    with open(prefix + ".train.c2v", "w") as f:
-        f.write("\n".join(lines) + "\n")
+    # the words of the owned tokens and of every path, formatted once
+    tok_words = {int(i): f"{st}{i}" for i in owned.ravel()}
+    path_words = [f"{sp}{i}" for i in range(v_path)]
+    with open(prefix + ".train.c2v", "w", buffering=16 * 2 ** 20) as f:
+        for r in range(n_rows):
+            toks = owned[names[r]][rng.integers(0, tokens_per_name, (2, m))]
+            pths = rng.integers(0, v_path, m).tolist()
+            ctx = " ".join([f"{tok_words[a]},{path_words[b]},{tok_words[c]}"
+                            for a, b, c in zip(toks[0].tolist(), pths,
+                                               toks[1].tolist())])
+            f.write(f"{sn}{names[r] * 997 % v_tgt} {ctx}\n")
     return prefix
 
 
@@ -1800,18 +1823,18 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     `lifecycle`, the run also saves and evaluates (--save, --test), and
     lifecycle_phase checks what it left before the steady step. Returns
     (the launch counts of the run, its stats)."""
+    import numpy as np
+
     from code2vec_tpu_torch import cli, kernels
-    from code2vec_tpu_torch.data.reader import parse_context_lines
+    from code2vec_tpu_torch.evaluation.evaluator import batch_to_device
     from code2vec_tpu_torch.model_facade import Code2VecModel
     from code2vec_tpu_torch.training import checkpoint as ckpt
     from code2vec_tpu_torch.training.state import SPARSE_PARAM_NAMES
 
-    # The reference's `.repeat(epochs).shuffle(buffer)` moves an epoch's
-    # boundary by the shuffle buffer, and the default buffer (10,000
-    # lines) would hold this whole corpus until the last pass. A buffer of
-    # rows/16 lines, and that many methods beyond 4 x 1024, give each of
-    # the two epochs exactly 4 full batches (the run's ragged tail is
-    # dropped).
+    # The packed reader's epoch is a permutation of all rows: rows/16
+    # methods beyond 4 x 1024 give each epoch 4 full batches, its ragged
+    # tail dropped. (So does the text reader's shuffle buffer of rows/16
+    # lines, where --no_packed_data asks for it.)
     buffer = max(ft.rows // 16, 1)
     n_rows = steps_per_epoch * ft.rows + buffer
     what = "sparse train" if sparse else "train"
@@ -1848,6 +1871,9 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     log(f"{what}: built vocabularies and a {n_params}-"
         f"parameter model on {model.device} in "
         f"{time.perf_counter() - t0:.1f}s")
+    timed_pack(model, config.train_data_path, what)
+    if lifecycle:
+        timed_pack(model, test, what)
     # the saves' and the evaluations' host seconds, and each evaluation's
     # launches
     saves, evals = [], []
@@ -1921,10 +1947,8 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
         model, stats = lifecycle_phase(torch, seed, work_dir, fs, ft, model,
                                        config, base, test, saves, evals, dev)
     # a steady step on one batch: host clock around synchronised steps
-    with open(config.train_data_path) as f:
-        lines = [next(f) for _ in range(ft.rows)]
-    arrays = model.trainer._to_device(parse_context_lines(
-        lines, model.vocabs, ft.contexts, keep_strings=False))
+    arrays = batch_to_device(model._train_corpus().gather(
+        np.arange(ft.rows)), model.device)
     step_fn = model.builder.make_train_step(model.state)
     times = []
     for _ in range(6):
@@ -3059,6 +3083,11 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
         f"over the artifact's vocabularies in "
         f"{time.perf_counter() - t0:.1f}s")
     store, idx = os.path.join(rdir, "store"), os.path.join(rdir, "index")
+    # the pack `embed` writes beside the corpus on first use, on its own
+    timed_pack(ReleaseModel(Config(serve_artifact=art, device="cpu",
+                                   verbose_mode=0)), corpus, "retrieval")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3934,8 +3963,10 @@ def evaluate_phase(torch, seed: int, work_dir: str, fs, weights, arts,
     batches), and every scheme's top-1 accuracy is the share of rows
     whose top-1 equals the float32 artifact's. Per scheme, from the
     command's own timing line (host clock): the artifact's load seconds
-    and the evaluation's examples/s, beside the text parse alone and the
-    device time of its batches (`batch_ms`, eval_shape_phase); table
+    and the evaluation's examples/s, beside the packed reader alone (the
+    corpus packed once first, on a line of its own), the text reader
+    alone and the device time of its batches (`batch_ms`,
+    eval_shape_phase); table
     bytes, top-1/top-10 accuracy, F1 and loss, its mode's kernels
     launched; then the same on a `subset`-row file on the
     GPU against the CPU (plain versions): the top-k of its one batch
@@ -4017,17 +4048,27 @@ def evaluate_phase(torch, seed: int, work_dir: str, fs, weights, arts,
     log(f"evaluate: a {n_rows}-method labelled corpus written in "
         f"{time.perf_counter() - t0:.1f}s ({labelled:.4f} of the rows "
         f"have a legal float32 top-10 name)")
-    # the text parse alone: the evaluation's reader over the corpus at its
-    # batch size, no step
+    # the reader alone, no step: the text reader over the corpus at the
+    # evaluation's batch size (its native parse), the one-time pack, and
+    # the packed reader the evaluation takes
     t0 = time.perf_counter()
     n_batches = sum(1 for _ in PathContextReader(
         f32.vocabs, f32.config, EstimatorAction.Evaluate, data_path=corpus,
         batch_size=f32.config.test_batch_size, with_target_strings=True))
+    text_s = time.perf_counter() - t0
+    ds = timed_pack(f32, corpus, "evaluate")
+    t0 = time.perf_counter()
+    if sum(1 for _ in ds.iter_batches(f32.config.test_batch_size,
+                                      EstimatorAction.Evaluate,
+                                      with_target_strings=True)) != n_batches:
+        fail("evaluate: the packed and text readers give other batch counts")
     parse_s = time.perf_counter() - t0
-    del f32
+    del f32, ds
     torch.cuda.empty_cache()
-    log(f"evaluate: the reader alone parses the corpus into {n_batches} "
-        f"batches in {parse_s:.3f}s ({n_rows / parse_s:.0f} rows/s)")
+    log(f"evaluate: the readers alone: the packed reader gives the "
+        f"{n_batches} batches in {parse_s:.3f}s ({n_rows / parse_s:.0f} "
+        f"rows/s), the text reader (native parse) in {text_s:.3f}s "
+        f"({n_rows / text_s:.0f} rows/s)")
 
     runs, stats = {}, {}
     logger = logging.getLogger("code2vec_tpu_torch")
@@ -4071,13 +4112,14 @@ def evaluate_phase(torch, seed: int, work_dir: str, fs, weights, arts,
         device_s = batch_ms[scheme] * n_batches / 1e3
         stats[scheme] = dict(
             examples_per_s=n_rows / eval_s, load_s=load_s, eval_s=eval_s,
-            command_s=secs, parse_s=parse_s, device_s=device_s,
+            command_s=secs, parse_s=parse_s, text_s=text_s,
+            device_s=device_s,
             table_bytes=nbytes, top1=float(res.topk_acc[0]),
             top10=float(res.topk_acc[-1]), f1=float(res.subtoken_f1),
             loss=float(res.loss), top1_agrees_with_f32=float(res.topk_acc[0]))
         log(f"evaluate {scheme}: the command in {secs:.2f}s: artifact load "
             f"{load_s:.3f}s, {n_rows} methods scored in {eval_s:.3f}s "
-            f"({n_rows / eval_s:.0f} examples/s; the parse alone "
+            f"({n_rows / eval_s:.0f} examples/s; the packed reader alone "
             f"{parse_s:.3f}s, the kernels {device_s:.3f}s of device time "
             f"for {n_batches} batches); tables {nbytes / 1e6:.1f} MB; top-1 "
             f"{res.topk_acc[0]:.4f} (= the share of rows whose top-1 equals "
@@ -4122,6 +4164,574 @@ def evaluate_phase(torch, seed: int, work_dir: str, fs, weights, arts,
     return runs, stats
 
 
+# ------------------------------------------------------------- data path
+
+DATA_ROWS = 64 * 1024      # 64 steps an epoch at B 1024
+TEXT_STEPS = 8             # the --no_packed_data runs beside them
+
+
+def write_data_corpus(work_dir: str, seed: int, fs, ft, n_rows: int,
+                      n_names: int = 64, tokens_per_name: int = 64):
+    """PREFIX.dict.c2v with the java14m vocabulary sizes and
+    PREFIX.train.c2v (PREFIX: `data` under `work_dir`) of `n_rows`
+    methods of ft.contexts contexts each, written as write_train_corpus
+    writes them (each of `n_names` names owns `tokens_per_name` tokens;
+    paths drawn from the whole vocabulary), but built as byte arrays: the
+    words are the vocabulary's six-digit ones, so every context is 23
+    bytes."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v_tok, v_path, v_tgt = (fs.vocab["token"], fs.vocab["path"],
+                            fs.vocab["target"])
+    prefix = os.path.join(work_dir, "data")
+    with open(prefix + ".dict.c2v", "wb") as f:
+        pickle.dump({f"t{i}": v_tok - i for i in range(v_tok)}, f)
+        pickle.dump({f"p{i}": v_path - i for i in range(v_path)}, f)
+        pickle.dump({f"name|w{i}": v_tgt - i for i in range(v_tgt)}, f)
+        pickle.dump(n_rows, f)
+    owned = 10 ** 5 + rng.choice(v_tok - 10 ** 5,
+                                 size=(n_names, tokens_per_name),
+                                 replace=False)
+    names = rng.integers(0, n_names, n_rows)
+    name_bytes = [f"name|w{n * 997 % v_tgt} ".encode()
+                  for n in range(n_names)]
+    m = ft.contexts
+    powers = 10 ** np.arange(5, -1, -1)
+
+    def digits(x):   # (..., 6) ASCII digits of six-digit numbers
+        return (x[..., None] // powers % 10 + 48).astype(np.uint8)
+
+    with open(prefix + ".train.c2v", "wb", buffering=16 * 2 ** 20) as f:
+        for start in range(0, n_rows, 4096):
+            rows = names[start:start + 4096]
+            toks = owned[rows[:, None, None],
+                         rng.integers(0, tokens_per_name, (len(rows), 2, m))]
+            pths = rng.integers(10 ** 5, v_path, (len(rows), m))
+            rec = np.empty((len(rows), m, 24), np.uint8)
+            rec[..., 0], rec[..., 8], rec[..., 16] = ord("t"), ord("p"), \
+                ord("t")
+            rec[..., 7] = rec[..., 15] = ord(",")
+            rec[..., 23] = ord(" ")
+            rec[:, -1, 23] = ord("\n")
+            rec[..., 1:7] = digits(toks[:, 0])
+            rec[..., 9:15] = digits(pths)
+            rec[..., 17:23] = digits(toks[:, 1])
+            for name, line in zip(rows.tolist(), rec):
+                f.write(name_bytes[name])
+                f.write(line.tobytes())
+    return prefix
+
+
+def require_native(what: str) -> None:
+    """Fail unless the data path takes the native route: the library
+    that make built loads."""
+    from code2vec_tpu_torch.data import native
+    if native.load_library() is None:
+        fail(f"{what}: libc2vdata.so does not load from "
+             f"{native.library_path()}; the data path would fall back to "
+             f"the Python parse")
+
+
+def timed_pack(model, c2v_path: str, what: str):
+    """`model`'s one-time pack of `c2v_path` (what its reader would do
+    on first use), timed and logged on its own line, the native tables
+    of its vocabularies (built once per vocabularies) apart."""
+    from code2vec_tpu_torch.data import native
+    from code2vec_tpu_torch.data.packed import PackedDataset
+    require_native(what)
+    existed = os.path.exists(c2v_path + "b")
+    t0 = time.perf_counter()
+    native.tables_for(model.vocabs)
+    tables_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = model._packed_dataset(c2v_path)
+    secs = time.perf_counter() - t0
+    rows = PackedDataset.read_header(c2v_path + "b")[0]
+    log(f"{what}: one-time pack of {os.path.basename(c2v_path)} "
+        + ("(already packed)" if existed else
+           f"-> .c2vb, {rows} rows in {secs:.2f}s ({rows / secs:.0f} "
+           f"rows/s, native; the vocabularies' native tables built in "
+           f"{tables_s:.2f}s before)"))
+    return ds
+
+
+class python_parse:
+    """Within it, the port's parse and pack take their Python route, in
+    this process and in the pack's worker processes."""
+
+    def __enter__(self):
+        from code2vec_tpu_torch.data import native
+        self.native = native
+        self.env = os.environ.get("C2V_NATIVE_DATALOADER")
+        self.saved = native._lib, native._lib_checked
+        os.environ["C2V_NATIVE_DATALOADER"] = os.path.join(
+            REPO, "cpp", "build", "absent", "libc2vdata.so")
+        native._lib, native._lib_checked = None, True
+        return self
+
+    def __exit__(self, *exc):
+        self.native._lib, self.native._lib_checked = self.saved
+        if self.env is None:
+            os.environ.pop("C2V_NATIVE_DATALOADER", None)
+        else:
+            os.environ["C2V_NATIVE_DATALOADER"] = self.env
+
+
+def id_checksum(arrays, weights):
+    """A position-weighted int64 sum of a batch's ids on the device
+    (source, path and target tokens, the label): a byte moved or
+    overwritten changes it."""
+    src, pth, tgt, _, label = arrays[:5]
+    n = src.numel()
+    return (sum((a.reshape(-1).long() * weights[:n]).sum()
+                for a in (src, pth, tgt))
+            + (label.long() * weights[:label.numel()]).sum())
+
+
+def host_checksum(np, batch, weights) -> int:
+    """id_checksum of a host RowBatch."""
+    ids = (batch.source_token_indices, batch.path_indices,
+           batch.target_token_indices)
+    n = ids[0].size
+    return int(sum(int((a.reshape(-1).astype(np.int64) * weights[:n]).sum())
+                   for a in ids)
+               + int((batch.target_index.astype(np.int64)
+                      * weights[:batch.target_index.size]).sum()))
+
+
+def traced_train(torch, argv, label: str, checksum_steps: int = 0):
+    """The `train` command's model (as `cli.main(argv)` builds it) trained
+    with CUDA events around every step and the host time of each log
+    line; its one-time packs on lines of their own first. The first
+    `checksum_steps` steps also sum their ids on the device
+    (id_checksum). Returns (model, stats)."""
+    from code2vec_tpu_torch import cli, kernels
+    from code2vec_tpu_torch.model_facade import Code2VecModel
+
+    _, config = cli.config_from_args(argv)
+    stamps = []
+    config.verbose_mode = 0
+    config.log = lambda msg: stamps.append((time.perf_counter(), msg))
+    t0 = time.perf_counter()
+    model = Code2VecModel(config)
+    build_s = time.perf_counter() - t0
+    if config.use_packed_data:
+        timed_pack(model, config.train_data_path, label)
+        if config.is_testing:
+            timed_pack(model, config.test_data_path, label)
+    make = model.builder.make_train_step
+    events, sums = [], []
+    weights = (torch.arange(config.train_batch_size * config.max_contexts,
+                            dtype=torch.int64, device=model.device)
+               % 65521 + 1)
+
+    def make_traced(state):
+        step = make(state)
+
+        def run(state, *arrays):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(state, *arrays)
+            e1.record()
+            events.append((e0, e1))
+            if len(events) <= checksum_steps:
+                sums.append(id_checksum(arrays, weights))
+            return out
+        return run
+
+    model.builder.make_train_step = make_traced
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ends = [t for t, msg in stamps
+            if msg.startswith("Epoch ") and " done: " in msg]
+    start = [t for t, msg in stamps if msg.startswith("Starting training")]
+    return model, dict(
+        build_s=build_s, wall_s=wall, epoch_ends=ends, start=start[0],
+        busy_ms=[e0.elapsed_time(e1) for e0, e1 in events],
+        sums=torch.stack(sums).cpu().tolist() if sums else [],
+        counts=kernels.launch_counts(), losses=model.trainer.epoch_losses)
+
+
+def data_path_phase(torch, seed: int, work_dir: str, fs, ft,
+                    n_rows: int = DATA_ROWS, dev: str = "cuda"):
+    """The data path at full width: a synthetic corpus of `n_rows`
+    methods with the java14m vocabularies (M 200), packed by the port's
+    pack_c2v natively and by its Python route (all host cores), the two
+    byte-identical; the pack, a PackedDataset gather of a batch and the
+    text parse of the same rows (native and Python) timed alone, rows/s;
+    `train` from the `.c2vb` for 2 epochs of 64 steps, dense and then
+    sparse: examples/s over the second epoch (host clock between the
+    epochs' ends, which wait for the device) and the device's busy share
+    (CUDA events around each step against that wall time), beside the
+    same numbers for TEXT_STEPS steps read from text with
+    --no_packed_data; every train kernel once a step; and the
+    prefetcher's check: over the dense run's first epoch, each batch's
+    id checksum as the device received it equals the host's. Returns
+    ({run: launch counts}, stats)."""
+    import filecmp
+
+    import numpy as np
+
+    from code2vec_tpu_torch import kernels
+    from code2vec_tpu_torch.data import native, packed
+    from code2vec_tpu_torch.data.reader import (
+        EstimatorAction, parse_context_lines,
+    )
+    from code2vec_tpu_torch.vocab import Code2VecVocabs, load_word_freq_dicts
+
+    ddir = os.path.join(work_dir, "data")
+    os.makedirs(ddir)
+    t_phase = t0 = time.perf_counter()
+    prefix = write_data_corpus(ddir, seed + 13, fs, ft, n_rows)
+    text = prefix + ".train.c2v"
+    log(f"data: wrote a {n_rows}-method corpus "
+        f"({os.path.getsize(text) / 1e6:.0f} MB of text) with java14m "
+        f"vocabularies in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    vocabs = Code2VecVocabs.create_from_freq_dicts(
+        load_word_freq_dicts(prefix + ".dict.c2v"),
+        max_token_vocab_size=fs.vocab["token"],
+        max_path_vocab_size=fs.vocab["path"],
+        max_target_vocab_size=fs.vocab["target"])
+    log(f"data: vocabularies built in {time.perf_counter() - t0:.1f}s")
+
+    # the pack, native and Python
+    require_native("data")
+    t0 = time.perf_counter()
+    native.tables_for(vocabs)
+    tables_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = packed.pack_c2v(text, vocabs, ft.contexts,
+                          out_path=prefix + ".native.c2vb")
+    native_s = time.perf_counter() - t0
+    workers = os.cpu_count() or 1
+    with python_parse():
+        t0 = time.perf_counter()
+        py = packed.pack_c2v(text, vocabs, ft.contexts,
+                             out_path=prefix + ".python.c2vb",
+                             num_workers=workers)
+        python_s = time.perf_counter() - t0
+    same = {s: filecmp.cmp(nat + s, py + s, shallow=False)
+            for s in ("", ".targets")}
+    rows = packed.PackedDataset.read_header(nat)[0]
+    log(f"data: pack_c2v of {rows} rows: native {native_s:.2f}s "
+        f"({rows / native_s:.0f} rows/s; its tables built in "
+        f"{tables_s:.2f}s), Python route on {workers} processes "
+        f"{python_s:.2f}s ({rows / python_s:.0f} rows/s); .c2vb and "
+        f".targets byte-identical: {same}")
+    if rows != n_rows or not all(same.values()):
+        fail(f"data: the native and Python packs differ ({same}) or hold "
+             f"{rows} rows")
+    os.replace(nat, prefix + ".train.c2vb")
+    for s in (".targets", ".meta.json"):
+        os.replace(nat + s, prefix + ".train.c2vb" + s)
+        os.unlink(py + s)
+    os.unlink(py)
+
+    # alone: the gather of a batch, the text parse of the same rows
+    ds = packed.PackedDataset(prefix + ".train.c2vb", vocabs)
+    rng = np.random.default_rng(seed)
+    times = []
+    for _ in range(21):
+        batch_rows = rng.permutation(n_rows)[:ft.rows]
+        t0 = time.perf_counter()
+        ds.gather(batch_rows)
+        times.append(time.perf_counter() - t0)
+    gather_s = statistics.median(times[1:])
+    with open(text) as f:
+        lines = [next(f) for _ in range(8 * ft.rows)]
+    t0 = time.perf_counter()
+    parsed = parse_context_lines(lines, vocabs, ft.contexts,
+                                 keep_strings=False)
+    native_parse_s = time.perf_counter() - t0
+    n_py = 2 * ft.rows
+    with python_parse():
+        t0 = time.perf_counter()
+        py_parsed = parse_context_lines(lines[:n_py], vocabs, ft.contexts,
+                                        keep_strings=False)
+        python_parse_s = time.perf_counter() - t0
+    gathered = ds.gather(np.arange(n_py))
+    for name in ("source_token_indices", "path_indices",
+                 "target_token_indices", "context_valid_mask",
+                 "target_index"):
+        if not (np.array_equal(getattr(parsed, name)[:n_py],
+                               getattr(py_parsed, name))
+                and np.array_equal(getattr(gathered, name),
+                                   getattr(py_parsed, name))):
+            fail(f"data: {name} differs between the native parse, the "
+                 f"Python parse and the gather")
+    stats = dict(pack_native_rows_per_s=rows / native_s,
+                 pack_python_rows_per_s=rows / python_s,
+                 pack_python_workers=workers,
+                 gather_rows_per_s=ft.rows / gather_s,
+                 parse_native_rows_per_s=len(lines) / native_parse_s,
+                 parse_python_rows_per_s=n_py / python_parse_s)
+    log(f"data: alone: PackedDataset.gather of {ft.rows} random rows "
+        f"{gather_s * 1e3:.2f} ms ({stats['gather_rows_per_s']:.0f} rows/s, "
+        f"median of 20, warm page cache); text parse native "
+        f"{native_parse_s:.3f}s for {len(lines)} rows "
+        f"({stats['parse_native_rows_per_s']:.0f} rows/s), Python "
+        f"{python_parse_s:.3f}s for {n_py} rows "
+        f"({stats['parse_python_rows_per_s']:.0f} rows/s); the three give "
+        f"the same arrays")
+    del ds, lines, parsed, py_parsed, gathered
+
+    # train from .c2vb, dense and sparse, beside TEXT_STEPS steps of text
+    steps = n_rows // ft.rows
+    tprefix = os.path.join(ddir, "text")
+    with open(text) as f, open(tprefix + ".train.c2v", "w") as out:
+        for _ in range(TEXT_STEPS * ft.rows):
+            out.write(next(f))
+    os.symlink(prefix + ".dict.c2v", tprefix + ".dict.c2v")
+    base = ["train", "--seed", str(seed), "--batch_size", str(ft.rows),
+            "--max_contexts", str(ft.contexts), "--device", dev]
+    runs, counts = {}, {}
+    for mode in ("dense", "sparse"):
+        extra = ["--sparse_embedding_update"] if mode == "sparse" else []
+        names = (kernels.SPARSE_TRAIN_KERNELS if mode == "sparse"
+                 else kernels.TRAIN_KERNELS)
+        for src in ("packed", "text"):
+            n_steps, n_epochs = ((steps, 2) if src == "packed"
+                                 else (TEXT_STEPS, 1))
+            argv = base + extra + ["--epochs", str(n_epochs)] + (
+                ["--data", prefix] if src == "packed"
+                else ["--data", tprefix, "--no_packed_data"])
+            check = (mode, src) == ("dense", "packed")
+            model, st = traced_train(torch, argv, f"data {mode}",
+                                     n_steps if check else 0)
+            losses = st["losses"]
+            if [len(e) for e in losses] != [n_steps] * n_epochs or \
+                    not all(math.isfinite(x) for e in losses for x in e):
+                fail(f"data {mode} {src}: epochs of "
+                     f"{[len(e) for e in losses]} steps (want {n_epochs} of "
+                     f"{n_steps}) or a loss not finite")
+            want = {k: n_steps * n_epochs for k in names}
+            if mode == "sparse":
+                want["encoder_backward"] = 0
+            got = {k: st["counts"][k] for k in want}
+            if got != want:
+                fail(f"data {mode} {src}: launches {got}, expected {want}")
+            counts[f"{mode}_{src}"] = st["counts"]
+            if src == "packed":
+                t1, t2 = st["epoch_ends"]
+                wall = t2 - t1
+                busy = sum(st["busy_ms"][n_steps:]) / 1e3
+            else:
+                wall = st["epoch_ends"][0] - st["start"]
+                busy = sum(st["busy_ms"]) / 1e3
+            runs[f"{mode}_{src}"] = dict(
+                examples_per_s=n_steps * ft.rows / wall, wall_s=wall,
+                busy_share=busy / wall, step_ms=statistics.median(
+                    st["busy_ms"]), build_s=st["build_s"])
+            r = runs[f"{mode}_{src}"]
+            log(f"data: train {mode} from {src}: "
+                + (f"epoch 2 ({n_steps} steps)" if src == "packed" else
+                   f"{n_steps} steps, the text read and parsed included")
+                + f" in {wall:.3f}s, {r['examples_per_s']:.0f} examples/s, "
+                f"device busy {r['busy_share']:.3f} of it (median step "
+                f"{r['step_ms']:.2f} ms by CUDA events); model built in "
+                f"{st['build_s']:.1f}s; epoch means "
+                f"{[round(statistics.mean(e), 4) for e in losses]}")
+            if check:
+                weights = np.arange(ft.rows * ft.contexts,
+                                    dtype=np.int64) % 65521 + 1
+                host = [host_checksum(np, b, weights)
+                        for b in model._train_corpus().iter_batches(
+                            ft.rows, EstimatorAction.Train, num_epochs=1,
+                            seed=seed)]
+                if host != st["sums"] or len(host) != steps:
+                    bad = [i for i, (a, b) in enumerate(zip(host, st["sums"]))
+                           if a != b]
+                    fail(f"data: the prefetcher delivered {len(st['sums'])} "
+                         f"batches whose device checksums differ from the "
+                         f"host's at {bad[:8]} (of {len(host)})")
+                log(f"data: prefetcher check: the {len(host)} batches of "
+                    f"epoch 1 as the device received them have the host's "
+                    f"id checksums")
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    stats["runs"] = runs
+    shutil.rmtree(ddir)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"data: the phase in {stats['phase_s']:.1f}s")
+    return counts, stats
+
+
+# -------------------------------------------------------------- capstone
+
+CAPSTONE_EPOCHS = 14
+# the reference's test scores on this corpus (experiments/results/
+# accuracy.json and accuracy_sparse.json), and the floors the port is held
+# to: its dropout bits differ (Philox, not threefry), so it is held to a
+# floor, not to equality; a broken shuffle, vocabulary or row filter lands
+# far below it
+CAPSTONE_REFERENCE = {"dense": (0.660, 0.467), "sparse": (0.654, 0.464)}
+CAPSTONE_FLOOR = (0.62, 0.42)   # test F1, top-1
+
+
+def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
+    """The accuracy run of the in-repo generated Java corpus through the
+    port's own commands, as experiments/accuracy_bench.py:35-72 builds it:
+    experiments/javagen.py generate_corpus (seed 17; 2,400/260/260
+    files), the port's extract_dir over cpp/build/c2v-extract, its
+    preprocess (M 200); then `train --data P --test P.val.c2v --save M
+    --epochs 14 --batch_size 1024` at the default dims and bf16 moments,
+    dense and then with --sparse_embedding_update, each followed by
+    `evaluate --load M --test P.test.c2v`: the val F1 of every epoch, the
+    test F1 and top-1 (held to CAPSTONE_FLOOR), each stage's wall seconds
+    and the train examples/s. Also compile_corpus on 4 workers over the
+    same raw files: its `.c2vb` rows equal the pack of the serial
+    preprocess's text (under the compile's vocabularies) wherever a
+    method holds at most 200 contexts; the over-budget ones, which the
+    two sample independently (per method against one stream), keep their
+    label. Returns (launch counts, stats)."""
+    import numpy as np
+
+    from code2vec_tpu_torch import cli, kernels
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data import packed
+    from code2vec_tpu_torch.data import preprocess as pp
+    from code2vec_tpu_torch.vocab import Code2VecVocabs, load_word_freq_dicts
+    from experiments import javagen
+
+    root = os.path.join(work_dir, "capstone")
+    quiet = lambda *a: None  # noqa: E731
+    stages = {}
+    t_phase = t0 = time.perf_counter()
+    dirs = javagen.generate_corpus(os.path.join(root, "src"), log=quiet)
+    stages["generate_s"] = time.perf_counter() - t0
+    cores = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    raws = {role: pp.extract_dir(dirs[role],
+                                 os.path.join(root, f"{role}.raw.txt"),
+                                 num_threads=cores,
+                                 shuffle=role == "train",
+                                 num_workers=min(4, cores), log=quiet)
+            for role in ("train", "val", "test")}
+    stages["extract_s"] = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(root, "src"))
+    prefix = os.path.join(root, "genjava")
+    require_native("capstone")
+    t0 = time.perf_counter()
+    pp.preprocess(raws["train"], raws["val"], raws["test"], prefix,
+                  max_contexts=200, log=quiet)
+    stages["preprocess_s"] = time.perf_counter() - t0
+    cprefix = os.path.join(root, "compiled", "genjava")
+    os.makedirs(os.path.dirname(cprefix))
+    t0 = time.perf_counter()
+    pp.compile_corpus(raws["train"], raws["val"], raws["test"], cprefix,
+                      max_contexts=200, num_workers=4, log=quiet)
+    stages["compile_s"] = time.perf_counter() - t0
+    cfg = Config()
+    sizes = dict(max_token_vocab_size=cfg.max_token_vocab_size,
+                 max_path_vocab_size=cfg.max_path_vocab_size,
+                 max_target_vocab_size=cfg.max_target_vocab_size)
+    cvocabs = Code2VecVocabs.create_from_freq_dicts(
+        load_word_freq_dicts(cprefix + ".dict.c2v"), **sizes)
+    compared = {}
+    for role in ("train", "val", "test"):
+        over = []
+        with open(raws[role], "rb") as f:
+            for line in f:
+                k = line.count(b" ")
+                if k:
+                    over.append(k > 200)
+        over = np.asarray(over)
+        serial = packed.pack_c2v(f"{prefix}.{role}.c2v", cvocabs, 200,
+                                 out_path=f"{cprefix}.{role}.serial.c2vb")
+        a = packed.PackedDataset(f"{cprefix}.{role}.c2vb", cvocabs)._rec
+        b = packed.PackedDataset(serial, cvocabs)._rec
+        with open(f"{cprefix}.{role}.c2vb.targets", "rb") as f, \
+                open(serial + ".targets", "rb") as g:
+            same_names = f.read() == g.read()
+        if a.shape != b.shape or len(over) != a.shape[0] or \
+                not same_names or not np.array_equal(a[~over], b[~over]) or \
+                not np.array_equal(a[over, 0], b[over, 0]):
+            fail(f"capstone: compile_corpus's {role} rows differ from the "
+                 f"pack of preprocess's text ({a.shape} vs {b.shape}, "
+                 f"{int(over.sum())} over-budget methods, names equal "
+                 f"{same_names})")
+        compared[role] = (a.shape[0], int(over.sum()))
+    n_train = packed.PackedDataset.read_header(cprefix + ".train.c2vb")[0]
+    log(f"capstone: generate {stages['generate_s']:.1f}s, extract "
+        f"{stages['extract_s']:.1f}s, preprocess (serial, M 200) "
+        f"{stages['preprocess_s']:.1f}s, compile_corpus (4 workers) "
+        f"{stages['compile_s']:.1f}s; {n_train} train methods; the "
+        f"compile's rows equal the serial pack's, row for row, but for "
+        f"the over-budget methods' sampled contexts: "
+        + ", ".join(f"{r} {n} rows ({o} over budget)"
+                    for r, (n, o) in compared.items()))
+    shutil.rmtree(os.path.dirname(cprefix))
+
+    results, all_counts = {}, {}
+    for mode in ("dense", "sparse"):
+        save = os.path.join(root, mode, "model")
+        os.makedirs(os.path.dirname(save))
+        argv = ["train", "--data", prefix, "--test", prefix + ".val.c2v",
+                "--save", save, "--epochs", str(CAPSTONE_EPOCHS),
+                "--batch_size", "1024", "--eval_log",
+                os.path.join(root, mode, "val.log"), "--device", dev]
+        if mode == "sparse":
+            argv.append("--sparse_embedding_update")
+        model, st = traced_train(torch, argv, f"capstone {mode}")
+        curve = [float(r.subtoken_f1) for _, r in model.trainer.eval_results]
+        n_steps = int(model.state.step)
+        examples = n_steps * 1024
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        # a sparse checkpoint loads under its own optimizer layout
+        res = cli.main(["evaluate", "--load", save, "--test",
+                        prefix + ".test.c2v", "--eval_log",
+                        os.path.join(root, mode, "test.log"), "--device",
+                        dev] + argv[argv.index("--device") + 2:])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        counts = {k: st["counts"][k] + v
+                  for k, v in kernels.launch_counts().items()}
+        all_counts[mode] = counts
+        names = (kernels.SPARSE_TRAIN_KERNELS if mode == "sparse"
+                 else kernels.TRAIN_KERNELS) + SERVE_KERNELS
+        missing = [k for k in names if counts[k] <= 0]
+        f1, top1 = float(res.subtoken_f1), float(res.topk_acc[0])
+        train_s = st["wall_s"]
+        results[mode] = dict(val_f1=curve, test_f1=f1, test_top1=top1,
+                             train_s=train_s, evaluate_s=eval_s,
+                             steps=n_steps,
+                             examples_per_s=examples / train_s,
+                             step_ms=statistics.median(st["busy_ms"]))
+        ref = CAPSTONE_REFERENCE[mode]
+        log(f"capstone {mode}: val F1 by epoch {[round(x, 4) for x in curve]}"
+            f"; test F1 {f1:.4f} top-1 {top1:.4f} (reference {ref[0]:.3f} / "
+            f"{ref[1]:.3f}; floor {CAPSTONE_FLOOR[0]} / {CAPSTONE_FLOOR[1]});"
+            f" train {train_s:.1f}s for {CAPSTONE_EPOCHS} epochs, "
+            f"{n_steps} steps ({examples / train_s:.0f} examples/s with the "
+            f"epoch-end evaluations and saves; median step "
+            f"{results[mode]['step_ms']:.2f} ms by CUDA events), evaluate "
+            f"{eval_s:.1f}s")
+        if missing or len(curve) != CAPSTONE_EPOCHS:
+            fail(f"capstone {mode}: launched no {missing}, or "
+                 f"{len(curve)} val points")
+        if f1 < CAPSTONE_FLOOR[0] or top1 < CAPSTONE_FLOOR[1]:
+            fail(f"capstone {mode}: test F1 {f1:.4f} / top-1 {top1:.4f} "
+                 f"below the floor {CAPSTONE_FLOOR}")
+        shutil.rmtree(os.path.join(root, mode))
+    shutil.rmtree(root)
+    stages["phase_s"] = time.perf_counter() - t_phase
+    log(f"capstone: the phase in {stages['phase_s']:.1f}s")
+    return all_counts, dict(stages, **results)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4154,9 +4764,10 @@ def main() -> None:
     t0 = time.perf_counter()
     make = None
     cpp = os.path.join(REPO, "cpp")
-    if not os.path.isfile(os.path.join(cpp, "build", "c2v-extract")):
-        make = subprocess.Popen(["make", "-C", cpp, "-j8",
-                                 "build/c2v-extract"],
+    native_targets = ["build/c2v-extract", "build/libc2vdata.so"]
+    if not all(os.path.isfile(os.path.join(cpp, t))
+               for t in native_targets):
+        make = subprocess.Popen(["make", "-C", cpp, "-j8"] + native_targets,
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
     build_s = build.timed_build_all()
@@ -4167,8 +4778,9 @@ def main() -> None:
         if make.returncode != 0:
             fail(f"building the extractor: "
                  f"{out.decode(errors='replace')[-2000:]}")
-    log(f"build: done in {time.perf_counter() - t0:.1f}s (extractor "
-        f"{'built' if make is not None else 'present'})")
+    log(f"build: done in {time.perf_counter() - t0:.1f}s (extractor and "
+        f"libc2vdata.so {'built' if make is not None else 'present'})")
+    require_native("build")
 
     timer = Timer(torch, args.samples)
     fs = flagship()
@@ -4233,6 +4845,9 @@ def main() -> None:
             torch, args.seed, work_dir, fs, ft, sparse=True)
         retrieval_counts, retrieval_stats = retrieval_path_phase(
             torch, args.seed, work_dir, fs, ft)
+        data_counts, data_stats = data_path_phase(torch, args.seed, work_dir,
+                                                  fs, ft)
+        capstone_counts, capstone_stats = capstone_phase(torch, work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     train_step_check(torch, args.seed, fs, ft)
@@ -4313,6 +4928,13 @@ def main() -> None:
                           for k, x in r.items()})
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
+        # the data path's runs: train from .c2vb (2 x 64 steps, dense and
+        # sparse) and the 8 text steps beside each; the capstone's train
+        # and evaluate runs, dense and sparse
+        data = sum(c[name] for c in data_counts.values())
+        capstone = sum(c[name] for c in capstone_counts.values())
+        if data or capstone:
+            entry.update(data_launches=data, capstone_launches=capstone)
         entries.append(entry)
     # the fp8 and int4 modes: e4m3's numbers (e5m2's as e5m2_*), the
     # launches of the serving and evaluate runs of those formats (fp8's
@@ -4361,7 +4983,8 @@ def main() -> None:
     for scheme, st in eval_stats.items():
         log(f"evaluate {scheme}: load {st['load_s']:.3f}s, "
             f"{st['examples_per_s']:.0f} examples/s scored ({st['eval_s']:.3f}"
-            f"s; parse alone {st['parse_s']:.3f}s, kernels "
+            f"s; packed reader alone {st['parse_s']:.3f}s, text reader "
+            f"{st['text_s']:.3f}s, kernels "
             f"{st['device_s']:.3f}s), tables {st['table_bytes'] / 1e6:.1f} "
             f"MB, top-1 {st['top1']:.4f} top-10 {st['top10']:.4f} F1 "
             f"{st['f1']:.4f}, top-1 equal to float32's "
@@ -4392,6 +5015,28 @@ def main() -> None:
         f"{retrieval_stats['max_ms']:.2f} ms (k 1000: p50 "
         f"{retrieval_stats['k1000_p50_ms']:.2f} ms); recall@10 "
         f"{retrieval_stats['recall']:.4f}")
+    runs = data_stats["runs"]
+    log(f"data path: pack {data_stats['pack_native_rows_per_s']:.0f} rows/s "
+        f"native, {data_stats['pack_python_rows_per_s']:.0f} rows/s Python "
+        f"({data_stats['pack_python_workers']} processes); gather "
+        f"{data_stats['gather_rows_per_s']:.0f} rows/s; text parse "
+        f"{data_stats['parse_native_rows_per_s']:.0f} rows/s native, "
+        f"{data_stats['parse_python_rows_per_s']:.0f} rows/s Python; train "
+        + "; ".join(f"{k.replace('_', ' from ')} "
+                    f"{r['examples_per_s']:.0f} examples/s, busy "
+                    f"{r['busy_share']:.3f}" for k, r in runs.items())
+        + f"; the phase {data_stats['phase_s']:.1f}s")
+    log("capstone: " + "; ".join(
+        f"{mode} test F1 {capstone_stats[mode]['test_f1']:.4f} top-1 "
+        f"{capstone_stats[mode]['test_top1']:.4f}, train "
+        f"{capstone_stats[mode]['train_s']:.1f}s "
+        f"({capstone_stats[mode]['examples_per_s']:.0f} examples/s)"
+        for mode in ("dense", "sparse"))
+        + f"; generate {capstone_stats['generate_s']:.1f}s, extract "
+        f"{capstone_stats['extract_s']:.1f}s, preprocess "
+        f"{capstone_stats['preprocess_s']:.1f}s, compile "
+        f"{capstone_stats['compile_s']:.1f}s; the phase "
+        f"{capstone_stats['phase_s']:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

@@ -2,14 +2,18 @@
 and evaluating as it goes, or resuming a checkpoint); `serve`,
 `predict`, `evaluate` and `embed` against a release artifact of any
 scheme or a checkpoint; `export` and `export-embeddings` of a
-checkpoint; `index-build` over a vector store. Flag names, destinations,
-defaults and checks are those of code2vec_tpu/cli.py and config.py, plus
-a command word and `--device` (default cuda).
+checkpoint; `index-build` over a vector store; `corpus` over a manifest
+of packed shards. Flag names, destinations, defaults and checks are
+those of code2vec_tpu/cli.py and config.py, plus a command word and
+`--device` (default cuda). Datasets come from `python -m
+code2vec_tpu_torch.data.preprocess` (data/preprocess.py).
 
     python -m code2vec_tpu_torch train --data PREFIX --epochs N
         [--save M] [--test T] [--load M_iter<N>] [--batch_size B]
         [--max_contexts M] [--seed S] [--device cpu]
         [--sparse_embedding_update] [--save_w2v F] [--save_t2v F]
+        [--no_packed_data | --train_corpus_manifest MANIFEST]
+        [--preprocess_workers N] [--prefetch_double_buffer]
     python -m code2vec_tpu_torch export --load M --artifact_out DIR
         [--release_scheme int8|fp8_e4m3|fp8_e5m2|int4|float32]
         [--no_quantize]
@@ -31,6 +35,13 @@ a command word and `--device` (default cuda).
     python -m code2vec_tpu_torch index-build --vectors STORE
         --index_out IDX [--nlist N] [--nprobe P] [--kmeans_iters I]
         [--index_metric cosine|dot]
+    python -m code2vec_tpu_torch corpus --train_corpus_manifest MANIFEST
+        [--corpus_create SHARD[,SHARD...]] [--corpus_add SHARD]
+        [--corpus_validate]
+
+`train`, `evaluate` and `embed` read the packed `.c2vb` beside each
+`.c2v` (written once, on first use, with --preprocess_workers
+processes), and `--no_packed_data` the text itself.
 
 `train --save M` saves `M_iter<N>` at the end of every
 `save_every_epochs`-th epoch and of the last (keeping `max_to_keep`) and
@@ -76,6 +87,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sparse_embedding_update", action="store_true",
                    help="`train`: touched-rows (lazy) Adam for the "
                         "token/path tables (training/sparse_adam.py)")
+    p.add_argument("--no_packed_data", action="store_true",
+                   help="stream text .c2v instead of packed .c2vb")
+    p.add_argument("--train_corpus_manifest", metavar="FILE", default=None,
+                   help="`train`: train from a corpus manifest (a JSON "
+                        "list of .c2vb shards) as one row space with a "
+                        "single pack's epoch-keyed shuffle; `corpus`: the "
+                        "manifest to list, create, grow or check")
+    p.add_argument("--preprocess_workers", type=int, default=None,
+                   metavar="N",
+                   help="worker processes of the one-time .c2v -> .c2vb "
+                        "pack (the output is the same at any count; "
+                        "default 0 = in-process)")
+    p.add_argument("--prefetch_double_buffer", action="store_true",
+                   default=None,
+                   help="`train`: hold one staged batch back, so batch "
+                        "N+1's copy is issued before batch N's step")
+    p.add_argument("--corpus_create", metavar="SHARD[,SHARD...]",
+                   default=None,
+                   help="`corpus`: build a new manifest over these .c2vb "
+                        "shards, in order (shard order defines global row "
+                        "ids); refuses mixed-vocabulary shard sets")
+    p.add_argument("--corpus_add", metavar="SHARD", default=None,
+                   help="`corpus`: append one .c2vb shard to the manifest "
+                        "(existing row ids stay); refused on a vocabulary "
+                        "fingerprint mismatch")
+    p.add_argument("--corpus_validate", action="store_true", default=None,
+                   help="`corpus`: re-read every listed shard's header and "
+                        "meta and fail on drift")
     p.add_argument("-s", "--save", dest="save_path", metavar="FILE",
                    help="`train`: save the model here (M_iter<N> after "
                         "each scheduled epoch, M at the end)")
@@ -200,7 +239,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 COMMANDS = ("train", "serve", "predict", "evaluate", "embed",
-            "index-build", "export", "export-embeddings")
+            "index-build", "export", "export-embeddings", "corpus")
 # the commands that run a model: a release artifact or a checkpoint
 MODEL_COMMANDS = ("serve", "predict", "evaluate", "embed")
 
@@ -246,6 +285,12 @@ def config_from_args(argv):
     if cmd == "index-build" and not (args.index_vectors and args.index_out):
         parser.error("the `index-build` subcommand requires --vectors DIR "
                      "and --index_out DIR")
+    if cmd == "corpus" and not args.train_corpus_manifest:
+        parser.error(
+            "the `corpus` subcommand requires --train_corpus_manifest "
+            "FILE (plus --corpus_create/--corpus_add/--corpus_validate "
+            "for the mutation/check actions; plain `corpus` lists the "
+            "manifest)")
     config = Config(serve_artifact=args.serve_artifact, device=args.device,
                     export_code_vectors=args.export_code_vectors,
                     train_data_path_prefix=args.data_path, seed=args.seed,
@@ -256,6 +301,11 @@ def config_from_args(argv):
                     vectors_text=args.vectors_text,
                     release_quantize=not args.no_quantize,
                     eval_log_path=args.eval_log,
+                    use_packed_data=not args.no_packed_data,
+                    corpus=cmd == "corpus",
+                    corpus_create=args.corpus_create,
+                    corpus_add=args.corpus_add,
+                    corpus_validate=bool(args.corpus_validate),
                     serve=cmd == "serve", predict=cmd == "predict")
     explicit = []
     # --batch_size sets the test batch too, unless --test_batch_size
@@ -277,7 +327,9 @@ def config_from_args(argv):
                  "index_vectors", "index_out", "index_nlist", "index_nprobe",
                  "index_kmeans_iters", "index_metric", "retrieval_index",
                  "retrieval_topk", "export_artifact_path", "release_scheme",
-                 "embeddings_out", "adam_mu_dtype", "adam_nu_dtype"):
+                 "embeddings_out", "adam_mu_dtype", "adam_nu_dtype",
+                 "train_corpus_manifest", "preprocess_workers",
+                 "prefetch_double_buffer"):
         value = getattr(args, name)
         if value is not None:
             setattr(config, name, value)
@@ -290,6 +342,40 @@ def config_from_args(argv):
     return args, config
 
 
+def corpus_main(config) -> int:
+    """The `corpus` command (code2vec_tpu/cli.py:955-987): manifest
+    tooling that builds no model; the fingerprints come from the shards'
+    own meta sidecars."""
+    from code2vec_tpu_torch.data import packed
+    manifest_path = config.train_corpus_manifest
+    try:
+        if config.corpus_create:
+            shards = [s for s in config.corpus_create.split(",") if s]
+            packed.create_manifest(manifest_path, shards)
+            config.log(f"created {manifest_path} "
+                       f"({len(shards)} shard(s))")
+        if config.corpus_add:
+            packed.append_manifest_shard(manifest_path, config.corpus_add)
+            config.log(f"appended {config.corpus_add} to {manifest_path}")
+        manifest = packed.load_manifest(manifest_path)
+        if config.corpus_validate:
+            reports = packed.validate_manifest(manifest_path)
+        else:
+            reports = manifest["shards"]
+    except (ValueError, OSError) as e:
+        config.log(f"corpus: {e}")
+        return 1
+    total = sum(r["rows"] for r in reports)
+    config.log(f"{manifest_path}: {len(reports)} shard(s), {total} rows, "
+               f"max_contexts={manifest['max_contexts']}, vocab "
+               f"fingerprint {manifest.get('vocab_fingerprint')}"
+               + (" [validated]" if config.corpus_validate else ""))
+    for r in reports:
+        config.log(f"  {r['path']}: {r['rows']} rows, "
+                   f"fingerprint={r.get('vocab_fingerprint')}")
+    return 0
+
+
 def main(argv=None):
     """Runs a command in the reference's order (code2vec_tpu/cli.py
     :1090-1143). `train` returns its Code2VecModel, `evaluate` its
@@ -297,6 +383,8 @@ def main(argv=None):
     summary, `index-build` the index meta, `export` the artifact's meta,
     `export-embeddings` the written paths."""
     args, config = config_from_args(sys.argv[1:] if argv is None else argv)
+    if args.command == "corpus":
+        sys.exit(corpus_main(config))
     if args.command == "index-build":
         from code2vec_tpu_torch.release.runtime import resolve_device
         from code2vec_tpu_torch.retrieval.index import build_index

@@ -29,6 +29,18 @@ class Config:
     shuffle_buffer_size: int = 10000
     csv_buffer_size: int = 100 * 1024 * 1024
     train_data_path_prefix: Optional[str] = None
+    # the data path (code2vec_tpu/config.py:179-202): train and evaluate
+    # from the packed `.c2vb` beside each `.c2v` (packed once, on first
+    # use, with `preprocess_workers` processes; 0 = in-process), or from
+    # the text itself (--no_packed_data); `train_corpus_manifest` trains
+    # from a manifest of `.c2vb` shards as one row space; the prefetcher
+    # keeps `prefetch_batches` batches staged ahead of the step, and
+    # `prefetch_double_buffer` one more held back
+    use_packed_data: bool = True
+    train_corpus_manifest: Optional[str] = None
+    preprocess_workers: int = 0
+    prefetch_batches: int = 4
+    prefetch_double_buffer: bool = False
     # `--test`: the labelled corpus `evaluate` scores, or the one the
     # embed job reads (code2vec_tpu/config.py:84, :697)
     test_data_path: Optional[str] = None
@@ -110,6 +122,13 @@ class Config:
     # the command that runs (set by the CLI): what the checks below read
     serve: bool = False
     predict: bool = False
+    # the `corpus` command (code2vec_tpu/config.py:610-623): list the
+    # manifest at train_corpus_manifest, create it over comma-separated
+    # shards, append a shard, or re-check every shard
+    corpus: bool = False
+    corpus_create: Optional[str] = None
+    corpus_add: Optional[str] = None
+    corpus_validate: bool = False
     # the port's own
     device: str = "cuda"
     verbose_mode: int = 1
@@ -171,11 +190,11 @@ class Config:
         """The checks of code2vec_tpu/config.py:800-840 and :1109-1289
         that the port's knobs share."""
         if not (self.is_training or self.is_loading or self.serve_artifact
-                or self.index_out):
+                or self.index_out or self.corpus):
             raise ValueError(
                 "Must train or load a model (or serve a release "
-                "artifact via --artifact; `index-build` alone needs no "
-                "model).")
+                "artifact via --artifact; `index-build` and `corpus` "
+                "alone need no model).")
         if self.is_loading and not os.path.isdir(self.model_load_dir):
             raise ValueError(
                 f"Model load dir `{self.model_load_dir}` does not exist.")
@@ -191,6 +210,13 @@ class Config:
         if self.max_to_keep < 0:
             raise ValueError("max_to_keep must be >= 0 (0 keeps every "
                              "epoch checkpoint).")
+        if self.preprocess_workers < 0:
+            raise ValueError(
+                "preprocess_workers must be >= 0 (0 = in-process serial).")
+        if self.train_corpus_manifest and not self.use_packed_data:
+            raise ValueError(
+                "--train_corpus_manifest requires packed data: the "
+                "manifest lists .c2vb shards (drop --no_packed_data).")
         if self.release_scheme not in ("int8", "fp8_e4m3", "fp8_e5m2",
                                        "int4", "float32"):
             raise ValueError(

@@ -1,0 +1,218 @@
+"""ctypes binding to the native host data core, `cpp/build/libc2vdata.so`.
+
+The port's copy of code2vec_tpu/data/native.py (load_library :37,
+histogram_range :80, NativeTables :110, tables_for :230). The C library
+(cpp/src/dataloader.cc) does the text hot loop with the semantics of the
+Python parse in data/reader.py: per-line split, vocabulary lookup, pad
+and mask (`c2v_parse_text`), the same into the `.c2vb` row layout
+(`c2v_parse_rows`), the whole-file `.c2v` -> `.c2vb` compile
+(`c2v_pack_file`) and the histogram map step (`c2v_histogram_range`).
+Python keeps the orchestration. Where the library is not built (`make -C
+cpp`), `load_library` returns None and every caller takes the Python
+path, which gives the same arrays and bytes. `C2V_NATIVE_DATALOADER`
+names another build of the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+import weakref
+from typing import Optional, Sequence
+
+import numpy as np
+
+_LIB_ENV = "C2V_NATIVE_DATALOADER"
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_lib_checked = False
+
+
+def library_path() -> str:
+    env = os.environ.get(_LIB_ENV)
+    if env:
+        return env
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(here, "cpp", "build", "libc2vdata.so")
+
+
+def load_library() -> Optional[ctypes.CDLL]:
+    """Loads libc2vdata.so once and declares its signatures; None where
+    it is not built."""
+    global _lib, _lib_checked
+    with _lock:
+        if _lib_checked:
+            return _lib
+        _lib_checked = True
+        path = library_path()
+        if not os.path.exists(path):
+            return None
+        lib = ctypes.CDLL(path)
+        i32, i64, p = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
+        i32p = ctypes.POINTER(i32)
+        lib.c2v_tables_create.restype = p
+        lib.c2v_tables_create.argtypes = [i32, i32, i32, i32, i32]
+        lib.c2v_tables_destroy.restype = None
+        lib.c2v_tables_destroy.argtypes = [p]
+        lib.c2v_tables_load.restype = None
+        lib.c2v_tables_load.argtypes = [p, i32, ctypes.c_char_p, i64, i32p,
+                                        i64]
+        lib.c2v_parse_text.restype = i64
+        lib.c2v_parse_text.argtypes = [p, ctypes.c_char_p, i64, i32, i32p,
+                                       i32p, i32p, i32p, ctypes.c_void_p,
+                                       i64]
+        lib.c2v_parse_rows.restype = i64
+        lib.c2v_parse_rows.argtypes = [p, ctypes.c_char_p, i64, i32, i32p,
+                                       i64]
+        lib.c2v_pack_file.restype = i64
+        lib.c2v_pack_file.argtypes = [p, ctypes.c_char_p, ctypes.c_char_p,
+                                      ctypes.c_char_p, i32, i32]
+        lib.c2v_histogram_range.restype = i64
+        lib.c2v_histogram_range.argtypes = [ctypes.c_char_p, i64, i64,
+                                            ctypes.c_char_p, ctypes.c_char_p,
+                                            ctypes.c_char_p]
+        _lib = lib
+        return _lib
+
+
+def histogram_range(raw_path: str, start: int, end: int, tokens_out: str,
+                    paths_out: str, targets_out: str) -> int:
+    """Token, path and target occurrence counts over one line-aligned
+    byte range of a raw extractor file, written as "count word" lines:
+    the map step of the histogram build. Returns the lines read."""
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("libc2vdata.so is not built (run `make -C cpp`)")
+    n = lib.c2v_histogram_range(raw_path.encode(), start, end,
+                                tokens_out.encode(), paths_out.encode(),
+                                targets_out.encode())
+    if n < 0:
+        raise IOError(f"native histogram failed for {raw_path} "
+                      f"[{start}:{end})")
+    return n
+
+
+def _i32ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+class NativeTables:
+    """The native string -> id tables of one `Code2VecVocabs`, or (through
+    `from_tables`) of bytes -> id dicts, as the pack workers carry them."""
+
+    def __init__(self, vocabs):
+        lib = load_library()
+        if lib is None:
+            raise RuntimeError(
+                "libc2vdata.so is not built (run `make -C cpp`)")
+        tok, pth, tgt = (vocabs.token_vocab, vocabs.path_vocab,
+                         vocabs.target_vocab)
+
+        def encode(vocab):
+            return {w.encode("utf-8", "surrogateescape"): i
+                    for w, i in vocab.word_to_index.items()}
+
+        self._init_from(lib, encode(tok), encode(pth), encode(tgt),
+                        tok.pad_index, tok.oov_index, pth.pad_index,
+                        pth.oov_index, tgt.oov_index)
+
+    @classmethod
+    def from_tables(cls, token_b2i, path_b2i, target_b2i, *, token_pad,
+                    token_oov, path_pad, path_oov,
+                    target_oov) -> "NativeTables":
+        lib = load_library()
+        if lib is None:
+            raise RuntimeError(
+                "libc2vdata.so is not built (run `make -C cpp`)")
+        self = cls.__new__(cls)
+        self._init_from(lib, token_b2i, path_b2i, target_b2i, token_pad,
+                        token_oov, path_pad, path_oov, target_oov)
+        return self
+
+    def _init_from(self, lib, token_b2i, path_b2i, target_b2i, token_pad,
+                   token_oov, path_pad, path_oov, target_oov) -> None:
+        self._lib = lib
+        self._handle = lib.c2v_tables_create(
+            token_pad, token_oov, path_pad, path_oov, target_oov)
+        for which, table in enumerate((token_b2i, path_b2i, target_b2i)):
+            items = sorted(table.items(), key=lambda kv: kv[1])
+            words = b"\n".join(w for w, _ in items)
+            ids = np.asarray([i for _, i in items], dtype=np.int32)
+            lib.c2v_tables_load(self._handle, which, words, len(words),
+                                _i32ptr(ids), len(items))
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle and getattr(self, "_lib", None) is not None:
+            self._lib.c2v_tables_destroy(handle)
+            self._handle = None
+
+    def parse_lines(self, lines: Sequence[str], max_contexts: int):
+        """(src, pth, tgt, label, mask) arrays of `lines`, or None where
+        a line holds an interior newline (it would shift every following
+        row): the Python parse takes those."""
+        text = "".join(line if line.endswith("\n") else line + "\n"
+                       for line in lines)
+        data = text.encode("utf-8", "surrogateescape")
+        n = len(lines)
+        if data.count(b"\n") != n:
+            return None
+        return self.parse_blob(data, n, max_contexts)
+
+    def parse_blob(self, data: bytes, n: int, max_contexts: int):
+        """(src, pth, tgt, label, mask) of `n` lines that `data` holds,
+        each ending in b"\\n"."""
+        m = max_contexts
+        src = np.empty((n, m), dtype=np.int32)
+        pth = np.empty((n, m), dtype=np.int32)
+        tgt = np.empty((n, m), dtype=np.int32)
+        label = np.empty((n,), dtype=np.int32)
+        mask = np.empty((n, m), dtype=np.float32)
+        parsed = self._lib.c2v_parse_text(
+            self._handle, data, len(data), m, _i32ptr(src), _i32ptr(pth),
+            _i32ptr(tgt), _i32ptr(label),
+            mask.ctypes.data_as(ctypes.c_void_p), n)
+        if parsed != n:
+            raise RuntimeError(f"native parse read {parsed} of {n} lines")
+        return src, pth, tgt, label, mask
+
+    def parse_rows_blob(self, data: bytes, n: int,
+                        max_contexts: int) -> np.ndarray:
+        """`n` newline-terminated lines straight into an (n, 1 + 3 m)
+        int32 array in the `.c2vb` row layout."""
+        rec = np.empty((n, 1 + 3 * max_contexts), dtype=np.int32)
+        parsed = self._lib.c2v_parse_rows(self._handle, data, len(data),
+                                          max_contexts, _i32ptr(rec), n)
+        if parsed != n:
+            raise RuntimeError(f"native parse read {parsed} of {n} lines")
+        return rec
+
+    def pack_file(self, c2v_path: str, out_path: str, max_contexts: int,
+                  targets_path: Optional[str] = None,
+                  num_threads: int = 0) -> int:
+        """Compile `.c2v` -> `.c2vb`; returns the row count."""
+        rows = self._lib.c2v_pack_file(
+            self._handle, c2v_path.encode(), out_path.encode(),
+            targets_path.encode() if targets_path else None,
+            max_contexts, num_threads)
+        if rows < 0:
+            raise IOError(f"native pack failed for {c2v_path} -> {out_path}")
+        return rows
+
+
+# weak keys: dropping a Code2VecVocabs frees its (large) native tables
+_tables_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def tables_for(vocabs) -> Optional[NativeTables]:
+    """The (cached) native tables of `vocabs`; None where the library is
+    not built."""
+    if load_library() is None:
+        return None
+    tables = _tables_cache.get(vocabs)
+    if tables is None:
+        tables = NativeTables(vocabs)
+        _tables_cache[vocabs] = tables
+    return tables

@@ -1,0 +1,1350 @@
+"""Packed binary `.c2vb` datasets: `.c2v` text compiled to int32 memmaps.
+
+The port's copy of code2vec_tpu/data/packed.py: the format (:39-51),
+pack_c2v :54, the fused raw compile pack_raw :537 with its worker pool
+and per-method RNG (:139-645), PackedDataset :659-884, the corpus
+manifest functions :887-1042 and ShardedCorpus :1045. The files it
+writes are byte-identical to the reference's, each package opens the
+other's, and `iter_batches` gives the reference's batches in the
+reference's order. Parsing text once and training from a zero-copy
+memmap takes the per-row Python parse (about 1,700 rows/s) off the
+train and evaluate paths. Layout:
+
+    [ 16-byte header: magic 'C2VB', uint32 version, uint32 N, uint32 M ]
+    [ target_index  int32 (N,)   ]
+    [ source_tokens int32 (N, M) ]
+    [ paths         int32 (N, M) ]
+    [ target_tokens int32 (N, M) ]
+
+An optional `<path>.targets` sidecar holds one raw target string per row
+(needed by evaluation, which scores OOV targets too). Vocab identity is
+guarded by a content hash in the sidecar meta.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import random
+import shutil
+import struct
+import tempfile
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from code2vec_tpu_torch.data import preprocess as preprocess_mod
+from code2vec_tpu_torch.data import reader as reader_mod
+from code2vec_tpu_torch.data.reader import EpochEnd, EstimatorAction, RowBatch
+from code2vec_tpu_torch.vocab import Code2VecVocabs
+
+_MAGIC = b"C2VB"
+_VERSION = 1
+_HEADER = struct.Struct("<4sIII")
+
+
+def vocabs_fingerprint(vocabs: Code2VecVocabs) -> str:
+    """Cheap content hash to detect vocab/packed-data mismatch."""
+    h = hashlib.sha256()
+    for vocab in (vocabs.token_vocab, vocabs.path_vocab, vocabs.target_vocab):
+        h.update(str(vocab.size).encode())
+        for idx in (0, 1, vocab.size // 2, vocab.size - 1):
+            h.update(vocab.index_to_word.get(idx, "").encode())
+    return h.hexdigest()[:16]
+
+
+def pack_c2v(c2v_path: str, vocabs: Code2VecVocabs, max_contexts: int,
+             out_path: Optional[str] = None, chunk_lines: int = 8192,
+             write_targets_sidecar: bool = True, num_workers: int = 0) -> str:
+    """Compile a `.c2v` text file into a `.c2vb` memmap (returns its path).
+
+    `num_workers > 1` shards the text by line-aligned byte ranges across
+    that many worker processes (row order — and therefore the output
+    bytes — are unchanged); the native whole-file path still wins when
+    libc2vdata.so is built.
+    """
+    # data.train.c2v -> data.train.c2vb
+    out_path = out_path or (c2v_path + "b")
+    tmp_path = out_path + ".tmp"
+    n_rows = 0
+    targets_sidecar = out_path + ".targets" if write_targets_sidecar else None
+
+    # Native whole-file compile when libc2vdata.so is built (same layout,
+    # multithreaded split+lookup in C++); both branches share the meta
+    # write below.
+    from code2vec_tpu_torch.data import native
+    tables = native.tables_for(vocabs)
+    if tables is not None:
+        n_rows = tables.pack_file(c2v_path, out_path, max_contexts,
+                                  targets_path=targets_sidecar)
+        return _write_pack_meta(out_path, c2v_path, n_rows, max_contexts,
+                                vocabs)
+
+    if num_workers > 1:
+        # Compat mode of the fused compiler: no sampling (contexts past
+        # `max_contexts` are truncated like `parse_context_lines`), one
+        # row per line — exactly the serial loop below, sharded.
+        pack_raw(c2v_path, out_path, vocabs, None, None, max_contexts,
+                 num_workers=num_workers,
+                 write_targets_sidecar=write_targets_sidecar)
+        return out_path
+
+    with open(tmp_path, "wb") as out:
+        out.write(_HEADER.pack(_MAGIC, _VERSION, 0, max_contexts))
+        tgt_file = open(targets_sidecar, "w") if targets_sidecar else None
+        try:
+            chunk: List[str] = []
+            with open(c2v_path, "r", buffering=16 * 1024 * 1024) as f:
+                for line in f:
+                    chunk.append(line)
+                    if len(chunk) >= chunk_lines:
+                        n_rows += _write_chunk(out, tgt_file, chunk, vocabs,
+                                               max_contexts)
+                        chunk = []
+            if chunk:
+                n_rows += _write_chunk(out, tgt_file, chunk, vocabs,
+                                       max_contexts)
+        finally:
+            if tgt_file:
+                tgt_file.close()
+        out.seek(0)
+        out.write(_HEADER.pack(_MAGIC, _VERSION, n_rows, max_contexts))
+    os.replace(tmp_path, out_path)
+    return _write_pack_meta(out_path, c2v_path, n_rows, max_contexts, vocabs)
+
+
+def _write_pack_meta(out_path: str, c2v_path: str, n_rows: int,
+                     max_contexts: int, vocabs: Code2VecVocabs) -> str:
+    meta = {"rows": n_rows, "max_contexts": max_contexts,
+            "vocab_fingerprint": vocabs_fingerprint(vocabs),
+            "source": os.path.basename(c2v_path)}
+    with open(out_path + ".meta.json", "w") as f:
+        json.dump(meta, f)
+    return out_path
+
+
+def _write_chunk(out, tgt_file, chunk, vocabs, max_contexts) -> int:
+    batch = reader_mod.parse_context_lines(
+        chunk, vocabs, max_contexts, keep_strings=False,
+        with_target_strings=tgt_file is not None)
+    # Each row is written interleaved as [target, src, path, tgt] so the
+    # file stays appendable in a single streaming pass.
+    n, m = batch.source_token_indices.shape
+    rec = np.empty((n, 1 + 3 * m), dtype=np.int32)
+    rec[:, 0] = batch.target_index
+    rec[:, 1:1 + m] = batch.source_token_indices
+    rec[:, 1 + m:1 + 2 * m] = batch.path_indices
+    rec[:, 1 + 2 * m:] = batch.target_token_indices
+    out.write(rec.tobytes())
+    if tgt_file and batch.target_strings:
+        tgt_file.write("\n".join(batch.target_strings) + "\n")
+    return n
+
+
+# ----------------------------------------------- fused raw -> .c2vb compile
+#
+# The offline compiler's hot half: multiprocessing workers read raw
+# extractor output by line-aligned byte ranges, apply the reference's
+# two-tier in-vocab sampling (reference: preprocess.py:41-56), look up
+# vocab ids, and write int32 rows into per-shard segment files that the
+# parent stitches (header + concatenation) into one `.c2vb` + `.targets`
+# sidecar — no padded `.c2v` text intermediate. Output is byte-identical
+# at any worker count: each method's sampling RNG is seeded from
+# (global seed, global line ordinal), and segments concatenate in file
+# order. The same machinery packs existing `.c2v` text in parallel
+# (sampling disabled — `pack_c2v(num_workers=...)`).
+
+_PACK_CTX: Optional[dict] = None
+_PACK_NATIVE = "unset"
+
+
+def _method_rng(seed: int, ordinal: int) -> random.Random:
+    """Per-method sampling RNG from a stable hash of (seed, ordinal) —
+    identical in every worker layout, which is what makes the parallel
+    compile byte-identical to the serial one."""
+    digest = hashlib.blake2b(struct.pack("<qq", seed, ordinal),
+                             digest_size=16).digest()
+    return random.Random(int.from_bytes(digest, "little"))
+
+
+def _init_pack_worker(ctx: dict) -> None:
+    global _PACK_CTX, _PACK_NATIVE
+    _PACK_CTX = ctx
+    _PACK_NATIVE = "unset"
+
+
+def _pack_worker_native_tables():
+    """Per-worker native split+lookup tables when libc2vdata.so is built
+    (the GIL-releasing core from data/native.py), else None. Built once
+    per worker process from the ctx's bytes->id dicts."""
+    global _PACK_NATIVE
+    if _PACK_NATIVE == "unset":
+        from code2vec_tpu_torch.data import native
+        ctx = _PACK_CTX
+        if native.load_library() is None:
+            _PACK_NATIVE = None
+        else:
+            _PACK_NATIVE = native.NativeTables.from_tables(
+                ctx["token_b2i"], ctx["path_b2i"], ctx["target_b2i"],
+                token_pad=ctx["token_pad"], token_oov=ctx["token_oov"],
+                path_pad=ctx["path_pad"], path_oov=ctx["path_oov"],
+                target_oov=ctx["target_oov"])
+    return _PACK_NATIVE
+
+
+def _pack_shard(task) -> dict:
+    """Compile one byte range of the raw file into segment files.
+
+    Per-line work is memoized per DISTINCT context string (corpora
+    repeat contexts heavily): one dict hit replaces split + three vocab
+    lookups for every repeat occurrence. The memo is cleared past
+    `_MEMO_CAP` entries so worker RSS stays bounded on any corpus.
+    """
+    shard_idx, start, end, ordinal = task
+    ctx = _PACK_CTX
+    m: int = ctx["max_contexts"]
+    seed: int = ctx["seed"]
+    token_b2i: Dict[bytes, int] = ctx["token_b2i"]
+    path_b2i: Dict[bytes, int] = ctx["path_b2i"]
+    target_b2i: Dict[bytes, int] = ctx["target_b2i"]
+    token_pad, token_oov = ctx["token_pad"], ctx["token_oov"]
+    path_pad, path_oov = ctx["path_pad"], ctx["path_oov"]
+    target_oov = ctx["target_oov"]
+    word_ok, path_ok = ctx["word_ok"], ctx["path_ok"]
+    sampling = word_ok is not None
+    tables = _pack_worker_native_tables()
+    native_rows = tables is not None and hasattr(tables._lib,
+                                                 "c2v_parse_rows")
+    memo: Dict[bytes, tuple] = {}
+    memo_cap = preprocess_mod._MEMO_CAP
+    # Emission memo: one packed int64 per distinct context
+    # (sid | pid<<21 | tid<<42), so a whole chunk's id resolution is a
+    # C-speed `map` + `np.fromiter` instead of a per-context Python
+    # loop. Packing needs every token/path id under 2^21 (the java14m
+    # reference vocabs are 1.3M/911K); larger vocabs take the tuple
+    # fallback below.
+    memo_pack: Dict[bytes, int] = {}
+    pack_ok = (max(token_b2i.values(), default=0) < (1 << 21)
+               and max(path_b2i.values(), default=0) < (1 << 21))
+
+    def lookup(c: bytes) -> tuple:
+        """(src_id, path_id, tgt_id, tier) for one context string; tier
+        is 2 fully-in-vocab / 1 partially / 0 (reference tier test,
+        preprocess.py:77-84). Missing pieces behave like the reader's
+        sparse fill (reader.py parse_context_lines): empty -> PAD."""
+        pieces = c.split(b",")
+        a = pieces[0]
+        b = pieces[1] if len(pieces) > 1 else b""
+        d = pieces[2] if len(pieces) > 2 else b""
+        sid = token_b2i.get(a, token_pad if a == b"" else token_oov)
+        pid = path_b2i.get(b, path_pad if b == b"" else path_oov)
+        tid = token_b2i.get(d, token_pad if d == b"" else token_oov)
+        if not sampling:
+            tier = 0
+        elif a in word_ok and b in path_ok and d in word_ok:
+            tier = 2
+        elif a in word_ok or b in path_ok or d in word_ok:
+            tier = 1
+        else:
+            tier = 0
+        if len(memo) >= memo_cap:
+            memo.clear()
+        memo[c] = entry = (sid, pid, tid, tier)
+        return entry
+
+    def lookup_pack(c: bytes) -> int:
+        pieces = c.split(b",")
+        a = pieces[0]
+        b = pieces[1] if len(pieces) > 1 else b""
+        d = pieces[2] if len(pieces) > 2 else b""
+        v = (token_b2i.get(a, token_pad if a == b"" else token_oov)
+             | path_b2i.get(b, path_pad if b == b"" else path_oov) << 21
+             | token_b2i.get(d, token_pad if d == b"" else token_oov) << 42)
+        if len(memo_pack) >= memo_cap:
+            memo_pack.clear()
+        memo_pack[c] = v
+        return v
+
+    seg_path = os.path.join(ctx["seg_dir"], f"seg{shard_idx:05d}")
+    seg = open(seg_path + ".bin", "wb", buffering=4 * 1024 * 1024)
+    tgt_seg = (open(seg_path + ".targets", "wb", buffering=1024 * 1024)
+               if ctx["write_targets"] else None)
+    c2v_seg = (open(seg_path + ".c2v", "wb", buffering=4 * 1024 * 1024)
+               if ctx["emit_c2v"] else None)
+
+    rows = contexts_seen = contexts_kept = widest = skipped = 0
+    # chunk accumulators, flushed every `flush_rows` methods: one name,
+    # one context count and a flat context stream per kept row (the flat
+    # list is extended at C level in the line loop — per-context Python
+    # work happens only in `flush`, vectorized)
+    flush_rows = 8192
+    names: List[bytes] = []
+    ks: List[int] = []
+    all_ctxs: List[bytes] = []
+    need_row_slices = tables is not None or c2v_seg is not None
+
+    def row_slices() -> List[List[bytes]]:
+        pos = 0
+        out = []
+        for k in ks:
+            out.append(all_ctxs[pos:pos + k])
+            pos += k
+        return out
+
+    def flush() -> None:
+        nonlocal rows
+        n = len(names)
+        if not n:
+            return
+        per_row = row_slices() if need_row_slices else None
+        if tables is not None:
+            blob = b"\n".join(b" ".join([name] + ctxs)
+                              for name, ctxs in zip(names, per_row)) + b"\n"
+            if native_rows:
+                rec = tables.parse_rows_blob(blob, n, m)
+            else:
+                src, pth, tgt, label, _mask = tables.parse_blob(blob, n, m)
+                rec = np.empty((n, 1 + 3 * m), dtype=np.int32)
+                rec[:, 0] = label
+                rec[:, 1:1 + m] = src
+                rec[:, 1 + m:1 + 2 * m] = pth
+                rec[:, 1 + 2 * m:] = tgt
+        else:
+            labels = np.fromiter(
+                (target_b2i.get(nm, target_oov) for nm in names),
+                dtype=np.int32, count=n)
+            ks_arr = np.asarray(ks, dtype=np.int64)
+            mask = np.arange(m) < ks_arr[:, None]
+            rec = np.empty((n, 1 + 3 * m), dtype=np.int32)
+            rec[:, 0] = labels
+            if pack_ok:
+                # one C-speed map over the occurrence stream; misses
+                # (first sight of a distinct context) patched inline
+                mget = memo_pack.get
+                vals_list = list(map(mget, all_ctxs))
+                if None in vals_list:
+                    for i, v in enumerate(vals_list):
+                        if v is None:
+                            c = all_ctxs[i]
+                            v = mget(c)  # repeats resolve on first sight
+                            vals_list[i] = (v if v is not None
+                                            else lookup_pack(c))
+                vals = np.array(vals_list, dtype=np.int64)
+                m21 = (1 << 21) - 1
+                streams = ((1, vals & m21, token_pad),
+                           (1 + m, (vals >> 21) & m21, path_pad),
+                           (1 + 2 * m, vals >> 42, token_pad))
+            else:
+                # tuple fallback for vocabs too large for 21-bit packing
+                flat_s: List[int] = []
+                flat_p: List[int] = []
+                flat_t: List[int] = []
+                for c in all_ctxs:
+                    entry = memo.get(c)
+                    if entry is None:
+                        entry = lookup(c)
+                    flat_s.append(entry[0])
+                    flat_p.append(entry[1])
+                    flat_t.append(entry[2])
+                streams = ((1, np.asarray(flat_s, np.int32), token_pad),
+                           (1 + m, np.asarray(flat_p, np.int32), path_pad),
+                           (1 + 2 * m, np.asarray(flat_t, np.int32),
+                            token_pad))
+            # boolean assignment fills in C (row-major) order == the
+            # order `all_ctxs` was appended in
+            for off, ids, pad in streams:
+                block = rec[:, off:off + m]
+                block.fill(pad)
+                block[mask] = ids
+        seg.write(rec)
+        if tgt_seg is not None:
+            tgt_seg.write(b"\n".join(names) + b"\n")
+        if c2v_seg is not None:
+            c2v_seg.write(b"".join(
+                b" ".join([name] + ctxs) + b" " * (m - len(ctxs)) + b"\n"
+                for name, ctxs in zip(names, per_row)))
+        rows += n
+        names.clear()
+        ks.clear()
+        all_ctxs.clear()
+
+    def sample_line(parts: List[bytes], ordinal: int) -> List[bytes]:
+        """Reference two-tier sampling for one over-budget method
+        (preprocess.py:41-56): keep fully-in-vocab contexts first, then
+        partially-in-vocab, sampling at random within the tier that
+        crosses the budget."""
+        in_vocab: List[bytes] = []
+        mixed: List[bytes] = []
+        for c in parts[1:]:
+            entry = memo.get(c)
+            if entry is None:
+                entry = lookup(c)
+            if entry[3] == 2:
+                in_vocab.append(c)
+            elif entry[3] == 1:
+                mixed.append(c)
+        if len(in_vocab) > m:
+            return _method_rng(seed, ordinal).sample(in_vocab, m)
+        if len(in_vocab) + len(mixed) > m:
+            return in_vocab + _method_rng(seed, ordinal).sample(
+                mixed, m - len(in_vocab))
+        return in_vocab + mixed
+
+    def run_native_lines() -> None:
+        """Hot loop when the native core is built and no `.c2v` text is
+        being emitted: under-budget lines go to the GIL-releasing C
+        parser UNSPLIT (one `count` + one `find` of Python work per
+        line); only the rare over-budget methods pay a Python split for
+        the sampling tiers."""
+        nonlocal rows, contexts_seen, contexts_kept, widest, skipped, ordinal
+        pend_lines: List[bytes] = []
+
+        def flush_lines() -> None:
+            nonlocal rows
+            n = len(pend_lines)
+            if not n:
+                return
+            blob = b"\n".join(pend_lines) + b"\n"
+            if native_rows:
+                rec = tables.parse_rows_blob(blob, n, m)
+            else:
+                src, pth, tgt, label, _mask = tables.parse_blob(blob, n, m)
+                rec = np.empty((n, 1 + 3 * m), dtype=np.int32)
+                rec[:, 0] = label
+                rec[:, 1:1 + m] = src
+                rec[:, 1 + m:1 + 2 * m] = pth
+                rec[:, 1 + 2 * m:] = tgt
+            seg.write(rec)
+            if tgt_seg is not None:
+                tgt_seg.write(b"\n".join(names) + b"\n")
+                names.clear()
+            rows += n
+            pend_lines.clear()
+
+        for lines in preprocess_mod.iter_range_line_chunks(
+                ctx["raw_path"], start, end):
+            for line in lines:
+                k = line.count(b" ")
+                contexts_seen += k
+                if k > widest:
+                    widest = k
+                if sampling:
+                    if k > m:
+                        parts = line.split(b" ")
+                        contexts = sample_line(parts, ordinal)
+                        k = len(contexts)
+                        if not contexts:
+                            skipped += 1
+                            ordinal += 1
+                            continue
+                        line = b" ".join([parts[0]] + contexts)
+                    elif k == 0:
+                        skipped += 1
+                        ordinal += 1
+                        continue
+                contexts_kept += k if k < m else m
+                if tgt_seg is not None:
+                    sp = line.find(b" ")
+                    names.append(line if sp < 0 else line[:sp])
+                pend_lines.append(line)
+                ordinal += 1
+                if len(pend_lines) >= flush_rows:
+                    flush_lines()
+        flush_lines()
+
+    def run_general_lines() -> None:
+        nonlocal all_ctxs, contexts_seen, contexts_kept, widest, skipped, \
+            ordinal
+        for lines in preprocess_mod.iter_range_line_chunks(
+                ctx["raw_path"], start, end):
+            for line in lines:
+                parts = line.split(b" ")
+                name, contexts = parts[0], parts[1:]
+                k = len(contexts)
+                contexts_seen += k
+                if k > widest:
+                    widest = k
+                if sampling:
+                    if k > m:
+                        contexts = sample_line(parts, ordinal)
+                        k = len(contexts)
+                    if not contexts:
+                        skipped += 1
+                        ordinal += 1
+                        continue
+                elif k > m:
+                    contexts = contexts[:m]
+                    k = m
+                contexts_kept += k
+                names.append(name)
+                ks.append(k)
+                all_ctxs += contexts
+                ordinal += 1
+                if len(names) >= flush_rows:
+                    flush()
+        flush()
+
+    try:
+        if tables is not None and c2v_seg is None:
+            run_native_lines()
+        else:
+            run_general_lines()
+    finally:
+        seg.close()
+        if tgt_seg is not None:
+            tgt_seg.close()
+        if c2v_seg is not None:
+            c2v_seg.close()
+    return {"shard": shard_idx, "rows": rows, "skipped": skipped,
+            "contexts_seen": contexts_seen, "contexts_kept": contexts_kept,
+            "widest": widest}
+
+
+def _encode_keys(d) -> Dict[bytes, int]:
+    return {w.encode("utf-8", "surrogateescape"): i for w, i in d.items()}
+
+
+def _encoded_tables(vocabs: Code2VecVocabs) -> Dict[str, Dict[bytes, int]]:
+    """bytes->id worker tables for `vocabs`, cached on the instance:
+    compile_corpus packs three splits with the same vocabs, and
+    re-encoding the 2.2M java14m words per split costs seconds."""
+    cache = getattr(vocabs, "_b2i_cache", None)
+    if cache is None:
+        cache = {
+            "token": _encode_keys(vocabs.token_vocab.word_to_index),
+            "path": _encode_keys(vocabs.path_vocab.word_to_index),
+            "target": _encode_keys(vocabs.target_vocab.word_to_index),
+        }
+        vocabs._b2i_cache = cache
+    return cache
+
+
+def _append_file(dst, src_path: str) -> None:
+    """Append `src_path` to the open binary file `dst` (kernel-side
+    `sendfile` when available), then delete it to free disk."""
+    dst.flush()
+    with open(src_path, "rb") as src:
+        size = os.fstat(src.fileno()).st_size
+        offset = 0
+        try:
+            while offset < size:
+                sent = os.sendfile(dst.fileno(), src.fileno(), offset,
+                                   size - offset)
+                if sent == 0:
+                    break
+                offset += sent
+        except (AttributeError, OSError):
+            src.seek(offset)
+            shutil.copyfileobj(src, dst, 16 * 1024 * 1024)
+    os.unlink(src_path)
+
+
+def pack_raw(raw_path: str, out_path: str, vocabs: Code2VecVocabs,
+             word_to_count: Optional[Dict[str, int]],
+             path_to_count: Optional[Dict[str, int]], max_contexts: int,
+             seed: int = 0, num_workers: int = 1,
+             c2v_out: Optional[str] = None,
+             write_targets_sidecar: bool = True, log=None) -> int:
+    """Fused compile of RAW extractor output straight to `.c2vb` (+
+    `.targets` sidecar, + optional compat `.c2v` text at `c2v_out`),
+    applying the reference's in-vocab sampling when `word_to_count`/
+    `path_to_count` are given (`None` disables sampling: contexts
+    truncate at `max_contexts` and every line yields a row — the
+    `.c2v`-repack compat mode). Returns the row count.
+
+    Workers process line-aligned byte ranges into per-shard segment
+    files; the parent stitches them in order, so the output is
+    byte-identical at any `num_workers` (the per-method RNG makes the
+    sampling itself worker-layout-invariant)."""
+    workers = max(1, num_workers)
+    sampling = word_to_count is not None
+    ranges = preprocess_mod.line_aligned_ranges(raw_path, workers)
+    out_dir = os.path.dirname(os.path.abspath(out_path)) or "."
+    seg_dir = tempfile.mkdtemp(prefix="c2v_pack_", dir=out_dir)
+    ctx = {
+        "raw_path": raw_path,
+        "seg_dir": seg_dir,
+        "max_contexts": max_contexts,
+        "seed": seed,
+        "token_b2i": _encoded_tables(vocabs)["token"],
+        "path_b2i": _encoded_tables(vocabs)["path"],
+        "target_b2i": _encoded_tables(vocabs)["target"],
+        "token_pad": vocabs.token_vocab.pad_index,
+        "token_oov": vocabs.token_vocab.oov_index,
+        "path_pad": vocabs.path_vocab.pad_index,
+        "path_oov": vocabs.path_vocab.oov_index,
+        "target_oov": vocabs.target_vocab.oov_index,
+        "word_ok": (frozenset(_encode_keys(word_to_count)) if sampling
+                    else None),
+        "path_ok": (frozenset(_encode_keys(path_to_count)) if sampling
+                    else None),
+        "emit_c2v": c2v_out is not None,
+        "write_targets": write_targets_sidecar,
+    }
+    # The final files are stitched INCREMENTALLY, in shard order, as
+    # workers finish (imap preserves task order): most of the
+    # concatenation I/O overlaps the remaining shards' compute instead
+    # of serializing after the pool drains. Row count is patched into
+    # the header at the end (it is unknown up front in sampling mode).
+    def seg(i: int, suffix: str) -> str:
+        return os.path.join(seg_dir, f"seg{i:05d}{suffix}")
+    outs = [(out_path, ".bin")]
+    if write_targets_sidecar:
+        outs.append((out_path + ".targets", ".targets"))
+    if c2v_out is not None:
+        outs.append((c2v_out, ".c2v"))
+    handles = {}
+    results = []
+
+    def consume(result: dict) -> None:
+        results.append(result)
+        for final, suffix in outs:
+            _append_file(handles[suffix], seg(result["shard"], suffix))
+
+    global _PACK_CTX, _PACK_NATIVE
+    try:
+        for final, suffix in outs:
+            handles[suffix] = open(final + ".tmp", "wb")
+        handles[".bin"].write(_HEADER.pack(_MAGIC, _VERSION, 0, max_contexts))
+        if len(ranges) == 1:
+            _init_pack_worker(ctx)
+            consume(_pack_shard((0, ranges[0][0], ranges[0][1], 0)))
+        else:
+            with preprocess_mod._worker_pool(
+                    len(ranges), initializer=_init_pack_worker,
+                    initargs=(ctx,)) as pool:
+                ordinals = preprocess_mod.range_start_ordinals(
+                    raw_path, ranges, pool=pool)
+                tasks = [(i, s, e, o) for i, ((s, e), o)
+                         in enumerate(zip(ranges, ordinals))]
+                for result in pool.imap(_pack_shard, tasks):
+                    consume(result)
+        n_rows = sum(r["rows"] for r in results)
+        handles[".bin"].seek(0)
+        handles[".bin"].write(_HEADER.pack(_MAGIC, _VERSION, n_rows,
+                                           max_contexts))
+        for handle in handles.values():
+            handle.close()
+        for final, suffix in outs:
+            os.replace(final + ".tmp", final)
+    finally:
+        _PACK_CTX, _PACK_NATIVE = None, "unset"
+        for handle in handles.values():
+            if not handle.closed:
+                handle.close()
+        for final, suffix in outs:
+            if os.path.exists(final + ".tmp"):
+                os.unlink(final + ".tmp")
+        shutil.rmtree(seg_dir, ignore_errors=True)
+
+    _write_pack_meta(out_path, raw_path, n_rows, max_contexts, vocabs)
+    if log is not None and sampling:
+        skipped = sum(r["skipped"] for r in results)
+        seen = sum(r["contexts_seen"] for r in results)
+        kept = sum(r["contexts_kept"] for r in results)
+        widest = max(r["widest"] for r in results)
+        denom = max(n_rows, 1)
+        log(f"{out_path}: {n_rows} examples written, {skipped} skipped "
+            f"(no contexts)")
+        log(f"  contexts/method: {seen / denom:.1f} raw -> "
+            f"{kept / denom:.1f} after sampling (widest method: {widest})")
+    return n_rows
+
+
+def _epoch_rng(seed: int, epoch: int) -> np.random.Generator:
+    """Permutation RNG for one absolute epoch index: a pure function of
+    (seed, epoch), identical on every host and across resume boundaries.
+    This keying is what makes the training order ELASTIC — a run resumed
+    at epoch e (on any host count) draws exactly the permutation the
+    uninterrupted run would have used for epoch e, instead of restarting
+    a stateful RNG chain from the seed."""
+    return np.random.default_rng(np.random.SeedSequence(
+        [int(seed) & 0x7FFFFFFFFFFFFFFF, int(epoch) & 0x7FFFFFFFFFFFFFFF]))
+
+
+class PackedDataset:
+    """Zero-copy view over a `.c2vb` file with batched iteration.
+
+    Training iteration uses a full random permutation per epoch (strictly
+    better shuffling than the reference's 10K-element buffer,
+    path_context_reader.py:139) and yields fixed-size batches.
+
+    The TRAINING order is host-count invariant: the row filter and the
+    per-epoch permutation are computed over the GLOBAL row set (identical
+    on every host), and host h of M takes the strided slice
+    `perm[h::M]`, truncated so every host yields the same batch count.
+    Global batch b therefore always consumes rows
+    `perm[b*Bg:(b+1)*Bg]` (Bg = batch_size * num_shards) as a SET,
+    whatever M is — which is what lets a checkpoint's data cursor
+    (global row ordinal) be remapped exactly onto a different host
+    count: no row skipped, none double-read. Evaluation keeps the plain
+    per-host strided file order (metrics are global sums; order and
+    grouping don't matter there).
+    """
+
+    @staticmethod
+    def read_header(path: str):
+        """(rows, max_contexts) from a `.c2vb` header without opening
+        the memmap — lets the facade size a fused-compiled dataset that
+        has no `.c2v` text to count lines in."""
+        with open(path, "rb") as f:
+            magic, _version, n, m = _HEADER.unpack(f.read(_HEADER.size))
+        if magic != _MAGIC:
+            raise ValueError(f"{path} is not a .c2vb file")
+        return n, m
+
+    def __init__(self, path: str, vocabs: Code2VecVocabs,
+                 shard_index: int = 0, num_shards: int = 1):
+        self.path = path
+        self.vocabs = vocabs
+        with open(path, "rb") as f:
+            magic, version, n, m = _HEADER.unpack(f.read(_HEADER.size))
+        if magic != _MAGIC:
+            raise ValueError(f"{path} is not a .c2vb file")
+        if version != _VERSION:
+            raise ValueError(f"{path}: unsupported .c2vb version {version}")
+        self.num_rows_total = n
+        self.max_contexts = m
+        self._rec = np.memmap(path, dtype=np.int32, mode="r",
+                              offset=_HEADER.size,
+                              shape=(n, 1 + 3 * m))
+        meta_path = path + ".meta.json"
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            fp = vocabs_fingerprint(vocabs)
+            if meta.get("vocab_fingerprint") not in (None, fp):
+                raise ValueError(
+                    f"{path} was packed with different vocabularies "
+                    f"(fingerprint {meta.get('vocab_fingerprint')} != "
+                    f"{fp}); re-pack it.")
+        # Host shard: disjoint strided row subset (evaluation order;
+        # training strides the per-epoch GLOBAL permutation instead).
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.row_ids = np.arange(shard_index, n, num_shards)
+        self._target_strings: Optional[List[str]] = None
+        self._filtered_cache: dict = {}
+
+    def __len__(self) -> int:
+        return len(self.row_ids)
+
+    @property
+    def target_strings(self) -> Optional[List[str]]:
+        sidecar = self.path + ".targets"
+        if self._target_strings is None and os.path.exists(sidecar):
+            with open(sidecar, "r") as f:
+                strings = f.read().splitlines()
+            # cross-check: a stale/partial sidecar (e.g. interrupted
+            # re-pack) must not silently mislabel evaluation rows
+            if len(strings) != self.num_rows_total:
+                raise ValueError(
+                    f"{sidecar} has {len(strings)} rows but {self.path} has "
+                    f"{self.num_rows_total}; re-pack the dataset.")
+            self._target_strings = strings
+        return self._target_strings
+
+    def gather(self, rows: np.ndarray,
+               with_target_strings: bool = False) -> RowBatch:
+        m = self.max_contexts
+        rec = np.asarray(self._rec[rows])  # copy out of the memmap
+        src = rec[:, 1:1 + m]
+        pth = rec[:, 1 + m:1 + 2 * m]
+        tgt = rec[:, 1 + 2 * m:]
+        token_pad = self.vocabs.token_vocab.pad_index
+        path_pad = self.vocabs.path_vocab.pad_index
+        mask = ((src != token_pad) | (tgt != token_pad) | (pth != path_pad))
+        strings = None
+        if with_target_strings and self.target_strings is not None:
+            strings = [self.target_strings[r] for r in rows]
+        return RowBatch(
+            source_token_indices=src,
+            path_indices=pth,
+            target_token_indices=tgt,
+            context_valid_mask=mask.astype(np.float32),
+            target_index=rec[:, 0],
+            example_valid=np.ones((len(rows),), dtype=bool),
+            target_strings=strings,
+        )
+
+    def _filter_rows(self, rows: np.ndarray,
+                     estimator_action: EstimatorAction) -> np.ndarray:
+        m = self.max_contexts
+        token_pad = self.vocabs.token_vocab.pad_index
+        path_pad = self.vocabs.path_vocab.pad_index
+        keep_chunks = []
+        for start in range(0, len(rows), 1 << 18):
+            chunk = rows[start:start + (1 << 18)]
+            rec = self._rec[chunk]
+            src = rec[:, 1:1 + m]
+            pth = rec[:, 1 + m:1 + 2 * m]
+            tgt = rec[:, 1 + 2 * m:]
+            any_valid = ((src != token_pad) | (tgt != token_pad)
+                         | (pth != path_pad)).any(axis=1)
+            if estimator_action.is_train:
+                any_valid &= rec[:, 0] > self.vocabs.target_vocab.oov_index
+            keep_chunks.append(chunk[any_valid])
+        return (np.concatenate(keep_chunks) if keep_chunks
+                else np.empty((0,), np.int64))
+
+    def _filtered_row_ids(self,
+                          estimator_action: EstimatorAction) -> np.ndarray:
+        """Apply the reference row filter once over this host's strided
+        shard, vectorized over the memmap. Cached per action: the result
+        is immutable for a given file, and both `steps_per_epoch` and
+        `iter_batches` need it (mid-epoch eval calls both every firing —
+        one O(rows) scan, not two)."""
+        cached = self._filtered_cache.get(estimator_action)
+        if cached is None:
+            cached = self._filter_rows(self.row_ids, estimator_action)
+            self._filtered_cache[estimator_action] = cached
+        return cached
+
+    def _global_filtered_row_ids(
+            self, estimator_action: EstimatorAction) -> np.ndarray:
+        """The row filter over ALL rows — identical on every host, the
+        basis of the host-count-invariant training order. One shard is
+        the global set already; multi-host pays a full-file scan once
+        (cached), the price of an order every topology can agree on."""
+        if self.num_shards == 1:
+            return self._filtered_row_ids(estimator_action)
+        key = ("global", estimator_action)
+        cached = self._filtered_cache.get(key)
+        if cached is None:
+            cached = self._filter_rows(
+                np.arange(self.num_rows_total, dtype=np.int64),
+                estimator_action)
+            self._filtered_cache[key] = cached
+        return cached
+
+    def steps_per_epoch(self, batch_size: int,
+                        estimator_action: EstimatorAction,
+                        skip_rows: int = 0) -> int:
+        """Exact number of batches one data pass yields (post-filter) —
+        unlike the reference's raw-line `train_steps_per_epoch`
+        (config.py:165-167), this counts the rows the trainer will
+        actually consume. Training counts are identical on EVERY host by
+        construction (global row set // global batch). `skip_rows`
+        (training only) is a resume cursor: the count of the epoch's
+        remaining batches after the already-consumed global rows."""
+        if estimator_action.is_train:
+            n = len(self._global_filtered_row_ids(estimator_action))
+            steps = n // (batch_size * self.num_shards)
+            if skip_rows:
+                skip_local = min(skip_rows // self.num_shards,
+                                 steps * batch_size)
+                return (steps * batch_size - skip_local) // batch_size
+            return steps
+        n = len(self._filtered_row_ids(estimator_action))
+        return -(-n // batch_size)  # eval pads the tail batch
+
+    def iter_batches(self, batch_size: int, estimator_action: EstimatorAction,
+                     num_epochs: int = 1, seed: int = 0,
+                     repeat_endlessly: bool = False,
+                     with_target_strings: bool = False,
+                     yield_epoch_markers: bool = False,
+                     start_epoch: int = 0,
+                     skip_rows: int = 0) -> Iterator[RowBatch]:
+        """Batched iteration. Training epochs shuffle with the
+        epoch-keyed permutation (absolute epoch index `start_epoch + k`)
+        over the GLOBAL filtered row set, strided per host — see the
+        class docstring. `start_epoch` makes a resumed run continue the
+        exact permutation sequence of an uninterrupted one; `skip_rows`
+        drops the first epoch's already-consumed global rows (this
+        host's share: skip_rows // num_shards), the data-cursor remap
+        for elastic resume. EpochEnd markers stay 1-based RELATIVE
+        counts (the trainer adds its initial epoch)."""
+        if estimator_action.is_train:
+            rows = self._global_filtered_row_ids(estimator_action)
+            steps = len(rows) // (batch_size * self.num_shards)
+            epoch = 0
+            while repeat_endlessly or epoch < num_epochs:
+                perm = _epoch_rng(seed, start_epoch + epoch).permutation(rows)
+                # Truncate BEFORE striding: every host sees the same
+                # steps*batch_size sequence length, so batch counts are
+                # lockstep by construction and the global batch set is
+                # exactly perm[:steps*Bg].
+                seq = perm[self.shard_index::self.num_shards][
+                    :steps * batch_size]
+                if epoch == 0 and skip_rows:
+                    seq = seq[skip_rows // self.num_shards:]
+                n_full = (len(seq) // batch_size) * batch_size
+                for start in range(0, n_full, batch_size):
+                    yield self.gather(seq[start:start + batch_size],
+                                      with_target_strings)
+                epoch += 1
+                if yield_epoch_markers:
+                    yield EpochEnd(epoch)
+            return
+        rows = self._filtered_row_ids(estimator_action)
+        epoch = 0
+        while repeat_endlessly or epoch < num_epochs:
+            n_full = (len(rows) // batch_size) * batch_size
+            for start in range(0, n_full, batch_size):
+                yield self.gather(rows[start:start + batch_size],
+                                  with_target_strings)
+            tail = len(rows) - n_full
+            if tail:
+                batch = self.gather(rows[n_full:], with_target_strings)
+                yield reader_mod._pad_rows(batch, batch_size)
+            epoch += 1
+            if yield_epoch_markers:
+                yield EpochEnd(epoch)
+
+
+# -------------------------------------------------- sharded corpus manifest
+#
+# A corpus manifest is a small JSON file listing N `.c2vb` shards (the
+# incumbent pack plus any continuous-training delta shards) that
+# ShardedCorpus presents as ONE logical row space. Shard paths are
+# stored relative to the manifest's directory so the whole corpus
+# directory can be moved/rsynced as a unit. The manifest pins one vocab
+# fingerprint: every shard must have been packed with the same
+# vocabularies, or the global row ids would mean different things in
+# different shards.
+
+MANIFEST_VERSION = 1
+MANIFEST_SUFFIX = ".manifest.json"
+
+
+def _shard_meta_fingerprint(shard_path: str) -> Optional[str]:
+    meta_path = shard_path + ".meta.json"
+    if not os.path.exists(meta_path):
+        return None
+    with open(meta_path) as f:
+        return json.load(f).get("vocab_fingerprint")
+
+
+def _manifest_shard_path(manifest_path: str, entry: dict) -> str:
+    p = entry["path"]
+    if os.path.isabs(p):
+        return p
+    return os.path.join(os.path.dirname(os.path.abspath(manifest_path)), p)
+
+
+def load_manifest(manifest_path: str) -> dict:
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    if not isinstance(manifest, dict) or "shards" not in manifest:
+        raise ValueError(f"{manifest_path}: not a corpus manifest "
+                         f"(missing 'shards')")
+    version = manifest.get("version")
+    if version != MANIFEST_VERSION:
+        raise ValueError(f"{manifest_path}: unsupported corpus manifest "
+                         f"version {version}")
+    if not manifest["shards"]:
+        raise ValueError(f"{manifest_path}: corpus manifest lists no shards")
+    return manifest
+
+
+def save_manifest(manifest_path: str, manifest: dict) -> None:
+    tmp = manifest_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.write("\n")
+    os.replace(tmp, manifest_path)
+
+
+def _manifest_entry(manifest_path: str, shard_path: str) -> dict:
+    """One manifest entry for a shard: relative path when the shard
+    lives under the manifest's directory, plus the header row count and
+    the shard meta's vocab fingerprint (None when the shard has no
+    sidecar meta)."""
+    rows, max_contexts = PackedDataset.read_header(shard_path)
+    base = os.path.dirname(os.path.abspath(manifest_path))
+    abs_shard = os.path.abspath(shard_path)
+    rel = os.path.relpath(abs_shard, base)
+    path = rel if not rel.startswith("..") else abs_shard
+    return {"path": path, "rows": rows, "max_contexts": max_contexts,
+            "vocab_fingerprint": _shard_meta_fingerprint(shard_path)}
+
+
+def _check_entry_vocab(manifest_path: str, manifest: dict,
+                       entry: dict) -> None:
+    """Refuse mixing shards packed with different vocabularies: the
+    manifest fingerprint is pinned by the first fingerprinted shard and
+    every later shard must match it."""
+    fp = entry.get("vocab_fingerprint")
+    pinned = manifest.get("vocab_fingerprint")
+    if fp and pinned and fp != pinned:
+        raise ValueError(
+            f"{manifest_path}: refusing mixed-vocab manifest — shard "
+            f"{entry['path']} was packed with vocab fingerprint {fp} but "
+            f"the manifest pins {pinned}; re-pack the shard with the "
+            f"manifest's vocabularies (or build a new manifest).")
+    if fp and not pinned:
+        manifest["vocab_fingerprint"] = fp
+    if entry["max_contexts"] != manifest["max_contexts"]:
+        raise ValueError(
+            f"{manifest_path}: shard {entry['path']} has max_contexts="
+            f"{entry['max_contexts']} but the manifest pins "
+            f"{manifest['max_contexts']}; re-pack the shard.")
+
+
+def create_manifest(manifest_path: str, shard_paths: List[str]) -> dict:
+    """Build a corpus manifest over existing `.c2vb` shards (in the
+    given order — global row ids follow shard order, so order is part
+    of the corpus identity)."""
+    if not shard_paths:
+        raise ValueError("a corpus manifest needs at least one shard")
+    first = _manifest_entry(manifest_path, shard_paths[0])
+    manifest = {"version": MANIFEST_VERSION,
+                "max_contexts": first["max_contexts"],
+                "vocab_fingerprint": first["vocab_fingerprint"],
+                "shards": [first]}
+    for shard in shard_paths[1:]:
+        entry = _manifest_entry(manifest_path, shard)
+        _check_entry_vocab(manifest_path, manifest, entry)
+        manifest["shards"].append(entry)
+    save_manifest(manifest_path, manifest)
+    return manifest
+
+
+def append_manifest_shard(manifest_path: str, shard_path: str) -> dict:
+    """Append one delta shard to an existing manifest (the continuous-
+    training accumulation step: the corpus grows, nothing re-packs).
+    Pure append — existing entries are never rewritten, so global row
+    ids of already-listed rows are stable. Refuses duplicates and
+    vocab-fingerprint mismatches."""
+    manifest = load_manifest(manifest_path)
+    entry = _manifest_entry(manifest_path, shard_path)
+    abs_new = _manifest_shard_path(manifest_path, entry)
+    for existing in manifest["shards"]:
+        if os.path.abspath(_manifest_shard_path(
+                manifest_path, existing)) == os.path.abspath(abs_new):
+            raise ValueError(f"{manifest_path}: shard {entry['path']} is "
+                             f"already listed")
+    _check_entry_vocab(manifest_path, manifest, entry)
+    manifest["shards"].append(entry)
+    save_manifest(manifest_path, manifest)
+    return manifest
+
+
+def validate_manifest(manifest_path: str,
+                      vocabs: Optional[Code2VecVocabs] = None) -> List[dict]:
+    """Re-check every shard against the manifest: file present, header
+    readable, row count unchanged, max_contexts and vocab fingerprint
+    consistent (and matching `vocabs` when given). Returns one report
+    dict per shard; raises on the first inconsistency."""
+    manifest = load_manifest(manifest_path)
+    want_fp = (vocabs_fingerprint(vocabs) if vocabs is not None
+               else manifest.get("vocab_fingerprint"))
+    reports = []
+    for entry in manifest["shards"]:
+        shard = _manifest_shard_path(manifest_path, entry)
+        rows, max_contexts = PackedDataset.read_header(shard)
+        if rows != entry["rows"]:
+            raise ValueError(
+                f"{manifest_path}: shard {entry['path']} has {rows} rows "
+                f"but the manifest recorded {entry['rows']}; the shard "
+                f"changed after it was listed — rebuild the manifest.")
+        _check_entry_vocab(manifest_path, manifest, dict(entry))
+        fp = _shard_meta_fingerprint(shard)
+        if fp and want_fp and fp != want_fp:
+            raise ValueError(
+                f"{shard} was packed with different vocabularies "
+                f"(fingerprint {fp} != {want_fp}); re-pack it.")
+        reports.append({"path": entry["path"], "rows": rows,
+                        "max_contexts": max_contexts,
+                        "vocab_fingerprint": fp})
+    return reports
+
+
+class ShardedCorpus:
+    """PackedDataset-shaped view over a MANIFEST of `.c2vb` shards.
+
+    One logical row space: global row id r lives in the shard whose
+    cumulative-row interval contains r, at local offset
+    r - offsets[shard]. Because the global id space is exactly the
+    shard-order concatenation, the epoch-keyed training order is a pure
+    function of (seed, epoch) over the global filtered row set —
+    identical to a single-file PackedDataset holding the same rows, and
+    identical across shard counts and host counts. The cursor laws
+    (resume-at-epoch-e == uninterrupted-at-epoch-e; batch-as-set
+    invariance across host counts) therefore hold verbatim: nothing is
+    materialized, hosts stride the same global permutation.
+
+    Delta shards appended to the manifest while a corpus is OPEN are
+    not seen: the shard list is snapshotted at construction, and
+    `adopt_appended_shards` refuses to extend the row space mid-epoch
+    (a permutation drawn over N rows cannot grow to N+k rows without
+    changing which rows batch b holds). Call it between epochs — or,
+    as the continuous-training pipeline does, reopen per fine-tune run.
+    """
+
+    def __init__(self, manifest_path: str, vocabs: Code2VecVocabs,
+                 shard_index: int = 0, num_shards: int = 1):
+        self.path = manifest_path
+        self.vocabs = vocabs
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self._recs: List[np.memmap] = []
+        self._shard_paths: List[str] = []
+        self._offsets = np.zeros((1,), dtype=np.int64)
+        self.max_contexts = 0
+        self._target_strings: Optional[List[str]] = None
+        self._filtered_cache: dict = {}
+        self._mid_epoch = False
+        manifest = load_manifest(manifest_path)
+        self._open_shards(manifest, manifest["shards"])
+
+    def _open_shards(self, manifest: dict, entries: List[dict]) -> None:
+        """Open (additional) shard memmaps and extend the offset table.
+        Validates each shard the way PackedDataset validates its one
+        file: header magic/version, manifest row count, max_contexts
+        agreement, vocab fingerprint against the live vocabs."""
+        fp = vocabs_fingerprint(self.vocabs)
+        pinned = manifest.get("vocab_fingerprint")
+        if pinned and pinned != fp:
+            raise ValueError(
+                f"{self.path} was built for vocab fingerprint {pinned} but "
+                f"the loaded vocabularies have {fp}; re-pack the corpus.")
+        for entry in entries:
+            shard = _manifest_shard_path(self.path, entry)
+            with open(shard, "rb") as f:
+                magic, version, n, m = _HEADER.unpack(f.read(_HEADER.size))
+            if magic != _MAGIC:
+                raise ValueError(f"{shard} is not a .c2vb file")
+            if version != _VERSION:
+                raise ValueError(f"{shard}: unsupported .c2vb version "
+                                 f"{version}")
+            if n != entry["rows"]:
+                raise ValueError(
+                    f"{self.path}: shard {entry['path']} has {n} rows but "
+                    f"the manifest recorded {entry['rows']}; rebuild the "
+                    f"manifest.")
+            if not self._recs:
+                self.max_contexts = m
+            elif m != self.max_contexts:
+                raise ValueError(
+                    f"{self.path}: shard {entry['path']} has max_contexts="
+                    f"{m}, corpus has {self.max_contexts}; re-pack it.")
+            shard_fp = _shard_meta_fingerprint(shard)
+            if shard_fp and shard_fp != fp:
+                raise ValueError(
+                    f"{shard} was packed with different vocabularies "
+                    f"(fingerprint {shard_fp} != {fp}); re-pack it.")
+            self._recs.append(np.memmap(shard, dtype=np.int32, mode="r",
+                                        offset=_HEADER.size,
+                                        shape=(n, 1 + 3 * m)))
+            self._shard_paths.append(shard)
+            self._offsets = np.append(self._offsets, self._offsets[-1] + n)
+        self.num_rows_total = int(self._offsets[-1])
+        self.row_ids = np.arange(self.shard_index, self.num_rows_total,
+                                 self.num_shards)
+        self._filtered_cache.clear()
+        self._target_strings = None
+
+    @staticmethod
+    def read_manifest_rows(manifest_path: str) -> int:
+        """Total row count recorded by a manifest, without opening any
+        shard memmap (the facade's example-count fast path)."""
+        return sum(entry["rows"]
+                   for entry in load_manifest(manifest_path)["shards"])
+
+    @property
+    def num_shard_files(self) -> int:
+        return len(self._recs)
+
+    def __len__(self) -> int:
+        return len(self.row_ids)
+
+    def adopt_appended_shards(self) -> int:
+        """Pick up shards appended to the manifest since open (or since
+        the last adoption). Legal only BETWEEN epochs: mid-epoch the
+        global permutation is already drawn over the current row set,
+        so growing it would silently change the epoch's batches — the
+        exact corruption the cursor laws forbid. Returns the number of
+        shards adopted."""
+        if self._mid_epoch:
+            raise RuntimeError(
+                f"{self.path}: delta-shard adoption refused mid-epoch; the "
+                f"epoch's global permutation is already drawn — retry at "
+                f"the next epoch boundary.")
+        manifest = load_manifest(self.path)
+        entries = manifest["shards"]
+        if len(entries) < len(self._recs):
+            raise ValueError(f"{self.path}: manifest shrank while open "
+                             f"({len(entries)} shards < {len(self._recs)} "
+                             f"adopted); rebuild the corpus.")
+        for i, shard in enumerate(self._shard_paths):
+            listed = _manifest_shard_path(self.path, entries[i])
+            if os.path.abspath(listed) != os.path.abspath(shard):
+                raise ValueError(
+                    f"{self.path}: manifest rewrote shard {i} "
+                    f"({entries[i]['path']}) while open; only pure appends "
+                    f"can be adopted — rebuild the corpus.")
+        new = entries[len(self._recs):]
+        if new:
+            self._open_shards(manifest, new)
+        return len(new)
+
+    @property
+    def target_strings(self) -> Optional[List[str]]:
+        """Concatenated per-shard `.targets` sidecars, in shard order —
+        global indexing matches the row id space. All-or-nothing: a
+        corpus where only some shards carry sidecars cannot label every
+        row, so it reports None (same contract as a missing sidecar)."""
+        if self._target_strings is None:
+            strings: List[str] = []
+            for shard, rec in zip(self._shard_paths, self._recs):
+                sidecar = shard + ".targets"
+                if not os.path.exists(sidecar):
+                    return None
+                with open(sidecar, "r") as f:
+                    part = f.read().splitlines()
+                if len(part) != rec.shape[0]:
+                    raise ValueError(
+                        f"{sidecar} has {len(part)} rows but {shard} has "
+                        f"{rec.shape[0]}; re-pack the shard.")
+                strings.extend(part)
+            self._target_strings = strings
+        return self._target_strings
+
+    def _gather_rec(self, rows: np.ndarray) -> np.ndarray:
+        """Copy the records for GLOBAL row ids `rows` out of the shard
+        memmaps, preserving request order (the permutation order IS the
+        training order)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        rec = np.empty((len(rows), 1 + 3 * self.max_contexts),
+                       dtype=np.int32)
+        shard_of = np.searchsorted(self._offsets, rows, side="right") - 1
+        local = rows - self._offsets[shard_of]
+        for s in np.unique(shard_of):
+            idx = np.nonzero(shard_of == s)[0]
+            rec[idx] = self._recs[s][local[idx]]
+        return rec
+
+    def gather(self, rows: np.ndarray,
+               with_target_strings: bool = False) -> RowBatch:
+        m = self.max_contexts
+        rec = self._gather_rec(rows)
+        src = rec[:, 1:1 + m]
+        pth = rec[:, 1 + m:1 + 2 * m]
+        tgt = rec[:, 1 + 2 * m:]
+        token_pad = self.vocabs.token_vocab.pad_index
+        path_pad = self.vocabs.path_vocab.pad_index
+        mask = ((src != token_pad) | (tgt != token_pad) | (pth != path_pad))
+        strings = None
+        if with_target_strings and self.target_strings is not None:
+            strings = [self.target_strings[r] for r in rows]
+        return RowBatch(
+            source_token_indices=src,
+            path_indices=pth,
+            target_token_indices=tgt,
+            context_valid_mask=mask.astype(np.float32),
+            target_index=rec[:, 0],
+            example_valid=np.ones((len(rows),), dtype=bool),
+            target_strings=strings,
+        )
+
+    def _filter_rows(self, rows: np.ndarray,
+                     estimator_action: EstimatorAction) -> np.ndarray:
+        """The PackedDataset row filter over GLOBAL ids, chunked so one
+        chunk's records are gathered across shards at most once."""
+        m = self.max_contexts
+        token_pad = self.vocabs.token_vocab.pad_index
+        path_pad = self.vocabs.path_vocab.pad_index
+        keep_chunks = []
+        for start in range(0, len(rows), 1 << 18):
+            chunk = np.asarray(rows[start:start + (1 << 18)], dtype=np.int64)
+            rec = self._gather_rec(chunk)
+            src = rec[:, 1:1 + m]
+            pth = rec[:, 1 + m:1 + 2 * m]
+            tgt = rec[:, 1 + 2 * m:]
+            any_valid = ((src != token_pad) | (tgt != token_pad)
+                         | (pth != path_pad)).any(axis=1)
+            if estimator_action.is_train:
+                any_valid &= rec[:, 0] > self.vocabs.target_vocab.oov_index
+            keep_chunks.append(chunk[any_valid])
+        return (np.concatenate(keep_chunks) if keep_chunks
+                else np.empty((0,), np.int64))
+
+    def _filtered_row_ids(self,
+                          estimator_action: EstimatorAction) -> np.ndarray:
+        cached = self._filtered_cache.get(estimator_action)
+        if cached is None:
+            cached = self._filter_rows(self.row_ids, estimator_action)
+            self._filtered_cache[estimator_action] = cached
+        return cached
+
+    def _global_filtered_row_ids(
+            self, estimator_action: EstimatorAction) -> np.ndarray:
+        if self.num_shards == 1:
+            return self._filtered_row_ids(estimator_action)
+        key = ("global", estimator_action)
+        cached = self._filtered_cache.get(key)
+        if cached is None:
+            cached = self._filter_rows(
+                np.arange(self.num_rows_total, dtype=np.int64),
+                estimator_action)
+            self._filtered_cache[key] = cached
+        return cached
+
+    def steps_per_epoch(self, batch_size: int,
+                        estimator_action: EstimatorAction,
+                        skip_rows: int = 0) -> int:
+        if estimator_action.is_train:
+            n = len(self._global_filtered_row_ids(estimator_action))
+            steps = n // (batch_size * self.num_shards)
+            if skip_rows:
+                skip_local = min(skip_rows // self.num_shards,
+                                 steps * batch_size)
+                return (steps * batch_size - skip_local) // batch_size
+            return steps
+        n = len(self._filtered_row_ids(estimator_action))
+        return -(-n // batch_size)  # eval pads the tail batch
+
+    def iter_batches(self, batch_size: int,
+                     estimator_action: EstimatorAction,
+                     num_epochs: int = 1, seed: int = 0,
+                     repeat_endlessly: bool = False,
+                     with_target_strings: bool = False,
+                     yield_epoch_markers: bool = False,
+                     start_epoch: int = 0,
+                     skip_rows: int = 0) -> Iterator[RowBatch]:
+        """PackedDataset.iter_batches, verbatim, over the manifest's
+        global row space — same epoch keying, same truncate-then-stride
+        host split, same skip_rows remap, so every cursor law carries
+        over unchanged. Marks the corpus mid-epoch while an epoch's
+        batches are in flight (what `adopt_appended_shards` checks)."""
+        if estimator_action.is_train:
+            epoch = 0
+            while repeat_endlessly or epoch < num_epochs:
+                # re-read per epoch (a cache hit unless shards were
+                # adopted at the boundary): an adopted delta shard joins
+                # the NEXT epoch's permutation, never a drawn one
+                rows = self._global_filtered_row_ids(estimator_action)
+                steps = len(rows) // (batch_size * self.num_shards)
+                perm = _epoch_rng(seed, start_epoch + epoch).permutation(rows)
+                seq = perm[self.shard_index::self.num_shards][
+                    :steps * batch_size]
+                if epoch == 0 and skip_rows:
+                    seq = seq[skip_rows // self.num_shards:]
+                n_full = (len(seq) // batch_size) * batch_size
+                self._mid_epoch = True
+                try:
+                    for start in range(0, n_full, batch_size):
+                        yield self.gather(seq[start:start + batch_size],
+                                          with_target_strings)
+                finally:
+                    self._mid_epoch = False
+                epoch += 1
+                if yield_epoch_markers:
+                    yield EpochEnd(epoch)
+            return
+        rows = self._filtered_row_ids(estimator_action)
+        epoch = 0
+        while repeat_endlessly or epoch < num_epochs:
+            n_full = (len(rows) // batch_size) * batch_size
+            for start in range(0, n_full, batch_size):
+                yield self.gather(rows[start:start + batch_size],
+                                  with_target_strings)
+            tail = len(rows) - n_full
+            if tail:
+                batch = self.gather(rows[n_full:], with_target_strings)
+                yield reader_mod._pad_rows(batch, batch_size)
+            epoch += 1
+            if yield_epoch_markers:
+                yield EpochEnd(epoch)

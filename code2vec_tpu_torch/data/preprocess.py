@@ -1,0 +1,920 @@
+"""Offline preprocessing: source trees -> raw extractor output -> `.c2v`
+text + `.dict.c2v`, or straight to packed `.c2vb` memmaps.
+
+The port's copy of code2vec_tpu/data/preprocess.py: the histogram build
+(build_histograms :247, serial or map-reduce over line-aligned byte
+ranges, natively where libc2vdata.so is built), truncate_histogram :313,
+canonical_freq_dict :327, the two-tier in-vocab context sampling of
+process_file :353, save_dictionaries :415, preprocess :430, the fused
+multiprocess compile_corpus :457, extract_dir :699 over the native
+extractors with its per-child timeouts and retries (:545-697),
+external_shuffle :737 and the command line `main` :831:
+
+    python -m code2vec_tpu_torch.data.preprocess \\
+        --train_dir DIR --val_dir DIR --test_dir DIR --output_name NAME
+
+Every output is byte-identical to the reference's for the same inputs,
+and the fused compile's at any worker count. Host-side work only: it
+imports no torch. The reference's `obs` phase counters and its
+C2V_METRICS_FILE export are not ported.
+"""
+
+from __future__ import annotations
+
+import heapq
+import math
+import os
+import pickle
+import random
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from collections import Counter
+from typing import Dict, List, Optional, Tuple
+
+# ------------------------------------------------------------ parallelism
+#
+# The offline pipeline is a one-shot compile over a multi-GB corpus
+# (java14m: 32 GB raw, reference README:69-75), so it map-reduces over
+# host cores: the raw file is split into byte ranges aligned to line
+# boundaries and each range is processed by a `multiprocessing` worker.
+# Workers are pure host-side code (numpy + dicts, no torch), so `fork` is
+# the zero-copy fast path; once a CUDA context (or any other thread) is
+# live in this process (tests, a trainer that packs on demand), forking
+# is unsafe and `spawn` is used instead. The worker modules import no
+# torch, so a spawned worker starts in well under a second.
+
+
+def _cuda_live() -> bool:
+    # the port's "backend live" test: the child of a fork cannot use its
+    # parent's CUDA context
+    torch = sys.modules.get("torch")
+    return bool(torch is not None and torch.cuda.is_initialized())
+
+
+def _single_threaded() -> bool:
+    """No other thread in this process: neither Python's nor a native
+    runtime's (an OpenMP pool, another library's threads), counted in
+    /proc where the platform has it."""
+    import threading
+    if threading.active_count() != 1:
+        return False
+    try:
+        return len(os.listdir("/proc/self/task")) == 1
+    except OSError:
+        return True
+
+
+def _mp_context():
+    import multiprocessing as mp
+    if ("fork" in mp.get_all_start_methods() and _single_threaded()
+            and not _cuda_live()):
+        return mp.get_context("fork")
+    return mp.get_context("spawn")
+
+
+def _worker_pool(num_workers: int, initializer=None, initargs=()):
+    """A `Pool` of the start method `_mp_context` picks."""
+    return _mp_context().Pool(num_workers, initializer=initializer,
+                              initargs=initargs)
+
+
+def line_aligned_ranges(path: str, n_shards: int) -> List[Tuple[int, int]]:
+    """Split `[0, filesize)` into up to `n_shards` contiguous byte ranges
+    whose boundaries fall on line starts, so every worker sees whole
+    lines and the concatenation of ranges is exactly the file."""
+    size = os.path.getsize(path)
+    if size == 0 or n_shards <= 1:
+        return [(0, size)]
+    bounds = [0]
+    with open(path, "rb") as f:
+        for i in range(1, n_shards):
+            target = size * i // n_shards
+            if target <= bounds[-1]:
+                continue
+            f.seek(target)
+            f.readline()  # finish the line straddling the cut
+            pos = f.tell()
+            if bounds[-1] < pos < size:
+                bounds.append(pos)
+    bounds.append(size)
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def iter_range_line_chunks(path: str, start: int, end: int,
+                           chunk_bytes: int = 32 * 1024 * 1024):
+    """Yield lists of newline-stripped bytes lines covering `[start, end)`
+    of `path`. `start`/`end` must fall on line boundaries
+    (`line_aligned_ranges` guarantees it). Chunked binary reads + one
+    C-level split keep the per-line Python overhead near zero."""
+    with open(path, "rb") as f:
+        f.seek(start)
+        remaining = end - start
+        carry = b""
+        while remaining > 0:
+            blob = f.read(min(chunk_bytes, remaining))
+            if not blob:
+                break
+            remaining -= len(blob)
+            lines = (carry + blob).split(b"\n")
+            carry = lines.pop()
+            if lines:
+                yield lines
+        if carry:
+            yield [carry]  # unterminated final line
+
+
+def _count_range_newlines(args) -> int:
+    path, start, end = args
+    count = 0
+    with open(path, "rb") as f:
+        f.seek(start)
+        remaining = end - start
+        while remaining > 0:
+            blob = f.read(min(32 * 1024 * 1024, remaining))
+            if not blob:
+                break
+            remaining -= len(blob)
+            count += blob.count(b"\n")
+    return count
+
+
+def range_start_ordinals(path: str, ranges: List[Tuple[int, int]],
+                         pool=None) -> List[int]:
+    """Line ordinal of the first line of each range (ranges start at line
+    boundaries, so lines-before == newlines-before). One cheap parallel
+    byte-counting pass; this is what lets every worker seed each method's
+    sampling RNG from its GLOBAL line ordinal, making the output
+    independent of the worker count."""
+    if len(ranges) == 1:
+        return [0]
+    tasks = [(path, s, e) for s, e in ranges[:-1]]  # last range not needed
+    counts = (pool.map(_count_range_newlines, tasks) if pool is not None
+              else [_count_range_newlines(t) for t in tasks])
+    ordinals = [0]
+    for c in counts:
+        ordinals.append(ordinals[-1] + c)
+    return ordinals
+
+
+# Bound on the per-worker distinct-string memo Counters/caches: real
+# corpora repeat contexts heavily, so memoizing per distinct context
+# collapses most per-occurrence Python work to one C-level dict hit —
+# but an adversarial corpus of all-distinct contexts must not grow RSS
+# without bound, so memos are drained/cleared past this many entries.
+_MEMO_CAP = 2_000_000
+
+
+def _drain_ctx_counts(ctx_counts: Counter, tokens: Counter,
+                      paths: Counter) -> None:
+    """Fold per-distinct-context occurrence counts into the token/path
+    histograms: each context splits ONCE however many times it occurred."""
+    for ctx, count in ctx_counts.items():
+        pieces = ctx.split(b",")
+        if len(pieces) != 3:
+            continue
+        tokens[pieces[0]] += count
+        paths[pieces[1]] += count
+        tokens[pieces[2]] += count
+    ctx_counts.clear()
+
+
+def _read_count_dump(path: str) -> Counter:
+    """Parse a native "count word" histogram dump (bytes keys)."""
+    out: Counter = Counter()
+    with open(path, "rb", buffering=8 * 1024 * 1024) as f:
+        for line in f:
+            count, word = line.rstrip(b"\n").split(b" ", 1)
+            out[word] = int(count)
+    return out
+
+
+def _histogram_shard(args) -> Tuple[Counter, Counter, Counter]:
+    """Map step: histograms over one byte range of the raw file.
+
+    Uses the native GIL-releasing split core (`c2v_histogram_range`)
+    when libc2vdata.so is built: C++ does the per-occurrence counting
+    and Python only reads back one "count word" line per DISTINCT word.
+
+    The pure-Python fallback counts whole context strings first (a
+    C-speed `Counter.update`) and splits only the distinct ones —
+    corpora repeat contexts heavily, so this collapses most
+    per-occurrence Python work; the distinct-context Counter is drained
+    past `_MEMO_CAP` so worker RSS stays bounded on any corpus. Keys
+    are bytes either way; the reduce step decodes once."""
+    path, start, end = args
+    from code2vec_tpu_torch.data import native
+    if native.load_library() is not None:
+        dump_dir = tempfile.mkdtemp(prefix="c2v_hist_",
+                                    dir=os.path.dirname(path) or ".")
+        try:
+            outs = [os.path.join(dump_dir, name)
+                    for name in ("tokens", "paths", "targets")]
+            native.histogram_range(path, start, end, *outs)
+            return tuple(_read_count_dump(p) for p in outs)
+        finally:
+            shutil.rmtree(dump_dir, ignore_errors=True)
+    tokens: Counter = Counter()
+    paths: Counter = Counter()
+    targets: Counter = Counter()
+    ctx_counts: Counter = Counter()
+    for lines in iter_range_line_chunks(path, start, end):
+        names: List[bytes] = []
+        ctxs: List[bytes] = []
+        for line in lines:
+            parts = line.split(b" ")
+            if not parts[0]:
+                continue
+            names.append(parts[0])
+            ctxs += parts[1:]
+        targets.update(names)
+        ctx_counts.update(ctxs)
+        # empty fields (double spaces) split to one piece and are
+        # skipped by the drain, like the serial loop's `if not ctx`
+        if len(ctx_counts) > _MEMO_CAP:
+            _drain_ctx_counts(ctx_counts, tokens, paths)
+    _drain_ctx_counts(ctx_counts, tokens, paths)
+    return tokens, paths, targets
+
+
+def _decode_counter(counter: Counter) -> Counter:
+    return Counter({k.decode("utf-8", "surrogateescape"): v
+                    for k, v in counter.items()})
+
+
+def build_histograms(raw_path: str,
+                     num_workers: int = 0) -> Tuple[Counter, Counter, Counter]:
+    """Frequency histograms over a raw extractor-output file.
+
+    Equivalent of the reference's three awk passes (preprocess.sh:56-58):
+    every occurrence counts, including duplicates within a line.
+
+    `num_workers == 0` runs the original in-process serial loop;
+    `num_workers >= 1` map-reduces over line-aligned byte ranges in that
+    many `multiprocessing` workers (1 runs the sharded algorithm
+    in-process — the fused pipeline's serial reference point). The merged
+    result equals the serial loop's for any worker count.
+    """
+    if num_workers >= 1:
+        ranges = line_aligned_ranges(raw_path, num_workers)
+        tasks = [(raw_path, s, e) for s, e in ranges]
+        if len(tasks) == 1:
+            shards = [_histogram_shard(tasks[0])]
+        else:
+            with _worker_pool(len(tasks)) as pool:
+                shards = pool.map(_histogram_shard, tasks)
+        tokens: Counter = Counter()
+        paths: Counter = Counter()
+        targets: Counter = Counter()
+        for tok, pth, tgt in shards:
+            tokens.update(tok)
+            paths.update(pth)
+            targets.update(tgt)
+        return (_decode_counter(tokens), _decode_counter(paths),
+                _decode_counter(targets))
+
+    targets = Counter()
+    tokens = Counter()
+    paths = Counter()
+    # utf-8/surrogateescape pinned (not the locale default) so the serial
+    # and sharded paths tokenize identical bytes identically.
+    with open(raw_path, "r", buffering=16 * 1024 * 1024,
+              encoding="utf-8", errors="surrogateescape") as f:
+        for line in f:
+            parts = line.rstrip("\n").split(" ")
+            if not parts or not parts[0]:
+                continue
+            targets[parts[0]] += 1
+            for ctx in parts[1:]:
+                if not ctx:
+                    continue
+                pieces = ctx.split(",")
+                if len(pieces) != 3:
+                    continue
+                tokens[pieces[0]] += 1
+                paths[pieces[1]] += 1
+                tokens[pieces[2]] += 1
+    return tokens, paths, targets
+
+
+def truncate_histogram(histogram: Dict[str, int],
+                       max_size: Optional[int]) -> Dict[str, int]:
+    """Keep words whose count is >= one plus the max_size'th largest count
+    when the histogram exceeds max_size (reference: common.py:47-58 —
+    min-count thresholding, which may keep slightly fewer than max_size).
+    """
+    if max_size is None or len(histogram) <= max_size:
+        return dict(histogram)
+    # The (max_size+1)'th largest count via a bounded heap: O(V log K)
+    # and O(K) extra memory instead of sorting all V values (V is 1.3M
+    # for the java14m token histogram).
+    min_count = heapq.nlargest(max_size + 1, histogram.values())[-1] + 1
+    return {w: c for w, c in histogram.items() if c >= min_count}
+
+
+def canonical_freq_dict(histogram: Dict[str, int]) -> Dict[str, int]:
+    """Re-key a frequency dict in (count desc, word asc) order.
+
+    Dict iteration order is what breaks count ties downstream
+    (`Vocab.create_from_freq_dict`'s stable sort), and a merged
+    map-reduce histogram's insertion order depends on the worker count —
+    canonicalizing here is part of what makes the fused pipeline's
+    output byte-identical at any worker count."""
+    return dict(sorted(histogram.items(), key=lambda kv: (-kv[1], kv[0])))
+
+
+def _context_full_found(parts, word_to_count, path_to_count) -> bool:
+    # reference: preprocess.py:77-79; missing pieces (malformed/empty
+    # context fields) count as not-found instead of crashing the
+    # sampling tiers (the reference would IndexError on such input)
+    return (len(parts) > 2 and parts[0] in word_to_count
+            and parts[1] in path_to_count and parts[2] in word_to_count)
+
+
+def _context_partial_found(parts, word_to_count, path_to_count) -> bool:
+    # reference: preprocess.py:82-84
+    return (parts[0] in word_to_count
+            or (len(parts) > 1 and parts[1] in path_to_count)
+            or (len(parts) > 2 and parts[2] in word_to_count))
+
+
+def process_file(file_path: str, data_file_role: str, dataset_name: str,
+                 word_to_count: Dict[str, int], path_to_count: Dict[str, int],
+                 max_contexts: int, rng: Optional[random.Random] = None,
+                 log=print) -> int:
+    """Sample/truncate each method's contexts to `max_contexts`, preferring
+    fully-in-vocab then partially-in-vocab contexts, pad with spaces, write
+    `<dataset>.<role>.c2v`. Returns the number of non-empty examples.
+
+    reference: preprocess.py:23-74.
+    """
+    rng = rng or random.Random(0)
+    contexts_seen = contexts_kept = written = skipped_empty = 0
+    widest_method = 0
+    output_path = f"{dataset_name}.{data_file_role}.c2v"
+    with open(output_path, "w") as outfile, open(file_path, "r") as infile:
+        for line in infile:
+            fields = line.rstrip("\n").split(" ")
+            method_name, contexts = fields[0], fields[1:]
+            widest_method = max(widest_method, len(contexts))
+            contexts_seen += len(contexts)
+
+            if len(contexts) > max_contexts:
+                # Over-budget methods keep their fully-in-vocab contexts
+                # first, then partially-in-vocab ones, sampling at random
+                # within the tier that crosses the budget — the sampling
+                # contract the reference preprocessor defines
+                # (preprocess.py:41-56), which the vocab hit rate of the
+                # trained model depends on.
+                split = [c.split(",") for c in contexts]
+                in_vocab, mixed = [], []
+                for ctx, parts in zip(contexts, split):
+                    if _context_full_found(parts, word_to_count,
+                                           path_to_count):
+                        in_vocab.append(ctx)
+                    elif _context_partial_found(parts, word_to_count,
+                                                path_to_count):
+                        mixed.append(ctx)
+                if len(in_vocab) > max_contexts:
+                    contexts = rng.sample(in_vocab, max_contexts)
+                elif len(in_vocab) + len(mixed) > max_contexts:
+                    contexts = in_vocab + rng.sample(
+                        mixed, max_contexts - len(in_vocab))
+                else:
+                    contexts = in_vocab + mixed
+
+            if not contexts:
+                skipped_empty += 1
+                continue
+            contexts_kept += len(contexts)
+            padding = " " * (max_contexts - len(contexts))
+            outfile.write(method_name + " " + " ".join(contexts) + padding
+                          + "\n")
+            written += 1
+
+    denom = max(written, 1)
+    log(f"{output_path}: {written} examples written, {skipped_empty} "
+        f"skipped (no contexts)")
+    log(f"  contexts/method: {contexts_seen / denom:.1f} raw -> "
+        f"{contexts_kept / denom:.1f} after sampling "
+        f"(widest method: {widest_method})")
+    return written
+
+
+def save_dictionaries(dataset_name: str, word_to_count: Dict[str, int],
+                      path_to_count: Dict[str, int],
+                      target_to_count: Dict[str, int],
+                      num_training_examples: int, log=print) -> str:
+    """Pickle the freq dicts + train count to `<dataset>.dict.c2v`
+    (reference: preprocess.py:12-20)."""
+    path = f"{dataset_name}.dict.c2v"
+    with open(path, "wb") as f:
+        pickle.dump(word_to_count, f)
+        pickle.dump(path_to_count, f)
+        pickle.dump(target_to_count, f)
+        pickle.dump(num_training_examples, f)
+    log(f"Dictionaries saved to: {path}")
+    return path
+
+
+def preprocess(train_raw: str, val_raw: str, test_raw: str, output_name: str,
+               max_contexts: int = 200, word_vocab_size: int = 1301136,
+               path_vocab_size: int = 911417, target_vocab_size: int = 261245,
+               seed: int = 0, log=print) -> str:
+    """Full offline pipeline: histograms from the raw train split, vocab
+    truncation, context sampling for all three splits, dict pickling.
+
+    Mirrors preprocess.sh:42-63 + preprocess.py:87-141 end-to-end.
+    """
+    tokens, paths, targets = build_histograms(train_raw)
+    word_to_count = truncate_histogram(tokens, word_vocab_size)
+    path_to_count = truncate_histogram(paths, path_vocab_size)
+    target_to_count = truncate_histogram(targets, target_vocab_size)
+
+    rng = random.Random(seed)
+    num_training_examples = 0
+    for file_path, role in zip([test_raw, val_raw, train_raw],
+                               ["test", "val", "train"]):
+        n = process_file(file_path, role, output_name, word_to_count,
+                         path_to_count, max_contexts, rng=rng, log=log)
+        if role == "train":
+            num_training_examples = n
+    save_dictionaries(output_name, word_to_count, path_to_count,
+                      target_to_count, num_training_examples, log=log)
+    return output_name
+
+
+def compile_corpus(train_raw: str, val_raw: str, test_raw: str,
+                   output_name: str, max_contexts: int = 200,
+                   word_vocab_size: int = 1301136,
+                   path_vocab_size: int = 911417,
+                   target_vocab_size: int = 261245, seed: int = 0,
+                   num_workers: int = 1, emit_c2v: bool = False,
+                   stats_out: Optional[dict] = None, log=print) -> str:
+    """Fused multiprocess offline compile: raw extractor output ->
+    `.c2vb` memmaps (+`.targets` sidecars) + `.dict.c2v`, with no padded
+    `.c2v` text intermediate (that text is LARGER than the raw input and
+    the old pack stage re-parsed every byte of it).
+
+    Map-reduce histograms over the train split, vocab truncation, then a
+    fused sample+lookup+pack pass per split (`data/packed.py pack_raw`)
+    that applies the reference's two-tier in-vocab sampling contract
+    (reference: preprocess.py:41-56) and writes int32 rows directly.
+
+    Output is byte-identical at ANY worker count: each method's sampling
+    RNG is seeded from (global seed, method ordinal), histograms are
+    canonicalized before tie-breaking, and per-shard segments are
+    stitched in file order. `emit_c2v` additionally writes the padded
+    `.c2v` text files (compat path for reference tooling; same format
+    and sampling contract, per-method RNG instead of one serial stream).
+
+    `stats_out`, when given, is filled with per-phase wall times and row
+    counts (the preprocessing bench reads it).
+    """
+    from code2vec_tpu_torch.data import packed
+
+    stats = stats_out if stats_out is not None else {}
+    t0 = time.perf_counter()
+    workers = max(1, num_workers)
+    tokens, paths, targets = build_histograms(train_raw, num_workers=workers)
+    stats["histograms_s"] = round(time.perf_counter() - t0, 2)
+    log(f"histograms: {len(tokens)} tokens, {len(paths)} paths, "
+        f"{len(targets)} targets ({stats['histograms_s']}s, "
+        f"{workers} workers)")
+
+    t1 = time.perf_counter()
+    word_to_count = canonical_freq_dict(
+        truncate_histogram(tokens, word_vocab_size))
+    path_to_count = canonical_freq_dict(
+        truncate_histogram(paths, path_vocab_size))
+    target_to_count = canonical_freq_dict(
+        truncate_histogram(targets, target_vocab_size))
+    del tokens, paths, targets
+
+    from code2vec_tpu_torch.vocab import Code2VecVocabs, WordFreqDicts
+    vocabs = Code2VecVocabs.create_from_freq_dicts(
+        WordFreqDicts(word_to_count, path_to_count, target_to_count, 0),
+        max_token_vocab_size=word_vocab_size,
+        max_path_vocab_size=path_vocab_size,
+        max_target_vocab_size=target_vocab_size)
+    stats["vocab_s"] = round(time.perf_counter() - t1, 2)
+
+    t2 = time.perf_counter()
+    num_training_examples = 0
+    total_rows = 0
+    for file_path, role in zip([test_raw, val_raw, train_raw],
+                               ["test", "val", "train"]):
+        out_path = f"{output_name}.{role}.c2vb"
+        c2v_out = f"{output_name}.{role}.c2v" if emit_c2v else None
+        rows = packed.pack_raw(
+            file_path, out_path, vocabs, word_to_count, path_to_count,
+            max_contexts, seed=seed, num_workers=workers, c2v_out=c2v_out,
+            log=log)
+        total_rows += rows
+        if role == "train":
+            num_training_examples = rows
+    dur = time.perf_counter() - t2
+    stats["pack_s"] = round(dur, 2)
+    stats["rows"] = total_rows
+
+    save_dictionaries(output_name, word_to_count, path_to_count,
+                      target_to_count, num_training_examples, log=log)
+    stats["wall_s"] = round(time.perf_counter() - t0, 2)
+    log(f"fused compile: {total_rows} rows packed in {stats['pack_s']}s "
+        f"({workers} workers); end-to-end {stats['wall_s']}s")
+    return output_name
+
+
+# --------------------------------------------------------------- extraction
+
+def _native_extractor(language: str) -> str:
+    binary = {"java": "c2v-extract", "csharp": "c2v-extract-cs",
+              "cs": "c2v-extract-cs"}[language]
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    path = os.path.join(here, "cpp", "build", binary)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"native extractor `{path}` not built; run `make -C cpp`.")
+    return path
+
+
+def _extractor_command(extractor: str, language: str, target_flag: str,
+                       target: str, max_path_length: int,
+                       max_path_width: int, num_threads: int):
+    if language == "java":
+        return [extractor, "--max_path_length", str(max_path_length),
+                "--max_path_width", str(max_path_width),
+                target_flag, target, "--num_threads", str(num_threads)]
+    # the C# extractor takes --path for both files and directories
+    return [extractor, "--path", target,
+            "--max_length", str(max_path_length),
+            "--max_width", str(max_path_width),
+            "--threads", str(num_threads)]
+
+
+def _child_targets(source_dir: str, language: str):
+    """Extraction units under `source_dir`: subdirectories and loose
+    source files of the target language, sorted for determinism. Shared
+    by the sequential retry descent and the parallel project pool so
+    both extract the same file set."""
+    suffix = ".java" if language == "java" else ".cs"
+    return [os.path.join(source_dir, name)
+            for name in sorted(os.listdir(source_dir))
+            if os.path.isdir(os.path.join(source_dir, name))
+            or name.endswith(suffix)]
+
+
+def _run_extractor_tree(out, extractor: str, language: str, target: str,
+                        max_path_length: int, max_path_width: int,
+                        num_threads: int, timeout: Optional[float],
+                        log, _retrying: bool = False) -> int:
+    """Extract `target` (a directory or file) into the open binary `out`
+    stream, with a kill-timer and recursive per-subdirectory retry: if the
+    whole tree times out, descend and extract each child separately so one
+    pathological file cannot stall the run — the reference extraction
+    script's resilience strategy (JavaExtractor/extract.py:38-58: kill-timer +
+    per-subdir re-extraction, partial output discarded). During a retry
+    descent, nonzero child exits are also skipped-and-logged rather than
+    fatal (a file that crashes the parser must not abort the run); a
+    nonzero exit on the original whole-tree attempt stays a hard error
+    (that is a broken setup, not a bad input file).
+    Returns the number of targets skipped after exhausting retries."""
+    is_dir = os.path.isdir(target)
+    flag = "--dir" if is_dir else "--file"
+    command = _extractor_command(extractor, language, flag, target,
+                                 max_path_length, max_path_width,
+                                 num_threads)
+    # stdout streams straight into `out` (no buffering of multi-GB
+    # extractions); on kill/failure the file is truncated back so a
+    # partial line from a killed run never survives (the reference
+    # deletes partial outputs, JavaExtractor/extract.py:56-58). `out` is
+    # binary-mode and only ever written through child fds, so tell() is
+    # the true fd offset.
+    out.flush()
+    pos = out.tell()
+
+    def descend() -> int:
+        skipped = 0
+        for child in _child_targets(target, language):
+            skipped += _run_extractor_tree(
+                out, extractor, language, child, max_path_length,
+                max_path_width, num_threads, timeout, log, _retrying=True)
+        return skipped
+
+    try:
+        result = subprocess.run(command, stdout=out, stderr=subprocess.PIPE,
+                                text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        out.truncate(pos)
+        out.seek(pos)
+        if not is_dir:
+            log(f"  TIMEOUT: skipping unextractable file {target}")
+            return 1
+        log(f"  TIMEOUT extracting {target}; retrying per child")
+        return descend()
+    if result.returncode != 0:
+        out.truncate(pos)
+        out.seek(pos)
+        if _retrying:
+            if is_dir:
+                log(f"  extractor failed on {target} "
+                    f"({result.returncode}); retrying per child")
+                return descend()
+            log(f"  extractor failed on {target} ({result.returncode}); "
+                f"skipping")
+            return 1
+        raise RuntimeError(
+            f"extractor failed ({result.returncode}): {result.stderr[-2000:]}")
+    if result.stderr:
+        unparseable = result.stderr.count("failed to extract")
+        if unparseable:
+            log(f"  ({unparseable} files skipped as unparseable)")
+    return 0
+
+
+def _extract_tree_parallel(out, extractor: str, language: str,
+                           source_dir: str, max_path_length: int,
+                           max_path_width: int, num_threads: int,
+                           timeout: Optional[float], num_workers: int,
+                           log) -> int:
+    """Project-level extraction parallelism: a pool of `num_workers`
+    workers over the top-level entries of `source_dir` — the reference
+    extraction script's `multiprocessing.Pool(4)` over project dirs
+    (reference: JavaExtractor/extract.py:61-76). Threads suffice here
+    (each worker blocks in a `subprocess.run` of the internally-threaded
+    native extractor); every child keeps the same kill-timer +
+    per-child-retry protection, spilled to its own file and concatenated
+    in deterministic (sorted) order. Returns total skipped targets."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    children = _child_targets(source_dir, language)
+    if not children:
+        return 0
+    # Don't oversubscribe the host: num_workers concurrent extractors x
+    # num_threads each would run workers*threads native threads (the
+    # reference's Pool(4) drove single-threaded JVMs). Split the thread
+    # budget across the workers that will actually run concurrently.
+    num_threads = max(1, num_threads // min(num_workers, len(children)))
+    # spill next to the output file, not the system /tmp (often a small
+    # tmpfs; the corpora this pipeline targets run to tens of GB)
+    out_dir = os.path.dirname(getattr(out, "name", "") or "") or "."
+    spill_dir = tempfile.mkdtemp(prefix="c2v_extract_", dir=out_dir)
+
+    def extract_child(item) -> int:
+        index, child = item
+        with open(os.path.join(spill_dir, f"s{index:06d}"), "w+b") as spill:
+            return _run_extractor_tree(
+                spill, extractor, language, child, max_path_length,
+                max_path_width, num_threads, timeout, log)
+
+    try:
+        with ThreadPoolExecutor(max_workers=num_workers) as pool:
+            skipped = sum(pool.map(extract_child, enumerate(children)))
+        for index in range(len(children)):
+            with open(os.path.join(spill_dir, f"s{index:06d}"), "rb") as f:
+                shutil.copyfileobj(f, out, 16 * 1024 * 1024)
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    return skipped
+
+
+def extract_dir(source_dir: str, out_path: str, language: str = "java",
+                max_path_length: int = 8, max_path_width: int = 2,
+                num_threads: int = 32, shuffle: bool = False,
+                seed: int = 0, timeout: Optional[float] = 600.0,
+                num_workers: int = 1, log=print) -> str:
+    """Run the native AST path extractor over a source tree, writing raw
+    context lines to `out_path` (optionally shuffled, as the reference
+    pipes the train split through `shuf`, preprocess.sh:42-48). A hung
+    extraction is killed after `timeout` seconds and retried per
+    subdirectory/file (reference: JavaExtractor/extract.py:38-58 — whose
+    `Timer(600000, kill)` is in seconds, ~7 days, so its kill-timer never
+    fires in practice; 600s here keeps the protection real and matches
+    the CLI's --extract_timeout default). `num_workers > 1` extracts
+    top-level children of `source_dir` concurrently, the reference
+    extraction script's project-level `Pool(4)`
+    (JavaExtractor/extract.py:61-76).
+    """
+    extractor = _native_extractor(language)
+    log(f"Extracting {source_dir} -> {out_path} ({language})")
+    with open(out_path + ".tmp", "wb") as out:
+        if num_workers > 1 and os.path.isdir(source_dir):
+            skipped = _extract_tree_parallel(
+                out, extractor, language, source_dir, max_path_length,
+                max_path_width, num_threads, timeout, num_workers, log)
+        else:
+            skipped = _run_extractor_tree(
+                out, extractor, language, source_dir, max_path_length,
+                max_path_width, num_threads, timeout, log)
+        if skipped:
+            log(f"  {skipped} targets skipped after timeout/failure")
+    if shuffle:
+        # like the reference's `| shuf`: whole-file shuffle of the raw
+        # train split (training also reshuffles per epoch from the
+        # packed dataset, so this only decorrelates the histogram pass)
+        external_shuffle(out_path + ".tmp", seed=seed, log=log)
+    os.replace(out_path + ".tmp", out_path)
+    return out_path
+
+
+def external_shuffle(path: str, seed: int = 0,
+                     mem_budget_bytes: int = 1 << 30,
+                     tmp_dir: Optional[str] = None, log=print) -> str:
+    """Uniform in-place line shuffle of `path` in bounded memory.
+
+    The reference pipes the raw train split through `shuf`
+    (reference: preprocess.sh:44-48) and its docs size the extracted
+    java14m corpus at ~32 GB (reference: README.md:69-75) — far past
+    what a `readlines()` shuffle can hold. Two passes, `shuf`-style
+    statistics in O(mem_budget) RAM:
+
+      1. deal each line to one of K spill buckets, the bucket drawn
+         iid uniformly per line;
+      2. load each bucket (≈ file_size/K bytes), shuffle it in RAM,
+         and append buckets to the output in order.
+
+    Dealing iid-uniform buckets then permuting uniformly within each
+    is exactly a uniform random permutation of the whole file (it is
+    sorting by an iid uniform key whose high bits are the bucket id),
+    so the result is statistically identical to `shuf`, at ~2x file
+    size of extra disk and ~file_size/K peak RAM.
+
+    Files at or under half of `mem_budget_bytes` take the direct
+    in-memory path (a loaded file costs ~2x its bytes in line objects,
+    so the halved threshold is what actually honors the budget).
+    Deterministic for a fixed (seed, file, budget). Returns `path`.
+    """
+    size = os.path.getsize(path)
+    rng = random.Random(seed)
+    if size <= mem_budget_bytes // 2:
+        with open(path, "rb") as f:
+            lines = f.readlines()
+        if lines and not lines[-1].endswith(b"\n"):
+            # `shuf` newline-terminates every output line; without this a
+            # final unterminated line would merge into its successor.
+            lines[-1] += b"\n"
+        rng.shuffle(lines)
+        with open(path, "wb") as f:
+            f.writelines(lines)
+        return path
+
+    # Bucket target well under the budget: Python str/list overhead plus
+    # the shuffle's index churn make a loaded bucket cost ~2x its bytes.
+    # n_buckets is capped so open fds and write-buffer RAM stay bounded;
+    # a bucket that still exceeds the budget (inputs > ~128x the budget)
+    # is shuffled recursively instead of loaded, so the memory bound
+    # holds at any input size.
+    n_buckets = min(512, max(2, math.ceil(size / (mem_budget_bytes // 4))))
+    buffering = max(64 * 1024, min(4 * 1024 * 1024,
+                                   mem_budget_bytes // (4 * n_buckets)))
+    work_dir = tempfile.mkdtemp(prefix="c2v_shuf_",
+                                dir=tmp_dir or os.path.dirname(path) or ".")
+    log(f"  external shuffle: {size / 1e9:.2f} GB across {n_buckets} "
+        f"spill buckets ({work_dir})")
+    try:
+        buckets = []
+        try:
+            for i in range(n_buckets):
+                buckets.append(open(os.path.join(work_dir, f"b{i:05d}"),
+                                    "wb", buffering=buffering))
+            with open(path, "rb", buffering=16 * 1024 * 1024) as f:
+                for line in f:
+                    if not line.endswith(b"\n"):
+                        line += b"\n"  # shuf-style: terminate the last line
+                    buckets[rng.randrange(n_buckets)].write(line)
+        finally:
+            for b in buckets:
+                b.close()
+        out_tmp = path + ".shuf"
+        with open(out_tmp, "wb", buffering=16 * 1024 * 1024) as out:
+            for i in range(n_buckets):
+                bucket_path = os.path.join(work_dir, f"b{i:05d}")
+                if os.path.getsize(bucket_path) > mem_budget_bytes // 2:
+                    # still over budget: permute the bucket recursively
+                    # (uniform within the bucket is all pass 2 needs),
+                    # then stream it through without loading
+                    external_shuffle(bucket_path,
+                                     seed=rng.randrange(1 << 63),
+                                     mem_budget_bytes=mem_budget_bytes,
+                                     tmp_dir=work_dir, log=log)
+                    with open(bucket_path, "rb") as f:
+                        shutil.copyfileobj(f, out, 16 * 1024 * 1024)
+                else:
+                    with open(bucket_path, "rb") as f:
+                        lines = f.readlines()
+                    rng.shuffle(lines)
+                    out.writelines(lines)
+                os.unlink(bucket_path)  # free disk before the next load
+        os.replace(out_tmp, path)
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    return path
+
+
+def main(argv=None) -> None:
+    """End-to-end offline preprocessing CLI (the preprocess.sh equivalent):
+
+      python -m code2vec_tpu_torch.data.preprocess \\
+          --train_dir DIR --val_dir DIR --test_dir DIR \\
+          --output_name data/java-small/java-small [--language java]
+
+    or, from already-extracted raw context files:
+
+      python -m code2vec_tpu_torch.data.preprocess \\
+          --train_raw F --val_raw F --test_raw F --output_name NAME
+    """
+    import argparse
+    parser = argparse.ArgumentParser(
+        prog="code2vec_tpu_torch.preprocess", description=main.__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--train_dir")
+    parser.add_argument("--val_dir")
+    parser.add_argument("--test_dir")
+    parser.add_argument("--train_raw")
+    parser.add_argument("--val_raw")
+    parser.add_argument("--test_raw")
+    parser.add_argument("--output_name", required=True)
+    parser.add_argument("--language", choices=["java", "csharp"],
+                        default="java")
+    parser.add_argument("--max_contexts", type=int, default=200)
+    parser.add_argument("--max_path_length", type=int, default=8)
+    parser.add_argument("--max_path_width", type=int, default=2)
+    parser.add_argument("--word_vocab_size", type=int, default=1301136)
+    parser.add_argument("--path_vocab_size", type=int, default=911417)
+    parser.add_argument("--target_vocab_size", type=int, default=261245)
+    parser.add_argument("--num_threads", type=int, default=32)
+    parser.add_argument("--num_workers", type=int, default=4,
+                        help="concurrent top-level project extractions "
+                             "(the reference's Pool(4), "
+                             "JavaExtractor/extract.py:61-76); the "
+                             "--num_threads budget is divided across "
+                             "workers so workers*threads never "
+                             "oversubscribes the host")
+    parser.add_argument("--extract_timeout", type=float, default=600.0,
+                        help="seconds before a hung extraction is killed "
+                             "and retried per subdirectory/file")
+    parser.add_argument("--preprocess_workers", type=int, default=0,
+                        help="host worker processes for the fused "
+                             "histogram+sample+pack compile that emits "
+                             ".c2vb memmaps directly (output is "
+                             "byte-identical at any worker count); 0 "
+                             "runs the original serial .c2v text "
+                             "pipeline")
+    parser.add_argument("--emit_c2v", action="store_true",
+                        help="with --preprocess_workers >= 1, also write "
+                             "the padded .c2v text files (compat path "
+                             "for reference tooling)")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    from_dirs = args.train_dir or args.val_dir or args.test_dir
+    from_raws = args.train_raw or args.val_raw or args.test_raw
+    if bool(from_dirs) == bool(from_raws):
+        parser.error("provide either --{train,val,test}_dir or "
+                     "--{train,val,test}_raw (not both)")
+    if from_dirs and not (args.train_dir and args.val_dir and args.test_dir):
+        parser.error("--train_dir, --val_dir and --test_dir are all required")
+    if from_raws and not (args.train_raw and args.val_raw and args.test_raw):
+        parser.error("--train_raw, --val_raw and --test_raw are all required")
+
+    out_dir = os.path.dirname(args.output_name)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    if from_dirs:
+        raws = {}
+        for role, source_dir in (("train", args.train_dir),
+                                 ("val", args.val_dir),
+                                 ("test", args.test_dir)):
+            raws[role] = extract_dir(
+                source_dir, f"{args.output_name}.{role}.raw.txt",
+                language=args.language, max_path_length=args.max_path_length,
+                max_path_width=args.max_path_width,
+                num_threads=args.num_threads, shuffle=role == "train",
+                seed=args.seed, timeout=args.extract_timeout,
+                num_workers=args.num_workers)
+    else:
+        raws = {"train": args.train_raw, "val": args.val_raw,
+                "test": args.test_raw}
+
+    if args.preprocess_workers >= 1:
+        compile_corpus(raws["train"], raws["val"], raws["test"],
+                       args.output_name, max_contexts=args.max_contexts,
+                       word_vocab_size=args.word_vocab_size,
+                       path_vocab_size=args.path_vocab_size,
+                       target_vocab_size=args.target_vocab_size,
+                       seed=args.seed, num_workers=args.preprocess_workers,
+                       emit_c2v=args.emit_c2v)
+    else:
+        preprocess(raws["train"], raws["val"], raws["test"],
+                   args.output_name, max_contexts=args.max_contexts,
+                   word_vocab_size=args.word_vocab_size,
+                   path_vocab_size=args.path_vocab_size,
+                   target_vocab_size=args.target_vocab_size, seed=args.seed)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -21,9 +21,9 @@ same file and seed:
 - evaluation reads the file once in order, with no shuffle, and pads its
   tail batch with invalid rows, so every kept row is scored.
 
-The reference's embed job reads a packed `.c2vb` it writes beside the
-corpus; the port reads the same text file in the same row order (the
-packed reader is not ported).
+The packed `.c2vb` reader (data/packed.py) is the default train and
+evaluate path; this text reader serves `--no_packed_data` and the pack
+itself goes through `parse_context_lines`.
 """
 
 from __future__ import annotations
@@ -96,10 +96,27 @@ def parse_context_lines(lines: Sequence[str], vocabs: Code2VecVocabs,
     RowBatch, or into rows [row_offset, row_offset + n) of `out` (a
     buffer from `empty_predict_batch`). Without `keep_strings` (the
     train and eval paths) only the int arrays are filled, and the method
-    names too with `with_target_strings`."""
+    names too with `with_target_strings`; that parse runs in the native
+    core where libc2vdata.so is built. Predict keeps its strings and
+    parses here."""
     n, m = len(lines), max_contexts
     if out is not None and not keep_strings:
         raise ValueError("out= requires the keep-strings parse path")
+    if not keep_strings:
+        # the native core splits, looks up and masks where it is built
+        # (data/native.py; the same arrays as the loop below)
+        from code2vec_tpu_torch.data import native
+        tables = native.tables_for(vocabs)
+        parsed = tables.parse_lines(lines, m) if tables is not None else None
+        if parsed is not None:
+            src, pth, tgt, label, mask = parsed
+            return RowBatch(
+                source_token_indices=src, path_indices=pth,
+                target_token_indices=tgt, context_valid_mask=mask,
+                target_index=label, example_valid=np.ones((n,), dtype=bool),
+                target_strings=(
+                    [line.split(" ", 1)[0].rstrip("\n") for line in lines]
+                    if with_target_strings else None))
     token_w2i = vocabs.token_vocab.word_to_index
     path_w2i = vocabs.path_vocab.word_to_index
     token_oov = vocabs.token_vocab.oov_index

@@ -7,8 +7,9 @@ score the valid rows of each padded batch and each example's outcome is
 appended to `log.txt`.
 
 Two loops that give identical results: the serial one (parse, move, step,
-score, one batch after another) and the pipelined one, where a worker
-thread parses batch N+1 and moves it to the device while the host scores
+score, one batch after another) and the pipelined one, where the
+prefetcher's worker thread (utils/prefetch.py) reads batch N+1 into
+pinned memory and its copy to the device is issued while the host scores
 batch N. After each step the host copies of what scoring reads start at
 once, behind the step on the stream, so that scoring batch N waits for
 step N alone and not for step N+1, which is already queued.
@@ -24,8 +25,6 @@ spans, counters and gauges, and the multi-host reduction of the counts
 
 from __future__ import annotations
 
-import queue
-import threading
 import time
 from typing import Callable, Iterable, Optional
 
@@ -36,6 +35,7 @@ from code2vec_tpu_torch.evaluation.metrics import (
     ModelEvaluationResults, SubtokensEvaluationMetric, TargetWordTables,
     TopKAccuracyEvaluationMetric, batch_prediction_info,
 )
+from code2vec_tpu_torch.utils.prefetch import DevicePrefetcher
 
 PREFETCH_DEPTH = 2  # batches the worker keeps ready ahead of the step
 
@@ -62,58 +62,6 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.values
-
-
-class _Prefetcher:
-    """Iterates `batches` on a worker thread and yields (device arrays,
-    host batch), up to `depth` of them ready ahead of the consumer. An
-    error on the worker is raised in the consumer."""
-
-    _END = object()
-
-    def __init__(self, batches: Iterable, device: torch.device,
-                 depth: int = PREFETCH_DEPTH):
-        self.batches = batches
-        self.device = device
-        self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
-        self._error: Optional[BaseException] = None
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._worker, daemon=True)
-
-    def _put(self, item) -> bool:
-        """A bounded put that gives up once the consumer has stopped."""
-        while not self._stop.is_set():
-            try:
-                self._queue.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def _worker(self) -> None:
-        try:
-            for batch in self.batches:
-                if not self._put((batch_to_device(batch, self.device),
-                                  batch)):
-                    return
-        except BaseException as e:  # noqa: BLE001 - re-raised in __iter__
-            self._error = e
-        finally:
-            self._put(self._END)
-
-    def __iter__(self):
-        self._thread.start()
-        try:
-            while True:
-                item = self._queue.get()
-                if item is self._END:
-                    if self._error is not None:
-                        raise self._error
-                    return
-                yield item
-        finally:
-            self._stop.set()
-            self._thread.join(timeout=10)
 
 
 class Evaluator:
@@ -192,7 +140,9 @@ class Evaluator:
         try:
             if prefetch:
                 pending = None
-                for arrays, batch in _Prefetcher(batches, self.device):
+                for arrays, batch in DevicePrefetcher(
+                        batches, self.device, depth=PREFETCH_DEPTH,
+                        keep_host_batch=True):
                     host = step(arrays)  # queued behind the previous step
                     if pending is not None:
                         consume(*pending)

@@ -2,25 +2,30 @@
 path (`BucketedPredictMixin`).
 
 `Code2VecModel` is the counterpart of code2vec_tpu/model_facade.py
-Code2VecModel on one process and device, from a `.c2v` text file: `--load`
-resolution and restore (:418-527, vocabularies from the checkpoint's
-`dictionaries.bin`), `_train_batches` (:557-640, the text reader keyed
-by the absolute epoch), `train` with the epoch saves and their rotation
+Code2VecModel on one process and device: `--load` resolution and
+restore (:418-527, vocabularies from the checkpoint's
+`dictionaries.bin`), `_train_batches` (:557-640: by default the packed
+`.c2vb` beside `<data>.train.c2v`, or the shards of
+`--train_corpus_manifest` (`_train_corpus` :129-154), each epoch a
+permutation keyed by (seed, absolute epoch); with `--no_packed_data`
+the text reader), `train` with the epoch saves and their rotation
 (:690-870), `evaluate` / `_evaluate_with_params` with `--release` and
 the code-vector outputs (:877-940), predict over the live params with
 the exact head (the port's MIPS head serves an artifact only), the
 model fingerprint, the final `save` and the word2vec exports
 (:1010-1062). Left out: the async committer, preemption and mid-epoch
-cursors, the mesh, the packed `.c2vb` reader and the `obs` metrics.
+cursors (nothing sets `iter_batches`' `skip_rows` yet), the mesh and
+the `obs` metrics.
 
 The predict part is the counterpart of BucketedPredictMixin (:66-395):
 line parsing, context bucketing, row padding, the (rows, bucket) step
 cache and the host-side assembly of results; with the eval-batch
-plumbing of an evaluation from a text `.c2v` (`_count_examples` :88-105,
-`_eval_batches` :167-190; the packed `.c2vb` reader is not ported). Each device batch is padded
-to a fixed row count and its context axis cut to the smallest bucket that
-holds its deepest valid context, so the shapes the kernels see are
-bounded by len(buckets) per row count.
+plumbing that ReleaseModel shares (`_count_examples` :88-107, the
+memoised `_packed_dataset` :109-128, which packs a `.c2v` once beside
+itself, and `_eval_batches` :167-190, packed or text). Each device batch
+is padded to a fixed row count and its context axis cut to the smallest
+bucket that holds its deepest valid context, so the shapes the kernels
+see are bounded by len(buckets) per row count.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.common import count_lines_in_file, save_word2vec_file
+from code2vec_tpu_torch.data.packed import (
+    PackedDataset, ShardedCorpus, pack_c2v,
+)
 from code2vec_tpu_torch.data.reader import (
     EstimatorAction, PathContextReader, RowBatch, _pad_rows,
     parse_context_lines, slice_contexts, truncate_rows,
@@ -93,11 +101,15 @@ class BucketedPredictMixin:
     @staticmethod
     def _count_examples(dataset_path: str) -> int:
         """Lines of a `.c2v` file, cached in a `.num_examples` sidecar
-        beside it, as the reference caches them."""
+        beside it, as the reference caches them; the packed header's row
+        count where a fused compile left no text."""
         sidecar = dataset_path + ".num_examples"
         if os.path.isfile(sidecar):
             with open(sidecar) as f:
                 return int(f.readline())
+        if not os.path.exists(dataset_path) and os.path.exists(
+                dataset_path + "b"):
+            return PackedDataset.read_header(dataset_path + "b")[0]
         n = count_lines_in_file(dataset_path)
         try:
             with open(sidecar, "w") as f:
@@ -106,13 +118,34 @@ class BucketedPredictMixin:
             pass
         return n
 
-    def _eval_batches(self) -> PathContextReader:
-        """The text reader's Evaluate stream over config.test_data_path:
-        file order, rows with no valid context dropped, the tail batch
-        padded with invalid rows, each row's method name kept."""
-        return PathContextReader(self.vocabs, self.config,
+    def _packed_dataset(self, c2v_path: str) -> PackedDataset:
+        """The `.c2vb` beside `c2v_path`, packed on first use; memoised,
+        so the row filter scans the file once per model."""
+        cached = self.__dict__.setdefault("_packed_cache", {})
+        if c2v_path in cached:
+            return cached[c2v_path]
+        packed_path = c2v_path + "b"
+        if not os.path.exists(packed_path):
+            self.log(f"Packing {c2v_path} -> {packed_path} (one-time)")
+            pack_c2v(c2v_path, self.vocabs, self.config.max_contexts,
+                     out_path=packed_path,
+                     num_workers=self.config.preprocess_workers)
+        cached[c2v_path] = ds = PackedDataset(packed_path, self.vocabs)
+        return ds
+
+    def _eval_batches(self) -> Iterable:
+        """The Evaluate stream over config.test_data_path: file order,
+        rows with no valid context dropped, the tail batch padded with
+        invalid rows, each row's method name kept; from the packed file
+        unless --no_packed_data."""
+        config = self.config
+        if config.use_packed_data:
+            return self._packed_dataset(config.test_data_path).iter_batches(
+                config.test_batch_size, EstimatorAction.Evaluate,
+                with_target_strings=True)
+        return PathContextReader(self.vocabs, config,
                                  EstimatorAction.Evaluate,
-                                 batch_size=self.config.test_batch_size,
+                                 batch_size=config.test_batch_size,
                                  with_target_strings=True)
 
     def predict(self, predict_data_lines: Iterable[str],
@@ -306,16 +339,40 @@ class Code2VecModel(BucketedPredictMixin):
 
     # ------------------------------------------------------------ train
 
-    def _train_batches(self) -> PathContextReader:
-        """The text reader's train stream with EpochEnd markers: the
-        epochs left of `num_train_epochs` after the loaded ones, shuffled
-        by their absolute index (reference :557-640)."""
+    def _train_corpus(self):
+        """The packed training rows: the manifest's shards as one row
+        space with --train_corpus_manifest, else the `.c2vb` of --data
+        (reference :129-154); memoised beside `_packed_dataset`'s."""
+        config = self.config
+        manifest = config.train_corpus_manifest
+        if not manifest:
+            return self._packed_dataset(config.train_data_path)
+        cached = self.__dict__.setdefault("_packed_cache", {})
+        if manifest not in cached:
+            ds = ShardedCorpus(manifest, self.vocabs)
+            self.log(f"Training corpus: {manifest} "
+                     f"({ds.num_shard_files} shard(s), "
+                     f"{ds.num_rows_total} rows)")
+            cached[manifest] = ds
+        return cached[manifest]
+
+    def _train_batches(self) -> Iterable:
+        """The train stream with EpochEnd markers: the epochs left of
+        `num_train_epochs` after the loaded ones, keyed by their absolute
+        index (reference :557-640); a full permutation of the packed rows
+        per epoch, or the text reader's shuffle buffer with
+        --no_packed_data."""
         config = self.config
         epochs = max(config.num_train_epochs - self.initial_epoch, 0)
         if config.is_loading and epochs == 0:
             self.log(f"Loaded model already trained {self.initial_epoch} "
                      f"epochs (budget {config.num_train_epochs}); nothing "
                      f"to train. Raise --epochs to continue.")
+        if config.use_packed_data:
+            return self._train_corpus().iter_batches(
+                config.train_batch_size, EstimatorAction.Train,
+                num_epochs=epochs, seed=config.seed,
+                yield_epoch_markers=True, start_epoch=self.initial_epoch)
         return PathContextReader(self.vocabs, config, EstimatorAction.Train,
                                  batch_size=config.train_batch_size,
                                  num_epochs=epochs, yield_epoch_markers=True,

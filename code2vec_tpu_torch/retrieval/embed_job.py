@@ -1,4 +1,4 @@
-"""Corpus-scale batch embedding job: a `.c2v` corpus -> a vector store.
+"""Corpus-scale batch embedding job: a packed corpus -> a vector store.
 
 The counterpart of code2vec_tpu/retrieval/embed_job.py, the body of the
 `embed` command. It runs the corpus through the release model's eval step
@@ -7,12 +7,12 @@ writes the code vectors into a sharded store (retrieval/store.py) whose
 manifest records the model's fingerprint (`artifact:<hash16>`, or
 `ckpt:<path>@step<N>#p<params>` for a --load'ed checkpoint).
 
-The reference reads a packed `.c2vb` that it writes beside the corpus on
-first use; the port reads the text file itself, in the same row order
-(file order, no shuffle, the eval row filter) and writes nothing beside
-it. Resumable at shard granularity: a killed job restarted with the same
-output skips every row already inside a committed shard, with no device
-work for them. The reference's `obs` metrics (retrieval_embed_rows_total,
+It reads the corpus through `model._packed_dataset`, the `.c2vb` it
+writes beside the `.c2v` on first use (:69), in the eval order (file
+order, no shuffle, the eval row filter). Resumable at shard
+granularity: a killed job restarted with the same output skips every
+row already inside a committed shard, with no device work for them.
+The reference's `obs` metrics (retrieval_embed_rows_total,
 retrieval_embed_seconds, retrieval_embed_rows_per_sec) are not ported;
 the summary dict carries the rows and the rate.
 """
@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from code2vec_tpu_torch.data.reader import EstimatorAction, PathContextReader
+from code2vec_tpu_torch.data.reader import EstimatorAction
 from code2vec_tpu_torch.retrieval.store import VectorStoreWriter
 
 
@@ -52,15 +52,14 @@ def run_embed_job(model, corpus_path: Optional[str] = None,
     if resumed_rows:
         log(f"Embed job resuming past {resumed_rows} committed row(s)")
 
-    reader = PathContextReader(model.vocabs, config,
-                               EstimatorAction.Evaluate, data_path=corpus,
-                               batch_size=int(config.test_batch_size),
-                               with_target_strings=True)
+    batches = model._packed_dataset(corpus).iter_batches(
+        int(config.test_batch_size), EstimatorAction.Evaluate,
+        with_target_strings=True)
     eval_step, params = model.eval_callable()
     to_skip = resumed_rows
     written = 0
     t0 = time.perf_counter()
-    for batch in reader:
+    for batch in batches:
         valid = np.asarray(batch.example_valid)
         n_valid = int(valid.sum())
         if to_skip >= n_valid:

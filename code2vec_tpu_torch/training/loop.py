@@ -2,7 +2,12 @@
 epoch boundaries, and the saves and evaluations they schedule.
 
 The counterpart of code2vec_tpu/training/loop.py Trainer.train (:114-...)
-on one device: epochs end at the reader's EpochEnd markers and are
+on one device. Batches reach the device through the prefetcher
+(utils/prefetch.py, as the reference's :244-246): a worker thread gathers
+the next `prefetch_batches` batches into pinned host buffers and their
+copies run on a copy stream while the device runs the step before
+(`prefetch_double_buffer` holds one staged batch back). Epochs end at
+the reader's EpochEnd markers and are
 numbered from `initial_epoch` (a resumed run continues the numbering);
 the host reads the losses back only at log boundaries and epoch ends
 (each read waits for the device), logs the window's average loss with
@@ -26,6 +31,7 @@ import torch
 
 from code2vec_tpu_torch.data.reader import EpochEnd
 from code2vec_tpu_torch.training.state import TrainState
+from code2vec_tpu_torch.utils.prefetch import DevicePrefetcher
 
 
 class NonFiniteLossError(RuntimeError):
@@ -50,13 +56,6 @@ class Trainer:
         self.epoch_losses: List[List[float]] = []
         # (epoch, results) of each epoch-end evaluation
         self.eval_results: List[Tuple[int, object]] = []
-
-    def _to_device(self, batch):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in (batch.source_token_indices, batch.path_indices,
-                               batch.target_token_indices,
-                               batch.context_valid_mask, batch.target_index,
-                               batch.example_valid))
 
     def train(self, state: TrainState, batches: Iterable,
               dropout_seed: int) -> TrainState:
@@ -95,43 +94,50 @@ class Trainer:
             window_losses.extend(losses)
             return losses
 
-        for item in batches:
-            if isinstance(item, EpochEnd):
-                drain("epoch boundary")
-                epoch = self.initial_epoch + item.epoch
-                self.epoch_losses.append(epoch_losses)
-                mean = (float(np.mean(epoch_losses)) if epoch_losses
-                        else float("nan"))
-                log(f"Epoch {epoch} done: {len(epoch_losses)} batches, "
-                    f"mean loss {mean:.6f}")
-                epoch_losses, window_losses = [], []
-                window_start = None
-                # the absolute epoch's cadence, stable across resumes; the
-                # final epoch always saves and evaluates
-                if (epoch % config.save_every_epochs == 0
-                        or epoch >= config.num_train_epochs):
-                    if self.save_fn is not None:
-                        self.save_fn(state, epoch)
-                    if self.evaluate_fn is not None:
-                        results = self.evaluate_fn(state)
-                        self.eval_results.append((epoch, results))
-                        log(f"After {epoch} epochs -- {results}")
-                continue
-            if window_start is None:
-                window_start = time.perf_counter()
-            arrays = self._to_device(item)
-            batch_num += 1
-            state, loss = self.train_step(state, *arrays, dropout_seed)
-            pending.append(loss)
-            if batch_num % config.num_batches_to_log_progress == 0:
-                drain("log boundary")
-                elapsed = time.perf_counter() - window_start
-                n = len(window_losses) * config.train_batch_size
-                log(f"Average loss at batch {batch_num}: "
-                    f"{float(np.mean(window_losses)):.6f}, \tthroughput: "
-                    f"{n / max(elapsed, 1e-9):.0f} samples/sec")
-                window_losses = []
-                window_start = time.perf_counter()
-        drain("end of data")
+        items = iter(DevicePrefetcher(
+            batches, self.device, depth=config.prefetch_batches,
+            double_buffer=config.prefetch_double_buffer))
+        try:
+            for item in items:
+                if isinstance(item, EpochEnd):
+                    drain("epoch boundary")
+                    epoch = self.initial_epoch + item.epoch
+                    self.epoch_losses.append(epoch_losses)
+                    mean = (float(np.mean(epoch_losses)) if epoch_losses
+                            else float("nan"))
+                    log(f"Epoch {epoch} done: {len(epoch_losses)} batches, "
+                        f"mean loss {mean:.6f}")
+                    epoch_losses, window_losses = [], []
+                    window_start = None
+                    # the absolute epoch's cadence, stable across resumes; the
+                    # final epoch always saves and evaluates
+                    if (epoch % config.save_every_epochs == 0
+                            or epoch >= config.num_train_epochs):
+                        if self.save_fn is not None:
+                            self.save_fn(state, epoch)
+                        if self.evaluate_fn is not None:
+                            results = self.evaluate_fn(state)
+                            self.eval_results.append((epoch, results))
+                            log(f"After {epoch} epochs -- {results}")
+                    continue
+                if window_start is None:
+                    window_start = time.perf_counter()
+                arrays, _ = item
+                batch_num += 1
+                state, loss = self.train_step(state, *arrays, dropout_seed)
+                pending.append(loss)
+                if batch_num % config.num_batches_to_log_progress == 0:
+                    drain("log boundary")
+                    elapsed = time.perf_counter() - window_start
+                    n = len(window_losses) * config.train_batch_size
+                    log(f"Average loss at batch {batch_num}: "
+                        f"{float(np.mean(window_losses)):.6f}, \tthroughput: "
+                        f"{n / max(elapsed, 1e-9):.0f} samples/sec")
+                    window_losses = []
+                    window_start = time.perf_counter()
+            drain("end of data")
+        finally:
+            # stop the prefetch worker also when the loop raises
+            items.close()
         self.final_epoch = epoch
         return state

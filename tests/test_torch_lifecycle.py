@@ -64,7 +64,8 @@ COMMON = dict(max_contexts=8, train_batch_size=16, test_batch_size=16,
 
 def _port_config(prefix, **kw):
     return Config(**{"train_data_path_prefix": prefix, "device": "cpu",
-                     "eval_log_path": None, **COMMON, **kw})
+                     "eval_log_path": None, "use_packed_data": False,
+                     **COMMON, **kw})
 
 
 def _jax_config(prefix, **kw):

@@ -473,7 +473,8 @@ def _configs(prefix, **kw):
                   verbose_mode=0, **kw)
     return (JaxConfig(use_packed_data=False, save_every_epochs=1000,
                       num_batches_to_log_progress=1000, **common),
-            Config(device="cpu", num_batches_to_log_progress=2, **common))
+            Config(device="cpu", num_batches_to_log_progress=2,
+                   use_packed_data=False, **common))
 
 
 @pytest.mark.parametrize("separate", [False, True])
