@@ -162,6 +162,25 @@ a C++ compiler. Phases, each fatal on failure:
    0.467 dense, 0.654 / 0.464 sparse), each stage's seconds, train
    examples/s; compile_corpus on 4 workers row for row against the pack
    of the serial preprocess's text.
+18. Parallel kernels (run after 10): K14 (gather, scatter-add, local ids
+   of the tp-2 token shard, 409,600 ids), K15 (its three passes over the
+   1024 x 130,623 tp-2 slice of the logits) and K16/K17 (the cp-2
+   contexts, 1024 x 100 x 384) against their plain versions, timed beside
+   them and a PyTorch call of the same function.
+19. Parallel path (run after 11): the dense and sparse single-device steps
+   on the card as the reference (2 steps at B 1024, M 200, keep 0.75 with
+   injected masks, seeded full-width weights, the tables padded to tp 2),
+   then 8 processes sharing cuda:0 over gloo run the plans tp2 dense, tp2
+   sparse, cp2 dense, dp2 sparse and dp2 tp2 cp2 dense (the parallel
+   steps, training/step.py ParallelStepBuilder; each plan's mesh is the
+   first dp x tp x cp ranks): each plan's losses and parameters against
+   the reference (PARALLEL_LOSS_RTOL, PARALLEL_FLIP_SHARE), each plan's
+   gradients of the first batch leaf by leaf against the single-device
+   step's (PARALLEL_GRAD_RESID), the dense plans' eval step (K13 twice
+   around the all-gather, K15) against the single-device eval step, every
+   kernel of the path launched, ms a step; then NCCL at world size 1, and
+   `train --tp 2 --test` through torchrun on two processes that share
+   the card.
 
 Prints one line per kernel, then a JSON line {"kernels": [...]}, the
 card's name and power limit, and as the last line
@@ -4732,12 +4751,741 @@ def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
     return all_counts, dict(stages, **results)
 
 
+# ------------------------------------------------------- the parallel steps
+
+# The plans the parallel phase runs, each as ranks that share cuda:0 over
+# gloo: (name, (dp, tp, cp), sparse)
+PARALLEL_PLANS = (("tp2 dense", (1, 2, 1), False),
+                  ("tp2 sparse", (1, 2, 1), True),
+                  ("cp2 dense", (1, 1, 2), False),
+                  ("dp2 sparse", (2, 1, 1), True),
+                  ("dp2 tp2 cp2 dense", (2, 2, 2), False))
+PARALLEL_RANKS = 8
+PARALLEL_STEPS = 2
+PARALLEL_TIMEOUT_S = 600
+# Against the single-device step after PARALLEL_STEPS steps: the loss
+# within 1e-3 relative (the f32 sums over ranks and split products run in
+# another order, and a bf16 rounding they move changes the second step's
+# inputs by a step); a parameter moves by at most 2 lr a step apart (an
+# Adam step whose gradient is near 0 can change sign), and at most
+# PARALLEL_FLIP_SHARE of a tensor's elements by more than 1e-5 + 1e-5 |p|.
+PARALLEL_LOSS_RTOL = 1e-3
+PARALLEL_FLIP_SHARE = 0.02
+# Each plan's gradients of the first batch, before any step, against the
+# single-device step's, leaf by leaf (a table's on this rank's shard):
+# within one bf16 step at the leaf's largest value (the step check's
+# bar: both sides round the code vectors' cotangent, the attention
+# weights and the row gradients to bf16, and sums over ranks move those
+# roundings), a table row within one such step per position that names
+# it (each adds a bf16 row gradient), and |g - ref| / |ref| (Frobenius)
+# at most PARALLEL_GRAD_RESID: bf16 flips move an element by 2^-8 of
+# itself at most, while a leaf counted twice, or missing a rank's part,
+# is off by a share of 1 or 1/2.
+PARALLEL_GRAD_RESID = 1e-2
+
+
+def parallel_dims(fs):
+    """The java14m tables padded to a multiple of 2 (tp 2), the real
+    target rows and the OOV/PAD floor."""
+    from code2vec_tpu_torch.models.code2vec import ModelDims
+    return ModelDims(fs.vocab["token"] + 1, fs.vocab["path"] + 1,
+                     fs.vocab["target"] + 1, token_dim=fs.token_dim,
+                     path_dim=fs.path_dim, target_oov_floor=1).padded_to(2)
+
+
+def parallel_config(ft, shape, sparse: bool):
+    from code2vec_tpu_torch.config import Config
+    dp, tp, cp = shape
+    return Config(dp=dp, tp=tp, cp=cp, dropout_keep_rate=ft.keep,
+                  use_sparse_embedding_update=sparse,
+                  adam_mu_dtype=ft.mu, adam_nu_dtype=ft.nu,
+                  train_batch_size=ft.rows, max_contexts=ft.contexts)
+
+
+def parallel_weights(torch, seed: int, dims, ft):
+    """The full parameters from the seed on the card, as the facade draws
+    them (every rank draws the same and keeps its shards)."""
+    from code2vec_tpu_torch.models.code2vec import Code2VecModule
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    module = Code2VecModule(dims, device="cuda", generator=g,
+                            dropout_keep_rate=ft.keep)
+    return module
+
+
+def parallel_batches(torch, seed: int, dims, ft):
+    """PARALLEL_STEPS global batches (B x M) and their dropout masks
+    (B x M x 384 at the keep rate) from the seed on the card: ids over
+    the real rows, ~80% valid contexts, an all-invalid row, labels past
+    the OOV floor, one invalid example."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    b, m = ft.rows, ft.contexts
+    out = []
+    for _ in range(PARALLEL_STEPS):
+        def ids(hi):
+            return torch.randint(0, hi, (b, m), generator=g, device="cuda",
+                                 dtype=torch.int32)
+        src, pth, tgt = (ids(dims.token_vocab_size - 1),
+                         ids(dims.path_vocab_size),
+                         ids(dims.token_vocab_size - 1))
+        mask = (torch.rand((b, m), generator=g, device="cuda") > 0.2
+                ).float()
+        mask[0] = 0.0
+        labels = torch.randint(2, dims.real_target_vocab_size, (b,),
+                               generator=g, device="cuda",
+                               dtype=torch.int32)
+        valid = torch.ones(b, dtype=torch.bool, device="cuda")
+        valid[1] = False
+        drop = torch.rand((b, m, dims.context_dim), generator=g,
+                          device="cuda") < ft.keep
+        out.append((src, pth, tgt, mask, labels, valid, drop))
+    return out
+
+
+def rank_part(batch, mesh):
+    """A rank's (data, ctx) part of a global batch's tensors."""
+    from code2vec_tpu_torch.parallel.mesh import shard_slice
+    plan, c = mesh.plan, mesh.coords
+    rows = shard_slice(batch[0].shape[0], plan.dp, c["data"])
+    cols = shard_slice(batch[0].shape[1], plan.cp, c["ctx"])
+    return [x[rows][:, cols].contiguous() if x.dim() >= 2
+            else x[rows].contiguous() for x in batch]
+
+
+def parallel_reference(torch, seed: int, work_dir: str, fs, ft):
+    """The single-device steps on the card from the same weights, batches
+    and masks: (per mode, the path of its saved losses, final parameters
+    and, dense, the eval step's outputs and the gradients of every
+    parameter on the first batch before any step; the ms of a step)."""
+    from code2vec_tpu_torch.training.state import (
+        create_train_state, make_optimizer,
+    )
+    from code2vec_tpu_torch.training.step import TrainStepBuilder
+    dims = parallel_dims(fs)
+    batches = parallel_batches(torch, seed, dims, ft)
+    paths, ms = {}, {}
+    for sparse in (False, True):
+        mode = "sparse" if sparse else "dense"
+        config = parallel_config(ft, (1, 1, 1), sparse)
+        module = parallel_weights(torch, seed, dims, ft)
+        hyper = make_optimizer(config)
+        state = create_train_state(module, hyper, config)
+        builder = TrainStepBuilder(module, hyper, config)
+        ref = {}
+        if not sparse:
+            params = {k: p.detach() for k, p in state.params.items()}
+            with torch.no_grad():
+                ev = builder.make_eval_step()(params, *batches[0][:6])
+            ref["eval"] = {f: getattr(ev, f).cpu() for f in ev._fields}
+            src, pth, tgt, mask, labels, valid, drop = batches[0]
+            cv, _ = module.encode(src, pth, tgt, mask, deterministic=False,
+                                  dropout_seed=seed, dropout_step=state.step,
+                                  dropout_mask=drop)
+            loss = module.train_loss(cv, labels, valid.float())
+            loss.backward()
+            ref["grad_loss"] = float(loss.detach())
+            ref["grads"] = {k: p.grad.detach().cpu()
+                            for k, p in state.params.items()}
+            for p in state.params.values():
+                p.grad = None
+            del cv, loss
+        step = builder.make_train_step(state)
+        losses, times = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, *batch[:6], seed,
+                               dropout_mask=batch[6])
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+        ref.update(losses=losses, params={
+            k: p.detach().cpu() for k, p in state.params.items()})
+        paths[mode] = os.path.join(work_dir, f"parallel_ref_{mode}.pt")
+        torch.save(ref, paths[mode])
+        ms[mode] = times[-1]
+        del module, state, builder, step, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, ms
+
+
+def parallel_plan_run(torch, spec, mesh, name: str, sparse: bool):
+    """One plan on this rank: the eval step (dense plans) and
+    PARALLEL_STEPS train steps on its part of the batches, with the
+    launch counts of the run, held against the single-device reference."""
+    from code2vec_tpu_torch import kernels
+    from code2vec_tpu_torch.parallel.mesh import shard_slice
+    from code2vec_tpu_torch.training.state import (
+        make_optimizer, sharded_train_state,
+    )
+    from code2vec_tpu_torch.training.step import ParallelStepBuilder
+    fs, ft = flagship(), flagship_train()
+    seed = spec["seed"]
+    dims = parallel_dims(fs)
+    plan = mesh.plan
+    config = parallel_config(ft, (plan.dp, plan.tp, plan.cp), sparse)
+    hyper = make_optimizer(config)
+    module = parallel_weights(torch, seed, dims, ft)
+    state = sharded_train_state(dict(module.named_parameters()), hyper,
+                                config, mesh)
+    del module
+    torch.cuda.empty_cache()
+    full = parallel_batches(torch, seed, dims, ft)
+    batches = [rank_part(b, mesh) for b in full]
+    # the first global batch's ids of each table (its gradient's terms)
+    table_ids = {"token_embedding": torch.cat([full[0][0], full[0][2]]),
+                 "path_embedding": full[0][1]}
+    del full
+    builder = ParallelStepBuilder(dims, hyper, config, mesh)
+    ref = torch.load(spec["refs"]["sparse" if sparse else "dense"],
+                     mmap=True)
+    out = dict(plan=name, index=mesh.index, coords=mesh.coords,
+               backend=mesh.backend)
+    kernels.reset_launch_counts()
+    if not sparse:
+        with torch.no_grad():
+            ev = builder.make_eval_step()(state.params, *batches[0][:6])
+        rows = shard_slice(ft.rows, plan.dp, mesh.coords["data"])
+        want = {k: v[rows].cuda() if v.dim() else v
+                for k, v in ref["eval"].items()}
+        same, off = topk_agreement(ev.topk_indices, want["topk_indices"],
+                                   want["topk_values"], TOL_F32SUM)
+        out["eval"] = dict(
+            same=same, off=off, n=int(ev.topk_indices.numel()),
+            values_err=float((ev.topk_values - want["topk_values"]).abs()
+                             .max()),
+            loss_sum=float(ev.loss_sum),
+            ref_loss_sum=float(want["loss_sum"]))
+    # the gradients of the first batch before any step, leaf by leaf (the
+    # dense reference holds them; both modes start from the same weights)
+    loss0, grads = builder.loss_and_grads(state, *batches[0][:6], seed,
+                                          dropout_mask=batches[0][6])
+    grad_ref = torch.load(spec["refs"]["dense"], mmap=True)
+    out["grad_loss"] = (float(loss0), grad_ref["grad_loss"])
+    out["grads"] = {}
+    for n, g in grads.items():
+        want = grad_ref["grads"][n]
+        rows = slice(0, want.shape[0])
+        if g.shape[0] != want.shape[0]:
+            rows = shard_slice(want.shape[0], plan.tp, mesh.coords["model"])
+            want = want[rows]
+        want = want.cuda()
+        err, ok = step_err(g, want)
+        if n in table_ids:
+            # a table row sums one bf16 row gradient per position that
+            # names it, each of which may round the other way: a step
+            # at the leaf's largest per term (rows named nowhere exact)
+            local = table_ids[n].reshape(-1).long() - rows.start
+            local = local[(local >= 0) & (local < g.shape[0])]
+            hits = torch.bincount(local, minlength=g.shape[0])
+            step = bf16_step(float(want.abs().max()))
+            ok = bool(((g - want).abs()
+                       <= hits[:, None].float() * step).all())
+            del local, hits
+        resid = float(torch.linalg.vector_norm(g - want)
+                      / torch.linalg.vector_norm(want))
+        out["grads"][n] = dict(max=err, resid=resid,
+                               ok=ok and resid <= PARALLEL_GRAD_RESID)
+        del want
+    del grads, loss0, grad_ref
+    torch.cuda.empty_cache()
+    step = builder.make_train_step(state)
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch[:6], seed, dropout_mask=batch[6])
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(counts=kernels.launch_counts(), losses=losses,
+               ref_losses=ref["losses"], step_ms=times)
+    lr = config.learning_rate
+    errs = {}
+    for n, p in state.params.items():
+        want = ref["params"][n]
+        if p.shape[0] != want.shape[0]:
+            want = want[shard_slice(want.shape[0], plan.tp,
+                                    mesh.coords["model"])]
+        want = want.cuda()
+        diff = (p - want).abs()
+        off = int((diff > 1e-5 + 1e-5 * want.abs()).sum())
+        errs[n] = dict(max=float(diff.max()), off_share=off / p.numel(),
+                       ok=bool(float(diff.max()) <= 2 * lr * len(batches)
+                               * 1.01 + 1e-5
+                               and off <= PARALLEL_FLIP_SHARE * p.numel()))
+        del want, diff
+    out["params"] = errs
+    del state, step, builder, batches, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_rank_main(spec_path: str, rank: int) -> None:
+    """One of the parallel phase's processes: a rank of a gloo world of
+    PARALLEL_RANKS on cuda:0, running every plan whose mesh holds it (the
+    first dp x tp x cp ranks) and waiting for the others'."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(spec["init"], spec["world"], rank,
+                           timeout_s=PARALLEL_TIMEOUT_S)
+    results = []
+    for name, shape, sparse in PARALLEL_PLANS:
+        plan = MeshPlan(*shape)
+        mesh = make_mesh(plan, device=torch.device("cuda", 0),
+                         backend="gloo", members=list(range(plan.size)),
+                         timeout_s=PARALLEL_TIMEOUT_S)
+        if mesh is not None:
+            results.append(parallel_plan_run(torch, spec, mesh, name,
+                                             sparse))
+        dist.barrier()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    distributed.shutdown()
+
+
+def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
+    """K14-K17 against their plain versions on the card at the shapes the
+    parallel path gives them (tp 2: the token shard 650,569 x 128 and the
+    2 x 1024 x 200 gathered ids, the logits' 1024 x 130,623 slice; cp 2:
+    the 1024 x 100 x 384 contexts), each phase timed beside its plain
+    version and a PyTorch call of the same function. Returns their report
+    entries."""
+    import torch.nn.functional as F
+
+    from code2vec_tpu_torch.kernels import cp_attention as k16
+    from code2vec_tpu_torch.kernels import sharded as k15
+    dims = parallel_dims(fs)
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    b, m, td, d = ft.rows, ft.contexts, fs.token_dim, fs.code_dim
+    rows = dims.token_vocab_size // 2
+    n = 2 * b * m
+    table = torch.randn((rows, td), generator=g, device="cuda")
+    ids = torch.randint(0, dims.token_vocab_size - 1, (n,), generator=g,
+                        device="cuda", dtype=torch.int32)
+    offset = rows  # the second shard: the padded last row is its own
+    report = {}
+
+    def entry(what, got_want, tol, time_fns, nbytes, flops,
+              peak=F32_FLOP_PER_S):
+        """Checks the (got, want) pairs first, then times the kernel,
+        its plain version and the library call (`time_fns`, thunks)."""
+        errs = [max_err(x, y, tol) for x, y in got_want]
+        if not all(ok for _, ok in errs):
+            fail(f"{what}: max errors {[e for e, _ in errs]} (tol {tol})")
+        ms, plain_ms, lib_ms = (timer(fn, spin_ms=spin) for fn, spin in
+                                zip(time_fns, (2.0, 20.0, 2.0)))
+        bms, by = bound(nbytes, flops, peak)
+        log(f"{what}: max_abs_err {max(e for e, _ in errs):.3g} (tol {tol}); "
+            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"bound_ms {bms:.4f} ({by})")
+        return dict(max_abs_err=max(e for e, _ in errs), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms)
+
+    # K14: the gather, the scatter-add and the local ids
+    local = ids.long() - offset
+    live = (local >= 0) & (local < rows)
+    n_live = int(live.sum())
+    n_rows_live = int(torch.unique(local[live]).numel())
+    got = k15.shard_gather(table, ids, offset)
+    want = k15.shard_gather_plain(table, ids, offset)
+    clamped = local.clamp(0, rows - 1)
+    report["shard_gather"] = entry(
+        "K14 shard_gather 650,569 x 128 shard, 409,600 ids",
+        [(got, want)], (0.0, 0.0),
+        (lambda: k15.shard_gather(table, ids, offset),
+         lambda: k15.shard_gather_plain(table, ids, offset),
+         lambda: F.embedding(clamped, table)),
+        n_rows_live * td * 4 + n * td * 4 + n * 4, 0.0)
+    grows = torch.randn((n, td), generator=g, device="cuda").to(
+        torch.bfloat16)
+    acc = torch.zeros_like(table)
+    k15.shard_scatter_add(acc, ids, grows, offset)
+    want = torch.zeros_like(table)
+    k15.shard_scatter_add_plain(want, ids, grows, offset)
+    # f32 atomics add a row's terms in any order: a few f32 roundings
+    grows_f32 = grows.float()
+    report["shard_scatter_add"] = entry(
+        "K14 shard_scatter_add (bf16 rows into the f32 shard)",
+        [(acc, want)], (1e-5, 1e-5),
+        (lambda: k15.shard_scatter_add(acc, ids, grows, offset),
+         lambda: k15.shard_scatter_add_plain(acc, ids, grows, offset),
+         lambda: acc.index_add_(0, clamped, grows_f32)),
+        n_live * td * 2 + n * 4 + 2 * n_rows_live * td * 4, n_live * td)
+    del acc, want
+    report["shard_local_ids"] = entry(
+        "K14 shard_local_ids", [(k15.shard_local_ids(ids, offset, rows),
+                                 k15.shard_local_ids_plain(ids, offset,
+                                                           rows))],
+        (0.0, 0.0),
+        (lambda: k15.shard_local_ids(ids, offset, rows),
+         lambda: k15.shard_local_ids_plain(ids, offset, rows),
+         lambda: torch.where(live, local, torch.full_like(local, rows))),
+        2 * n * 4, n)
+    del table, grows, grows_f32, got, local, clamped, live
+    # K15: the three passes over the tp-2 slice of the logits
+    v = dims.target_vocab_size // 2
+    n_valid = k15.valid_columns(v, v, dims.real_target_vocab_size)
+    logits = torch.randn((b, v), generator=g, device="cuda") * 3
+    labels = torch.randint(2, dims.real_target_vocab_size, (b,), generator=g,
+                           device="cuda", dtype=torch.int32)
+    valid = torch.ones(b, device="cuda")
+    valid[1] = 0
+
+    def passes(max_fn, sum_fn, grad_fn):
+        mx = max_fn(logits, v, n_valid)
+        st = sum_fn(logits, v, n_valid, mx, labels, v)
+        return mx, st, grad_fn(logits, n_valid, mx, st[0], labels, valid, v,
+                               2 * b)
+
+    got = passes(k15.tp_xent_max, k15.tp_xent_sum, k15.tp_xent_grad)
+    want = passes(k15.tp_xent_max_plain, k15.tp_xent_sum_plain,
+                  k15.tp_xent_grad_plain)
+    hi_lo = [(x[0].float() + x[1].float()) for x in (got[2], want[2])]
+    # the gradient's entries are (p - onehot) / 2048, most of them far
+    # below TOL_F32SUM's atol: held at rtol 1e-4 (hi + lo carry ~17 bits)
+    # with an atol of 1e-6 of its largest value
+    g_tol = (1e-6 * float(hi_lo[1].abs().max()), TOL_F32SUM[1])
+    g_err, g_ok = max_err(*hi_lo, g_tol)
+    if not g_ok:
+        fail(f"K15 tp_softmax_xent gradient: max error {g_err} (tol "
+             f"{g_tol})")
+    log(f"K15 tp_softmax_xent gradient (hi + lo): max_abs_err {g_err:.3g} "
+        f"(tol {g_tol[0]:.3g}, {g_tol[1]}) of max "
+        f"{float(hi_lo[1].abs().max()):.3g}")
+    lab = (labels.long() - v).clamp(0, v - 1)
+    report["tp_softmax_xent"] = entry(
+        "K15 tp_softmax_xent 1024 x 130,623 slice (max, sum, gradient)",
+        [(got[0], want[0]), (got[1], want[1])], TOL_F32SUM,
+        (lambda: passes(k15.tp_xent_max, k15.tp_xent_sum, k15.tp_xent_grad),
+         lambda: passes(k15.tp_xent_max_plain, k15.tp_xent_sum_plain,
+                        k15.tp_xent_grad_plain),
+         lambda: F.cross_entropy(logits, lab)),
+        2 * logits.numel() * 4 + 2 * logits.numel() * 2 + 4 * b * 4,
+        6.0 * logits.numel())
+    report["tp_softmax_xent"]["max_abs_err"] = max(
+        report["tp_softmax_xent"]["max_abs_err"], g_err)
+    del logits, got, want, hi_lo
+    # K16 and K17 over the cp-2 contexts of K1-like activations
+    mc = m // 2
+    t = torch.tanh(torch.randn((b, mc, d), generator=g, device="cuda")).to(
+        torch.bfloat16)
+    a = torch.randn((d,), generator=g, device="cuda") * 0.25
+    mask = (torch.rand((b, mc), generator=g, device="cuda") > 0.2).float()
+    mask[0] = 0.0
+    dcv = torch.randn((b, d), generator=g, device="cuda")
+
+    def forward(sc, ex, co):
+        s, mx = sc(t, a, mask)
+        u, den = ex(s, mx)
+        return co(t, u, den)
+
+    got = forward(k16.cp_attention_scores, k16.cp_attention_exp,
+                  k16.cp_attention_combine)
+    want = forward(k16.scores_plain, k16.exp_plain, k16.combine_plain)
+    attn = got[1]
+    q = a.to(torch.bfloat16).view(1, 1, 1, d).expand(b, 1, 1, d).contiguous()
+    kv = t.view(b, 1, mc, d)
+    keep = (mask > 0).view(b, 1, 1, mc)
+    # as K2's check (attention_case): the weights at TOL_F32SUM, the code
+    # vector exactly the weighted sum of the kernel's own bf16 weights
+    # (TOL_F32SUM), and against the plain version within two weight flips
+    # (a weight at a bf16 rounding boundary may round the other way)
+    err_at, ok_at = max_err(got[1], want[1], TOL_F32SUM)
+    sum_cv = (attn.to(torch.bfloat16).float()[:, :, None]
+              * t.float()).sum(dim=1)
+    err_sum, ok_sum = max_err(got[0], sum_cv, TOL_F32SUM)
+    del sum_cv
+    if not (ok_at and ok_sum) or got[0][0].abs().max() != 0 \
+            or got[1][0].abs().max() != 0:
+        fail(f"K16 cp_attention: max errors weights {err_at}, weighted sum "
+             f"{err_sum} (tol {TOL_F32SUM}); the all-invalid row's max "
+             f"{float(got[0][0].abs().max())}")
+    log(f"K16 cp_attention: weights max_abs_err {err_at:.3g}, code vector "
+        f"against the weighted sum of its own weights {err_sum:.3g} (tol "
+        f"{TOL_F32SUM}); the all-invalid row zero")
+    flip = 2 * 2.0 ** -8 * float(want[1].abs().max() * t.abs().max())
+    report["cp_attention"] = entry(
+        "K16 cp_attention 1024 x 100 x 384 (scores, exp, combine)",
+        [(got[0], want[0])],
+        (flip + TOL_F32SUM[0], TOL_F32SUM[1]),
+        (lambda: forward(k16.cp_attention_scores, k16.cp_attention_exp,
+                         k16.cp_attention_combine),
+         lambda: forward(k16.scores_plain, k16.exp_plain, k16.combine_plain),
+         lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep,
+                                                scale=1.0)),
+        2 * t.numel() * 2 + 3 * b * mc * 4 + b * d * 4, 4.0 * t.numel(),
+        peak=BF16_FLOP_PER_S)
+    report["cp_attention"]["max_abs_err"] = max(
+        report["cp_attention"]["max_abs_err"], err_at)
+
+    def backward(fs_fn, dt_fn):
+        f, w = fs_fn(t, attn, dcv)
+        return dt_fn(t, a, mask, attn, f, w, dcv)
+
+    # each pass against its plain version on the same inputs: fs (a bf16
+    # dot product) within one bf16 step of each row's largest, its
+    # weighted row sum exactly against the kernel's own fs (f32 sums of
+    # at most 100 terms: 1e-5 of the sum of |w fs|); then dT (the same
+    # f32 products and bf16 roundings as the plain version) within one
+    # bf16 step of each context's largest, da of its largest
+    fs_got = k16.cp_attention_backward_fs(t, attn, dcv)
+    fs_want = k16.backward_fs_plain(t, attn, dcv)
+    fs_ratio, fs_off = row_step_err(fs_got[0], fs_want[0])
+    wfs_err = (fs_got[1] - (attn * fs_got[0]).sum(dim=1)).abs()
+    wfs_ok = bool((wfs_err <= 1e-5 * (attn * fs_got[0].abs()).sum(dim=1)
+                   ).all())
+    got = k16.cp_attention_backward_dt(t, a, mask, attn, *fs_got, dcv)
+    want = k16.backward_dt_plain(t, a, mask, attn, *fs_got, dcv)
+    dt_ratio, dt_off = row_step_err(got[0].reshape(-1, d),
+                                    want[0].reshape(-1, d))
+    errs = [(float((got[0].float() - want[0].float()).abs().max()),
+             dt_off == 0), step_err(got[1], want[1])]
+    if fs_off or not wfs_ok or not all(ok for _, ok in errs):
+        fail(f"K17 cp_attention_backward: fs rows off by more than one bf16 "
+             f"step of their largest {fs_off} (worst {fs_ratio:.3g} steps), "
+             f"weighted fs sum max err {float(wfs_err.max())}, dT rows off "
+             f"{dt_off} (worst {dt_ratio:.3g} steps), da {errs[1]}")
+    del fs_got, fs_want, wfs_err
+    bms, by = bound(3 * t.numel() * 2 + 3 * b * mc * 4 + b * d * 4,
+                    6.0 * t.numel(), BF16_FLOP_PER_S)
+    ms = timer(lambda: backward(k16.cp_attention_backward_fs,
+                                k16.cp_attention_backward_dt))
+    plain_ms = timer(lambda: backward(k16.backward_fs_plain,
+                                      k16.backward_dt_plain), spin_ms=20)
+    lib_ms = k6_library(torch, timer, t, a, mask, dcv)
+    log(f"K17 cp_attention_backward 1024 x 100 x 384 (fs, dt + da): "
+        f"max_abs_err dT {errs[0][0]:.3g} (rows within {dt_ratio:.3g} of a "
+        f"bf16 step of their largest) da {errs[1][0]:.3g} (tol one bf16 "
+        f"step at the largest), fs rows within {fs_ratio:.3g} of a step; "
+        f"ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {lib_ms:.4f} (SDPA backward by autograd) bound_ms "
+        f"{bms:.4f} ({by})")
+    report["cp_attention_backward"] = dict(
+        max_abs_err=max(e for e, _ in errs), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    return report
+
+
+def nccl_check(torch, work_dir: str) -> None:
+    """The NCCL route at world size 1 on the card: an all-reduce (SUM,
+    MAX) and an all-gather through the communicator's collective."""
+    import torch.distributed as dist
+
+    from code2vec_tpu_torch.parallel import comm
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(work_dir, 'nccl')}",
+        world_size=1, rank=0)
+    try:
+        x = torch.arange(4.0, device="cuda")
+        comm._run("all_reduce_sum", x, dist.group.WORLD, "nccl")
+        comm._run("all_reduce_max", x, dist.group.WORLD, "nccl")
+        y = comm._run("all_gather", torch.ones((3, 2), device="cuda"),
+                      dist.group.WORLD, "nccl")
+        torch.cuda.synchronize()
+        if x.tolist() != [0.0, 1.0, 2.0, 3.0] or tuple(y.shape) != (3, 2):
+            fail(f"NCCL at world size 1: all-reduce {x.tolist()}, "
+                 f"all-gather {tuple(y.shape)}")
+    finally:
+        dist.destroy_process_group()
+    log("parallel: NCCL at world size 1 on the card: all-reduce SUM and MAX "
+        "and all-gather ran (the route of one rank a card; several cards "
+        "not run here)")
+
+
+def torchrun_train(torch, seed: int, work_dir: str, ft):
+    """`train --tp 2 --test` through torchrun on two processes sharing
+    cuda:0 (--dist_backend gloo), one epoch of the train path's corpus:
+    rank 0's epoch loss and evaluation line."""
+    import socket
+    prefix = os.path.join(work_dir, "corpus")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+            "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
+            "--master-port", str(port), "-m", "code2vec_tpu_torch", "train",
+            "--data", prefix, "--epochs", "1", "--seed", str(seed),
+            "--batch_size", str(ft.rows), "--max_contexts",
+            str(ft.contexts), "--tp", "2", "--dist_backend", "gloo",
+            "--device", "cuda:0", "--test",
+            os.path.join(work_dir, "test.train.c2v"), "--eval_log",
+            os.path.join(work_dir, "parallel_eval.log")]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=work_dir, env=env, capture_output=True,
+                       text=True, timeout=PARALLEL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    text = r.stdout + r.stderr
+    epoch = re.findall(r"Epoch 1 done: (\d+) batches, mean loss ([\d.]+)",
+                       text)
+    after = re.findall(r"After 1 epochs -- (.*)", text)
+    if r.returncode != 0 or len(epoch) != 1 or len(after) != 1 or not \
+            math.isfinite(float(epoch[0][1])):
+        fail(f"torchrun train --tp 2: exit {r.returncode}, epoch lines "
+             f"{epoch}, evaluation lines {after}:\n{text[-3000:]}")
+    log(f"parallel: torchrun --nproc-per-node 2 train --tp 2 --dist_backend "
+        f"gloo --test (ranks share cuda:0): {epoch[0][0]} steps, mean loss "
+        f"{epoch[0][1]}, then {after[0]}; {wall:.1f}s with start-up")
+
+
+def parallel_phase(torch, seed: int, work_dir: str, fs, ft):
+    """The parallel steps at full width: the single-device reference on
+    the card, then PARALLEL_PLANS on PARALLEL_RANKS processes that share
+    cuda:0 over gloo (one world; each plan's mesh is its first ranks),
+    each plan's loss, parameters and eval step held against the
+    reference; then NCCL at world size 1 and `train --tp 2` through
+    torchrun. Returns (the plans' launch counts, summed over ranks and
+    plans; stats)."""
+    from code2vec_tpu_torch import kernels
+    t_phase = time.perf_counter()
+    pdir = os.path.join(work_dir, "parallel")
+    os.makedirs(pdir, exist_ok=True)
+    t0 = time.perf_counter()
+    refs, ref_ms = parallel_reference(torch, seed, pdir, fs, ft)
+    log(f"parallel: single-device reference (dense and sparse, "
+        f"{PARALLEL_STEPS} steps each) in {time.perf_counter() - t0:.1f}s; "
+        f"a step {ref_ms['dense']:.1f} ms dense, {ref_ms['sparse']:.1f} ms "
+        f"sparse")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = dict(init=f"file://{os.path.join(pdir, 'rendezvous')}",
+                world=PARALLEL_RANKS, seed=seed, refs=refs, out=pdir)
+    spec_path = os.path.join(pdir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(pdir, f"rank{r}.log"), "w")
+            for r in range(PARALLEL_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--parallel-rank", spec_path, str(r)],
+                              cwd=REPO, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(PARALLEL_RANKS)]
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        with open(os.path.join(pdir, f"rank{bad[0]}.log")) as f:
+            fail(f"parallel: ranks {bad} failed (exit "
+                 f"{[procs[r].returncode for r in bad]}):\n"
+                 f"{f.read()[-4000:]}")
+    ranks_s = time.perf_counter() - t0
+    results = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(pdir, f"rank{r}.json")) as f:
+            results += json.load(f)
+    counts = dict.fromkeys(kernels.KERNEL_MODULES, 0)
+    stats = {}
+    for name, shape, sparse in PARALLEL_PLANS:
+        runs = [x for x in results if x["plan"] == name]
+        if len(runs) != math.prod(shape):
+            fail(f"parallel {name}: {len(runs)} ranks reported")
+        for x in runs:
+            for k, c in x["counts"].items():
+                counts[k] += c
+        need = kernels.PARALLEL_SPARSE_KERNELS if sparse else \
+            kernels.PARALLEL_DENSE_KERNELS
+        need = need + (kernels.CP_KERNELS if shape[2] > 1 else
+                       ("masked_attention", "masked_attention_backward"))
+        if not sparse:   # the eval step's local and merged top-k
+            need = need + ("select_topk",)
+        missing = sorted({k for x in runs for k in need
+                          if x["counts"].get(k, 0) == 0})
+        losses = runs[0]["losses"]
+        ref = runs[0]["ref_losses"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        same = all(x["losses"] == losses for x in runs)
+        bad_params = sorted({f"{n}@{x['index']}" for x in runs
+                             for n, e in x["params"].items() if not e["ok"]})
+        max_err = max(e["max"] for x in runs for e in x["params"].values())
+        off = max(e["off_share"] for x in runs for e in x["params"].values())
+        ev = [x["eval"] for x in runs if "eval" in x]
+        ev_off = sum(e["off"] for e in ev)
+        ev_loss = max((abs(e["loss_sum"] - e["ref_loss_sum"])
+                       / abs(e["ref_loss_sum"]) for e in ev), default=0.0)
+        step_ms = max(x["step_ms"][-1] for x in runs)
+        bad_grads = sorted({f"{n}@{x['index']}" for x in runs
+                            for n, e in x["grads"].items() if not e["ok"]})
+        grad_resid = max(e["resid"] for x in runs
+                         for e in x["grads"].values())
+        grad_steps = {n: max(x["grads"][n]["max"] for x in runs)
+                      for n in runs[0]["grads"]}
+        grad_loss_err = max(abs(a - b) / abs(b)
+                            for a, b in (x["grad_loss"] for x in runs))
+        log(f"parallel {name} (dp {shape[0]} tp {shape[1]} cp {shape[2]}, "
+            f"{len(runs)} ranks sharing cuda:0, backend "
+            f"{runs[0]['backend']}, every collective on the CUDA tensors "
+            f"themselves, none staged): "
+            f"{step_ms:.1f} ms a step (the mesh's ranks one after another "
+            f"on one card; single device {ref_ms['sparse' if sparse else 'dense']:.1f}); "
+            f"losses {[round(v, 6) for v in losses]} vs single device "
+            f"{[round(v, 6) for v in ref]} (rel err {loss_err:.2e}, same on "
+            f"every rank {same}); parameters max err {max_err:.3g}, largest "
+            f"share off by >1e-5 {off:.2e}; first-batch gradients leaf by "
+            f"leaf max err "
+            + ", ".join(f"{n} {v:.3g}" for n, v in grad_steps.items())
+            + f" (tol one bf16 step at each leaf's largest, a table row's "
+            f"one per position naming it), largest "
+            f"|g - ref| / |ref| {grad_resid:.2e} (tol "
+            f"{PARALLEL_GRAD_RESID}), their loss rel err {grad_loss_err:.2e}"
+            + (f"; eval top-k {sum(e['same'] for e in ev)} positions equal, "
+               f"{ev_off} off without a near-tie, loss sum rel err "
+               f"{ev_loss:.2e}" if ev else "")
+            + f"; launches {json.dumps({k: sum(x['counts'][k] for x in runs) for k in need})}")
+        if (missing or not same or loss_err > PARALLEL_LOSS_RTOL or bad_params
+                or bad_grads or grad_loss_err > PARALLEL_LOSS_RTOL
+                or ev_off or ev_loss > 1e-3):
+            fail(f"parallel {name}: kernels never launched {missing}, losses "
+                 f"equal on every rank {same}, loss rel err {loss_err}, "
+                 f"parameters off {bad_params}, gradients off {bad_grads} "
+                 f"(their loss rel err {grad_loss_err}), eval off {ev_off} "
+                 f"(loss sum {ev_loss})")
+        stats[name] = dict(step_ms=step_ms, loss_err=loss_err,
+                           max_err=max_err, off=off, grad_resid=grad_resid,
+                           ranks=len(runs))
+    log(f"parallel: {PARALLEL_RANKS} rank processes ran "
+        f"{len(PARALLEL_PLANS)} plans in {ranks_s:.1f}s")
+    nccl_check(torch, pdir)
+    torchrun_train(torch, seed, work_dir, ft)
+    for mode in refs.values():
+        os.unlink(mode)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    return counts, stats
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--samples", type=int, default=25,
                    help="timed runs per kernel (median reported)")
+    p.add_argument("--parallel-rank", nargs=2, metavar=("SPEC", "RANK"),
+                   help=argparse.SUPPRESS)
     args = p.parse_args()
+    if args.parallel_rank:   # one rank of the parallel phase
+        parallel_rank_main(args.parallel_rank[0], int(args.parallel_rank[1]))
+        return
 
     import torch
     if not torch.cuda.is_available():
@@ -4809,6 +5557,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     report.update(sparse_kernel_phase(torch, args.seed, timer, fs, ft))
     torch.cuda.empty_cache()
+    report.update(parallel_kernel_phase(torch, args.seed, timer, fs, ft))
+    torch.cuda.empty_cache()
     work_dir = os.path.join(REPO, ".smoke")
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
@@ -4843,6 +5593,8 @@ def main() -> None:
             torch, args.seed, work_dir, fs, ft, lifecycle=True)
         sparse_counts, sparse_stats = train_path_phase(
             torch, args.seed, work_dir, fs, ft, sparse=True)
+        parallel_counts, parallel_stats = parallel_phase(
+            torch, args.seed, work_dir, fs, ft)
         retrieval_counts, retrieval_stats = retrieval_path_phase(
             torch, args.seed, work_dir, fs, ft)
         data_counts, data_stats = data_path_phase(torch, args.seed, work_dir,
@@ -4881,12 +5633,26 @@ def main() -> None:
         "sparse_adam": ("sparse_adam.cu",
                         "code2vec_tpu/training/sparse_adam.py:86"),
         "select_topk": ("select.cu", "code2vec_tpu/ops/topk.py:99"),
+        "shard_gather": ("sharded.cu", "code2vec_tpu/ops/sharded.py:32"),
+        "shard_scatter_add": ("sharded.cu",
+                              "code2vec_tpu/ops/sharded.py:32"),
+        "shard_local_ids": ("sharded.cu",
+                            "code2vec_tpu/training/step.py:452"),
+        "tp_softmax_xent": ("sharded.cu", "code2vec_tpu/ops/sharded.py:59"),
+        "cp_attention": ("cp_attention.cu",
+                         "code2vec_tpu/ops/attention.py:52"),
+        "cp_attention_backward": ("cp_attention.cu",
+                                  "code2vec_tpu/ops/attention.py:52"),
     }
+    parallel_only = ("shard_gather", "shard_scatter_add", "shard_local_ids",
+                     "tp_softmax_xent", "cp_attention",
+                     "cp_attention_backward")
     entries = []
     for name, (src, replaces) in sources.items():
         r = report[name]
         serving = name in SERVE_KERNELS
-        launches = (retrieval_counts[name]
+        launches = (parallel_counts[name] if name in parallel_only
+                    else retrieval_counts[name]
                     if name in kernels.RETRIEVAL_KERNELS
                     else counts[name] if serving
                     else sparse_counts[name]
@@ -4928,6 +5694,9 @@ def main() -> None:
                           for k, x in r.items()})
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
+        if name not in parallel_only and parallel_counts[name]:
+            # the parallel phase's plans, every rank
+            entry["parallel_launches"] = parallel_counts[name]
         # the data path's runs: train from .c2vb (2 x 64 steps, dense and
         # sparse) and the 8 text steps beside each; the capstone's train
         # and evaluate runs, dense and sparse
@@ -5006,6 +5775,13 @@ def main() -> None:
         f"int8 {train_stats['export_s']['int8']:.2f} s; evaluation during "
         f"training {[round(x) for x in train_stats['eval_eps']]} examples/s; "
         f"int8 top-1 agreement {train_stats['int8_agreement']:.4f}")
+    log("parallel: " + "; ".join(
+        f"{k} {v['step_ms']:.1f} ms a step over {v['ranks']} ranks (loss "
+        f"rel err {v['loss_err']:.2e}, parameters max err "
+        f"{v['max_err']:.3g}, share off {v['off']:.2e}, gradients' largest "
+        f"|g - ref| / |ref| {v['grad_resid']:.2e})"
+        for k, v in parallel_stats.items() if k != "phase_s")
+        + f"; the phase {parallel_stats['phase_s']:.1f}s")
     log(f"retrieval: embed {retrieval_stats['embed_rows_per_s']:.0f} rows/s; "
         f"index-build {retrieval_stats['index_build_s']:.2f}s at 20K rows, "
         f"{index_stats['index_build_1m_s']:.2f}s at 1M rows (load "

@@ -14,6 +14,8 @@ code2vec_tpu_torch.data.preprocess` (data/preprocess.py).
         [--sparse_embedding_update] [--save_w2v F] [--save_t2v F]
         [--no_packed_data | --train_corpus_manifest MANIFEST]
         [--preprocess_workers N] [--prefetch_double_buffer]
+        [--dp N --tp N --cp N [--dist_backend nccl|gloo]
+         [--dist_init file://PATH]]
     python -m code2vec_tpu_torch export --load M --artifact_out DIR
         [--release_scheme int8|fp8_e4m3|fp8_e5m2|int4|float32]
         [--no_quantize]
@@ -42,6 +44,13 @@ code2vec_tpu_torch.data.preprocess` (data/preprocess.py).
 `train`, `evaluate` and `embed` read the packed `.c2vb` beside each
 `.c2v` (written once, on first use, with --preprocess_workers
 processes), and `--no_packed_data` the text itself.
+
+`train` on a dp x tp x cp mesh runs one process a rank, launched with
+`python -m torch.distributed.run --nproc-per-node N -m code2vec_tpu_torch
+train --data P --tp 2 ...` (N = dp x tp x cp); each rank takes
+`cuda:$LOCAL_RANK` unless --device pins one, and `--dist_backend gloo`
+lets ranks share one card. `--gspmd` is accepted and runs the same
+explicit-collective steps (torch has no GSPMD).
 
 `train --save M` saves `M_iter<N>` at the end of every
 `save_every_epochs`-th epoch and of the last (keeping `max_to_keep`) and
@@ -155,9 +164,33 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="`train`: storage dtype of Adam's second moment "
                         "(default bfloat16)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "PyTorch versions of the kernels)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda, on a mesh "
+                        "cuda:$LOCAL_RANK; cpu runs the plain PyTorch "
+                        "versions of the kernels)")
+    p.add_argument("--dp", type=int, default=None,
+                   help="`train`: data-parallel mesh axis size (one "
+                        "process a rank: launch dp x tp x cp processes "
+                        "with python -m torch.distributed.run)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="`train`: tensor-parallel axis size (the tables' "
+                        "rows)")
+    p.add_argument("--cp", type=int, default=None,
+                   help="`train`: context-parallel axis size (shards "
+                        "MAX_CONTEXTS)")
+    p.add_argument("--gspmd", action="store_true",
+                   help="the reference's GSPMD route; torch has none, so "
+                        "the same explicit-collective steps run")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"],
+                   default=None,
+                   help="collectives' backend (default: nccl on cuda, "
+                        "gloo on cpu; gloo on cuda lets ranks share one "
+                        "card)")
+    p.add_argument("--dist_init", dest="dist_init_method", default=None,
+                   metavar="URL",
+                   help="rendezvous (file://PATH or tcp://HOST:PORT) with "
+                        "RANK and WORLD_SIZE in the environment; default: "
+                        "torchrun's environment")
     p.add_argument("--serve_port", type=int, default=None, metavar="PORT",
                    help="HTTP port (default 8800; 0 picks a free port)")
     p.add_argument("--serve_host", default=None, metavar="HOST",
@@ -291,7 +324,8 @@ def config_from_args(argv):
             "FILE (plus --corpus_create/--corpus_add/--corpus_validate "
             "for the mutation/check actions; plain `corpus` lists the "
             "manifest)")
-    config = Config(serve_artifact=args.serve_artifact, device=args.device,
+    config = Config(serve_artifact=args.serve_artifact,
+                    device=args.device or "cuda",
                     export_code_vectors=args.export_code_vectors,
                     train_data_path_prefix=args.data_path, seed=args.seed,
                     use_sparse_embedding_update=args.sparse_embedding_update,
@@ -329,12 +363,16 @@ def config_from_args(argv):
                  "retrieval_topk", "export_artifact_path", "release_scheme",
                  "embeddings_out", "adam_mu_dtype", "adam_nu_dtype",
                  "train_corpus_manifest", "preprocess_workers",
-                 "prefetch_double_buffer"):
+                 "prefetch_double_buffer", "dp", "tp", "cp", "dist_backend",
+                 "dist_init_method"):
         value = getattr(args, name)
         if value is not None:
             setattr(config, name, value)
             explicit.append(name)
     config.explicit_knobs = tuple(sorted(explicit))
+    if args.device is None and config.mesh_size > 1:
+        from code2vec_tpu_torch.parallel.distributed import local_rank
+        config.device = f"cuda:{local_rank()}"
     try:
         config.verify()
     except ValueError as e:

@@ -129,6 +129,19 @@ class Config:
     corpus_create: Optional[str] = None
     corpus_add: Optional[str] = None
     corpus_validate: bool = False
+    # the mesh of the parallel steps (code2vec_tpu/config.py:128-142):
+    # data-, tensor- (the tables' rows) and context-parallel degrees, one
+    # process a rank (the explicit-collective steps: torch has no GSPMD,
+    # so the reference's use_manual_tp_kernels switch has no counterpart)
+    dp: int = 1
+    tp: int = 1
+    cp: int = 1
+    # the collectives' backend: "" follows the device (nccl for cuda,
+    # gloo for cpu); gloo on cuda lets ranks share one card
+    dist_backend: str = ""
+    # the rendezvous (file://PATH or tcp://HOST:PORT); None reads
+    # torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR/PORT)
+    dist_init_method: Optional[str] = None
     # the port's own
     device: str = "cuda"
     verbose_mode: int = 1
@@ -156,6 +169,10 @@ class Config:
     @property
     def model_load_dir(self) -> str:
         return os.path.dirname(self.model_load_path or "")
+
+    @property
+    def mesh_size(self) -> int:
+        return self.dp * self.tp * self.cp
 
     @property
     def code_vector_size(self) -> int:
@@ -222,9 +239,40 @@ class Config:
             raise ValueError(
                 "release_scheme must be one of int8, fp8_e4m3, "
                 "fp8_e5m2, int4, float32.")
+        self._verify_mesh()
         self._verify_mips()
         self._verify_exports()
         self._verify_retrieval()
+
+    def _verify_mesh(self) -> None:
+        # code2vec_tpu/config.py:796-821, and what the port does not run
+        # on a mesh yet (ROADMAP Queue 1 item 6)
+        if self.dp < 1 or self.tp < 1 or self.cp < 1:
+            raise ValueError("Mesh axis sizes dp/tp/cp must be >= 1.")
+        if self.max_contexts % self.cp != 0:
+            raise ValueError(
+                f"max_contexts ({self.max_contexts}) must be divisible by "
+                f"the context-parallel degree cp ({self.cp}).")
+        if self.dist_backend not in ("", "nccl", "gloo"):
+            raise ValueError("dist_backend must be nccl or gloo.")
+        if self.mesh_size == 1:
+            return
+        from code2vec_tpu_torch.parallel.distributed import local_batch_size
+        for batch in (self.train_batch_size, self.test_batch_size):
+            local_batch_size(batch, self.dp)
+        if self.is_saving or self.is_loading:
+            raise ValueError(
+                "--save and --load on a mesh (dp x tp x cp > 1) are not "
+                "ported yet: a checkpoint holds whole tables, and the "
+                "mesh's ranks hold row shards. Train on a mesh without "
+                "them, or on one device with them.")
+        if (self.serve or self.predict or self.serve_artifact
+                or self.embed_out or self.save_w2v or self.save_t2v
+                or self.export_code_vectors or not self.is_training):
+            raise ValueError(
+                "a mesh (dp x tp x cp > 1) runs `train` (with --test) "
+                "only: serving, predict, embed, evaluate and the exports "
+                "run on one device.")
 
     def _verify_exports(self) -> None:
         if self.export_artifact_path and not self.is_loading:

@@ -19,8 +19,15 @@ The code vectors of the valid rows go, in eval order, to a text file
 `.vectors` layout) or to a sink (`code_vectors_sink(vectors, names)`,
 e.g. a retrieval/store.py VectorStoreWriter's `append`), as the
 reference's do (:54-55, :124-132). Left out of the reference's: the `obs`
-spans, counters and gauges, and the multi-host reduction of the counts
-(the port runs on one device).
+spans, counters and gauges.
+
+On a mesh (`mesh`, parallel/mesh.py) every rank runs the eval step on
+its part of each batch; the ranks of model and ctx coordinate 0 score
+their data rank's rows, and the counters are summed over the mesh
+(parallel/distributed.py allreduce_host_scalars) before any ratio is
+taken, as the reference's evaluator sums them over hosts (:172-189). The
+step's loss sum already covers the global batch. Rank 0 alone writes the
+log (its data rank's rows, then the global top-k line).
 """
 
 from __future__ import annotations
@@ -69,12 +76,18 @@ class Evaluator:
     step's EvalOutputs) over a stream of RowBatches on `device`."""
 
     def __init__(self, config, vocabs, eval_step: Callable,
-                 device: torch.device, log_path: Optional[str] = "log.txt"):
+                 device: torch.device, log_path: Optional[str] = "log.txt",
+                 mesh=None):
         self.config = config
         self.vocabs = vocabs
         self.eval_step = eval_step
         self.device = torch.device(device)
-        self.log_path = log_path
+        self.mesh = mesh
+        # the ranks that score rows: one per data rank
+        self.scores_rows = mesh is None or (
+            mesh.coords["model"] == 0 and mesh.coords["ctx"] == 0)
+        self.log_path = log_path if mesh is None or mesh.index == 0 \
+            else None
         self.tables = TargetWordTables(vocabs.target_vocab)
 
     def evaluate(self, params, batches: Iterable,
@@ -103,6 +116,11 @@ class Evaluator:
 
         def consume(batch, host: _HostCopy) -> None:
             out = host.get()
+            totals["batches"] += 1
+            # the step's loss sum covers the global batch on every rank
+            totals["loss_sum"] += float(out["loss_sum"])
+            if not self.scores_rows:
+                return
             valid = np.asarray(batch.example_valid)
             names = batch.target_strings
             if names is None:
@@ -113,11 +131,9 @@ class Evaluator:
             info = batch_prediction_info(self.tables, names, rows)
             topk_metric.update_batch_from_indices(names, rows, info=info)
             subtoken_metric.update_batch_from_indices(names, rows, info=info)
-            totals["loss_sum"] += float(out["loss_sum"])
             totals["loss_rows"] += int(np.sum(
                 valid & (np.asarray(batch.target_index) > oov_floor)))
             totals["predictions"] += len(names)
-            totals["batches"] += 1
             if log_file is not None:
                 self._log_predictions(log_file, names, info)
             if with_vectors:
@@ -152,6 +168,8 @@ class Evaluator:
             else:
                 for batch in batches:
                     consume(batch, step(batch_to_device(batch, self.device)))
+            if self.mesh is not None:
+                self._sum_over_mesh(totals, topk_metric, subtoken_metric)
             if log_file is not None:
                 log_file.write(str(topk_metric.topk_correct_predictions)
                                + "\n")
@@ -166,6 +184,23 @@ class Evaluator:
             subtoken_recall=subtoken_metric.recall,
             subtoken_f1=subtoken_metric.f1,
             loss=totals["loss_sum"] / max(totals["loss_rows"], 1))
+
+    def _sum_over_mesh(self, totals, topk, subtokens) -> None:
+        """The counters of every scoring rank, summed (exact in f64)."""
+        from code2vec_tpu_torch.parallel.distributed import (
+            allreduce_host_scalars,
+        )
+        packed = allreduce_host_scalars(np.concatenate([
+            [totals["loss_rows"], totals["predictions"],
+             topk.nr_predictions, subtokens.nr_true_positives,
+             subtokens.nr_false_positives, subtokens.nr_false_negatives,
+             subtokens.nr_predictions],
+            topk.nr_correct_predictions]), group=self.mesh.host_group)
+        (totals["loss_rows"], totals["predictions"], topk.nr_predictions,
+         subtokens.nr_true_positives, subtokens.nr_false_positives,
+         subtokens.nr_false_negatives, subtokens.nr_predictions) = (
+            int(x) for x in packed[:7])
+        topk.nr_correct_predictions = packed[7:]
 
     def _log_predictions(self, log_file, names, info) -> None:
         # reference: tensorflow_model.py:410-421

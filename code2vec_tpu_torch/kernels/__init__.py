@@ -14,13 +14,21 @@ each beside its plain PyTorch version and its launch count.
     K11 ivf_search                kernels/ivf.py               csrc/ivf_search.cu
     K12 sparse_adam               kernels/sparse_adam.py       csrc/sparse_adam.cu
     K13 select_topk               kernels/select.py            csrc/select.cu
+    K14 shard_gather,             kernels/sharded.py           csrc/sharded.cu
+        shard_scatter_add,
+        shard_local_ids
+    K15 tp_softmax_xent           kernels/sharded.py           csrc/sharded.cu
+    K16 cp_attention              kernels/cp_attention.py      csrc/cp_attention.cu
+    K17 cp_attention_backward     kernels/cp_attention.py      csrc/cp_attention.cu
 
 K3 has a float32-compute mode (the retrieval index's brute-force
 search), counted apart as `blockwise_topk_f32`; K11's int8-row
 instantiation (the MIPS head over an int8 classifier) is counted apart
 from its f32-row one as `ivf_search_int8`. K5's row mode (the sparse
 train step's row gradients) is counted apart as `encoder_backward_rows`.
-K13 is the large-k mode of K3 and K11 (k above 64).
+K13 is the large-k mode of K3 and K11 (k above 64). K14-K17 are the
+parallel steps' (training/step.py ParallelStepBuilder): each runs as
+phases between collectives, and K15, K16 and K17 count every phase.
 
 K1, K3, K4 and K11 read their tables in the stored format of a release
 artifact: f32, int8, fp8 (e4m3 or e5m2) or packed int4. The fp8 and int4
@@ -54,6 +62,12 @@ KERNEL_MODULES = {
     "encoder_backward_rows": "code2vec_tpu_torch.kernels.encoder_backward",
     "sparse_adam": "code2vec_tpu_torch.kernels.sparse_adam",
     "select_topk": "code2vec_tpu_torch.kernels.select",
+    "shard_gather": "code2vec_tpu_torch.kernels.sharded",
+    "shard_scatter_add": "code2vec_tpu_torch.kernels.sharded",
+    "shard_local_ids": "code2vec_tpu_torch.kernels.sharded",
+    "tp_softmax_xent": "code2vec_tpu_torch.kernels.sharded",
+    "cp_attention": "code2vec_tpu_torch.kernels.cp_attention",
+    "cp_attention_backward": "code2vec_tpu_torch.kernels.cp_attention",
 }
 # the fp8 and int4 modes of the kernels that read a release artifact's
 # tables
@@ -68,6 +82,10 @@ KERNEL_COUNTERS = {"masked_attention_backward": "backward_launches",
                    "blockwise_topk_f32": "f32_launches",
                    "ivf_search_int8": "int8_launches",
                    "encoder_backward_rows": "rows_launches",
+                   "shard_scatter_add": "scatter_launches",
+                   "shard_local_ids": "local_ids_launches",
+                   "tp_softmax_xent": "xent_launches",
+                   "cp_attention_backward": "backward_launches",
                    **{f"{k}_{m}": f"{m}_launches"
                       for k in QUANT_MODE_KERNELS for m in ("fp8", "int4")}}
 
@@ -79,6 +97,15 @@ TRAIN_KERNELS = ("context_encoder", "masked_attention", "encoder_backward",
 SPARSE_TRAIN_KERNELS = ("context_encoder", "masked_attention",
                         "encoder_backward_rows", "masked_attention_backward",
                         "softmax_xent", "adam", "sparse_adam")
+# the kernels of the parallel dense and sparse train steps on a mesh with
+# tp > 1 (K14, K15) or cp > 1 (K16, K17; K2 and K6 at cp 1), beside the
+# single-device steps' K1, K5's row mode, K8 and (sparse) K12
+PARALLEL_TRAIN_KERNELS = ("shard_gather", "context_encoder",
+                          "tp_softmax_xent", "encoder_backward_rows", "adam")
+PARALLEL_DENSE_KERNELS = PARALLEL_TRAIN_KERNELS + ("shard_scatter_add",)
+PARALLEL_SPARSE_KERNELS = PARALLEL_TRAIN_KERNELS + ("shard_local_ids",
+                                                    "sparse_adam")
+CP_KERNELS = ("cp_attention", "cp_attention_backward")
 # the kernels of serving an artifact of a given scheme: K1-K4 in the
 # tables' format (K2 has none)
 SERVE_KERNELS = {

@@ -5,7 +5,9 @@ interface, compiled for Hopper (`sm_90a`) at first use into `_build/`
 beside this file (listed in .gitignore). Libraries are keyed by a hash of
 their source, the shared headers and the flags, so an edited kernel is
 rebuilt and an unchanged one is reused. `build_all()` starts one nvcc per
-source at once and waits for all of them.
+source at once and waits for all of them, under a file lock in `_build/`
+so that processes starting together (a mesh's ranks) build each library
+once.
 
 Nothing here runs at import time: a machine without nvcc imports the
 package, runs the plain PyTorch versions on CPU tensors, and only a call
@@ -16,6 +18,7 @@ built.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -26,7 +29,8 @@ from typing import Dict, Iterable, List, Optional
 
 SOURCES = ("encoder", "attention", "topk", "label_logits",
            "encoder_backward", "attention_backward", "softmax_xent", "adam",
-           "kmeans", "ivf_search", "sparse_adam", "select")
+           "kmeans", "ivf_search", "sparse_adam", "select", "sharded",
+           "cp_attention")
 # csrc/gather_probe.cu is no kernel of the port: measurements that
 # scripts/profile_torch_encoder_xent.py,
 # scripts/profile_torch_sparse_adam_attention.py and
@@ -64,11 +68,12 @@ def library_path(name: str) -> str:
 def build_all(names: Iterable[str] = SOURCES) -> List[str]:
     """Compile every library that is not built yet, all nvcc processes in
     parallel; returns the library paths. Raises KernelBuildError with the
-    compiler's output if any build fails."""
+    compiler's output if any build fails. Processes that build at once
+    (the ranks of a mesh) take turns under a file lock, so each library
+    is compiled once."""
     names = list(names)
     paths = [library_path(n) for n in names]
-    todo = [(n, p) for n, p in zip(names, paths) if not os.path.isfile(p)]
-    if not todo:
+    if all(os.path.isfile(p) for p in paths):
         return paths
     nvcc = nvcc_path()
     if nvcc is None:
@@ -76,6 +81,14 @@ def build_all(names: Iterable[str] = SOURCES) -> List[str]:
             "nvcc not found (put the CUDA toolkit on PATH); "
             "the CUDA kernels cannot be built")
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build(nvcc, [(n, p) for n, p in zip(names, paths)
+                      if not os.path.isfile(p)])
+    return paths
+
+
+def _build(nvcc: str, todo) -> None:
     procs = []
     for name, path in todo:
         tmp = f"{path}.{os.getpid()}.tmp"
@@ -93,7 +106,6 @@ def build_all(names: Iterable[str] = SOURCES) -> List[str]:
         os.replace(tmp, path)
     if errors:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
-    return paths
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,8 +14,19 @@ the code-vector outputs (:877-940), predict over the live params with
 the exact head (the port's MIPS head serves an artifact only), the
 model fingerprint, the final `save` and the word2vec exports
 (:1010-1062). Left out: the async committer, preemption and mid-epoch
-cursors (nothing sets `iter_batches`' `skip_rows` yet), the mesh and
-the `obs` metrics.
+cursors (nothing sets `iter_batches`' `skip_rows` yet) and the `obs`
+metrics.
+
+On a dp x tp x cp mesh (config.mesh_size > 1; the reference's mesh parts
+:458-469, :536, :565) each process is one rank: it joins the runtime
+(parallel/distributed.py), pads the dims to tp, draws the whole
+parameters from the seed and keeps its shards, and trains with the
+parallel steps (training/step.py ParallelStepBuilder). Every rank reads
+the same global batches (the same seeded shuffle of the `.c2vb`) and
+keeps its (data, ctx) part; the epoch-end evaluation with --test runs
+the parallel eval step and sums the counters over the mesh. Rank 0 alone
+logs and writes the evaluation log. `--save`/`--load` on a mesh are
+refused (config.py).
 
 The predict part is the counterpart of BucketedPredictMixin (:66-395):
 line parsing, context bucketing, row padding, the (rows, bucket) step
@@ -268,6 +279,7 @@ class Code2VecModel(BucketedPredictMixin):
         self.log = config.log
         self.device = resolve_device(config.device)
         self.initial_epoch = 0
+        self.mesh = self._join_mesh() if config.mesh_size > 1 else None
         if config.is_loading:
             self._resolve_load_path()
         self.vocabs = Code2VecVocabs.load_or_create(config)
@@ -279,6 +291,9 @@ class Code2VecModel(BucketedPredictMixin):
             token_dim=config.token_embeddings_size,
             path_dim=config.path_embeddings_size,
             target_oov_floor=max(tv.pad_index, tv.oov_index))
+        if config.tp > 1:
+            # equal row shards (the reference's from_config_and_vocabs)
+            self.dims = self.dims.padded_to(config.tp)
         generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
         self.module = Code2VecModule(
@@ -286,8 +301,15 @@ class Code2VecModel(BucketedPredictMixin):
             device=self.device, generator=generator,
             dropout_keep_rate=config.dropout_keep_rate)
         self.optimizer = make_optimizer(config)
-        self.state = create_train_state(self.module, self.optimizer, config)
-        self.builder = TrainStepBuilder(self.module, self.optimizer, config)
+        if self.mesh is None:
+            self.state = create_train_state(self.module, self.optimizer,
+                                            config)
+            self.builder = TrainStepBuilder(self.module, self.optimizer,
+                                            config)
+        else:
+            self._shard_params(dict(self.module.named_parameters()))
+            # every rank drew the whole tables and keeps its shards
+            self.module = None
         self.trainer = None
         self._eval_step = None
         self._predict_steps: Dict[Tuple[int, int], object] = {}
@@ -305,11 +327,84 @@ class Code2VecModel(BucketedPredictMixin):
                      f"(epoch {self.initial_epoch}, step {self.state.step})")
         update = ("sparse (touched-rows)"
                   if config.use_sparse_embedding_update else "dense")
-        self.log(f"Model on {self.device}: vocabularies {self.dims.token_vocab_size} "
+        where = (self.device if self.mesh is None else
+                 f"a {self.mesh.plan.describe()} mesh over "
+                 f"{self.mesh.backend} (rank 0 on {self.device})")
+        self.log(f"Model on {where}: vocabularies {self.dims.token_vocab_size} "
                  f"tokens, {self.dims.path_vocab_size} paths, "
                  f"{self.dims.target_vocab_size} targets; "
-                 f"{num_params(self.state)} parameters; {update} embedding "
-                 f"update")
+                 f"{num_params(self.state)} parameters"
+                 f"{'' if self.mesh is None else ' a rank'}; {update} "
+                 f"embedding update")
+
+    # ------------------------------------------------------------- mesh
+
+    def _join_mesh(self):
+        """Join the run's processes (torchrun's environment, or
+        --dist_init) and build this rank's mesh; the plan's product must
+        equal the process count. Ranks other than 0 log nothing."""
+        from code2vec_tpu_torch.parallel import distributed
+        from code2vec_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+        config = self.config
+        plan = MeshPlan.from_config(config)
+        distributed.initialize(config.dist_init_method)
+        if distributed.process_count() != plan.size:
+            raise ValueError(
+                f"the mesh plan {plan.describe()} has {plan.size} ranks but "
+                f"{distributed.process_count()} processes run; launch "
+                f"dp x tp x cp processes (python -m torch.distributed.run "
+                f"--nproc-per-node N)")
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        mesh = make_mesh(plan, device=self.device,
+                         backend=config.dist_backend or None)
+        if mesh.index != 0:
+            config.verbose_mode = 0
+        return mesh
+
+    def _shard_params(self, params) -> None:
+        """This rank's state and steps from the full (padded) parameters
+        (name -> tensor or numpy array), with fresh moments."""
+        from code2vec_tpu_torch.training.state import sharded_train_state
+        from code2vec_tpu_torch.training.step import ParallelStepBuilder
+        self.state = sharded_train_state(
+            {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+             for k, v in params.items()}, self.optimizer, self.config,
+            self.mesh)
+        self.builder = ParallelStepBuilder(self.dims, self.optimizer,
+                                           self.config, self.mesh)
+        self._eval_step = None
+
+    def load_params(self, params) -> None:
+        """Start from these full parameters (name -> numpy array or
+        tensor, the Flax names and shapes, tables padded as the dims
+        are): on a mesh each rank keeps its shards."""
+        if self.mesh is not None:
+            return self._shard_params(params)
+        from code2vec_tpu_torch.weights import params_from_jax
+        self.module.load_state_dict(params_from_jax(
+            {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                           else v) for k, v in params.items()}))
+
+    def _packed_dataset(self, c2v_path: str) -> PackedDataset:
+        """On a mesh, rank 0 packs a `.c2vb` that is not there yet while
+        the others wait, so that no two ranks write one file."""
+        if self.mesh is not None and not os.path.exists(c2v_path + "b"):
+            import torch.distributed as dist
+            if self.mesh.index == 0:
+                super()._packed_dataset(c2v_path)
+            dist.barrier(group=self.mesh.host_group)
+        return super()._packed_dataset(c2v_path)
+
+    def _rank_batches(self, batches: Iterable) -> Iterable:
+        """The stream with each batch cut to this rank's part (every rank
+        reads the same global batches)."""
+        if self.mesh is None:
+            return batches
+        from code2vec_tpu_torch.data.reader import EpochEnd
+        from code2vec_tpu_torch.parallel.mesh import batch_slice
+        return (b if isinstance(b, EpochEnd) else batch_slice(b, self.mesh)
+                for b in batches)
 
     def _resolve_load_path(self) -> None:
         """`--load` names an artifact directory or a save base, which
@@ -389,10 +484,12 @@ class Code2VecModel(BucketedPredictMixin):
             evaluate_fn=((lambda state: self._evaluate_with_params(
                 state.params)) if config.is_testing else None),
             save_fn=self._make_save_fn() if config.is_saving else None,
-            initial_epoch=self.initial_epoch)
+            initial_epoch=self.initial_epoch,
+            host_group=None if self.mesh is None else self.mesh.host_group)
         try:
-            self.state = self.trainer.train(self.state, self._train_batches(),
-                                            dropout_seed(config))
+            self.state = self.trainer.train(
+                self.state, self._rank_batches(self._train_batches()),
+                dropout_seed(config))
         finally:
             # the callbacks hold this model: without them a dropped model
             # frees its device memory at once, not at the next gc pass
@@ -494,9 +591,11 @@ class Code2VecModel(BucketedPredictMixin):
         config = self.config
         config.num_test_examples = self._count_examples(config.test_data_path)
         evaluator = Evaluator(config, self.vocabs, self._get_eval_step(),
-                              self.device, log_path=config.eval_log_path)
+                              self.device, log_path=config.eval_log_path,
+                              mesh=self.mesh)
         if not config.export_code_vectors:
-            return evaluator.evaluate(params, self._eval_batches())
+            return evaluator.evaluate(
+                params, self._rank_batches(self._eval_batches()))
         from code2vec_tpu_torch.retrieval.store import (
             MANIFEST_NAME, VectorStoreWriter,
         )

@@ -77,6 +77,19 @@ class ModelDims:
     def has_padded_targets(self) -> bool:
         return self.real_target_vocab_size < self.target_vocab_size
 
+    def padded_to(self, tp: int) -> "ModelDims":
+        """The table row counts rounded up to a multiple of `tp`, so that
+        the row shards of a tp-way mesh are equal; the padded target rows
+        never win (their logits are -inf), as the reference's
+        (code2vec_tpu/models/code2vec.py:67-80)."""
+        def up(n):
+            return -(-n // tp) * tp
+        return dataclasses.replace(
+            self, token_vocab_size=up(self.token_vocab_size),
+            path_vocab_size=up(self.path_vocab_size),
+            target_vocab_size=up(self.target_vocab_size),
+            real_target_vocab_size=self.real_target_vocab_size)
+
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with f32 results. bf16 operands: their products are exact in

@@ -15,6 +15,11 @@ differ from the reference.
 the contexts and the query, the plain version of kernel K6; its rounding
 points are those of `jax.grad` of the reference (csrc/attention_backward.cu
 lists them).
+
+`context_parallel_attention` and its backward are the reference's
+function with `axis_name` set (the contexts split over the mesh's ctx
+axis): kernels K16 and K17 (kernels/cp_attention.py) between the
+collectives, or K2 and K6 on one ctx rank.
 """
 
 from __future__ import annotations
@@ -22,6 +27,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from code2vec_tpu_torch.kernels.cp_attention import (
+    cp_attention_backward_dt, cp_attention_backward_fs, cp_attention_combine,
+    cp_attention_exp, cp_attention_scores,
+)
 
 
 def masked_single_query_attention(
@@ -69,3 +79,54 @@ def masked_single_query_attention_backward(
           + (ds[:, :, None] * a).to(cd).float()).to(cd)
     da = torch.einsum("bm,bmd->d", ds, t).to(cd).float()
     return dt, da
+
+
+def context_parallel_attention(transformed: torch.Tensor,
+                               attention_param: torch.Tensor,
+                               context_valid_mask: torch.Tensor,
+                               comm=None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """masked_single_query_attention (:28-69 of the reference) with the
+    contexts split over the ranks of `comm` (the mesh's ctx axis; None or
+    one rank: K2 as the single-device step calls it). K16's three phases
+    around a MAX of the scores' max, a SUM of the denominators and a SUM
+    of the code vector's parts; returns (code_vectors (B, D) f32, this
+    rank's attention weights (B, M_local) f32)."""
+    from code2vec_tpu_torch.kernels.attention import masked_attention
+    if comm is None or comm.size == 1:
+        return masked_attention(transformed, attention_param,
+                                context_valid_mask)
+    scores, gmax = cp_attention_scores(transformed, attention_param,
+                                       context_valid_mask)
+    comm.all_reduce(gmax, "max")
+    unnorm, denom = cp_attention_exp(scores, gmax)
+    comm.all_reduce(denom)
+    code_vectors, attention = cp_attention_combine(transformed, unnorm,
+                                                   denom)
+    comm.all_reduce(code_vectors)
+    return code_vectors, attention
+
+
+def context_parallel_attention_backward(
+        transformed: torch.Tensor, attention_param: torch.Tensor,
+        context_valid_mask: torch.Tensor, attention: torch.Tensor,
+        d_code_vectors: torch.Tensor, comm=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of context_parallel_attention from the cotangent of
+    the (global) code vectors: (d_transformed of this rank's contexts,
+    this rank's part of d attention_param, which the caller sums over the
+    ranks). K17's two phases around a SUM of each row's sum of w fs; K6
+    with one rank."""
+    from code2vec_tpu_torch.kernels.attention import (
+        masked_attention_backward,
+    )
+    if comm is None or comm.size == 1:
+        return masked_attention_backward(transformed, attention_param,
+                                         context_valid_mask, attention,
+                                         d_code_vectors)
+    fs, wfs = cp_attention_backward_fs(transformed, attention,
+                                       d_code_vectors)
+    comm.all_reduce(wfs)
+    return cp_attention_backward_dt(transformed, attention_param,
+                                    context_valid_mask, attention, fs, wfs,
+                                    d_code_vectors)

@@ -42,7 +42,7 @@ class Trainer:
     def __init__(self, config, train_step: Callable, device,
                  evaluate_fn: Optional[Callable] = None,
                  save_fn: Optional[Callable] = None,
-                 initial_epoch: int = 0):
+                 initial_epoch: int = 0, host_group=None):
         self.config = config
         self.train_step = train_step
         self.device = torch.device(device)
@@ -50,6 +50,8 @@ class Trainer:
         self.evaluate_fn = evaluate_fn
         self.save_fn = save_fn
         self.initial_epoch = initial_epoch
+        # a mesh's gloo group (None on one device)
+        self.host_group = host_group
         # the epoch count reached (initial + passes seen)
         self.final_epoch = initial_epoch
         # per finished epoch: its batches' losses
@@ -101,6 +103,7 @@ class Trainer:
             for item in items:
                 if isinstance(item, EpochEnd):
                     drain("epoch boundary")
+                    self._check_lockstep(batch_num)
                     epoch = self.initial_epoch + item.epoch
                     self.epoch_losses.append(epoch_losses)
                     mean = (float(np.mean(epoch_losses)) if epoch_losses
@@ -141,3 +144,13 @@ class Trainer:
             items.close()
         self.final_epoch = epoch
         return state
+
+    def _check_lockstep(self, batch_num: int) -> None:
+        if self.host_group is None:
+            return
+        from code2vec_tpu_torch.parallel.distributed import agree_scalar
+        low = agree_scalar(batch_num, "min", self.host_group)
+        high = agree_scalar(batch_num, "max", self.host_group)
+        if low != high:
+            raise RuntimeError(f"the mesh's ranks ran {low} to {high} steps "
+                               f"by this epoch's end; they must run the same")

@@ -8,6 +8,8 @@ state is a HybridOptState: K8's AdamState over the dense subtree and
 row slots for the token and path tables (training/sparse_adam.py). The
 state is mutable: the train step updates the parameters and the moments
 in place (kernels K8 and K12), where the reference returns a new pytree.
+`sharded_train_state` is a mesh rank's state: its row shards of the
+tables with their moments or row slots, the small leaves whole.
 """
 
 from __future__ import annotations
@@ -102,3 +104,42 @@ def create_train_state(module: Code2VecModule, optimizer: AdamHyper,
 
 def num_params(state: TrainState) -> int:
     return sum(p.numel() for p in state.params.values())
+
+
+def sharded_train_state(params, optimizer: AdamHyper, config, mesh,
+                        opt_state=None, step: int = 0) -> TrainState:
+    """A mesh rank's state (the parallel steps', training/step.py
+    ParallelStepBuilder): its part of the full parameters `params` (name
+    -> tensor or numpy array, the tables padded to a multiple of tp,
+    weights.shard_params) as plain tensors on its device, and of
+    `opt_state` (an AdamState or HybridOptState over the full
+    parameters) where given, else zero moments (row slots for the
+    tables with config.use_sparse_embedding_update)."""
+    from code2vec_tpu_torch.weights import shard_opt_state, shard_params
+    dev = mesh.device
+    shards = {k: v.to(dev) for k, v in shard_params(
+        params, mesh.plan, mesh.index).items()}
+    if opt_state is not None:
+        opt = _to_device(shard_opt_state(opt_state, mesh.plan, mesh.index),
+                         dev)
+        return TrainState(step=step, params=shards, opt_state=opt)
+    if not uses_sparse_update(config):
+        return TrainState(step=step, params=shards,
+                          opt_state=_adam_state(optimizer, shards))
+    tables, dense = split_sparse_dense(shards)
+    return TrainState(step=step, params=shards, opt_state=HybridOptState(
+        dense=_adam_state(optimizer, dense),
+        slots={k: init_slots(p, optimizer.mu_dtype)
+               for k, p in tables.items()}))
+
+
+def _to_device(opt_state, device):
+    if isinstance(opt_state, HybridOptState):
+        from code2vec_tpu_torch.training.sparse_adam import RowAdamSlots
+        return HybridOptState(
+            dense=_to_device(opt_state.dense, device),
+            slots={k: RowAdamSlots(mu=s.mu.to(device), nu=s.nu.to(device))
+                   for k, s in opt_state.slots.items()})
+    return AdamState(count=opt_state.count,
+                     mu={k: v.to(device) for k, v in opt_state.mu.items()},
+                     nu={k: v.to(device) for k, v in opt_state.nu.items()})

@@ -1,12 +1,17 @@
-"""Carry weights and optimizer state across frameworks as numpy arrays.
+"""Carry weights and optimizer state across frameworks as numpy arrays,
+and cut them into the parts the ranks of a mesh hold.
 
 Parameter names and shapes are the Flax tree's (code2vec_tpu/models/
-code2vec.py:110-126), so nothing is transposed.
+code2vec.py:110-126), so nothing is transposed. On a dp x tp x cp mesh
+(parallel/mesh.py) the three tables are row-split over `model` and the
+other leaves replicated: `shard_params` / `shard_opt_state` cut a full
+tree (the JAX package's numpy parameters, or the port's) into a rank's
+part, and `unshard_params` joins the model ranks' parts again.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,3 +111,64 @@ def opt_state_from_jax(opt_state):
 
     return AdamState(count=int(np.asarray(leaf.count)), mu=tensors(leaf.mu),
                      nu=tensors(leaf.nu))
+
+
+# the leaves a mesh row-splits over `model` (parallel/mesh.py PARAM_SPECS)
+SHARDED_NAMES = ("token_embedding", "path_embedding", "target_embedding")
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else _tensor(a)
+
+
+def shard_params(tree: Mapping, plan, rank: int) -> Dict[str, torch.Tensor]:
+    """The part of a full parameter tree (name -> numpy array or tensor,
+    tables padded to a multiple of the plan's tp) that mesh rank `rank`
+    holds: the row shard of its model coordinate of each table, the
+    other leaves whole; each a contiguous copy in its own dtype."""
+    from code2vec_tpu_torch.parallel.mesh import AXIS_MODEL, shard_slice
+    m = plan.coords(rank)[AXIS_MODEL]
+    out = {}
+    for name, a in tree.items():
+        t = _as_tensor(a)
+        if name in SHARDED_NAMES:
+            t = t[shard_slice(t.shape[0], plan.tp, m)]
+        out[name] = t.contiguous().clone()
+    return out
+
+
+def unshard_params(shards: Sequence[Mapping], plan) -> Dict[str, torch.Tensor]:
+    """The full tree from the parts of the ranks of model coordinates
+    0 .. tp-1 (in that order): the tables' row shards joined, the other
+    leaves from the first."""
+    if len(shards) != plan.tp:
+        raise ValueError(f"{len(shards)} parts for tp={plan.tp}")
+    return {name: (torch.cat([_as_tensor(s[name]) for s in shards])
+                   if name in SHARDED_NAMES else _as_tensor(shards[0][name]))
+            for name in shards[0]}
+
+
+def shard_opt_state(opt_state, plan, rank: int):
+    """An optimizer state over full parameters (training.state.AdamState,
+    or the sparse step's HybridOptState) as mesh rank `rank` holds it:
+    the tables' moments (and row slots) row-split as shard_params splits
+    the tables."""
+    from code2vec_tpu_torch.training.sparse_adam import (
+        HybridOptState, RowAdamSlots,
+    )
+    from code2vec_tpu_torch.training.state import AdamState
+    if isinstance(opt_state, HybridOptState):
+        return HybridOptState(
+            dense=shard_opt_state(opt_state.dense, plan, rank),
+            slots={k: RowAdamSlots(mu=_row_shard(s.mu, plan, rank),
+                                   nu=_row_shard(s.nu, plan, rank))
+                   for k, s in opt_state.slots.items()})
+    return AdamState(count=opt_state.count,
+                     mu=shard_params(opt_state.mu, plan, rank),
+                     nu=shard_params(opt_state.nu, plan, rank))
+
+
+def _row_shard(t: torch.Tensor, plan, rank: int) -> torch.Tensor:
+    from code2vec_tpu_torch.parallel.mesh import AXIS_MODEL, shard_slice
+    m = plan.coords(rank)[AXIS_MODEL]
+    return t[shard_slice(t.shape[0], plan.tp, m)].contiguous().clone()

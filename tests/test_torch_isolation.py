@@ -104,7 +104,14 @@ def _cuda_calls():
     def t(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device="cuda")
 
+    phases = _parallel_phase_calls()
     return {
+        "shard_gather": phases["shard_gather"],
+        "shard_scatter_add": phases["shard_scatter_add"],
+        "shard_local_ids": phases["shard_local_ids"],
+        "tp_softmax_xent": phases["tp_xent_max"],
+        "cp_attention": phases["cp_attention_scores"],
+        "cp_attention_backward": phases["cp_attention_backward_fs"],
         "context_encoder": lambda: context_encoder(
             t((50, 128), torch.int8), t((50, 1)), t((40, 128), torch.int8),
             t((40, 1)), t((384, 384)), t((2, 3), torch.int32),
@@ -186,6 +193,67 @@ def _cuda_calls():
             t((8,), torch.int64), 3, 10, scales=t((50,)),
             global_ids=t((50,), torch.int32), max_len=20),
     }
+
+
+def _parallel_phase_calls():
+    """One call per wrapper of K14-K17's phases, on fake CUDA tensors."""
+    from code2vec_tpu_torch.kernels import cp_attention as k16
+    from code2vec_tpu_torch.kernels import sharded as k15
+
+    def t(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="cuda")
+
+    i32 = torch.int32
+    return {
+        "shard_gather": lambda: k15.shard_gather(
+            t((50, 128)), t((2, 3), i32), 50),
+        "shard_scatter_add": lambda: k15.shard_scatter_add(
+            t((50, 128)), t((6,), i32), t((6, 128), torch.bfloat16), 50),
+        "shard_local_ids": lambda: k15.shard_local_ids(
+            t((6,), i32), 50, 50),
+        "tp_xent_max": lambda: k15.tp_xent_max(t((2, 70)), 70, 65),
+        "tp_xent_sum": lambda: k15.tp_xent_sum(
+            t((2, 70)), 70, 65, t((2,)), t((2,), i32), 70),
+        "tp_xent_grad": lambda: k15.tp_xent_grad(
+            t((2, 70)), 65, t((2,)), t((2,)), t((2,), i32), t((2,)), 70,
+            4),
+        "cp_attention_scores": lambda: k16.cp_attention_scores(
+            t((2, 3, 384), torch.bfloat16), t((384,)), t((2, 3))),
+        "cp_attention_exp": lambda: k16.cp_attention_exp(
+            t((2, 3)), t((2,))),
+        "cp_attention_combine": lambda: k16.cp_attention_combine(
+            t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2,))),
+        "cp_attention_backward_fs": lambda: k16.cp_attention_backward_fs(
+            t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2, 384))),
+        "cp_attention_backward_dt": lambda: k16.cp_attention_backward_dt(
+            t((2, 3, 384), torch.bfloat16), t((384,)), t((2, 3)),
+            t((2, 3)), t((2, 3)), t((2,)), t((2, 384))),
+    }
+
+
+PARALLEL_PHASES = ("shard_gather", "shard_scatter_add", "shard_local_ids",
+                   "tp_xent_max", "tp_xent_sum", "tp_xent_grad",
+                   "cp_attention_scores", "cp_attention_exp",
+                   "cp_attention_combine", "cp_attention_backward_fs",
+                   "cp_attention_backward_dt")
+
+
+@pytest.mark.parametrize("name", PARALLEL_PHASES)
+def test_parallel_phase_wrapper_raises_without_kernel_library(
+        name, tmp_path, monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from code2vec_tpu_torch.kernels import cp_attention, sharded
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "empty"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: None)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(sharded, "_fns", {})
+    monkeypatch.setattr(cp_attention, "_fns", {})
+    before = kernels.launch_counts()
+    with FakeTensorMode():
+        with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+            _parallel_phase_calls()[name]()
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("name", sorted(kernels.KERNEL_MODULES))

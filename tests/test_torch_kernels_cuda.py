@@ -37,6 +37,11 @@ Tolerances, and why:
 - K12: K8's (rtol 1e-6, atol 1e-9; a bf16 mu equal or one bf16 step
   apart), on gradient rows whose duplicate sums are exact in f32 in any
   order; untouched rows and reruns bit-equal.
+- K14: the gather and the local ids exact; the scatter-add's f32
+  atomics at rtol 1e-5 (a row's terms in any order). K15: the max exact,
+  the sums and the gradient's hi + lo f32 (rtol 1e-5). K16/K17: the
+  weights and exp at rtol 1e-6, sums at F32SUM, fs, dT and da within one
+  bf16 step (an f32 sum in another order moves a bf16 rounding).
 - The fp8 and int4 modes of K1, K3, K4 and K11: the int8 mode's
   tolerances (every fp8 and int4 value decodes exactly, to f32 and to
   bf16); all 256 fp8 codes of each format exactly.
@@ -2115,3 +2120,175 @@ def test_attention_backward_plan_fits_the_kernels_layout(dev):
     want_dt, want_da = masked_attention_backward_plain(t, a, mask, attn, dcv)
     _step_close(dt, want_dt, "dT")
     _step_close(da, want_da, "da")
+
+
+# ----------------------------------------------------------- K14 - K17
+
+def _within_step(got, want):
+    """Within one bf16 step at the compared tensor's largest value."""
+    tol = 2.0 ** -8 * float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("rows,d,n", [(50, 128, 7), (650569, 128, 409600),
+                                      (33, 12, 100), (1, 8, 1)])
+def test_shard_gather_scatter_local_ids_kernels(dev, rows, d, n):
+    """K14 against its plain versions: ids below, inside and past this
+    rank's rows (two shards of `rows`), duplicates in the scatter-add;
+    odd widths take the scalar path."""
+    from code2vec_tpu_torch.kernels import sharded as k15
+    rng = np.random.default_rng(rows + n)
+    table = torch.from_numpy(rng.standard_normal((rows, d)).astype(
+        np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(-3, 2 * rows + 3, n).astype(
+        np.int32)).to(dev)
+    for offset in (0, rows):
+        before = kernels.launch_counts()
+        got = k15.shard_gather(table, ids, offset)
+        assert kernels.launch_counts()["shard_gather"] == \
+            before["shard_gather"] + 1
+        assert torch.equal(got, k15.shard_gather_plain(table, ids, offset))
+        for dtype in (torch.float32, torch.bfloat16):
+            rows_g = torch.from_numpy(rng.standard_normal((n, d)).astype(
+                np.float32)).to(dev).to(dtype)
+            acc = torch.zeros_like(table)
+            k15.shard_scatter_add(acc, ids, rows_g, offset)
+            want = torch.zeros_like(table)
+            k15.shard_scatter_add_plain(want, ids, rows_g, offset)
+            # atomics add a row's terms in any order
+            _close(acc, want, dict(rtol=1e-5, atol=1e-5))
+        assert torch.equal(k15.shard_local_ids(ids, offset, rows),
+                           k15.shard_local_ids_plain(ids, offset, rows))
+
+
+@pytest.mark.parametrize("b,v,n_valid", [(1024, 130623, 130623),
+                                         (1024, 130623, 130620),
+                                         (3, 7, 0), (5, 70, 65)])
+@pytest.mark.parametrize("floor", [False, True])
+def test_tp_xent_passes_kernel(dev, b, v, n_valid, floor):
+    """K15's three passes against their plain versions: padded columns
+    (none, some, all of this rank's), labels in and outside the slice,
+    an invalid row, non-finite logits in floor mode."""
+    from code2vec_tpu_torch.kernels import sharded as k15
+    rng = np.random.default_rng(b * v + n_valid)
+    x = (3 * rng.standard_normal((b, v))).astype(np.float32)
+    if floor:
+        x[0, :2] = [np.inf, np.nan]
+    logits = torch.from_numpy(x).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 2 * v, b).astype(np.int32)
+                              ).to(dev)
+    valid = torch.ones(b, device=dev)
+    valid[b // 2] = 0
+    offset = v
+    mx = k15.tp_xent_max(logits, v, n_valid, floor)
+    _close(mx, k15.tp_xent_max_plain(logits, v, n_valid, floor),
+           dict(rtol=0, atol=0))
+    st = k15.tp_xent_sum(logits, v, n_valid, mx, labels, offset, floor)
+    _close(st, k15.tp_xent_sum_plain(logits, v, n_valid, mx, labels,
+                                     offset, floor),
+           dict(rtol=1e-5, atol=1e-6))
+    if floor or n_valid == 0:
+        return
+    got = k15.tp_xent_grad(logits, n_valid, mx, st[0], labels, valid,
+                           offset, 2 * b)
+    want = k15.tp_xent_grad_plain(logits, n_valid, mx, st[0], labels, valid,
+                                  offset, 2 * b)
+    # the hi + lo value of each element: f32 exp and division
+    _close(got[0].float() + got[1].float(), want[0].float()
+           + want[1].float(), dict(rtol=1e-5, atol=1e-9))
+    assert (got[:, :, n_valid:] == 0).all()
+
+
+@pytest.mark.parametrize("b,m,d", [(1024, 100, 384), (64, 50, 384),
+                                   (3, 1, 384), (5, 7, 128)])
+def test_cp_attention_phases_kernel(dev, b, m, d):
+    """K16's and K17's phases against their plain versions: an
+    all-invalid row, one context a row; every sum in a fixed order, so
+    two runs are bit-equal."""
+    from code2vec_tpu_torch.kernels import cp_attention as k16
+    g = torch.Generator(device=dev).manual_seed(b * m + d)
+    t = torch.tanh(torch.randn((b, m, d), generator=g, device=dev)).to(
+        torch.bfloat16)
+    a = torch.randn((d,), generator=g, device=dev) * 0.25
+    mask = (torch.rand((b, m), generator=g, device=dev) > 0.2).float()
+    mask[0] = 0.0
+    dcv = torch.randn((b, d), generator=g, device=dev)
+    s, mx = k16.cp_attention_scores(t, a, mask)
+    s2, mx2 = k16.scores_plain(t, a, mask)
+    assert torch.equal(torch.isinf(s), torch.isinf(s2))
+    _close(torch.where(torch.isinf(s2), 0, s), torch.where(
+        torch.isinf(s2), 0, s2), F32SUM)
+    u, den = k16.cp_attention_exp(s, mx)
+    u2, den2 = k16.exp_plain(s, mx)
+    _close(u, u2, dict(rtol=1e-6, atol=0))
+    _close(den, den2, dict(rtol=1e-5, atol=0))
+    cv, attn = k16.cp_attention_combine(t, u, den)
+    cv2, attn2 = k16.combine_plain(t, u, den)
+    _close(cv, cv2, F32SUM)
+    _close(attn, attn2, dict(rtol=1e-6, atol=0))
+    assert cv[0].abs().max() == 0 and attn[0].abs().max() == 0
+    fs, wfs = k16.cp_attention_backward_fs(t, attn, dcv)
+    fs2, wfs2 = k16.backward_fs_plain(t, attn, dcv)
+    _within_step(fs, fs2)
+    _close(wfs, wfs2, F32SUM)
+    dt, da = k16.cp_attention_backward_dt(t, a, mask, attn, fs, wfs, dcv)
+    dt2, da2 = k16.backward_dt_plain(t, a, mask, attn, fs, wfs, dcv)
+    _within_step(dt, dt2)
+    _within_step(da, da2)
+    again = k16.cp_attention_backward_dt(t, a, mask, attn, fs, wfs, dcv)
+    assert torch.equal(dt, again[0]) and torch.equal(da, again[1])
+    assert dt[0].abs().max() == 0
+
+
+def test_parallel_step_of_one_rank_matches_single_device(dev):
+    """The parallel dense and sparse steps on a mesh of one rank (every
+    collective a no-op) launch K14, K15 and K1-K8/K12 and give the
+    single-device step's loss and parameters (the same kernels on the
+    same values, but for K14's gather before K1 and K15 for K7)."""
+    from code2vec_tpu_torch.models.code2vec import Code2VecModule, ModelDims
+    from code2vec_tpu_torch.parallel.mesh import local_mesh
+    from code2vec_tpu_torch.training.state import (
+        create_train_state, make_optimizer, sharded_train_state,
+    )
+    from code2vec_tpu_torch.training.step import (
+        ParallelStepBuilder, TrainStepBuilder,
+    )
+    dims = ModelDims(5000, 3000, 2000, target_oov_floor=1)
+    rng = np.random.default_rng(3)
+    b, m = 64, 50
+    batch = [torch.from_numpy(x).to(dev) for x in (
+        rng.integers(0, 5000, (b, m)).astype(np.int32),
+        rng.integers(0, 3000, (b, m)).astype(np.int32),
+        rng.integers(0, 5000, (b, m)).astype(np.int32),
+        (rng.random((b, m)) > 0.2).astype(np.float32),
+        rng.integers(2, 2000, b).astype(np.int32), np.ones(b, bool))]
+    drop = torch.from_numpy(rng.random((b, m, 384)) < 0.75).to(dev)
+    for sparse in (False, True):
+        config = Config(use_sparse_embedding_update=sparse)
+        hyper = make_optimizer(config)
+        g = torch.Generator(device=dev).manual_seed(5)
+        module = Code2VecModule(dims, device=dev, generator=g)
+        full = {k: p.detach().clone() for k, p in module.named_parameters()}
+        state = create_train_state(module, hyper, config)
+        step = TrainStepBuilder(module, hyper, config).make_train_step(state)
+        mesh_state = sharded_train_state(full, hyper, config,
+                                         local_mesh(dev))
+        mesh_step = ParallelStepBuilder(
+            dims, hyper, config, local_mesh(dev)).make_train_step(mesh_state)
+        before = kernels.launch_counts()
+        for _ in range(2):
+            state, loss = step(state, *batch, 0, dropout_mask=drop)
+            mesh_state, mesh_loss = mesh_step(mesh_state, *batch, 0,
+                                              dropout_mask=drop)
+            _close(mesh_loss, loss, dict(rtol=1e-5, atol=0))
+        counts = kernels.launch_counts()
+        for name in ("shard_gather", "tp_softmax_xent",
+                     "encoder_backward_rows",
+                     "shard_local_ids" if sparse else "shard_scatter_add"):
+            assert counts[name] > before[name], name
+        for n, p in state.params.items():
+            diff = (mesh_state.params[n] - p.detach()).abs()
+            assert float(diff.max()) <= 2 * 2 * config.learning_rate, n
+            assert int((diff > 1e-5 + 1e-5 * p.detach().abs()).sum()) <= \
+                0.02 * p.numel(), n
