@@ -163,10 +163,14 @@ a C++ compiler. Phases, each fatal on failure:
    examples/s; compile_corpus on 4 workers row for row against the pack
    of the serial preprocess's text.
 18. Parallel kernels (run after 10): K14 (gather, scatter-add, local ids
-   of the tp-2 token shard, 409,600 ids), K15 (its three passes over the
-   1024 x 130,623 tp-2 slice of the logits) and K16/K17 (the cp-2
+   of the tp-2 token shard, 409,600 ids), K15 (its stats and gradient
+   passes over the 1024 x 130,623 tp-2 slice of the logits, beside
+   F.cross_entropy's forward and backward; the stats pass alone as the
+   eval step runs it, beside torch.logsumexp) and K16/K17 (the cp-2
    contexts, 1024 x 100 x 384) against their plain versions, timed beside
-   them and a PyTorch call of the same function.
+   them and a PyTorch call of the same function; K15's and K16's edge
+   cases (small odd widths, a wholly padded slice, floor mode, one
+   context a row) and second calls bit-equal.
 19. Parallel path (run after 11): the dense and sparse single-device steps
    on the card as the reference (2 steps at B 1024, M 200, keep 0.75 with
    injected masks, seeded full-width weights, the tables padded to tp 2),
@@ -5051,6 +5055,88 @@ def parallel_rank_main(spec_path: str, rank: int) -> None:
     distributed.shutdown()
 
 
+def k15_edges(torch, k15, g) -> None:
+    """K15's passes against their plain versions where the flagship
+    slice does not reach: a small odd width (rows at every 16-byte start
+    alignment), a wholly padded rank slice in train and floor mode, an
+    all-invalid row, floor mode's non-finite logits at a padded row
+    stride; every call twice, the same bits."""
+    for b, v, n_valid, extra, floor in ((5, 13, 13, 0, False),
+                                        (5, 13, 11, 3, True),
+                                        (4, 40000, 0, 0, False),
+                                        (4, 40000, 0, 0, True),
+                                        (6, 70, 65, 0, False)):
+        x = torch.randn((b, v + extra), generator=g, device="cuda") * 3
+        if floor:
+            x[0, :3] = torch.tensor([math.inf, math.nan, -math.inf])
+        labels = torch.randint(0, 2 * v, (b,), generator=g, device="cuda",
+                               dtype=torch.int32)
+        valid = torch.ones(b, device="cuda")
+        valid[b // 2] = 0
+        st = k15.tp_xent_stats(x, v, n_valid, labels, v, floor)
+        want = k15.tp_xent_stats_plain(x, v, n_valid, labels, v, floor)
+        err, ok = max_err(st, want, TOL_F32SUM)
+        same = torch.equal(st, k15.tp_xent_stats(x, v, n_valid, labels, v,
+                                                 floor))
+        if not floor and not extra:
+            gr = k15.tp_xent_grad(x, n_valid, st[0], st[1], labels, valid,
+                                  v, 2 * b)
+            gw = k15.tp_xent_grad_plain(x, n_valid, st[0], st[1], labels,
+                                        valid, v, 2 * b)
+            e2, ok2 = max_err(gr[0].float() + gr[1].float(),
+                              gw[0].float() + gw[1].float(), (1e-9, 1e-5))
+            err, ok = max(err, e2), ok and ok2 and bool(
+                (gr[:, :, n_valid:] == 0).all())
+            same = same and torch.equal(gr, k15.tp_xent_grad(
+                x, n_valid, st[0], st[1], labels, valid, v, 2 * b))
+        if not (ok and same):
+            fail(f"K15 edge case b {b} v {v} n_valid {n_valid} stride "
+                 f"{v + extra} floor {floor}: max error {err}, a second "
+                 f"call the same bits {same}")
+    log("K15 edge cases (odd widths 13 and 70, a wholly padded slice of "
+        "40,000 in train and floor mode, non-finite logits in floor mode "
+        "at a padded stride, an all-invalid row): within TOL_F32SUM "
+        "(gradient rtol 1e-5), second calls bit-equal")
+
+
+def k16_edges(torch, k16, g) -> None:
+    """K16's phases against their plain versions at one context a row,
+    a row with no valid context, width 128, and rows of 300 contexts;
+    every call twice, the same bits."""
+    for b, m, d in ((3, 1, 384), (5, 7, 128), (64, 50, 384),
+                    (4, 300, 384)):
+        t = torch.tanh(torch.randn((b, m, d), generator=g,
+                                   device="cuda")).to(torch.bfloat16)
+        a = torch.randn((d,), generator=g, device="cuda") * 0.25
+        mask = (torch.rand((b, m), generator=g, device="cuda") > 0.2
+                ).float()
+        mask[0] = 0.0
+        s, st = k16.cp_attention_scores(t, a, mask)
+        cv, attn = k16.cp_attention_combine(t, s, st[0], st[1])
+        s2, st2 = k16.scores_plain(t, a, mask)
+        _, attn2 = k16.combine_plain(t, s, st[0], st[1])
+        live = torch.isfinite(s2)
+        errs = [max_err(torch.where(live, s, 0.0),
+                        torch.where(live, s2, 0.0), TOL_F32SUM),
+                max_err(st, st2, TOL_F32SUM),
+                max_err(attn, attn2, TOL_F32SUM),
+                max_err(cv, (attn.to(torch.bfloat16).float()[:, :, None]
+                             * t.float()).sum(dim=1), TOL_F32SUM)]
+        s3, st3 = k16.cp_attention_scores(t, a, mask)
+        cv3, attn3 = k16.cp_attention_combine(t, s3, st3[0], st3[1])
+        same = all(torch.equal(x, y) for x, y in ((s, s3), (st, st3),
+                                                   (cv, cv3), (attn, attn3)))
+        if not (all(ok for _, ok in errs) and same
+                and torch.equal(live, torch.isfinite(s))
+                and cv[0].abs().max() == 0):
+            fail(f"K16 edge case b {b} m {m} d {d}: max errors "
+                 f"{[e for e, _ in errs]}, a second call the same bits "
+                 f"{same}")
+    log("K16 edge cases (one context a row, width 128, B 64 x 50, rows of "
+        "300 contexts, a row with no valid context): within TOL_F32SUM, "
+        "second calls bit-equal")
+
+
 def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
     """K14-K17 against their plain versions on the card at the shapes the
     parallel path gives them (tp 2: the token shard 650,569 x 128 and the
@@ -5062,6 +5148,7 @@ def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
 
     from code2vec_tpu_torch.kernels import cp_attention as k16
     from code2vec_tpu_torch.kernels import sharded as k15
+    from code2vec_tpu_torch.kernels.select import padded_width
     dims = parallel_dims(fs)
     g = torch.Generator(device="cuda").manual_seed(seed + 13)
     b, m, td, d = ft.rows, ft.contexts, fs.token_dim, fs.code_dim
@@ -5131,7 +5218,7 @@ def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
          lambda: torch.where(live, local, torch.full_like(local, rows))),
         2 * n * 4, n)
     del table, grows, grows_f32, got, local, clamped, live
-    # K15: the three passes over the tp-2 slice of the logits
+    # K15: the stats and gradient passes over the tp-2 slice of the logits
     v = dims.target_vocab_size // 2
     n_valid = k15.valid_columns(v, v, dims.real_target_vocab_size)
     logits = torch.randn((b, v), generator=g, device="cuda") * 3
@@ -5140,16 +5227,23 @@ def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
     valid = torch.ones(b, device="cuda")
     valid[1] = 0
 
-    def passes(max_fn, sum_fn, grad_fn):
-        mx = max_fn(logits, v, n_valid)
-        st = sum_fn(logits, v, n_valid, mx, labels, v)
-        return mx, st, grad_fn(logits, n_valid, mx, st[0], labels, valid, v,
-                               2 * b)
+    def passes(stats_fn, grad_fn):
+        # one rank's merged stats are its own, bit for bit
+        # (merge_xent_stats), so the function timed is the two passes
+        st = stats_fn(logits, v, n_valid, labels, v)
+        return st, grad_fn(logits, n_valid, st[0], st[1], labels, valid, v,
+                           2 * b)
 
-    got = passes(k15.tp_xent_max, k15.tp_xent_sum, k15.tp_xent_grad)
-    want = passes(k15.tp_xent_max_plain, k15.tp_xent_sum_plain,
-                  k15.tp_xent_grad_plain)
-    hi_lo = [(x[0].float() + x[1].float()) for x in (got[2], want[2])]
+    got = passes(k15.tp_xent_stats, k15.tp_xent_grad)
+    want = passes(k15.tp_xent_stats_plain, k15.tp_xent_grad_plain)
+    merged = k15.merge_xent_stats(got[0].view(1, 3, b))
+    again = passes(k15.tp_xent_stats, k15.tp_xent_grad)
+    if not all(torch.equal(x, y) for x, y in zip(
+            (got[0][0], got[0][1], got[0][2]), merged)) \
+            or not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail("K15 tp_softmax_xent: one rank's merged stats are not its "
+             "own, or a second call wrote other bits")
+    hi_lo = [(x[0].float() + x[1].float()) for x in (got[1], want[1])]
     # the gradient's entries are (p - onehot) / 2048, most of them far
     # below TOL_F32SUM's atol: held at rtol 1e-4 (hi + lo carry ~17 bits)
     # with an atol of 1e-6 of its largest value
@@ -5160,20 +5254,46 @@ def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
              f"{g_tol})")
     log(f"K15 tp_softmax_xent gradient (hi + lo): max_abs_err {g_err:.3g} "
         f"(tol {g_tol[0]:.3g}, {g_tol[1]}) of max "
-        f"{float(hi_lo[1].abs().max()):.3g}")
+        f"{float(hi_lo[1].abs().max()):.3g}; a second call bit-equal")
+    k15_edges(torch, k15, g)
     lab = (labels.long() - v).clamp(0, v - 1)
+    xg = logits.clone().requires_grad_()
+
+    def xent_library():
+        # F.cross_entropy's forward and backward over the slice
+        xg.grad = None
+        F.cross_entropy(xg, lab).backward()
+
     report["tp_softmax_xent"] = entry(
-        "K15 tp_softmax_xent 1024 x 130,623 slice (max, sum, gradient)",
-        [(got[0], want[0]), (got[1], want[1])], TOL_F32SUM,
-        (lambda: passes(k15.tp_xent_max, k15.tp_xent_sum, k15.tp_xent_grad),
-         lambda: passes(k15.tp_xent_max_plain, k15.tp_xent_sum_plain,
-                        k15.tp_xent_grad_plain),
-         lambda: F.cross_entropy(logits, lab)),
+        "K15 tp_softmax_xent 1024 x 130,623 slice (stats, gradient)",
+        [(got[0], want[0])], TOL_F32SUM,
+        (lambda: passes(k15.tp_xent_stats, k15.tp_xent_grad),
+         lambda: passes(k15.tp_xent_stats_plain, k15.tp_xent_grad_plain),
+         xent_library),
         2 * logits.numel() * 4 + 2 * logits.numel() * 2 + 4 * b * 4,
         6.0 * logits.numel())
     report["tp_softmax_xent"]["max_abs_err"] = max(
         report["tp_softmax_xent"]["max_abs_err"], g_err)
-    del logits, got, want, hi_lo
+    del xg, got, want, hi_lo, again
+    # the eval step's pass: the stats alone, floor mode, the row stride
+    # padded for K13 (the -inf padded columns as the step masks them)
+    ld = padded_width(v)
+    wide = torch.full((b, ld), float("-inf"), device="cuda")
+    wide[:, :v] = logits
+    del logits
+    stats = entry(
+        "K15 tp_softmax_xent eval (stats alone, floor mode, row stride "
+        f"{ld:,})",
+        [(k15.tp_xent_stats(wide, v, n_valid, labels, v, True),
+          k15.tp_xent_stats_plain(wide, v, n_valid, labels, v, True))],
+        TOL_F32SUM,
+        (lambda: k15.tp_xent_stats(wide, v, n_valid, labels, v, True),
+         lambda: k15.tp_xent_stats_plain(wide, v, n_valid, labels, v, True),
+         lambda: torch.logsumexp(wide[:, :v], dim=1)),
+        b * v * 4 + 3 * b * 4, 3.0 * b * v)
+    report["tp_softmax_xent"].update(
+        {f"stats_{k}": x for k, x in stats.items()})
+    del wide
     # K16 and K17 over the cp-2 contexts of K1-like activations
     mc = m // 2
     t = torch.tanh(torch.randn((b, mc, d), generator=g, device="cuda")).to(
@@ -5183,49 +5303,64 @@ def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
     mask[0] = 0.0
     dcv = torch.randn((b, d), generator=g, device="cuda")
 
-    def forward(sc, ex, co):
-        s, mx = sc(t, a, mask)
-        u, den = ex(s, mx)
-        return co(t, u, den)
+    def forward(sc, co):
+        # one rank's merged (max, sum) are its own, bit for bit
+        # (merge_softmax_stats), so the function timed is the two phases
+        s, st = sc(t, a, mask)
+        return co(t, s, st[0], st[1]) + (s, st)
 
-    got = forward(k16.cp_attention_scores, k16.cp_attention_exp,
-                  k16.cp_attention_combine)
-    want = forward(k16.scores_plain, k16.exp_plain, k16.combine_plain)
+    got = forward(k16.cp_attention_scores, k16.cp_attention_combine)
+    want = forward(k16.scores_plain, k16.combine_plain)
+    again = forward(k16.cp_attention_scores, k16.cp_attention_combine)
+    merged = k15.merge_softmax_stats(got[3][:1], got[3][1:])
+    if not all(torch.equal(x, y) for x, y in zip(got, again)) \
+            or not all(torch.equal(x, y) for x, y in zip(got[3], merged)):
+        fail("K16 cp_attention: a second call wrote other bits, or one "
+             "rank's merged stats are not its own")
     attn = got[1]
     q = a.to(torch.bfloat16).view(1, 1, 1, d).expand(b, 1, 1, d).contiguous()
     kv = t.view(b, 1, mc, d)
     keep = (mask > 0).view(b, 1, 1, mc)
-    # as K2's check (attention_case): the weights at TOL_F32SUM, the code
-    # vector exactly the weighted sum of the kernel's own bf16 weights
-    # (TOL_F32SUM), and against the plain version within two weight flips
-    # (a weight at a bf16 rounding boundary may round the other way)
+    # as K2's check (attention_case): the scores, the stats and the
+    # weights at TOL_F32SUM, the code vector exactly the weighted sum of
+    # the kernel's own bf16 weights (TOL_F32SUM), and against the plain
+    # version within two weight flips (a weight at a bf16 rounding
+    # boundary may round the other way)
+    live = torch.isfinite(want[2])
+    err_sc, ok_sc = max_err(torch.where(live, got[2], 0.0),
+                            torch.where(live, want[2], 0.0), TOL_F32SUM)
+    ok_sc = ok_sc and torch.equal(live, torch.isfinite(got[2]))
+    err_st, ok_st = max_err(got[3], want[3], TOL_F32SUM)
     err_at, ok_at = max_err(got[1], want[1], TOL_F32SUM)
     sum_cv = (attn.to(torch.bfloat16).float()[:, :, None]
               * t.float()).sum(dim=1)
     err_sum, ok_sum = max_err(got[0], sum_cv, TOL_F32SUM)
     del sum_cv
-    if not (ok_at and ok_sum) or got[0][0].abs().max() != 0 \
-            or got[1][0].abs().max() != 0:
-        fail(f"K16 cp_attention: max errors weights {err_at}, weighted sum "
-             f"{err_sum} (tol {TOL_F32SUM}); the all-invalid row's max "
+    if not (ok_sc and ok_st and ok_at and ok_sum) \
+            or got[0][0].abs().max() != 0 or got[1][0].abs().max() != 0:
+        fail(f"K16 cp_attention: max errors scores {err_sc}, stats "
+             f"{err_st}, weights {err_at}, weighted sum {err_sum} (tol "
+             f"{TOL_F32SUM}); the all-invalid row's max "
              f"{float(got[0][0].abs().max())}")
-    log(f"K16 cp_attention: weights max_abs_err {err_at:.3g}, code vector "
-        f"against the weighted sum of its own weights {err_sum:.3g} (tol "
-        f"{TOL_F32SUM}); the all-invalid row zero")
+    log(f"K16 cp_attention: scores max_abs_err {err_sc:.3g}, stats "
+        f"{err_st:.3g}, weights {err_at:.3g}, code vector against the "
+        f"weighted sum of its own weights {err_sum:.3g} (tol {TOL_F32SUM}); "
+        f"the all-invalid row zero; a second call bit-equal")
+    k16_edges(torch, k16, g)
     flip = 2 * 2.0 ** -8 * float(want[1].abs().max() * t.abs().max())
     report["cp_attention"] = entry(
-        "K16 cp_attention 1024 x 100 x 384 (scores, exp, combine)",
+        "K16 cp_attention 1024 x 100 x 384 (scores, combine)",
         [(got[0], want[0])],
         (flip + TOL_F32SUM[0], TOL_F32SUM[1]),
-        (lambda: forward(k16.cp_attention_scores, k16.cp_attention_exp,
-                         k16.cp_attention_combine),
-         lambda: forward(k16.scores_plain, k16.exp_plain, k16.combine_plain),
+        (lambda: forward(k16.cp_attention_scores, k16.cp_attention_combine),
+         lambda: forward(k16.scores_plain, k16.combine_plain),
          lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep,
                                                 scale=1.0)),
         2 * t.numel() * 2 + 3 * b * mc * 4 + b * d * 4, 4.0 * t.numel(),
         peak=BF16_FLOP_PER_S)
     report["cp_attention"]["max_abs_err"] = max(
-        report["cp_attention"]["max_abs_err"], err_at)
+        report["cp_attention"]["max_abs_err"], err_at, err_sc, err_st)
+    del again, merged
 
     def backward(fs_fn, dt_fn):
         f, w = fs_fn(t, attn, dcv)
@@ -5276,8 +5411,8 @@ def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
 
 
 def nccl_check(torch, work_dir: str) -> None:
-    """The NCCL route at world size 1 on the card: an all-reduce (SUM,
-    MAX) and an all-gather through the communicator's collective."""
+    """The NCCL route at world size 1 on the card: an all-reduce SUM and
+    an all-gather through the communicator's collective."""
     import torch.distributed as dist
 
     from code2vec_tpu_torch.parallel import comm
@@ -5286,8 +5421,7 @@ def nccl_check(torch, work_dir: str) -> None:
         world_size=1, rank=0)
     try:
         x = torch.arange(4.0, device="cuda")
-        comm._run("all_reduce_sum", x, dist.group.WORLD, "nccl")
-        comm._run("all_reduce_max", x, dist.group.WORLD, "nccl")
+        comm._run("all_reduce", x, dist.group.WORLD, "nccl")
         y = comm._run("all_gather", torch.ones((3, 2), device="cuda"),
                       dist.group.WORLD, "nccl")
         torch.cuda.synchronize()
@@ -5296,9 +5430,9 @@ def nccl_check(torch, work_dir: str) -> None:
                  f"all-gather {tuple(y.shape)}")
     finally:
         dist.destroy_process_group()
-    log("parallel: NCCL at world size 1 on the card: all-reduce SUM and MAX "
-        "and all-gather ran (the route of one rank a card; several cards "
-        "not run here)")
+    log("parallel: NCCL at world size 1 on the card: all-reduce SUM and "
+        "all-gather ran (the route of one rank a card; several cards not "
+        "run here)")
 
 
 def torchrun_train(torch, seed: int, work_dir: str, ft):
@@ -5684,7 +5818,7 @@ def main() -> None:
         # allocation beside the dense mode's
         entry.update({k: v for k, v in r.items()
                       if k.startswith(("mips", "b1", "b8", "b64", "m32",
-                                       "k100", "zipf"))
+                                       "k100", "zipf", "stats"))
                       or k.endswith("alloc_gb")
                       or k in ("unique_rows", "library_full_ms", "pass_ms",
                                "pass_us", "f32_fma_bound_ms")})

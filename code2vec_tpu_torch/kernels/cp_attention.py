@@ -3,19 +3,20 @@ attention with the contexts split over the `ctx` axis, and its backward,
 as phases between the collectives over `ctx`.
 
 K16 replaces code2vec_tpu/ops/attention.py masked_single_query_attention
-with `axis_name` set (:52, :60, :67): scores and the rank's max, exp at
-the global max and the rank's denominator, then the weights and the
-rank's part of the code vector. K17 replaces its autodiff in the manual
-train step: fs = bf16(g . t) and the rank's sum of w fs (the cotangent
-of the denominator, summed over ctx by the caller), then dt and the
-rank's part of d a. The CUDA source is csrc/cp_attention.cu; its header
-gives the arithmetic, the rounding points (K6's), what bounds each phase
-on an H100 and the design. The `*_plain` functions are the same in plain
+with `axis_name` set (:52, :60, :67): the scores and the rank's (max, sum
+of exp), which the caller all-gathers and merges in rank order
+(kernels/sharded.py merge_softmax_stats), then the weights at the global
+max and sum and the rank's part of the code vector. K17 replaces its
+autodiff in the manual train step: fs = bf16(g . t) and the rank's sum
+of w fs (the cotangent of the denominator, summed over ctx by the
+caller), then dt and the rank's part of d a. The CUDA source is
+csrc/cp_attention.cu; its header gives the arithmetic, the rounding
+points (K6's), what bounds each phase on an H100 and the design. The `*_plain` functions are the same in plain
 PyTorch: CPU tensors take them, CUDA tensors launch the kernels. With one
 ctx rank the phases compose to K2's and K6's plain versions
 (ops/attention.py), which tests hold.
 
-`launches` counts K16's phases (three a forward), `backward_launches`
+`launches` counts K16's phases (two a forward), `backward_launches`
 K17's (two a backward); each wrapper adds one where it launches.
 """
 
@@ -42,16 +43,14 @@ def _safe(m: torch.Tensor) -> torch.Tensor:
 def scores_plain(t, a, mask):
     s = torch.einsum("bmd,d->bm", t.float(), a.to(t.dtype).float())
     s = torch.where(mask > 0, s, torch.full_like(s, float("-inf")))
-    return s, s.amax(dim=1)
+    lm = s.amax(dim=1)
+    ls = torch.exp(s - _safe(lm)[:, None]).sum(dim=1)
+    return s, torch.stack([lm, ls])
 
 
-def exp_plain(scores, gmax):
-    u = torch.exp(scores - _safe(gmax)[:, None])
-    return u, u.sum(dim=1)
-
-
-def combine_plain(t, unnorm, gdenom):
-    attn = unnorm / torch.clamp(gdenom, min=1e-30)[:, None]
+def combine_plain(t, scores, gmax, gsum):
+    attn = torch.exp(scores - _safe(gmax)[:, None]) / torch.clamp(
+        gsum, min=1e-30)[:, None]
     cv = torch.einsum("bm,bmd->bd", attn.to(t.dtype).float(), t.float())
     return cv, attn
 
@@ -83,8 +82,8 @@ def _fn(name: str):
         P, I32 = launch.P, launch.I32
         args = {
             "c2v_cp_attention_scores": [P, P, P, I32, I32, I32, P, P, P],
-            "c2v_cp_attention_exp": [P, P, I32, I32, P, P, P],
-            "c2v_cp_attention_combine": [P, P, P, I32, I32, I32, P, P, P],
+            "c2v_cp_attention_combine": [P, P, P, P, I32, I32, I32, P, P,
+                                         P],
             "c2v_cp_attention_backward_fs": [P, P, P, I32, I32, I32, P, P,
                                              P],
             "c2v_cp_attention_backward_dt": [P, P, P, P, P, P, P, I32, I32,
@@ -96,6 +95,20 @@ def _fn(name: str):
 
 def _check_t(t: torch.Tensor):
     launch.check_tensor(t, "transformed", [torch.bfloat16], 3)
+    return t.shape
+
+
+def _check_t16(t: torch.Tensor):
+    """K16's activations: 16-byte aligned rows of a width that is a
+    multiple of 8, at most 1024, few enough contexts for a CTA's shared
+    memory (the combine's m weights and 3 x d sums, at most 48 KB)."""
+    launch.check_tensor(t, "transformed", [torch.bfloat16], 3, align=16)
+    _, m, d = t.shape
+    launch.require(d % 8 == 0 and d <= 1024,
+                   f"code width {d} is not a multiple of 8 up to 1024")
+    launch.require(4 * (m + 3 * d) <= 48 * 1024,
+                   f"{m} contexts of width {d} take more than 48 KB of "
+                   f"shared memory a CTA")
     return t.shape
 
 
@@ -112,54 +125,40 @@ def _f32(shape, device):
 def cp_attention_scores(t: torch.Tensor, a: torch.Tensor,
                         mask: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K16 phase 1: (scores (b, m) f32, -inf where masked; the row max
-    over this rank's contexts (b,))."""
+    """K16 phase 1: (scores (b, m) f32, -inf where masked; stats (2, b)
+    f32: each row's max over this rank's contexts, then its sum of
+    exp(scores - that max), one buffer for one all-gather)."""
     if launch.runs_plain(t, a, mask):
         return scores_plain(t, a, mask)
     fn = _fn("c2v_cp_attention_scores")
-    b, m, d = _check_t(t)
+    b, m, d = _check_t16(t)
     _check("attention_param", a, torch.float32, (d,))
     _check("mask", mask, torch.float32, (b, m))
-    scores, lmax = _f32((b, m), t.device), _f32((b,), t.device)
+    scores, stats = _f32((b, m), t.device), _f32((2, b), t.device)
     err = fn(t.data_ptr(), a.data_ptr(), mask.data_ptr(), b, m, d,
-             scores.data_ptr(), lmax.data_ptr(), launch.stream(t.device))
+             scores.data_ptr(), stats.data_ptr(), launch.stream(t.device))
     launch.check_launch(err, "cp_attention_scores")
     launch.count(__name__)
-    return scores, lmax
+    return scores, stats
 
 
-def cp_attention_exp(scores: torch.Tensor, gmax: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K16 phase 2: (exp(scores - global max) (b, m), this rank's
-    denominators (b,)); a non-finite max counts as 0."""
-    if launch.runs_plain(scores, gmax):
-        return exp_plain(scores, gmax)
-    fn = _fn("c2v_cp_attention_exp")
-    launch.check_tensor(scores, "scores", [torch.float32], 2)
-    b, m = scores.shape
-    _check("gmax", gmax, torch.float32, (b,))
-    unnorm, den = _f32((b, m), scores.device), _f32((b,), scores.device)
-    err = fn(scores.data_ptr(), gmax.data_ptr(), b, m, unnorm.data_ptr(),
-             den.data_ptr(), launch.stream(scores.device))
-    launch.check_launch(err, "cp_attention_exp")
-    launch.count(__name__)
-    return unnorm, den
-
-
-def cp_attention_combine(t: torch.Tensor, unnorm: torch.Tensor,
-                         gdenom: torch.Tensor
+def cp_attention_combine(t: torch.Tensor, scores: torch.Tensor,
+                         gmax: torch.Tensor, gsum: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K16 phase 3: (this rank's part of the code vector (b, d) f32, the
-    weights (b, m) f32)."""
-    if launch.runs_plain(t, unnorm, gdenom):
-        return combine_plain(t, unnorm, gdenom)
+    """K16 phase 2, from every ctx rank's merged stats: (this rank's part
+    of the code vector (b, d) f32, the weights exp(scores - gmax) /
+    max(gsum, 1e-30) (b, m) f32; a non-finite max counts as 0)."""
+    if launch.runs_plain(t, scores, gmax, gsum):
+        return combine_plain(t, scores, gmax, gsum)
     fn = _fn("c2v_cp_attention_combine")
-    b, m, d = _check_t(t)
-    _check("unnorm", unnorm, torch.float32, (b, m))
-    _check("gdenom", gdenom, torch.float32, (b,))
+    b, m, d = _check_t16(t)
+    _check("scores", scores, torch.float32, (b, m))
+    _check("gmax", gmax, torch.float32, (b,))
+    _check("gsum", gsum, torch.float32, (b,))
     cv, attn = _f32((b, d), t.device), _f32((b, m), t.device)
-    err = fn(t.data_ptr(), unnorm.data_ptr(), gdenom.data_ptr(), b, m, d,
-             cv.data_ptr(), attn.data_ptr(), launch.stream(t.device))
+    err = fn(t.data_ptr(), scores.data_ptr(), gmax.data_ptr(),
+             gsum.data_ptr(), b, m, d, cv.data_ptr(), attn.data_ptr(),
+             launch.stream(t.device))
     launch.check_launch(err, "cp_attention_combine")
     launch.count(__name__)
     return cv, attn

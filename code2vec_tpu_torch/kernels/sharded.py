@@ -6,18 +6,25 @@ K14 replaces code2vec_tpu/ops/sharded.py tp_embedding_lookup (:32-47)
 before its psum, its transpose in the dense step, and the sparse step's
 `to_local` (code2vec_tpu/training/step.py:453-459); K15 replaces
 tp_softmax_ce (:59-84) and tp_log_softmax_at_topk (:87-94) and the
-gradient of tp_softmax_ce, as three passes around the collectives over
-`model` (max; sum and label logit; gradient). The CUDA source is
-csrc/sharded.cu; its header gives the arithmetic, what bounds each on an
-H100 and the design. The `*_plain` functions below are the same in plain
-PyTorch: CPU tensors take them, CUDA tensors launch the kernels. A rank
-holds rows [offset, offset + rows_local) of a table, and columns
-[offset, offset + n_cols) of the logits, of which the first n_valid are
-real target rows (`valid_columns`).
+gradient of tp_softmax_ce, as two passes around one collective over
+`model`: the stats pass (each row's max, sum of exp and label logit
+over this rank's columns), an all-gather of those (3, b) triples merged
+in rank order (`merge_xent_stats`), and the gradient pass. The CUDA
+source is csrc/sharded.cu; its header gives the arithmetic, what bounds
+each on an H100 and the design. The `*_plain` functions below are the
+same in plain PyTorch: CPU tensors take them, CUDA tensors launch the
+kernels. A rank holds rows [offset, offset + rows_local) of a table, and
+columns [offset, offset + n_cols) of the logits, of which the first
+n_valid are real target rows (`valid_columns`).
+
+`merge_softmax_stats` is the rank-order merge of (max, sum of exp) pairs
+that K15 and K16 (kernels/cp_attention.py) share: plain PyTorch on the
+gathered (ranks, b) pairs, one function on either device, so every rank
+of a group gets the same bits.
 
 Each wrapper adds one to its counter where it launches: `launches`
 (K14's gather), `scatter_launches`, `local_ids_launches`, and
-`xent_launches` for each of K15's three passes.
+`xent_launches` for each of K15's two passes.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from code2vec_tpu_torch.kernels import launch
 launches = 0            # K14 shard_gather
 scatter_launches = 0    # K14 shard_scatter_add
 local_ids_launches = 0  # K14 shard_local_ids
-xent_launches = 0       # K15, each pass
+xent_launches = 0       # K15, each pass (stats, gradient)
 _fns = {}
 FLOOR = -1e30  # the eval step's stand-in for a non-finite logit
 
@@ -78,8 +85,8 @@ def shard_local_ids_plain(ids: torch.Tensor, offset: int,
 
 def xent_values(logits: torch.Tensor, n_cols: int, n_valid: int,
                 floor: bool) -> torch.Tensor:
-    """The (b, n_cols) f32 values K15's passes read (csrc/sharded.cu
-    `xent_value`): padded columns -inf, or in floor mode -1e30 like every
+    """The (b, n_cols) f32 values K15's stats pass reads (csrc/sharded.cu
+    `read_value`): padded columns -inf, or in floor mode -1e30 like every
     non-finite logit."""
     x = logits[:, :n_cols].float()
     if floor:
@@ -93,18 +100,45 @@ def _safe(m: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
 
 
-def tp_xent_max_plain(logits, n_cols, n_valid, floor=False):
-    return xent_values(logits, n_cols, n_valid, floor).amax(dim=1)
-
-
-def tp_xent_sum_plain(logits, n_cols, n_valid, gmax, labels, offset,
-                      floor=False):
+def tp_xent_stats_plain(logits, n_cols, n_valid, labels, offset,
+                        floor=False):
     x = xent_values(logits, n_cols, n_valid, floor)
-    s = torch.exp(x - _safe(gmax)[:, None]).sum(dim=1)
+    lm = x.amax(dim=1)
+    ls = torch.exp(x - _safe(lm)[:, None]).sum(dim=1)
     lab = labels.long() - int(offset)
     ok = (lab >= 0) & (lab < n_cols)
     ll = x.gather(1, lab.clamp(0, n_cols - 1)[:, None])[:, 0]
-    return torch.stack([s, torch.where(ok, ll, torch.zeros_like(ll))])
+    return torch.stack([lm, ls, torch.where(ok, ll, torch.zeros_like(ll))])
+
+
+def merge_softmax_stats(lm: torch.Tensor, ls: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global (max M, sum S of exp(x - M)) of each column of
+    (ranks, b) per-rank pairs (ls_r the sum of exp(x - lm_r) over rank
+    r's part), added in rank order 0..ranks-1: S = sum_r ls_r exp(lm_r -
+    M). A non-finite max is taken as 0 inside exp, as the kernels do, and
+    a rank with a sum of 0 (nothing but -inf) adds 0. One rank gives its
+    own pair back, bit for bit."""
+    gmax = lm.amax(dim=0)
+    terms = ls * torch.exp(_safe(lm) - _safe(gmax)[None, :])
+    terms = torch.where(ls == 0, torch.zeros_like(terms), terms)
+    gsum = terms[0]
+    for r in range(1, terms.shape[0]):
+        gsum = gsum + terms[r]
+    return gmax, gsum
+
+
+def merge_xent_stats(parts: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K15's stats of every model rank, (ranks, 3, b) in rank order (the
+    all-gather's), merged: each row's global (max, sum of exp(x - max),
+    label logit), (b,) f32 each. The label lies in one rank's columns;
+    the others give 0, added in rank order."""
+    gmax, gsum = merge_softmax_stats(parts[:, 0], parts[:, 1])
+    label = parts[0, 2]
+    for r in range(1, parts.shape[0]):
+        label = label + parts[r, 2]
+    return gmax, gsum, label
 
 
 def inv_count(count: int) -> float:
@@ -144,9 +178,8 @@ def _fn(name: str):
             "c2v_shard_gather": [P, I64, I32, P, I64, I64, P, P],
             "c2v_shard_scatter_add": [P, I64, I32, P, I64, I64, P, I32, P],
             "c2v_shard_local_ids": [P, I64, I64, I64, P, P],
-            "c2v_tp_xent_max": [P, I32, I64, I64, I64, I32, P, P],
-            "c2v_tp_xent_sum": [P, I32, I64, I64, I64, I32, P, P, I64, P,
-                                P],
+            "c2v_tp_xent_stats": [P, I32, I64, I64, I64, I32, P, I64, P,
+                                  P],
             "c2v_tp_xent_grad": [P, I32, I64, I64, P, P, P, P, I64, F32, P,
                                  P],
         }[name]
@@ -224,44 +257,26 @@ def _check_logits(logits, n_cols, n_valid):
                    f"{logits.shape[1]} columns")
 
 
-def tp_xent_max(logits: torch.Tensor, n_cols: int, n_valid: int,
-                floor: bool = False) -> torch.Tensor:
-    """K15's max pass: (b,) f32, each row's max over this rank's
-    columns."""
-    if launch.runs_plain(logits):
-        return tp_xent_max_plain(logits, n_cols, n_valid, floor)
-    fn = _fn("c2v_tp_xent_max")
+def tp_xent_stats(logits: torch.Tensor, n_cols: int, n_valid: int,
+                  labels: torch.Tensor, offset: int,
+                  floor: bool = False) -> torch.Tensor:
+    """K15's stats pass: (3, b) f32, each row's max over this rank's
+    columns, its sum of exp(x - that max), and its label's logit where
+    the label is one of them (0 elsewhere): one buffer for one
+    all-gather."""
+    if launch.runs_plain(logits, labels):
+        return tp_xent_stats_plain(logits, n_cols, n_valid, labels, offset,
+                                   floor)
+    fn = _fn("c2v_tp_xent_stats")
     _check_logits(logits, n_cols, n_valid)
     b, ld = logits.shape
-    out = torch.empty((b,), dtype=torch.float32, device=logits.device)
-    err = fn(logits.data_ptr(), b, ld, n_cols, n_valid, int(floor),
-             out.data_ptr(), launch.stream(logits.device))
-    launch.check_launch(err, "tp_xent_max")
-    launch.count(__name__, "xent_launches")
-    return out
-
-
-def tp_xent_sum(logits: torch.Tensor, n_cols: int, n_valid: int,
-                gmax: torch.Tensor, labels: torch.Tensor, offset: int,
-                floor: bool = False) -> torch.Tensor:
-    """K15's sum pass: (2, b) f32, each row's sum of exp(x - gmax) over
-    this rank's columns, then its label's logit where the label is one
-    of them (0 elsewhere): one buffer for one all-reduce."""
-    if launch.runs_plain(logits, gmax, labels):
-        return tp_xent_sum_plain(logits, n_cols, n_valid, gmax, labels,
-                                 offset, floor)
-    fn = _fn("c2v_tp_xent_sum")
-    _check_logits(logits, n_cols, n_valid)
-    b, ld = logits.shape
-    launch.check_tensor(gmax, "gmax", [torch.float32], 1)
     launch.check_tensor(labels, "labels", [torch.int32], 1)
-    launch.require(gmax.shape[0] == b and labels.shape[0] == b,
-                   f"gmax, labels: expected ({b},)")
-    out = torch.empty((2, b), dtype=torch.float32, device=logits.device)
+    launch.require(labels.shape[0] == b, f"labels: expected ({b},)")
+    out = torch.empty((3, b), dtype=torch.float32, device=logits.device)
     err = fn(logits.data_ptr(), b, ld, n_cols, n_valid, int(floor),
-             gmax.data_ptr(), labels.data_ptr(), int(offset), out.data_ptr(),
+             labels.data_ptr(), int(offset), out.data_ptr(),
              launch.stream(logits.device))
-    launch.check_launch(err, "tp_xent_sum")
+    launch.check_launch(err, "tp_xent_stats")
     launch.count(__name__, "xent_launches")
     return out
 
@@ -271,14 +286,15 @@ def tp_xent_grad(logits: torch.Tensor, n_valid: int, gmax: torch.Tensor,
                  valid: torch.Tensor, offset: int, count: int,
                  grad_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """K15's gradient pass: d loss / d logits of this rank's (b, ld)
-    logits, (exp(x - gmax) / gsum - onehot) * valid / count, as K7 writes
-    it: two bf16 planes (2, b, ld) (f32 (b, ld) for grad_dtype float32,
-    the plain version's), zero past n_valid."""
+    logits (16-byte aligned on the card), (exp(x - gmax) / gsum - onehot)
+    * valid / count from the merged stats, as K7 writes it: two bf16
+    planes (2, b, ld) (f32 (b, ld) for grad_dtype float32, the plain
+    version's), zero past n_valid."""
     if launch.runs_plain(logits, gmax, gsum, labels, valid):
         return tp_xent_grad_plain(logits, n_valid, gmax, gsum, labels,
                                   valid, offset, count, grad_dtype)
     fn = _fn("c2v_tp_xent_grad")
-    launch.check_tensor(logits, "logits", [torch.float32], 2)
+    launch.check_tensor(logits, "logits", [torch.float32], 2, align=16)
     b, ld = logits.shape
     launch.require(0 <= n_valid <= ld, f"n_valid {n_valid} outside {ld}")
     launch.require(grad_dtype == torch.bfloat16,

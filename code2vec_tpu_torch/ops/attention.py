@@ -30,8 +30,9 @@ import torch
 
 from code2vec_tpu_torch.kernels.cp_attention import (
     cp_attention_backward_dt, cp_attention_backward_fs, cp_attention_combine,
-    cp_attention_exp, cp_attention_scores,
+    cp_attention_scores,
 )
+from code2vec_tpu_torch.kernels.sharded import merge_softmax_stats
 
 
 def masked_single_query_attention(
@@ -88,21 +89,21 @@ def context_parallel_attention(transformed: torch.Tensor,
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """masked_single_query_attention (:28-69 of the reference) with the
     contexts split over the ranks of `comm` (the mesh's ctx axis; None or
-    one rank: K2 as the single-device step calls it). K16's three phases
-    around a MAX of the scores' max, a SUM of the denominators and a SUM
-    of the code vector's parts; returns (code_vectors (B, D) f32, this
-    rank's attention weights (B, M_local) f32)."""
+    one rank: K2 as the single-device step calls it). K16's two phases
+    around an all-gather of each rank's (max, sum of exp) of the scores,
+    merged in rank order into the global ones, and a SUM of the code
+    vector's parts; returns (code_vectors (B, D) f32, this rank's
+    attention weights (B, M_local) f32)."""
     from code2vec_tpu_torch.kernels.attention import masked_attention
     if comm is None or comm.size == 1:
         return masked_attention(transformed, attention_param,
                                 context_valid_mask)
-    scores, gmax = cp_attention_scores(transformed, attention_param,
-                                       context_valid_mask)
-    comm.all_reduce(gmax, "max")
-    unnorm, denom = cp_attention_exp(scores, gmax)
-    comm.all_reduce(denom)
-    code_vectors, attention = cp_attention_combine(transformed, unnorm,
-                                                   denom)
+    scores, stats = cp_attention_scores(transformed, attention_param,
+                                        context_valid_mask)
+    parts = comm.all_gather(stats).view(comm.size, 2, -1)
+    gmax, gsum = merge_softmax_stats(parts[:, 0], parts[:, 1])
+    code_vectors, attention = cp_attention_combine(transformed, scores,
+                                                   gmax, gsum)
     comm.all_reduce(code_vectors)
     return code_vectors, attention
 

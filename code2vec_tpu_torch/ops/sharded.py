@@ -11,11 +11,12 @@ of a table and columns [index * n_cols, ...) of the logits:
   group;
 - `tp_logits`: the local (B, V/tp) logits, a plain product left to the
   library as the single-device step leaves its classifier;
-- `tp_softmax_ce` / `tp_softmax_stats`: K15's max pass, a MAX, its sum
-  pass, a SUM: the global (max, sum of exp, label logit) of each row
-  without the full logits on one rank;
+- `tp_softmax_ce` / `tp_softmax_stats`: K15's stats pass, one
+  all-gather of its (3, b) triples, merged in rank order: the global
+  (max, sum of exp, label logit) of each row without the full logits on
+  one rank, the same bits on every rank;
 - `tp_log_softmax_at_topk`: the global (max, logsumexp) from the same
-  passes;
+  pass and gather;
 - `tp_top_k`: K13 over the local logits, the shard's offset, an
   all-gather, K13 again over the tp * k candidates.
 
@@ -32,7 +33,7 @@ import torch
 
 from code2vec_tpu_torch.kernels.select import padded_width, select_topk
 from code2vec_tpu_torch.kernels.sharded import (
-    shard_gather, tp_xent_max, tp_xent_sum,
+    merge_xent_stats, shard_gather, tp_xent_stats,
 )
 from code2vec_tpu_torch.models.code2vec import matmul_f32
 
@@ -72,14 +73,12 @@ def tp_softmax_stats(local_logits: torch.Tensor, labels: torch.Tensor,
                      n_valid: Optional[int] = None, floor: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Each row's global (max, sum of exp(x - max), label logit), (B,) f32
-    each, equal on every rank of the group."""
+    each, the same bits on every rank of the group."""
     n_cols, n_valid = _cols(local_logits, n_cols, n_valid)
-    gmax = tp_xent_max(local_logits, n_cols, n_valid, floor)
-    comm.all_reduce(gmax, "max")
-    stats = tp_xent_sum(local_logits, n_cols, n_valid, gmax, labels,
-                        comm.index * n_cols, floor)
-    comm.all_reduce(stats)
-    return gmax, stats[0], stats[1]
+    stats = tp_xent_stats(local_logits, n_cols, n_valid, labels,
+                          comm.index * n_cols, floor)
+    parts = comm.all_gather(stats).view(comm.size, 3, -1)
+    return merge_xent_stats(parts)
 
 
 def tp_softmax_ce(local_logits: torch.Tensor, labels: torch.Tensor, comm,

@@ -1,12 +1,12 @@
-"""The three collectives of the parallel steps over one group of the
-mesh: all-reduce SUM, all-reduce MAX and all-gather along dim 0.
+"""The two collectives of the parallel steps over one group of the
+mesh: all-reduce SUM and all-gather along dim 0.
 
 A `Communicator` of one rank does nothing (its all-gather returns its
 input), so a step written for the mesh runs unchanged where an axis has
 size 1. The backend follows the device: `nccl` for CUDA tensors, one
 rank a card; `gloo` for CPU tensors, and for CUDA tensors where ranks
 share a card (`--dist_backend gloo`: NCCL refuses two ranks on one
-device). Gloo takes all three on CUDA tensors (it copies them through
+device). Gloo takes both on CUDA tensors (it copies them through
 the host itself, torch 2.11); a version that refused one would raise
 here, since nothing stages a collective by another route.
 """
@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-
-_REDUCE = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def _run(op: str, t: torch.Tensor, group, backend: str) -> torch.Tensor:
@@ -33,7 +31,7 @@ def _run(op: str, t: torch.Tensor, group, backend: str) -> torch.Tensor:
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=group)
         return torch.cat(parts)
-    dist.all_reduce(t, op=_REDUCE[op.rsplit("_", 1)[1]], group=group)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
@@ -50,11 +48,11 @@ class Communicator:
         self.index = int(index)
         self.backend = backend
 
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """Sum (or max) `t` in place over the group; returns it."""
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` in place over the group; returns it."""
         if self.size == 1:
             return t
-        return _run(f"all_reduce_{op}", t, self.group, self.backend)
+        return _run("all_reduce", t, self.group, self.backend)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The group's tensors stacked along dim 0, in group rank order:

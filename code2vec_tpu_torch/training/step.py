@@ -292,8 +292,9 @@ class ParallelStepBuilder:
         keyed by rank_dropout_seed;
       K2, or K16 with its collectives over ctx, gives the code vectors;
       the local logits (B/dp, V/tp) are a product (matmul_f32); K15's
-        passes with a MAX and a SUM over model give the global max, sum
-        of exp and label logit, and the loss sums over data.
+        stats pass and one all-gather over model, merged in rank order,
+        give the global max, sum of exp and label logit, and the loss
+        sums over data.
     The backward computes the true gradient of the loss, leaf by leaf:
       K15's gradient pass, the two products of its planes; the code
         vectors' cotangent is summed over model at once (each rank's
@@ -314,8 +315,8 @@ class ParallelStepBuilder:
 
     The eval step: the same forward without dropout, the local logits
     (rows of a stride K13 reads), 12e (K13, an all-gather over model,
-    K13), K15's passes with the reference's -inf -> -1e30 substitution,
-    and the loss summed over data."""
+    K13), K15's stats pass and its all-gather with the reference's -inf
+    -> -1e30 substitution, and the loss summed over data."""
 
     def __init__(self, dims: ModelDims, optimizer: AdamHyper, config, mesh):
         self.dims = dims

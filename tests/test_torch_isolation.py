@@ -109,7 +109,7 @@ def _cuda_calls():
         "shard_gather": phases["shard_gather"],
         "shard_scatter_add": phases["shard_scatter_add"],
         "shard_local_ids": phases["shard_local_ids"],
-        "tp_softmax_xent": phases["tp_xent_max"],
+        "tp_softmax_xent": phases["tp_xent_stats"],
         "cp_attention": phases["cp_attention_scores"],
         "cp_attention_backward": phases["cp_attention_backward_fs"],
         "context_encoder": lambda: context_encoder(
@@ -211,18 +211,15 @@ def _parallel_phase_calls():
             t((50, 128)), t((6,), i32), t((6, 128), torch.bfloat16), 50),
         "shard_local_ids": lambda: k15.shard_local_ids(
             t((6,), i32), 50, 50),
-        "tp_xent_max": lambda: k15.tp_xent_max(t((2, 70)), 70, 65),
-        "tp_xent_sum": lambda: k15.tp_xent_sum(
-            t((2, 70)), 70, 65, t((2,)), t((2,), i32), 70),
+        "tp_xent_stats": lambda: k15.tp_xent_stats(
+            t((2, 70)), 70, 65, t((2,), i32), 70),
         "tp_xent_grad": lambda: k15.tp_xent_grad(
             t((2, 70)), 65, t((2,)), t((2,)), t((2,), i32), t((2,)), 70,
             4),
         "cp_attention_scores": lambda: k16.cp_attention_scores(
             t((2, 3, 384), torch.bfloat16), t((384,)), t((2, 3))),
-        "cp_attention_exp": lambda: k16.cp_attention_exp(
-            t((2, 3)), t((2,))),
         "cp_attention_combine": lambda: k16.cp_attention_combine(
-            t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2,))),
+            t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2,)), t((2,))),
         "cp_attention_backward_fs": lambda: k16.cp_attention_backward_fs(
             t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2, 384))),
         "cp_attention_backward_dt": lambda: k16.cp_attention_backward_dt(
@@ -232,10 +229,9 @@ def _parallel_phase_calls():
 
 
 PARALLEL_PHASES = ("shard_gather", "shard_scatter_add", "shard_local_ids",
-                   "tp_xent_max", "tp_xent_sum", "tp_xent_grad",
-                   "cp_attention_scores", "cp_attention_exp",
-                   "cp_attention_combine", "cp_attention_backward_fs",
-                   "cp_attention_backward_dt")
+                   "tp_xent_stats", "tp_xent_grad",
+                   "cp_attention_scores", "cp_attention_combine",
+                   "cp_attention_backward_fs", "cp_attention_backward_dt")
 
 
 @pytest.mark.parametrize("name", PARALLEL_PHASES)

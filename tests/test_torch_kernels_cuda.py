@@ -2162,50 +2162,60 @@ def test_shard_gather_scatter_local_ids_kernels(dev, rows, d, n):
                            k15.shard_local_ids_plain(ids, offset, rows))
 
 
-@pytest.mark.parametrize("b,v,n_valid", [(1024, 130623, 130623),
-                                         (1024, 130623, 130620),
-                                         (3, 7, 0), (5, 70, 65)])
+@pytest.mark.parametrize("b,v,n_valid,extra", [
+    (1024, 130623, 130623, 0), (1024, 130623, 130620, 0),
+    (1024, 130623, 130620, 1), (3, 7, 0, 0), (5, 70, 65, 0),
+    (6, 13, 13, 3), (4, 40000, 0, 0)])
 @pytest.mark.parametrize("floor", [False, True])
-def test_tp_xent_passes_kernel(dev, b, v, n_valid, floor):
-    """K15's three passes against their plain versions: padded columns
-    (none, some, all of this rank's), labels in and outside the slice,
-    an invalid row, non-finite logits in floor mode."""
+def test_tp_xent_passes_kernel(dev, b, v, n_valid, extra, floor):
+    """K15's stats and gradient passes against their plain versions:
+    odd widths (rows at every 16-byte start alignment), padded columns
+    (none, some, a wholly padded slice of 7 and of 40,000), a row stride
+    past the slice (`extra` columns, as the eval step pads it), labels in
+    and outside the slice, an invalid row, non-finite logits in floor
+    mode; a second call gives the same bits."""
     from code2vec_tpu_torch.kernels import sharded as k15
-    rng = np.random.default_rng(b * v + n_valid)
-    x = (3 * rng.standard_normal((b, v))).astype(np.float32)
+    rng = np.random.default_rng(b * v + n_valid + extra)
+    x = (3 * rng.standard_normal((b, v + extra))).astype(np.float32)
     if floor:
-        x[0, :2] = [np.inf, np.nan]
+        x[0, :3] = [np.inf, np.nan, -np.inf]
     logits = torch.from_numpy(x).to(dev)
     labels = torch.from_numpy(rng.integers(0, 2 * v, b).astype(np.int32)
                               ).to(dev)
     valid = torch.ones(b, device=dev)
     valid[b // 2] = 0
     offset = v
-    mx = k15.tp_xent_max(logits, v, n_valid, floor)
-    _close(mx, k15.tp_xent_max_plain(logits, v, n_valid, floor),
-           dict(rtol=0, atol=0))
-    st = k15.tp_xent_sum(logits, v, n_valid, mx, labels, offset, floor)
-    _close(st, k15.tp_xent_sum_plain(logits, v, n_valid, mx, labels,
-                                     offset, floor),
-           dict(rtol=1e-5, atol=1e-6))
-    if floor or n_valid == 0:
+    st = k15.tp_xent_stats(logits, v, n_valid, labels, offset, floor)
+    want = k15.tp_xent_stats_plain(logits, v, n_valid, labels, offset,
+                                   floor)
+    _close(st[0], want[0], dict(rtol=0, atol=0))
+    _close(st[1], want[1], dict(rtol=1e-5, atol=1e-6))
+    _close(st[2], want[2], dict(rtol=0, atol=0))
+    assert torch.equal(st, k15.tp_xent_stats(logits, v, n_valid, labels,
+                                             offset, floor))
+    if floor or extra:
         return
-    got = k15.tp_xent_grad(logits, n_valid, mx, st[0], labels, valid,
+    gmax, gsum, _ = k15.merge_xent_stats(st.view(1, 3, b))
+    got = k15.tp_xent_grad(logits, n_valid, gmax, gsum, labels, valid,
                            offset, 2 * b)
-    want = k15.tp_xent_grad_plain(logits, n_valid, mx, st[0], labels, valid,
+    want = k15.tp_xent_grad_plain(logits, n_valid, gmax, gsum, labels, valid,
                                   offset, 2 * b)
-    # the hi + lo value of each element: f32 exp and division
+    # the hi + lo value of each element: exp as exp2 of (x - max) log2 e
     _close(got[0].float() + got[1].float(), want[0].float()
            + want[1].float(), dict(rtol=1e-5, atol=1e-9))
     assert (got[:, :, n_valid:] == 0).all()
+    assert torch.equal(got, k15.tp_xent_grad(logits, n_valid, gmax, gsum,
+                                             labels, valid, offset, 2 * b))
 
 
 @pytest.mark.parametrize("b,m,d", [(1024, 100, 384), (64, 50, 384),
-                                   (3, 1, 384), (5, 7, 128)])
+                                   (3, 1, 384), (5, 7, 128), (4, 300, 384),
+                                   (2, 130, 1024)])
 def test_cp_attention_phases_kernel(dev, b, m, d):
     """K16's and K17's phases against their plain versions: an
-    all-invalid row, one context a row; every sum in a fixed order, so
-    two runs are bit-equal."""
+    all-invalid row, one context a row, long rows (300 contexts) and the
+    widest rows K16 takes (1024, four 16-byte chunks a lane); every sum in
+    a fixed order, so two runs are bit-equal."""
     from code2vec_tpu_torch.kernels import cp_attention as k16
     g = torch.Generator(device=dev).manual_seed(b * m + d)
     t = torch.tanh(torch.randn((b, m, d), generator=g, device=dev)).to(
@@ -2214,20 +2224,25 @@ def test_cp_attention_phases_kernel(dev, b, m, d):
     mask = (torch.rand((b, m), generator=g, device=dev) > 0.2).float()
     mask[0] = 0.0
     dcv = torch.randn((b, d), generator=g, device=dev)
-    s, mx = k16.cp_attention_scores(t, a, mask)
-    s2, mx2 = k16.scores_plain(t, a, mask)
+    s, st = k16.cp_attention_scores(t, a, mask)
+    s2, st2 = k16.scores_plain(t, a, mask)
     assert torch.equal(torch.isinf(s), torch.isinf(s2))
     _close(torch.where(torch.isinf(s2), 0, s), torch.where(
         torch.isinf(s2), 0, s2), F32SUM)
-    u, den = k16.cp_attention_exp(s, mx)
-    u2, den2 = k16.exp_plain(s, mx)
-    _close(u, u2, dict(rtol=1e-6, atol=0))
-    _close(den, den2, dict(rtol=1e-5, atol=0))
-    cv, attn = k16.cp_attention_combine(t, u, den)
-    cv2, attn2 = k16.combine_plain(t, u, den)
-    _close(cv, cv2, F32SUM)
+    _close(st, st2, F32SUM)
+    again = k16.cp_attention_scores(t, a, mask)
+    assert torch.equal(s, again[0]) and torch.equal(st, again[1])
+    cv, attn = k16.cp_attention_combine(t, s, st[0], st[1])
+    cv2, attn2 = k16.combine_plain(t, s, st[0], st[1])
     _close(attn, attn2, dict(rtol=1e-6, atol=0))
+    # the code vector: the weighted sum of the kernel's own bf16 weights,
+    # and the plain one's within a flip of a weight's bf16 rounding
+    _close(cv, (attn.to(torch.bfloat16).float()[:, :, None]
+                * t.float()).sum(dim=1), F32SUM)
+    _close(cv, cv2, dict(rtol=1e-4, atol=2 * 2.0 ** -8))
     assert cv[0].abs().max() == 0 and attn[0].abs().max() == 0
+    again = k16.cp_attention_combine(t, s, st[0], st[1])
+    assert torch.equal(cv, again[0]) and torch.equal(attn, again[1])
     fs, wfs = k16.cp_attention_backward_fs(t, attn, dcv)
     fs2, wfs2 = k16.backward_fs_plain(t, attn, dcv)
     _within_step(fs, fs2)

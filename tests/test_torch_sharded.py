@@ -47,8 +47,10 @@ from code2vec_tpu_torch.kernels import sharded as k15
 from code2vec_tpu_torch.kernels.encoder import Dropout, dropout_plain
 from code2vec_tpu_torch.kernels.softmax_xent import softmax_xent_plain
 from code2vec_tpu_torch.models.code2vec import ModelDims
+from code2vec_tpu_torch.ops import sharded
 from code2vec_tpu_torch.ops.attention import (
-    masked_single_query_attention, masked_single_query_attention_backward,
+    context_parallel_attention, masked_single_query_attention,
+    masked_single_query_attention_backward,
 )
 from code2vec_tpu_torch.parallel import mesh
 from code2vec_tpu_torch.parallel.comm import LOCAL
@@ -262,8 +264,9 @@ def test_shard_gather_and_scatter_compose_to_the_whole_table(parts):
 @pytest.mark.parametrize("parts", [1, 2, 4])
 @pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
 def test_tp_xent_passes_compose_to_k7(parts, grad_dtype):
-    """K15's passes over every shard, with the collectives done by hand
-    (max, then sums), give K7's plain loss and gradient."""
+    """K15's stats pass over every shard, gathered and merged in rank
+    order as the all-gather hands them over, then its gradient pass, give
+    K7's plain loss and gradient."""
     rng = np.random.default_rng(5)
     logits = torch.from_numpy(rng.standard_normal((B, V)).astype(
         np.float32) * 3)
@@ -273,17 +276,16 @@ def test_tp_xent_passes_compose_to_k7(parts, grad_dtype):
     shards = _shards(V, parts)
     n_valid = [k15.valid_columns(s.stop - s.start, s.start, V_REAL)
                for s in shards]
-    gmax = torch.stack([k15.tp_xent_max(logits[:, s], s.stop - s.start, n)
-                        for s, n in zip(shards, n_valid)]).amax(0)
-    stats = sum(k15.tp_xent_sum(logits[:, s].contiguous(), s.stop - s.start,
-                                n, gmax, labels, s.start)
-                for s, n in zip(shards, n_valid))
-    ce = (torch.log(stats[0]) + gmax - stats[1]) * valid
+    gathered = torch.cat([k15.tp_xent_stats(
+        logits[:, s].contiguous(), s.stop - s.start, n, labels, s.start)
+        for s, n in zip(shards, n_valid)])
+    gmax, gsum, label = k15.merge_xent_stats(gathered.view(parts, 3, B))
+    ce = (torch.log(gsum) + gmax - label) * valid
     loss, grad = softmax_xent_plain(logits, labels, valid, n_real=V_REAL,
                                     grad_dtype=grad_dtype)
     torch.testing.assert_close(ce.sum() / B, loss, **F32)
     g = torch.cat([k15.tp_xent_grad(logits[:, s].contiguous(), n, gmax,
-                                    stats[0], labels, valid, s.start, B,
+                                    gsum, labels, valid, s.start, B,
                                     grad_dtype)
                    for s, n in zip(shards, n_valid)], dim=-1)
     if grad_dtype == torch.bfloat16:
@@ -294,10 +296,114 @@ def test_tp_xent_passes_compose_to_k7(parts, grad_dtype):
 
 
 @pytest.mark.parametrize("parts", [1, 2, 4])
+@pytest.mark.parametrize("floor", [False, True])
+def test_merge_xent_stats_matches_one_logsumexp(parts, floor):
+    """The rank-order merge of K15's stats over tp 1, 2 and 4 gives the
+    logsumexp and label logit of the whole row, and every rank, merging
+    the same gather, the same bits. At tp 4 the last slice is wholly
+    padded: (-inf, 0) in train mode, (-1e30, its width) in floor mode;
+    floor mode also meets +-inf and NaN logits."""
+    v, v_real = 24, 18
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((B, v)) * 3).astype(np.float32)
+    if floor:
+        x[0, :3] = [np.inf, -np.inf, np.nan]
+    logits = torch.from_numpy(x)
+    labels = torch.from_numpy((np.arange(B) * 7 % v_real).astype(np.int32))
+    shards = _shards(v, parts)
+    stats = [k15.tp_xent_stats(logits[:, s].contiguous(), s.stop - s.start,
+                               k15.valid_columns(s.stop - s.start, s.start,
+                                                 v_real),
+                               labels, s.start, floor) for s in shards]
+    gathered = torch.cat(stats).view(parts, 3, B)
+    merged = [k15.merge_xent_stats(gathered.clone()) for _ in shards]
+    for other in merged[1:]:
+        for got, want in zip(other, merged[0]):
+            assert torch.equal(got, want)
+    gmax, gsum, label = merged[0]
+    whole = k15.xent_values(logits, v, v_real, floor)
+    torch.testing.assert_close(torch.log(gsum) + gmax,
+                               torch.logsumexp(whole, dim=1), **F32)
+    assert torch.equal(label, whole.gather(1, labels.long()[:, None])[:, 0])
+    if parts == 4:
+        pad = FLOOR_SLICE if floor else TRAIN_SLICE
+        lm, ls, ll = stats[-1]
+        assert (lm == pad[0]).all() and (ls == pad[1]).all()
+        assert (ll == 0).all()
+
+
+FLOOR_SLICE = (-1e30, 6.0)  # a wholly padded slice of 6 columns
+TRAIN_SLICE = (float("-inf"), 0.0)
+
+
+@pytest.mark.parametrize("plan", PLANS, ids=_id)
+def test_merged_stats_are_the_same_bits_on_every_rank(plan, ranks):
+    """Every rank of a plan's processes ends with the same bits of the
+    loss, its -1e30 form, the logsumexp and the code vector."""
+    _, outs, _ = ranks(plan)
+    for key in ("ce", "ce_floor", "gmax", "lse", "att_cv"):
+        for o in outs[1:]:
+            assert np.array_equal(o[key], outs[0][key]), key
+
+
+class _Recorder:
+    """A communicator of `size` ranks that records each collective and
+    answers it as if every rank held this rank's tensor."""
+
+    def __init__(self, size):
+        self.size, self.index, self.calls = size, 0, []
+
+    def all_reduce(self, t):
+        self.calls.append(("all_reduce",))
+        return t.mul_(self.size)
+
+    def all_gather(self, t):
+        self.calls.append(("all_gather",))
+        return torch.cat([t] * self.size)
+
+
+def test_loss_statistics_cross_ranks_in_one_collective():
+    """tp_softmax_ce and tp_log_softmax_at_topk: one all-gather over
+    `model`, no all-reduce; every rank holding the same slice doubles the
+    sum of exp and nothing else."""
+    x = _inputs()
+    logits = torch.from_numpy(x["op_logits"])
+    labels = torch.from_numpy(x["op_labels"]) % V_REAL
+    comm = _Recorder(2)
+    gmax, gsum, _ = sharded.tp_softmax_stats(logits, labels, comm,
+                                             n_valid=V_REAL)
+    assert comm.calls == [("all_gather",)]
+    want_max, want_sum, _ = sharded.tp_softmax_stats(logits, labels, LOCAL,
+                                                     n_valid=V_REAL)
+    assert torch.equal(gmax, want_max)
+    torch.testing.assert_close(gsum, 2 * want_sum, **F32)
+    comm = _Recorder(4)
+    sharded.tp_log_softmax_at_topk(logits, comm)
+    assert comm.calls == [("all_gather",)]
+
+
+def test_cp_forward_uses_two_collectives_over_ctx():
+    """context_parallel_attention at cp > 1: the stats' all-gather, then
+    the code vector's all-reduce SUM, nothing else; ranks holding the
+    same contexts split the weights evenly."""
+    x = _inputs()
+    t = torch.from_numpy(x["op_t"])
+    a = torch.from_numpy(x["op_a"])
+    mask = torch.from_numpy(x["op_mask"])
+    comm = _Recorder(2)
+    cv, attn = context_parallel_attention(t, a, mask, comm)
+    assert comm.calls == [("all_gather",), ("all_reduce",)]
+    want_cv, want_attn = masked_single_query_attention(t, a, mask)
+    torch.testing.assert_close(attn, want_attn / 2, **F32)
+    torch.testing.assert_close(cv, want_cv, **F32)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cp_attention_phases_compose_to_k2_and_k6(parts, dtype):
     """K16's and K17's phases over every ctx shard, with the collectives
-    done by hand, give K2's and K6's plain versions."""
+    done by hand (the stats gathered in rank order and merged), give K2's
+    and K6's plain versions."""
     x = _inputs()
     t = torch.from_numpy(x["op_t"]).to(dtype)
     a = torch.from_numpy(x["op_a"])
@@ -306,11 +412,11 @@ def test_cp_attention_phases_compose_to_k2_and_k6(parts, dtype):
     shards = _shards(M, parts)
     s = [k16.cp_attention_scores(t[:, c].contiguous(), a,
                                  mask[:, c].contiguous()) for c in shards]
-    gmax = torch.stack([m for _, m in s]).amax(0)
-    e = [k16.cp_attention_exp(sc, gmax) for sc, _ in s]
-    den = sum(d for _, d in e)
-    parts_cv = [k16.cp_attention_combine(t[:, c].contiguous(), u, den)
-                for c, (u, _) in zip(shards, e)]
+    gathered = torch.cat([st for _, st in s]).view(parts, 2, B)
+    gmax, gsum = k15.merge_softmax_stats(gathered[:, 0], gathered[:, 1])
+    parts_cv = [k16.cp_attention_combine(t[:, c].contiguous(), sc, gmax,
+                                         gsum)
+                for c, (sc, _) in zip(shards, s)]
     cv = sum(p for p, _ in parts_cv)
     attn = torch.cat([w for _, w in parts_cv], dim=1)
     want_cv, want_attn = masked_single_query_attention(t, a, mask)
@@ -454,5 +560,5 @@ def test_shard_params_round_trip():
 
 def test_one_rank_communicator_does_nothing():
     t = torch.arange(6.0)
-    assert LOCAL.all_reduce(t, "max") is t and LOCAL.all_gather(t) is t
+    assert LOCAL.all_reduce(t) is t and LOCAL.all_gather(t) is t
     assert mesh.local_mesh().comm("data", "ctx") is LOCAL
