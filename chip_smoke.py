@@ -168,9 +168,14 @@ a C++ compiler. Phases, each fatal on failure:
    F.cross_entropy's forward and backward; the stats pass alone as the
    eval step runs it, beside torch.logsumexp) and K16/K17 (the cp-2
    contexts, 1024 x 100 x 384) against their plain versions, timed beside
-   them and a PyTorch call of the same function; K15's and K16's edge
-   cases (small odd widths, a wholly padded slice, floor mode, one
-   context a row) and second calls bit-equal.
+   them and a PyTorch call of the same function; K15's, K16's and K17's
+   edge cases (small odd widths, a wholly padded slice, floor mode, one
+   context a row, a row whose fs equals its sum of w fs) and second
+   calls bit-equal; K17's per-launch device times. K13's merge of the
+   eval step's candidates (2 and 4 ranks' top 10, B 1024, k 10) and its
+   small-width mode exact against their plain versions, timed beside
+   torch.topk + gather, with a bound that counts one empty launch, which
+   K14's local ids also get.
 19. Parallel path (run after 11): the dense and sparse single-device steps
    on the card as the reference (2 steps at B 1024, M 200, keep 0.75 with
    injected masks, seeded full-width weights, the tables padded to tp 2),
@@ -180,8 +185,9 @@ a C++ compiler. Phases, each fatal on failure:
    first dp x tp x cp ranks): each plan's losses and parameters against
    the reference (PARALLEL_LOSS_RTOL, PARALLEL_FLIP_SHARE), each plan's
    gradients of the first batch leaf by leaf against the single-device
-   step's (PARALLEL_GRAD_RESID), the dense plans' eval step (K13 twice
-   around the all-gather, K15) against the single-device eval step, every
+   step's (PARALLEL_GRAD_RESID), the dense plans' eval step (K13 around
+   the all-gather, then its merge where tp > 1: the launches counted,
+   K15) against the single-device eval step, every
    kernel of the path launched, ms a step; then NCCL at world size 1, and
    `train --tp 2 --test` through torchrun on two processes that share
    the card.
@@ -4954,6 +4960,7 @@ def parallel_plan_run(torch, spec, mesh, name: str, sparse: bool):
         same, off = topk_agreement(ev.topk_indices, want["topk_indices"],
                                    want["topk_values"], TOL_F32SUM)
         out["eval"] = dict(
+            select_launches=kernels.launch_counts()["select_topk"],
             same=same, off=off, n=int(ev.topk_indices.numel()),
             values_err=float((ev.topk_values - want["topk_values"]).abs()
                              .max()),
@@ -5135,6 +5142,198 @@ def k16_edges(torch, k16, g) -> None:
     log("K16 edge cases (one context a row, width 128, B 64 x 50, rows of "
         "300 contexts, a row with no valid context): within TOL_F32SUM, "
         "second calls bit-equal")
+
+
+K17_PASSES = (("cp_fs_kernel", "fs"), ("cp_dt_kernel", "dt"),
+              ("cp_da_kernel", "da"))
+
+
+def k17_direct_da(torch, attn, mask, fs, wfs, t):
+    """K17's d a as the reference sums it, over rows and contexts of ds
+    t, on the kernel's own fs and sum of w fs (f32)."""
+    ds = torch.where(mask > 0, attn * (fs - wfs[:, None]), 0.0)
+    return torch.einsum("bm,bmd->d", ds, t.float())
+
+
+def k17_check(torch, k16, t, a, mask, attn, dcv, what: str):
+    """K17's two phases on `t` against their plain versions on the same
+    inputs: fs within one bf16 step of each row's largest, its weighted
+    row sum against the kernel's own fs (1e-5 of the sum of |w fs|), P
+    and Q against their sums on the kernel's own fs (TOL_F32SUM); dT
+    within one bf16 step of each context's largest (and whether it is
+    bit-equal), d a within one bf16 step of its largest against the plain
+    version's and against the direct sum of ds t (step_err); a second
+    call of each phase bit-equal. Returns (the largest error, a log
+    fragment)."""
+    fs, wfs, pq = k16.cp_attention_backward_fs(t, attn, mask, dcv)
+    fs_ratio, fs_off = row_step_err(fs, k16.backward_fs_plain(
+        t, attn, mask, dcv)[0])
+    wfs_err = (wfs - (attn * fs).sum(dim=1)).abs()
+    wfs_ok = bool((wfs_err <= 1e-5 * (attn * fs.abs()).sum(dim=1)).all())
+    wv = torch.where(mask > 0, attn, 0.0)
+    tf = t.float()
+    pq_err, pq_ok = max_err(pq, torch.stack(
+        [torch.einsum("bm,bmd->bd", wv * (fs - fs[:, :1]), tf),
+         torch.einsum("bm,bmd->bd", wv, tf)]), TOL_F32SUM)
+    del tf, wv
+    direct = k17_direct_da(torch, attn, mask, fs, wfs, t)
+    dt, da = k16.cp_attention_backward_dt(a, mask, attn, fs, wfs, dcv, pq)
+    dt2, da2 = k16.backward_dt_plain(a, mask, attn, fs, wfs, dcv, pq)
+    d = t.shape[2]
+    dt_ratio, dt_off = row_step_err(dt.reshape(-1, d), dt2.reshape(-1, d))
+    dt_exact = torch.equal(dt, dt2)
+    dt_err = float((dt.float() - dt2.float()).abs().max())
+    del dt2
+    da_err, da_ok = step_err(da, da2)
+    dd_err, dd_ok = step_err(da, direct)
+    fs3 = k16.cp_attention_backward_fs(t, attn, mask, dcv)
+    dt3, da3 = k16.cp_attention_backward_dt(a, mask, attn, fs3[0], fs3[1],
+                                            dcv, fs3[2])
+    same = all(torch.equal(x, y) for x, y in zip(
+        (fs, wfs, pq, dt, da), (*fs3, dt3, da3)))
+    if fs_off or not (wfs_ok and pq_ok and da_ok and dd_ok and same) \
+            or dt_off:
+        fail(f"K17 cp_attention_backward {what}: fs rows off by more than "
+             f"one bf16 step of their largest {fs_off} (worst "
+             f"{fs_ratio:.3g} steps), weighted fs sum max err "
+             f"{float(wfs_err.max())}, P and Q max err {pq_err} (tol "
+             f"{TOL_F32SUM}), dT rows off {dt_off} (worst {dt_ratio:.3g} "
+             f"steps), da max err {da_err} against the plain version, "
+             f"{dd_err} against the sum of ds t (tol one bf16 step at "
+             f"the largest of each), a second call the same bits {same}")
+    return max(dt_err, da_err, dd_err), (
+        f"fs rows within {fs_ratio:.3g} of a bf16 step of their largest, "
+        f"P and Q max_abs_err {pq_err:.3g} (tol {TOL_F32SUM}), dT rows "
+        f"within {dt_ratio:.3g} of a step of their largest (bit-equal to "
+        f"the plain version's on the kernel's own fs, wfs, P and Q: "
+        f"{dt_exact}), da max_abs_err {da_err:.3g} against the plain "
+        f"version and {dd_err:.3g} against the sum of ds t (tol one bf16 "
+        f"step at the largest, {bf16_step(float(direct.abs().max())):.3g}"
+        f"); a second call of each phase bit-equal")
+
+
+def k17_edges(torch, k16, g) -> None:
+    """K17's phases (k17_check) on K16's weights where the flagship batch
+    does not reach: one context a row, width 128, rows of 300 contexts,
+    the widest rows (1024), each with a row that has no valid context and
+    a row whose t is one vector on every context (fs equals the row's
+    sum of w fs, so each ds is a rounding of 0); that row alone too,
+    its d a within one bf16 step of the largest of the plain version's
+    and of the direct sum of ds t."""
+    for b, m, d in ((3, 1, 384), (5, 7, 128), (64, 100, 384),
+                    (4, 300, 384), (3, 130, 1024)):
+        t = torch.tanh(torch.randn((b, m, d), generator=g,
+                                   device="cuda")).to(torch.bfloat16)
+        t[1] = t[1, 0]
+        a = torch.randn((d,), generator=g, device="cuda") * 0.25
+        mask = (torch.rand((b, m), generator=g, device="cuda") > 0.2
+                ).float()
+        mask[0] = 0.0
+        mask[1, 0] = 1.0
+        dcv = torch.randn((b, d), generator=g, device="cuda")
+        s, st = k16.cp_attention_scores(t, a, mask)
+        _, attn = k16.cp_attention_combine(t, s, st[0], st[1])
+        k17_check(torch, k16, t, a, mask, attn, dcv, f"b {b} m {m} d {d}")
+        r = [x[1:2].contiguous() for x in (t, attn, mask, dcv)]
+        fs, wfs, pq = k16.cp_attention_backward_fs(*r)
+        _, da = k16.cp_attention_backward_dt(a, r[2], r[1], fs, wfs, r[3],
+                                             pq)
+        errs = (step_err(da, k16.backward_dt_plain(
+                    a, r[2], r[1], fs, wfs, r[3], pq)[1]),
+                step_err(da, k17_direct_da(torch, r[1], r[2], fs, wfs,
+                                           r[0])))
+        if not all(ok for _, ok in errs):
+            fail(f"K17 the fs = total row (b {b} m {m} d {d}) alone: d a "
+                 f"max err {errs[0][0]} against the plain version, "
+                 f"{errs[1][0]} against the sum of ds t (tol one bf16 "
+                 f"step at the largest of each)")
+    log("K17 edge cases (one context a row, width 128, B 64 x 100, rows of "
+        "300 contexts, width 1024; a row with no valid context and a row "
+        "with fs equal to its sum of w fs): each within k17_check's "
+        "tolerances, second calls bit-equal; the fs = total row alone "
+        "gives d a within one bf16 step of the plain version's and of "
+        "the sum of ds t")
+
+
+def empty_launch(torch):
+    """A thunk that launches a kernel doing nothing (one CTA of 32
+    threads, csrc/gather_probe.cu c2v_empty_kernel): what one launch
+    costs under the timer, which a bound counting the launch adds (as
+    K4's row of PERF.md counts it)."""
+    from code2vec_tpu_torch.kernels import launch
+    fn = launch.bind("gather_probe", "c2v_empty_kernel",
+                     [launch.I32, launch.I32, launch.P])
+    stream = launch.stream(torch.device("cuda"))
+    return lambda: launch.check_launch(fn(1, 32, stream), "empty_kernel")
+
+
+def merge_case(torch, timer, g, b: int, parts: int, k_local: int,
+               empty_ms: float, k: int = 10):
+    """K13's merge of the eval step's tp x k candidates (ops/sharded.py
+    tp_top_k after its all-gathers): `parts` ranks' top k_local values
+    and ids (parts, b, k_local), quarters in [-2, 2] (ties across ranks),
+    a NaN, the last rank wholly -inf on a quarter of the rows; the merge
+    entry and the small-width mode over the same candidates laid out
+    rank-major, each exactly against its plain version, one launch a
+    call, a second call bit-equal; timed beside the plain merge and
+    torch.topk + gather over the rank-major candidates, with two bounds:
+    the bytes, and the bytes plus one empty launch (`empty_ms`). Returns
+    its report keys."""
+    from code2vec_tpu_torch import kernels
+    from code2vec_tpu_torch.kernels.select import (
+        merge_topk, merge_topk_plain, padded_width, select_topk,
+        select_topk_plain,
+    )
+    n = parts * k_local
+    values = torch.randint(-8, 9, (parts, b, k_local), generator=g,
+                           device="cuda").float() * 0.25
+    values[0, 0, 0] = float("nan")
+    values[-1, :b // 4] = float("-inf")
+    ids = (torch.arange(parts, device="cuda")[:, None, None] * 130623
+           + torch.randint(0, 130623, (parts, b, k_local), generator=g,
+                           device="cuda")).int()
+    flat = torch.full((b, padded_width(n)), float("-inf"), device="cuda")
+    flat[:, :n] = values.permute(1, 0, 2).reshape(b, n)
+    flat_ids = ids.permute(1, 0, 2).reshape(b, n)
+
+    def same(x, y):
+        return torch.equal(x[1], y[1]) and torch.equal(
+            x[0].nan_to_num(), y[0].nan_to_num()) and torch.equal(
+            torch.isnan(x[0]), torch.isnan(y[0]))
+
+    before = kernels.launch_counts()["select_topk"]
+    got = merge_topk(values, ids, k)
+    launches = kernels.launch_counts()["select_topk"] - before
+    small = select_topk(flat, k, n)
+    ok = (same(got, merge_topk_plain(values, ids, k))
+          and same(small, select_topk_plain(flat, k, n))
+          and same(got, merge_topk(values, ids, k)) and launches == 1)
+    if not ok:
+        fail(f"K13 merge of {parts} x {k_local} candidates, B {b}, k {k}: "
+             f"the merge or the small-width mode differs from its plain "
+             f"version, or a second call from the first, or the merge took "
+             f"{launches} launches")
+
+    def library():
+        v, p = torch.topk(flat[:, :n], k)
+        return v, flat_ids.gather(1, p)
+
+    ms = timer(lambda: merge_topk(values, ids, k))
+    small_ms = timer(lambda: select_topk(flat, k, n))
+    plain_ms = timer(lambda: merge_topk_plain(values, ids, k), spin_ms=20)
+    lib_ms = timer(library)
+    bms, by = bound(b * n * 8 + b * k * 8, float(b * n), F32_FLOP_PER_S)
+    log(f"K13 merge of {parts} ranks' top {k_local} ({b} x {n} candidates, "
+        f"k {k}): values and ids exact against the plain version (the "
+        f"small-width mode over the rank-major copy too), {launches} "
+        f"launch, a second call bit-equal; ms {ms:.4f} (small-width mode "
+        f"over the copy {small_ms:.4f}) plain_ms {plain_ms:.4f} library_ms "
+        f"{lib_ms:.4f} (torch.topk + gather) bound_ms {bms:.6f} ({by}), "
+        f"with one empty launch {bms + empty_ms:.4f}")
+    return dict(max_abs_err=0.0, ms=ms, small_ms=small_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, launch_bound_ms=bms + empty_ms,
+                launches=launches)
 
 
 def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
@@ -5363,50 +5562,53 @@ def parallel_kernel_phase(torch, seed: int, timer, fs, ft):
     del again, merged
 
     def backward(fs_fn, dt_fn):
-        f, w = fs_fn(t, attn, dcv)
-        return dt_fn(t, a, mask, attn, f, w, dcv)
+        f, w, pq = fs_fn(t, attn, mask, dcv)
+        return dt_fn(a, mask, attn, f, w, dcv, pq)
 
-    # each pass against its plain version on the same inputs: fs (a bf16
+    # each phase against its plain version on the same inputs: fs (a bf16
     # dot product) within one bf16 step of each row's largest, its
     # weighted row sum exactly against the kernel's own fs (f32 sums of
-    # at most 100 terms: 1e-5 of the sum of |w fs|); then dT (the same
+    # at most 100 terms: 1e-5 of the sum of |w fs|), P and Q against
+    # their sums on the kernel's own fs (TOL_F32SUM); then dT (the same
     # f32 products and bf16 roundings as the plain version) within one
-    # bf16 step of each context's largest, da of its largest
-    fs_got = k16.cp_attention_backward_fs(t, attn, dcv)
-    fs_want = k16.backward_fs_plain(t, attn, dcv)
-    fs_ratio, fs_off = row_step_err(fs_got[0], fs_want[0])
-    wfs_err = (fs_got[1] - (attn * fs_got[0]).sum(dim=1)).abs()
-    wfs_ok = bool((wfs_err <= 1e-5 * (attn * fs_got[0].abs()).sum(dim=1)
-                   ).all())
-    got = k16.cp_attention_backward_dt(t, a, mask, attn, *fs_got, dcv)
-    want = k16.backward_dt_plain(t, a, mask, attn, *fs_got, dcv)
-    dt_ratio, dt_off = row_step_err(got[0].reshape(-1, d),
-                                    want[0].reshape(-1, d))
-    errs = [(float((got[0].float() - want[0].float()).abs().max()),
-             dt_off == 0), step_err(got[1], want[1])]
-    if fs_off or not wfs_ok or not all(ok for _, ok in errs):
-        fail(f"K17 cp_attention_backward: fs rows off by more than one bf16 "
-             f"step of their largest {fs_off} (worst {fs_ratio:.3g} steps), "
-             f"weighted fs sum max err {float(wfs_err.max())}, dT rows off "
-             f"{dt_off} (worst {dt_ratio:.3g} steps), da {errs[1]}")
-    del fs_got, fs_want, wfs_err
-    bms, by = bound(3 * t.numel() * 2 + 3 * b * mc * 4 + b * d * 4,
-                    6.0 * t.numel(), BF16_FLOP_PER_S)
+    # bf16 step of each context's largest, and d a (P - total Q summed
+    # over the rows) within one bf16 step of its largest, against the
+    # plain version's and against its direct sum of ds t
+    err, bits = k17_check(torch, k16, t, a, mask, attn, dcv, "1024 x 100 x "
+                          "384")
+    k17_edges(torch, k16, g)
+    bms, by = k6_bound(t)
     ms = timer(lambda: backward(k16.cp_attention_backward_fs,
                                 k16.cp_attention_backward_dt))
     plain_ms = timer(lambda: backward(k16.backward_fs_plain,
                                       k16.backward_dt_plain), spin_ms=20)
     lib_ms = k6_library(torch, timer, t, a, mask, dcv)
-    log(f"K17 cp_attention_backward 1024 x 100 x 384 (fs, dt + da): "
-        f"max_abs_err dT {errs[0][0]:.3g} (rows within {dt_ratio:.3g} of a "
-        f"bf16 step of their largest) da {errs[1][0]:.3g} (tol one bf16 "
-        f"step at the largest), fs rows within {fs_ratio:.3g} of a step; "
-        f"ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms {lib_ms:.4f} (SDPA backward by autograd) bound_ms "
-        f"{bms:.4f} ({by})")
+    split = device_passes(torch, lambda: backward(
+        k16.cp_attention_backward_fs, k16.cp_attention_backward_dt),
+        K17_PASSES)
+    log(f"K17 cp_attention_backward 1024 x 100 x 384 (fs with P and Q, dt + "
+        f"da): {bits}; ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{lib_ms:.4f} (SDPA backward by autograd) bound_ms {bms:.4f} ({by}: "
+        f"T read once, dT written once); launches (us, back to back): "
+        + (", ".join(f"{k} {v:.1f}" for k, v in split.items())
+           if split else "not measured"))
     report["cp_attention_backward"] = dict(
-        max_abs_err=max(e for e, _ in errs), ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms, pass_us=split)
+    del t, attn, dcv, mask
+    torch.cuda.empty_cache()
+    empty_ms = timer(empty_launch(torch))
+    report["shard_local_ids"].update(
+        empty_launch_ms=empty_ms,
+        launch_bound_ms=report["shard_local_ids"]["bound_ms"] + empty_ms)
+    log(f"an empty kernel launch: {empty_ms:.4f} ms under the same timer; "
+        f"K14 shard_local_ids against its bound with one launch: "
+        f"{report['shard_local_ids']['ms']:.4f} / "
+        f"{report['shard_local_ids']['launch_bound_ms']:.4f}")
+    report["select_topk_merge"] = {
+        f"merge{n}_{key}": x for n in (20, 40)
+        for key, x in merge_case(torch, timer, g, b, n // 10, 10,
+                                 empty_ms).items()}
     return report
 
 
@@ -5557,6 +5759,10 @@ def parallel_phase(torch, seed: int, work_dir: str, fs, ft):
         off = max(e["off_share"] for x in runs for e in x["params"].values())
         ev = [x["eval"] for x in runs if "eval" in x]
         ev_off = sum(e["off"] for e in ev)
+        # an eval step's K13 launches a rank: the local top-k, then (tp >
+        # 1) the merge of the gathered candidates
+        ev_select = sorted({e["select_launches"] for e in ev})
+        ev_bad = bool(ev) and ev_select != [2 if shape[1] > 1 else 1]
         ev_loss = max((abs(e["loss_sum"] - e["ref_loss_sum"])
                        / abs(e["ref_loss_sum"]) for e in ev), default=0.0)
         step_ms = max(x["step_ms"][-1] for x in runs)
@@ -5586,16 +5792,18 @@ def parallel_phase(torch, seed: int, work_dir: str, fs, ft):
             f"{PARALLEL_GRAD_RESID}), their loss rel err {grad_loss_err:.2e}"
             + (f"; eval top-k {sum(e['same'] for e in ev)} positions equal, "
                f"{ev_off} off without a near-tie, loss sum rel err "
-               f"{ev_loss:.2e}" if ev else "")
+               f"{ev_loss:.2e}, K13 launches an eval step a rank "
+               f"{ev_select}" if ev else "")
             + f"; launches {json.dumps({k: sum(x['counts'][k] for x in runs) for k in need})}")
         if (missing or not same or loss_err > PARALLEL_LOSS_RTOL or bad_params
                 or bad_grads or grad_loss_err > PARALLEL_LOSS_RTOL
-                or ev_off or ev_loss > 1e-3):
+                or ev_off or ev_loss > 1e-3 or ev_bad):
             fail(f"parallel {name}: kernels never launched {missing}, losses "
                  f"equal on every rank {same}, loss rel err {loss_err}, "
                  f"parameters off {bad_params}, gradients off {bad_grads} "
                  f"(their loss rel err {grad_loss_err}), eval off {ev_off} "
-                 f"(loss sum {ev_loss})")
+                 f"(loss sum {ev_loss}), K13 launches an eval step "
+                 f"{ev_select}")
         stats[name] = dict(step_ms=step_ms, loss_err=loss_err,
                            max_err=max_err, off=off, grad_resid=grad_resid,
                            ranks=len(runs))
@@ -5652,9 +5860,14 @@ def main() -> None:
         make = subprocess.Popen(["make", "-C", cpp, "-j8"] + native_targets,
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
-    build_s = build.timed_build_all()
-    log(f"build: {len(build.SOURCES)} kernel libraries with nvcc in "
-        f"{build_s:.1f}s")
+    # every kernel library with csrc/gather_probe.cu's empty kernel (what
+    # one launch costs, for the bounds that count it), all nvcc at once
+    tb = time.perf_counter()
+    build.build_all(list(build.SOURCES) + ["gather_probe"])
+    build.timed_build_all()  # loads each library
+    build_s = time.perf_counter() - tb
+    log(f"build: {len(build.SOURCES)} kernel libraries and the empty "
+        f"kernel with nvcc in {build_s:.1f}s")
     if make is not None:
         out, _ = make.communicate()
         if make.returncode != 0:
@@ -5700,6 +5913,9 @@ def main() -> None:
         retrieval_report, index_stats = retrieval_kernel_phase(
             torch, args.seed, timer, fs, work_dir)
         report.update(retrieval_report)
+        # K13's merge of the eval step's candidates, from the parallel
+        # kernels, as merge20_* and merge40_* of its entry
+        report["select_topk"].update(report.pop("select_topk_merge"))
         del timer
         torch.cuda.empty_cache()
         weights = serving_weights(args.seed, fs)
@@ -5815,13 +6031,16 @@ def main() -> None:
         # (k 100) as k100_*; K3's float32 mode at k 1000 as k1000_*; K12:
         # uniform ids above, Zipf(1.07) as zipf_*; K6: B 1024 x 200 above,
         # B 64 and 1 and 32 contexts as b<B>_m<M>_*; K5's row mode: its
-        # allocation beside the dense mode's
+        # allocation beside the dense mode's; K13's merge of the eval
+        # step's 2 x 10 and 4 x 10 candidates as merge20_* and merge40_*;
+        # K14's local ids with the bound that counts one launch
         entry.update({k: v for k, v in r.items()
                       if k.startswith(("mips", "b1", "b8", "b64", "m32",
-                                       "k100", "zipf", "stats"))
+                                       "k100", "zipf", "stats", "merge"))
                       or k.endswith("alloc_gb")
                       or k in ("unique_rows", "library_full_ms", "pass_ms",
-                               "pass_us", "f32_fma_bound_ms")})
+                               "pass_us", "f32_fma_bound_ms",
+                               "empty_launch_ms", "launch_bound_ms")})
         if name == "context_encoder":
             # K1 alone at the evaluate batch, per format, as eval_<format>_*
             entry.update({f"eval_{fmt}_{k}": x for fmt, r in k1_eval.items()

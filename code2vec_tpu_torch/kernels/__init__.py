@@ -26,7 +26,9 @@ search), counted apart as `blockwise_topk_f32`; K11's int8-row
 instantiation (the MIPS head over an int8 classifier) is counted apart
 from its f32-row one as `ivf_search_int8`. K5's row mode (the sparse
 train step's row gradients) is counted apart as `encoder_backward_rows`.
-K13 is the large-k mode of K3 and K11 (k above 64). K14-K17 are the
+K13 is the large-k mode of K3 and K11 (k above 64), and in its
+small-width mode the merge of the tensor-parallel top-k's gathered
+candidates (ops/sharded.py tp_top_k). K14-K17 are the
 parallel steps' (training/step.py ParallelStepBuilder): each runs as
 phases between collectives, and K15, K16 and K17 count every phase.
 

@@ -7,9 +7,11 @@ with `axis_name` set (:52, :60, :67): the scores and the rank's (max, sum
 of exp), which the caller all-gathers and merges in rank order
 (kernels/sharded.py merge_softmax_stats), then the weights at the global
 max and sum and the rank's part of the code vector. K17 replaces its
-autodiff in the manual train step: fs = bf16(g . t) and the rank's sum
-of w fs (the cotangent of the denominator, summed over ctx by the
-caller), then dt and the rank's part of d a. The CUDA source is
+autodiff in the manual train step: fs = bf16(g . t), the rank's sum of
+w fs (the cotangent of the denominator, summed over ctx by the caller)
+and each row's sums of w (fs - fs_0) t and w t (fs_0 the fs of its
+first context), in the one read of t; then dt and the rank's part of
+d a from those, without t. The CUDA source is
 csrc/cp_attention.cu; its header gives the arithmetic, the rounding
 points (K6's), what bounds each phase on an H100 and the design. The `*_plain` functions are the same in plain
 PyTorch: CPU tensors take them, CUDA tensors launch the kernels. With one
@@ -55,21 +57,25 @@ def combine_plain(t, scores, gmax, gsum):
     return cv, attn
 
 
-def backward_fs_plain(t, attn, g):
-    fs = torch.einsum("bd,bmd->bm", g.float(), t.float()).to(
-        t.dtype).float()
-    return fs, (attn * fs).sum(dim=1)
+def backward_fs_plain(t, attn, mask, g):
+    tf = t.float()
+    fs = torch.einsum("bd,bmd->bm", g.float(), tf).to(t.dtype).float()
+    wv = torch.where(mask > 0, attn, torch.zeros_like(attn))
+    pq = torch.stack([torch.einsum("bm,bmd->bd", wv * (fs - fs[:, :1]), tf),
+                      torch.einsum("bm,bmd->bd", wv, tf)])
+    return fs, (attn * fs).sum(dim=1), pq
 
 
-def backward_dt_plain(t, a, mask, attn, fs, wfs, g):
-    cd = t.dtype
+def backward_dt_plain(a, mask, attn, fs, wfs, g, pq, dtype=torch.bfloat16):
+    cd = dtype
     ds = torch.where(mask > 0, attn * (fs - wfs[:, None]),
                      torch.zeros_like(fs))
     ac = a.to(cd).float()
     w = attn.to(cd).float()
     dt = ((w[:, :, None] * g.float()[:, None, :]).to(cd).float()
           + (ds[:, :, None] * ac).to(cd).float()).to(cd)
-    da = torch.einsum("bm,bmd->d", ds, t.float()).to(cd).float()
+    da = (pq[0] + (fs[:, :1] - wfs[:, None]) * pq[1]).sum(dim=0).to(
+        cd).float()
     return dt, da
 
 
@@ -84,18 +90,13 @@ def _fn(name: str):
             "c2v_cp_attention_scores": [P, P, P, I32, I32, I32, P, P, P],
             "c2v_cp_attention_combine": [P, P, P, P, I32, I32, I32, P, P,
                                          P],
-            "c2v_cp_attention_backward_fs": [P, P, P, I32, I32, I32, P, P,
-                                             P],
+            "c2v_cp_attention_backward_fs": [P, P, P, P, I32, I32, I32, P,
+                                             P, P, P],
             "c2v_cp_attention_backward_dt": [P, P, P, P, P, P, P, I32, I32,
                                              I32, P, P, P, P],
         }[name]
         fn = _fns[name] = launch.bind("cp_attention", name, args)
     return fn
-
-
-def _check_t(t: torch.Tensor):
-    launch.check_tensor(t, "transformed", [torch.bfloat16], 3)
-    return t.shape
 
 
 def _check_t16(t: torch.Tensor):
@@ -165,47 +166,63 @@ def cp_attention_combine(t: torch.Tensor, scores: torch.Tensor,
 
 
 def cp_attention_backward_fs(t: torch.Tensor, attn: torch.Tensor,
-                             g: torch.Tensor
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K17 phase 1: (fs = bf16(g . t) (b, m) f32, this rank's sum of
-    w fs (b,))."""
-    if launch.runs_plain(t, attn, g):
-        return backward_fs_plain(t, attn, g)
+                             mask: torch.Tensor, g: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K17 phase 1, the one read of t: (fs = bf16(g . t) (b, m) f32,
+    this rank's sum of w fs (b,), and (2, b, d) f32 each row's sums over
+    its valid contexts of w (fs - fs_0) t, then of w t, fs_0 the fs of
+    its first context, for the d a that phase 2 writes without t)."""
+    if launch.runs_plain(t, attn, mask, g):
+        return backward_fs_plain(t, attn, mask, g)
     fn = _fn("c2v_cp_attention_backward_fs")
-    b, m, d = _check_t(t)
+    b, m, d = _check_t16(t)
     _check("attention", attn, torch.float32, (b, m))
+    _check("mask", mask, torch.float32, (b, m))
     _check("d_code_vectors", g, torch.float32, (b, d))
     fs, wfs = _f32((b, m), t.device), _f32((b,), t.device)
-    err = fn(t.data_ptr(), attn.data_ptr(), g.data_ptr(), b, m, d,
-             fs.data_ptr(), wfs.data_ptr(), launch.stream(t.device))
+    pq = _f32((2, b, d), t.device)
+    err = fn(t.data_ptr(), attn.data_ptr(), mask.data_ptr(), g.data_ptr(),
+             b, m, d, fs.data_ptr(), wfs.data_ptr(), pq.data_ptr(),
+             launch.stream(t.device))
     launch.check_launch(err, "cp_attention_backward_fs")
     launch.count(__name__, "backward_launches")
-    return fs, wfs
+    return fs, wfs, pq
 
 
-def cp_attention_backward_dt(t: torch.Tensor, a: torch.Tensor,
-                             mask: torch.Tensor, attn: torch.Tensor,
-                             fs: torch.Tensor, wfs: torch.Tensor,
-                             g: torch.Tensor
+def cp_attention_backward_dt(a: torch.Tensor, mask: torch.Tensor,
+                             attn: torch.Tensor, fs: torch.Tensor,
+                             wfs: torch.Tensor, g: torch.Tensor,
+                             pq: torch.Tensor,
+                             dtype: torch.dtype = torch.bfloat16
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K17 phase 2, from the sum of w fs over every ctx rank: (dt
-    (b, m, d) in t's dtype, this rank's part of d a (d,) f32, rounded to
-    t's dtype)."""
-    if launch.runs_plain(t, a, mask, attn, fs, wfs, g):
-        return backward_dt_plain(t, a, mask, attn, fs, wfs, g)
+    """K17 phase 2, from the sum of w fs over every ctx rank and phase
+    1's row sums, without t: (dt (b, m, d) in `dtype`, which is t's;
+    this rank's part of d a (d,) f32, rounded to `dtype`)."""
+    if launch.runs_plain(a, mask, attn, fs, wfs, g, pq):
+        return backward_dt_plain(a, mask, attn, fs, wfs, g, pq, dtype)
     fn = _fn("c2v_cp_attention_backward_dt")
-    b, m, d = _check_t(t)
-    _check("attention_param", a, torch.float32, (d,))
-    for name, x in (("mask", mask), ("attention", attn), ("fs", fs)):
+    launch.require(dtype == torch.bfloat16,
+                   f"dt dtype {dtype}: the kernel writes bfloat16")
+    launch.check_tensor(fs, "fs", [torch.float32], 2)
+    launch.check_tensor(a, "attention_param", [torch.float32], 1)
+    (b, m), d = fs.shape, a.shape[0]
+    launch.require(d % 8 == 0 and d <= 1024,
+                   f"code width {d} is not a multiple of 8 up to 1024")
+    launch.require(8 * m <= 48 * 1024,
+                   f"{m} contexts take more than 48 KB of shared memory "
+                   f"a CTA")
+    for name, x in (("mask", mask), ("attention", attn)):
         _check(name, x, torch.float32, (b, m))
     _check("wfs", wfs, torch.float32, (b,))
     _check("d_code_vectors", g, torch.float32, (b, d))
-    dt = torch.empty_like(t)
-    da_rows, da = _f32((b, d), t.device), _f32((d,), t.device)
-    err = fn(t.data_ptr(), a.data_ptr(), mask.data_ptr(), attn.data_ptr(),
-             fs.data_ptr(), wfs.data_ptr(), g.data_ptr(), b, m, d,
+    _check("pq", pq, torch.float32, (2, b, d))
+    dt = torch.empty((b, m, d), dtype=dtype, device=fs.device)
+    da_rows, da = _f32((b, d), fs.device), _f32((d,), fs.device)
+    err = fn(a.data_ptr(), mask.data_ptr(), attn.data_ptr(), fs.data_ptr(),
+             wfs.data_ptr(), g.data_ptr(), pq.data_ptr(), b, m, d,
              dt.data_ptr(), da_rows.data_ptr(), da.data_ptr(),
-             launch.stream(t.device))
+             launch.stream(fs.device))
     launch.check_launch(err, "cp_attention_backward_dt")
     launch.count(__name__, "backward_launches")
     return dt, da

@@ -27,17 +27,28 @@
 //            (the cotangent of the denominator, which the reference's
 //            psum transposes into a sum over ctx)
 //   dt       ds = w (fs - sum w fs) on valid contexts (0 elsewhere);
-//            dt = bf16(bf16(bf16(w) g) + bf16(ds bf16(a))); each row's
-//            sum_m ds t (f32), then in a second launch da = bf16 of the
-//            rows' sum in row order: the rank's part of d a, which the
-//            step reduces over data and ctx.
+//            dt = bf16(bf16(bf16(w) g) + bf16(ds bf16(a))); the rank's
+//            part of d a, sum over rows and contexts of ds t, rounded to
+//            bf16, which the step reduces over data and ctx.
+// dt does not depend on t, and only d a reads it: a row's
+//   sum_m ds t = sum_m w (fs - c) t + (c - total) sum_m w t
+// over its valid contexts, for total = sum w fs and any c. So the fs
+// phase, which reads t for fs, also keeps each row's P = sum_m w (fs -
+// c) t and Q = sum_m w t (f32, D wide) with c the fs of the row's first
+// context, and the dt phase, after the all-reduce, writes dt and P + (c
+// - total) Q without reading t again. The shift by c keeps the two
+// terms at the size of fs's spread, as ds is, not of fs: where fs is the
+// same on every context (one context a row, or every t of the row
+// equal) P is exactly 0 and the row's d a is (c - total) Q, the sum of
+// ds t up to f32 roundings of it, and not the difference of two sums
+// that cancel.
 // Every sum runs in a fixed order, so ranks that hold the same inputs
 // (the model ranks of a (data, ctx) cell) get the same bits.
 //
-// What bounds them on an H100: bytes. Each reads the (B, M/cp, 384) bf16
-// activations: the forward twice (scores, combine: 157 MB at cp 2 of the
-// flagship, 0.047 ms at the memory rate), the backward twice (fs, dt) and
-// writes dt once.
+// What bounds them on an H100: bytes. The forward reads the (B, M/cp,
+// 384) bf16 activations twice (scores, combine: 157 MB at cp 2 of the
+// flagship, 0.047 ms at the memory rate); the backward reads them once
+// (fs) and writes dt once (the same 157 MB).
 // K16's design: the row's T block (100 x 384 bf16 at cp 2, 76.8 KB) is
 // contiguous, so both phases stream it by 16-byte loads, several in
 // flight a thread, with no shared-memory staging: ~24 KB in flight a CTA
@@ -57,17 +68,31 @@
 // (two CTAs an SM), and persistent CTAs streaming the rows through an
 // 8-slot ring from a producer warp. The scores phase already reads T
 // faster than a torch.amax of T does.
-// K17, simple first: a CTA per row for the fs phase (a warp per context,
-// the lanes over D); a CTA per (row, 128 columns of D) for dt, a thread
-// per column walking the contexts, the row's weights first staged in
-// shared memory by the CTA.
+// K17: the fs phase follows the scores phase (a CTA a row, a warp a
+// context, a warp sum, g's values in registers), with 8-byte chunks (4
+// columns) a lane, three a lane at width 384 so that no lane idles, and
+// two contexts a warp read while the two before them are summed (two
+// sets of registers; two CTAs an SM); each lane adds its chunks into P
+// and Q while it holds them, its warp's contexts in order, each warp's
+// P against the fs of its own first context (known before it adds any),
+// then moved onto the row's c by (its fs - c) Q, and the warps' P and Q
+// are added in warp order through shared memory. The dt
+// phase is a CTA a row, 2 groups of D/8 threads (small CTAs: the 1,024
+// rows fit the card in one wave), each thread 8 adjacent columns of
+// every other context, by 16-byte stores, from the row's ds and bf16(w)
+// in shared memory and its own g and a in registers; after its stores
+// the CTA writes the row's P + (c - total) Q (so that they are still in L2
+// for the next launch). A last launch adds those rows for d a over 48
+// CTAs at width 384: a CTA a strip of 8 columns, each thread a column's
+// every 128th row in order, then a fixed tree over the 128 sums.
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 128;      // columns of D a dt CTA owns
+constexpr int kDtGroups = 2;    // context groups of a dt CTA
+constexpr int kDaCols = 8;      // columns of a da CTA
 constexpr int kGroups = 4;      // context groups of a combine CTA
 constexpr int kCombineLoads = 8;  // 16-byte loads in flight a thread
 
@@ -85,15 +110,6 @@ __device__ __forceinline__ float dot8(const uint4& v, const float* q,
     acc = fmaf(c2v::hopper::hi_bf16(w[i]), q[2 * i + 1], acc);
   }
   return acc;
-}
-
-// g . t[row, j] over D: the lanes of a warp over the columns, then a
-// warp sum; `q` is f32 (g).
-__device__ __forceinline__ float warp_dot(const __nv_bfloat16* t,
-                                          const float* q, int d, int lane) {
-  float acc = 0.f;
-  for (int k = lane; k < d; k += 32) acc += __bfloat162float(t[k]) * q[k];
-  return c2v::warp_sum(acc);
 }
 
 // scores (b, m) f32; stats (2, b) f32: the rows' lm, then ls. t's rows of
@@ -224,80 +240,257 @@ cp_combine_kernel(const __nv_bfloat16* __restrict__ t,
   out[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
 }
 
-// fs (b, m) f32, wfs (b,) f32.
-__global__ void __launch_bounds__(kThreads)
+// acc += the 4 bf16 of `v` times q (in order).
+__device__ __forceinline__ float dot4(const uint2& v, const float* q,
+                                      float acc) {
+  acc = fmaf(c2v::hopper::lo_bf16(v.x), q[0], acc);
+  acc = fmaf(c2v::hopper::hi_bf16(v.x), q[1], acc);
+  acc = fmaf(c2v::hopper::lo_bf16(v.y), q[2], acc);
+  return fmaf(c2v::hopper::hi_bf16(v.y), q[3], acc);
+}
+
+// fs (b, m) f32, wfs (b,) f32; pq (2, b, d) f32: each row's P = sum_m w
+// (fs - fs_0) t, then Q = sum_m w t, over its valid contexts. t as for the
+// scores; kLC the 8-byte chunks (4 columns) of a context a lane takes
+// (d / 4 <= 32 kLC: three at width 384, so no lane idles).
+template <int kLC>
+__global__ void __launch_bounds__(kThreads, kLC <= 3 ? 2 : 1)
 cp_fs_kernel(const __nv_bfloat16* __restrict__ t,
-             const float* __restrict__ attn, const float* __restrict__ g,
-             int m, int d, float* __restrict__ fs,
-             float* __restrict__ wfs) {
-  extern __shared__ float q[];  // d: g of this row
-  __shared__ float part[kWarps];
-  const int row = blockIdx.x, lane = threadIdx.x & 31,
-            warp = threadIdx.x >> 5;
-  for (int k = threadIdx.x; k < d; k += kThreads)
-    q[k] = g[static_cast<int64_t>(row) * d + k];
-  __syncthreads();
-  // each warp sums w fs over its contexts in order; then the warps' sums
-  // in order (a fixed order for a given m)
-  float acc = 0.f;
-  for (int j = warp; j < m; j += kWarps) {
-    const int64_t e = static_cast<int64_t>(row) * m + j;
-    const float f = c2v::bf16_round(warp_dot(t + e * d, q, d, lane));
-    if (lane == 0) fs[e] = f;
-    acc += attn[e] * f;
+             const float* __restrict__ attn, const float* __restrict__ mask,
+             const float* __restrict__ g, int b, int m, int d,
+             float* __restrict__ fs, float* __restrict__ wfs,
+             float* __restrict__ pq) {
+  extern __shared__ float part[];  // kWarps x d: the warps' P, then Q
+  __shared__ float wpart[kWarps];
+  __shared__ float c0;  // the fs of the row's first context
+  const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5;
+  const int c = d >> 2;
+  float q[kLC][4], sp[kLC][4], sq[kLC][4];
+  const float* gr = g + static_cast<int64_t>(row) * d;
+#pragma unroll
+  for (int i = 0; i < kLC; ++i) {
+    const int k = lane + 32 * i;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      q[i][e] = k < c ? __ldg(gr + 4 * k + e) : 0.f;
+      sp[i][e] = 0.f;
+      sq[i][e] = 0.f;
+    }
   }
-  if (lane == 0) part[warp] = acc;
+  // contexts a warp reads at once; the next ones are loaded while these
+  // are summed (two sets of registers)
+  constexpr int kCtx = 2;
+  const uint2* tr = reinterpret_cast<const uint2*>(t) +
+                    static_cast<int64_t>(row) * m * c;
+  const float* mr = mask + static_cast<int64_t>(row) * m;
+  const float* ar = attn + static_cast<int64_t>(row) * m;
+  float* fr = fs + static_cast<int64_t>(row) * m;
+  uint2 v[kCtx][kLC];
+  float w[kCtx], wv[kCtx];
+  // the contexts j0 + u kWarps (u < kCtx) of this warp, zeros past m
+  auto load = [&](int j0, uint2 (&vv)[kCtx][kLC], float (&ww)[kCtx],
+                  float (&wm)[kCtx]) {
+#pragma unroll
+    for (int u = 0; u < kCtx; ++u) {
+      const int j = j0 + u * kWarps;
+      ww[u] = j < m ? __ldg(ar + j) : 0.f;
+      wm[u] = j < m && __ldg(mr + j) > 0.f ? ww[u] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kLC; ++i) {
+        const int k = lane + 32 * i;
+        vv[u][i] = j < m && k < c
+                       ? __ldg(tr + static_cast<int64_t>(j) * c + k)
+                       : make_uint2(0u, 0u);
+      }
+    }
+  };
+  float acc_w = 0.f;  // this warp's sum of w fs, its contexts in order
+  float cw = 0.f;     // the fs of this warp's first context
+  load(warp, v, w, wv);
+  for (int j0 = warp; j0 < m; j0 += kWarps * kCtx) {
+    uint2 vn[kCtx][kLC];
+    float wn[kCtx], wvn[kCtx];
+    load(j0 + kWarps * kCtx, vn, wn, wvn);
+    float acc[kCtx];
+#pragma unroll
+    for (int u = 0; u < kCtx; ++u) {
+      acc[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kLC; ++i) acc[u] = dot4(v[u][i], q[i], acc[u]);
+    }
+    // the contexts' warp sums side by side, each an xor butterfly (every
+    // lane ends with the same sum)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kCtx; ++u)
+        acc[u] += __shfl_xor_sync(c2v::kFullMask, acc[u], off);
+    }
+#pragma unroll
+    for (int u = 0; u < kCtx; ++u) {
+      const int j = j0 + u * kWarps;
+      if (j >= m) break;
+      const float f = c2v::bf16_round(acc[u]);
+      if (lane == 0) fr[j] = f;
+      if (j == warp) cw = f;
+      acc_w += w[u] * f;
+      const float wf = __fmul_rn(wv[u], __fsub_rn(f, cw));
+#pragma unroll
+      for (int i = 0; i < kLC; ++i) {
+        const float x[4] = {c2v::hopper::lo_bf16(v[u][i].x),
+                            c2v::hopper::hi_bf16(v[u][i].x),
+                            c2v::hopper::lo_bf16(v[u][i].y),
+                            c2v::hopper::hi_bf16(v[u][i].y)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sp[i][e] = fmaf(wf, x[e], sp[i][e]);
+          sq[i][e] = fmaf(wv[u], x[e], sq[i][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCtx; ++u) {
+      w[u] = wn[u];
+      wv[u] = wvn[u];
+#pragma unroll
+      for (int i = 0; i < kLC; ++i) v[u][i] = vn[u][i];
+    }
+  }
+  if (lane == 0) wpart[warp] = acc_w;
+  if (tid == 0) c0 = cw;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = part[0];
-    for (int w = 1; w < kWarps; ++w) s += part[w];
-    wfs[row] = s;
+  // this warp's P onto the row's first fs: + (cw - c0) Q
+  const float shift = __fsub_rn(cw, c0);
+#pragma unroll
+  for (int i = 0; i < kLC; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sp[i][e] = fmaf(shift, sq[i][e], sp[i][e]);
+  }
+  // P, then Q: the warps' sums in warp order
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+#pragma unroll
+    for (int i = 0; i < kLC; ++i) {
+      const int k = lane + 32 * i;
+      if (k >= c) continue;
+      float4* dst = reinterpret_cast<float4*>(part + warp * d + 4 * k);
+      *dst = which == 0
+                 ? make_float4(sp[i][0], sp[i][1], sp[i][2], sp[i][3])
+                 : make_float4(sq[i][0], sq[i][1], sq[i][2], sq[i][3]);
+    }
+    __syncthreads();
+    float* out = pq + (static_cast<int64_t>(which) * b + row) * d;
+    for (int col = tid; col < d; col += kThreads) {
+      float s = part[col];
+      for (int w2 = 1; w2 < kWarps; ++w2) s += part[w2 * d + col];
+      out[col] = s;
+    }
+    if (which == 0 && tid == 0) {
+      float s = wpart[0];
+      for (int w2 = 1; w2 < kWarps; ++w2) s += wpart[w2];
+      wfs[row] = s;
+    }
+    __syncthreads();
   }
 }
 
-// dt (b, m, d) bf16; da_rows (b, d) f32.
-__global__ void __launch_bounds__(kCols)
-cp_dt_kernel(const __nv_bfloat16* __restrict__ t,
-             const float* __restrict__ a, const float* __restrict__ mask,
+// dt (b, m, d) bf16; da_rows (b, d) f32: each row's P + (fs_0 - total)
+// Q. A CTA a row of kDtGroups x d / 8 threads.
+__global__ void __launch_bounds__(1024)
+cp_dt_kernel(const float* __restrict__ a, const float* __restrict__ mask,
              const float* __restrict__ attn, const float* __restrict__ fs,
              const float* __restrict__ wfs, const float* __restrict__ g,
-             int m, int d, __nv_bfloat16* __restrict__ dt,
-             float* __restrict__ da_rows) {
+             const float* __restrict__ pq, int b, int m, int d,
+             __nv_bfloat16* __restrict__ dt, float* __restrict__ da_rows) {
   extern __shared__ float sh[];  // m: ds, then m: bf16(w)
   float* ds = sh;
   float* w = sh + m;
-  const int row = blockIdx.x;
-  const int col = blockIdx.y * kCols + threadIdx.x;
+  const int row = blockIdx.x, tid = threadIdx.x, c = d >> 3;
   const float total = wfs[row];
-  for (int j = threadIdx.x; j < m; j += kCols) {
+  const float shift = __fsub_rn(fs[static_cast<int64_t>(row) * m], total);
+  for (int j = tid; j < m; j += blockDim.x) {
     const int64_t e = static_cast<int64_t>(row) * m + j;
     ds[j] = mask[e] > 0.f ? attn[e] * (fs[e] - total) : 0.f;
     w[j] = c2v::bf16_round(attn[e]);
   }
-  __syncthreads();
-  if (col >= d) return;
-  const float gc = g[static_cast<int64_t>(row) * d + col];
-  const float ac = c2v::bf16_round(a[col]);
-  const int64_t base = static_cast<int64_t>(row) * m * d + col;
-  float acc = 0.f;
-  for (int j = 0; j < m; ++j) {
-    const int64_t e = base + static_cast<int64_t>(j) * d;
-    const float v = c2v::bf16_round(w[j] * gc) + c2v::bf16_round(ds[j] * ac);
-    dt[e] = __float2bfloat16_rn(v);
-    acc += ds[j] * __bfloat162float(t[e]);
+  // this thread's columns tid + i d / 4 of the row's P and Q, loaded now
+  // and written as P + (fs_0 - total) Q after dT (still in L2 for the da
+  // launch)
+  constexpr int kPer = 8 / kDtGroups;  // a CTA has d / kPer threads
+  const int64_t rd = static_cast<int64_t>(row) * d;
+  const int64_t qd = static_cast<int64_t>(b) * d;
+  float pv[kPer], qv[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int col = tid + i * static_cast<int>(blockDim.x);
+    pv[i] = __ldg(pq + rd + col);
+    qv[i] = __ldg(pq + qd + rd + col);
   }
-  da_rows[static_cast<int64_t>(row) * d + col] = acc;
+  __syncthreads();
+  const int grp = tid / c, k = tid - grp * c;
+  float gc[8], ac[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    gc[e] = __ldg(g + rd + 8 * k + e);
+    ac[e] = c2v::bf16_round(__ldg(a + 8 * k + e));
+  }
+  uint4* out = reinterpret_cast<uint4*>(dt) +
+               static_cast<int64_t>(row) * m * c + k;
+#pragma unroll 4
+  for (int j = grp; j < m; j += kDtGroups) {
+    const float wj = w[j], dj = ds[j];
+    uint32_t o[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      o[h] = c2v::hopper::pack2(
+          c2v::bf16_round(wj * gc[2 * h]) + c2v::bf16_round(dj * ac[2 * h]),
+          c2v::bf16_round(wj * gc[2 * h + 1]) +
+              c2v::bf16_round(dj * ac[2 * h + 1]));
+    out[static_cast<int64_t>(j) * c] = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    da_rows[rd + tid + i * static_cast<int>(blockDim.x)] =
+        fmaf(shift, qv[i], pv[i]);
 }
 
-// da (d,) f32: bf16 of the rows' sum, in row order.
-__global__ void __launch_bounds__(kCols)
+// da (d,) f32: bf16 of the rows' sum of da_rows. A CTA of 1,024
+// threads a strip of kDaCols columns, so that the few bytes a column
+// spread over many SMs: thread (r, c) sums the strip's column c over
+// rows r, r + R, ... in order (R = 1,024 / kDaCols, all its rows loaded
+// at once), then the R sums of each column are added pairwise in a
+// fixed tree.
+__global__ void __launch_bounds__(1024)
 cp_da_kernel(const float* __restrict__ da_rows, int b, int d,
              float* __restrict__ da) {
-  const int col = blockIdx.x * kCols + threadIdx.x;
-  if (col >= d) return;
+  constexpr int kRes = 1024 / kDaCols;  // rows' residues a CTA
+  constexpr int kRows = 8;              // rows a thread loads at once
+  __shared__ float part[1024];          // [residue][column of the strip]
+  const int tid = threadIdx.x, cc = tid % kDaCols, r0 = tid / kDaCols;
+  const int col = blockIdx.x * kDaCols + cc;
   float acc = 0.f;
-  for (int r = 0; r < b; ++r) acc += da_rows[static_cast<int64_t>(r) * d + col];
-  da[col] = c2v::bf16_round(acc);
+  if (col < d) {
+    for (int rb = r0; rb < b; rb += kRes * kRows) {
+      float x[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int r = rb + kRes * u;
+        x[u] = r < b ? __ldg(da_rows + static_cast<int64_t>(r) * d + col)
+                     : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) acc += x[u];
+    }
+  }
+  part[tid] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int s = kRes / 2; s > 0; s >>= 1) {
+    if (r0 < s) part[tid] += part[tid + s * kDaCols];
+    __syncthreads();
+  }
+  if (r0 == 0 && col < d) da[col] = c2v::bf16_round(part[cc]);
 }
 
 }  // namespace
@@ -356,34 +549,62 @@ C2V_EXPORT int c2v_cp_attention_combine(const void* t, const float* scores,
   return cudaGetLastError();
 }
 
-// t bf16 (b, m, d); attn f32 (b, m); g f32 (b, d); fs f32 (b, m); wfs f32
-// (b,).
+// t bf16 (b, m, d) as for the scores; attn, mask f32 (b, m); g f32
+// (b, d); fs f32 (b, m); wfs f32 (b,); pq f32 (2, b, d).
 C2V_EXPORT int c2v_cp_attention_backward_fs(const void* t, const float* attn,
+                                            const float* mask,
                                             const float* g, int b, int m,
                                             int d, float* fs, float* wfs,
-                                            void* stream) {
-  if (b <= 0 || m <= 0 || d <= 0) return cudaErrorInvalidValue;
-  cp_fs_kernel<<<b, kThreads, d * sizeof(float),
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(t), attn, g, m, d, fs, wfs);
+                                            float* pq, void* stream) {
+  if (b <= 0 || m <= 0 || d <= 0 || d % 8 != 0 || d > 1024 ||
+      (reinterpret_cast<uintptr_t>(t) & 15) != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* tb = static_cast<const __nv_bfloat16*>(t);
+  const size_t smem = static_cast<size_t>(kWarps) * d * sizeof(float);
+  switch ((d / 4 + 31) / 32) {
+    case 1:
+      cp_fs_kernel<1><<<b, kThreads, smem, s>>>(tb, attn, mask, g, b, m, d,
+                                                fs, wfs, pq);
+      break;
+    case 2:
+      cp_fs_kernel<2><<<b, kThreads, smem, s>>>(tb, attn, mask, g, b, m, d,
+                                                fs, wfs, pq);
+      break;
+    case 3:
+      cp_fs_kernel<3><<<b, kThreads, smem, s>>>(tb, attn, mask, g, b, m, d,
+                                                fs, wfs, pq);
+      break;
+    case 4:
+      cp_fs_kernel<4><<<b, kThreads, smem, s>>>(tb, attn, mask, g, b, m, d,
+                                                fs, wfs, pq);
+      break;
+    default:
+      cp_fs_kernel<8><<<b, kThreads, smem, s>>>(tb, attn, mask, g, b, m, d,
+                                                fs, wfs, pq);
+  }
   return cudaGetLastError();
 }
 
-// t bf16 (b, m, d); a f32 (d,); mask, attn, fs f32 (b, m); wfs f32 (b,)
-// summed over ctx; g f32 (b, d); dt bf16 (b, m, d); da_rows f32 (b, d)
-// scratch; da f32 (d,).
+// a f32 (d,); mask, attn, fs f32 (b, m); wfs f32 (b,) summed over ctx;
+// g f32 (b, d); pq f32 (2, b, d) from the fs phase; d % 8 == 0, d <=
+// 1024, 2 m floats of shared memory at most 48 KB; dt bf16 (b, m, d),
+// 16-byte aligned; da_rows f32 (b, d) scratch; da f32 (d,).
 C2V_EXPORT int c2v_cp_attention_backward_dt(
-    const void* t, const float* a, const float* mask, const float* attn,
-    const float* fs, const float* wfs, const float* g, int b, int m, int d,
+    const float* a, const float* mask, const float* attn, const float* fs,
+    const float* wfs, const float* g, const float* pq, int b, int m, int d,
     void* dt, float* da_rows, float* da, void* stream) {
-  if (b <= 0 || m <= 0 || d <= 0) return cudaErrorInvalidValue;
+  const size_t smem = 2 * static_cast<size_t>(m) * sizeof(float);
+  if (b <= 0 || m <= 0 || d <= 0 || d % 8 != 0 || d > 1024 ||
+      smem > 48 * 1024 || (reinterpret_cast<uintptr_t>(dt) & 15) != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(b, (d + kCols - 1) / kCols);
-  cp_dt_kernel<<<grid, kCols, 2 * m * sizeof(float), s>>>(
-      static_cast<const __nv_bfloat16*>(t), a, mask, attn, fs, wfs, g, m, d,
+  cp_dt_kernel<<<b, kDtGroups * (d / 8), smem, s>>>(
+      a, mask, attn, fs, wfs, g, pq, b, m, d,
       static_cast<__nv_bfloat16*>(dt), da_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cp_da_kernel<<<(d + kCols - 1) / kCols, kCols, 0, s>>>(da_rows, b, d, da);
+  cp_da_kernel<<<(d + kDaCols - 1) / kDaCols, 1024, 0, s>>>(da_rows, b, d,
+                                                           da);
   return cudaGetLastError();
 }

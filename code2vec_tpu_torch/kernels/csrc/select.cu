@@ -61,6 +61,18 @@
 //   (4) sort, for k > 1024: a CTA a row sorts its k winners (bitonic, in
 //       shared memory for k <= 16384, else in place in the winners'
 //       scratch row).
+// The small-width mode, rows of at most 128 columns (the merge of the tp
+// x k candidates of a tensor-parallel top-k, ops/sharded.py tp_top_k),
+// where the passes above are all overhead: one launch, a warp a row, its
+// lane l holding candidates l, l + 32, l + 64 and l + 96 by their unique
+// keys; a candidate's rank is the count of the row's keys above its own
+// (every key passed round by warp shuffles), and one of rank r < k
+// writes its value and position (or id) at slot r. No memset, no
+// scratch, no atomic: exact, and the same on every run. Its merge entry
+// reads the tp all-gathered (tp, B, k_local) values and ids in place,
+// candidate j of rank part p at flat position p k_local + j (the
+// reference's rank-major order, whose ties `lax.top_k` breaks by that
+// position), and writes the ids themselves.
 // Values are read back from the scores, so the output keeps each score's
 // bits. The rows' counts are integers and the winners' keys unique, so
 // the result is the same on every run, though the order in which CTAs
@@ -694,6 +706,57 @@ SelectLayout select_layout(int rows, int slices, int slice, int k, int cap,
   return l;
 }
 
+constexpr int kSmallMax = 128;     // columns of the small-width mode
+constexpr int kSmallThreads = 256;  // 8 rows a CTA
+
+// The small-width mode: out_vals f32 and out_pos int32 (rows, k). Row r's
+// candidate c (c < n) lies at vals[(c / per) part_stride + r row_stride +
+// c % per]; its position is ids at the same offset where ids is given,
+// else c. A warp a row.
+__global__ void __launch_bounds__(kSmallThreads)
+select_small_kernel(const float* __restrict__ vals,
+                    const int* __restrict__ ids, int rows,
+                    int64_t row_stride, int64_t part_stride, int per, int n,
+                    int k, float* __restrict__ out_vals,
+                    int* __restrict__ out_pos) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kSmallThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp
+  u64 key[4];
+  float v[4];
+  int id[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int c = lane + 32 * s;
+    key[s] = 0;  // below every candidate's key: counts for none
+    if (c < n) {
+      const int p = c / per;
+      const int64_t off = p * part_stride + row * row_stride + (c - p * per);
+      v[s] = vals[off];
+      id[s] = ids != nullptr ? ids[off] : c;
+      key[s] = full_key(score_key(v[s]), c);
+    }
+  }
+  int rank[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int s2 = 0; s2 < 4; ++s2) {
+    if (32 * s2 >= n) break;
+    for (int src = 0; src < 32; ++src) {
+      const u64 other = __shfl_sync(c2v::kFullMask, key[s2], src);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) rank[s] += other > key[s];
+    }
+  }
+  const int64_t o = static_cast<int64_t>(row) * k;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (lane + 32 * s < n && rank[s] < k) {
+      out_vals[o + rank[s]] = v[s];
+      out_pos[o + rank[s]] = id[s];
+    }
+  }
+}
+
 }  // namespace
 
 // Bytes of scratch c2v_select_topk takes for `rows` rows cut into
@@ -790,5 +853,43 @@ C2V_EXPORT int c2v_select_topk(const float* scores, int rows, int64_t ld,
   if (err != cudaSuccess) return err;
   select_sort_kernel<<<rows, kSortThreads, smem, s>>>(scores, ld, k, sort_len,
                                                       wins, out_vals, out_pos);
+  return cudaGetLastError();
+}
+
+// The small-width mode over scores f32 (rows, ld): the top k (1 <= k <=
+// n <= 128) of each row's first n columns, their positions in out_pos.
+// Returns a cudaError_t.
+C2V_EXPORT int c2v_select_small(const float* scores, int rows, int64_t ld,
+                                int n, int k, float* out_vals, int* out_pos,
+                                void* stream) {
+  if (rows <= 0 || n <= 0 || n > kSmallMax || k <= 0 || k > n || ld < n)
+    return cudaErrorInvalidValue;
+  select_small_kernel<<<(rows + kSmallThreads / 32 - 1) /
+                            (kSmallThreads / 32),
+                        kSmallThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      scores, nullptr, rows, ld, 0, n, n, k, out_vals, out_pos);
+  return cudaGetLastError();
+}
+
+// The merge of tp x k_local candidates: values f32 and ids int32 (parts,
+// rows, k_local) as the all-gather stacks them, parts x k_local <= 128;
+// writes the top k (1 <= k <= parts x k_local) of each row, values and
+// ids, in `lax.top_k`'s order over the rank-major candidates. Returns a
+// cudaError_t.
+C2V_EXPORT int c2v_select_merge(const float* values, const int* ids,
+                                int parts, int rows, int k_local, int k,
+                                float* out_vals, int* out_ids,
+                                void* stream) {
+  const int n = parts * k_local;
+  if (parts <= 0 || rows <= 0 || k_local <= 0 || n > kSmallMax || k <= 0 ||
+      k > n)
+    return cudaErrorInvalidValue;
+  select_small_kernel<<<(rows + kSmallThreads / 32 - 1) /
+                            (kSmallThreads / 32),
+                        kSmallThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      values, ids, rows, k_local, static_cast<int64_t>(rows) * k_local,
+      k_local, n, k, out_vals, out_ids);
   return cudaGetLastError();
 }

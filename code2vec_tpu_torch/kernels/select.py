@@ -14,9 +14,13 @@ the rest picked from the candidates by a CTA a row, which also sorts the
 k winners; a row whose candidates overflow a slice's buffer is refined
 by all its CTAs, reading the row again. `sliced_select` is that
 arithmetic in plain PyTorch and `slice_candidates` the filter's counts
-(tests only). `select_topk_plain` below is the same function in plain PyTorch
-(a stable descending sort): CPU tensors take it, CUDA tensors launch the
-kernel.
+(tests only). Rows of at most SMALL_MAX columns take the small-width
+mode instead: one launch, a warp a row, each candidate ranked by the
+count of the row's keys above its own. `merge_topk` is that mode over
+the tp x k candidates of a tensor-parallel top-k as the all-gather
+stacks them (ops/sharded.py tp_top_k), writing their ids. The `*_plain`
+functions are the same in plain PyTorch (a stable descending sort): CPU
+tensors take them, CUDA tensors launch the kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ MIN_SLICE = 4096     # fewest columns a CTA takes
 CTAS_PER_SM = 3      # hist / filter CTAs resident on an SM (kCtasPerSm)
 MAX_CAP = 8192       # candidates a slice's buffer holds at most
 MAX_SLICES = 1024    # slices a row (csrc/select.cu kMaxSlices)
+SMALL_MAX = 128      # columns of the small-width mode (kSmallMax)
 
 
 class SelectPlan(NamedTuple):
@@ -201,16 +206,29 @@ def select_topk_plain(scores: torch.Tensor, k: int,
     return vals, pos.to(torch.int32)
 
 
-def _fn():
-    fn = _fns.get("select")
+def merge_topk_plain(values: torch.Tensor, ids: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    parts, rows, k_local = values.shape
+    flat_values = values.permute(1, 0, 2).reshape(rows, parts * k_local)
+    flat_ids = ids.permute(1, 0, 2).reshape(rows, parts * k_local)
+    vals, pos = top_positions(flat_values, k)
+    return vals, flat_ids.gather(1, pos)
+
+
+def _fn(name: str = "c2v_select_topk"):
+    fn = _fns.get(name)
     if fn is None:
         P, I32, I64 = launch.P, launch.I32, launch.I64
-        fn = _fns["select"] = launch.bind(
-            "select", "c2v_select_topk",
-            [P, I32, I64, I32, I32, I32, I32, I32, I32, I32, P, P, P, P])
-        _fns["scratch_bytes"] = launch.bind(
-            "select", "c2v_select_scratch_bytes",
-            [I32, I32, I32, I32, I32, I32], restype=I64)
+        fn = _fns[name] = launch.bind("select", name, {
+            "c2v_select_topk": [P, I32, I64, I32, I32, I32, I32, I32, I32,
+                                I32, P, P, P, P],
+            "c2v_select_small": [P, I32, I64, I32, I32, P, P, P],
+            "c2v_select_merge": [P, P, I32, I32, I32, I32, P, P, P],
+        }[name])
+        if name == "c2v_select_topk":
+            _fns["scratch_bytes"] = launch.bind(
+                "select", "c2v_select_scratch_bytes",
+                [I32, I32, I32, I32, I32, I32], restype=I64)
     return fn
 
 
@@ -228,10 +246,11 @@ def select_topk(scores: torch.Tensor, k: int, n: Optional[int] = None
     (`padded_width`)."""
     if launch.runs_plain(scores):
         return select_topk_plain(scores, k, n)
-    fn = _fn()  # builds the library first: raises where nvcc is missing
-    launch.check_tensor(scores, "scores", [torch.float32], 2, align=16)
     rows, ld = scores.shape
     n = ld if n is None else int(n)
+    # builds the library first: raises where nvcc is missing
+    fn = _fn("c2v_select_small" if n <= SMALL_MAX else "c2v_select_topk")
+    launch.check_tensor(scores, "scores", [torch.float32], 2, align=16)
     k = int(k)
     launch.require(ld % 4 == 0, f"scores: row stride {ld} is not a "
                                 f"multiple of 4 (padded_width)")
@@ -240,17 +259,62 @@ def select_topk(scores: torch.Tensor, k: int, n: Optional[int] = None
     launch.require(1 <= k <= n, f"k={k} outside 1..{n}")
     launch.require(rows < 2 ** 31, "more than 2^31 rows")
     device = scores.device
+    values = torch.empty((rows, k), dtype=torch.float32, device=device)
+    positions = torch.empty((rows, k), dtype=torch.int32, device=device)
+    if n <= SMALL_MAX:
+        err = fn(scores.data_ptr(), rows, ld, n, k, values.data_ptr(),
+                 positions.data_ptr(), launch.stream(device))
+        launch.check_launch(err, "select_topk")
+        launch.count(__name__)
+        return values, positions
     p = plan(rows, n, k,
              torch.cuda.get_device_properties(device).multi_processor_count)
     scratch = torch.empty(
         (_fns["scratch_bytes"](rows, p.slices, p.slice, k, p.cap,
                                p.sort_len),),
         dtype=torch.uint8, device=device)
-    values = torch.empty((rows, k), dtype=torch.float32, device=device)
-    positions = torch.empty((rows, k), dtype=torch.int32, device=device)
     err = fn(scores.data_ptr(), rows, ld, n, k, p.slices, p.slice, p.cap,
              p.pos_bits, p.sort_len, scratch.data_ptr(), values.data_ptr(),
              positions.data_ptr(), launch.stream(device))
     launch.check_launch(err, "select_topk")
     launch.count(__name__)
     return values, positions
+
+
+def merge_topk(values: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k (values (B, k) f32, ids (B, k) int32) of each row's
+    candidates, given as values f32 and ids int32 (parts, B, k_local),
+    the all-gather of each rank's top k_local: `lax.top_k` over the
+    rank-major (B, parts x k_local) candidates and their ids taken at the
+    positions it picks. Up to SMALL_MAX candidates a row one launch of
+    the small-width mode reads them in place; more are copied rank-major
+    and take the large mode and a gather."""
+    if launch.runs_plain(values, ids):
+        return merge_topk_plain(values, ids, k)
+    fn = _fn("c2v_select_merge")  # raises where nvcc is missing
+    launch.check_tensor(values, "values", [torch.float32], 3)
+    launch.check_tensor(ids, "ids", [torch.int32], 3)
+    launch.require(ids.shape == values.shape,
+                   f"ids {tuple(ids.shape)} and values "
+                   f"{tuple(values.shape)} differ")
+    parts, rows, k_local = values.shape
+    n, k = parts * k_local, int(k)
+    launch.require(1 <= k <= n, f"k={k} outside 1..{n}")
+    if n > SMALL_MAX:
+        flat = torch.full((rows, padded_width(n)), float("-inf"),
+                          device=values.device)
+        flat[:, :n] = values.permute(1, 0, 2).reshape(rows, n)
+        top_values, top_pos = select_topk(flat, k, n)
+        return top_values, ids.permute(1, 0, 2).reshape(rows, n).gather(
+            1, top_pos.long())
+    out_values = torch.empty((rows, k), dtype=torch.float32,
+                             device=values.device)
+    out_ids = torch.empty((rows, k), dtype=torch.int32,
+                          device=values.device)
+    err = fn(values.data_ptr(), ids.data_ptr(), parts, rows, k_local, k,
+             out_values.data_ptr(), out_ids.data_ptr(),
+             launch.stream(values.device))
+    launch.check_launch(err, "merge_topk")
+    launch.count(__name__)
+    return out_values, out_ids

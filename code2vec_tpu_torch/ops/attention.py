@@ -116,8 +116,8 @@ def context_parallel_attention_backward(
     """The backward of context_parallel_attention from the cotangent of
     the (global) code vectors: (d_transformed of this rank's contexts,
     this rank's part of d attention_param, which the caller sums over the
-    ranks). K17's two phases around a SUM of each row's sum of w fs; K6
-    with one rank."""
+    ranks). K17's two phases around a SUM of each row's sum of w fs (t
+    read once, by the first); K6 with one rank."""
     from code2vec_tpu_torch.kernels.attention import (
         masked_attention_backward,
     )
@@ -125,9 +125,10 @@ def context_parallel_attention_backward(
         return masked_attention_backward(transformed, attention_param,
                                          context_valid_mask, attention,
                                          d_code_vectors)
-    fs, wfs = cp_attention_backward_fs(transformed, attention,
-                                       d_code_vectors)
+    fs, wfs, pq = cp_attention_backward_fs(transformed, attention,
+                                           context_valid_mask,
+                                           d_code_vectors)
     comm.all_reduce(wfs)
-    return cp_attention_backward_dt(transformed, attention_param,
-                                    context_valid_mask, attention, fs, wfs,
-                                    d_code_vectors)
+    return cp_attention_backward_dt(attention_param, context_valid_mask,
+                                    attention, fs, wfs, d_code_vectors, pq,
+                                    transformed.dtype)

@@ -18,7 +18,7 @@ of a table and columns [index * n_cols, ...) of the logits:
 - `tp_log_softmax_at_topk`: the global (max, logsumexp) from the same
   pass and gather;
 - `tp_top_k`: K13 over the local logits, the shard's offset, an
-  all-gather, K13 again over the tp * k candidates.
+  all-gather, K13's merge of the tp * k candidates as gathered.
 
 The logits may carry columns past `n_cols` (a row stride padded for K13)
 and padded target columns past `n_valid` (-inf to the passes, or -1e30
@@ -31,7 +31,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from code2vec_tpu_torch.kernels.select import padded_width, select_topk
+from code2vec_tpu_torch.kernels.select import (
+    merge_topk, padded_width, select_topk,
+)
 from code2vec_tpu_torch.kernels.sharded import (
     merge_xent_stats, shard_gather, tp_xent_stats,
 )
@@ -121,7 +123,7 @@ def tp_top_k(local_logits: torch.Tensor, k: int, comm,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over row-sharded logits -> (values (B, k) f32, global ids
     (B, k) int32), in lax.top_k's order (equal values by ascending id,
-    which the gather's rank-major layout keeps). Padded target columns
+    which the merge's rank-major order keeps). Padded target columns
     must already hold -inf, as the reference's caller masks them."""
     n_cols, _ = _cols(local_logits, n_cols, None)
     b = local_logits.shape[0]
@@ -131,11 +133,6 @@ def tp_top_k(local_logits: torch.Tensor, k: int, comm,
     ids = pos + comm.index * n_cols
     if comm.size == 1:
         return values, ids
-    n = comm.size * k_local
     all_values = comm.all_gather(values).view(comm.size, b, k_local)
     all_ids = comm.all_gather(ids).view(comm.size, b, k_local)
-    flat_values = all_values.permute(1, 0, 2).reshape(b, n)
-    flat_ids = all_ids.permute(1, 0, 2).reshape(b, n)
-    top_values, top_pos = select_topk(
-        _stride4(flat_values, n, float("-inf")), int(k), n)
-    return top_values, flat_ids.gather(1, top_pos.long())
+    return merge_topk(all_values, all_ids, int(k))

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""K15 (tp_softmax_xent) and K16 (cp_attention) alone, on one CUDA GPU,
-beside the other device functions of the tensor-parallel loss.
+"""K15 (tp_softmax_xent), K16 (cp_attention), K17
+(cp_attention_backward) and K13's merge of the tp x k candidates alone,
+on one CUDA GPU, beside the other device functions of the
+tensor-parallel loss.
 
     python3 scripts/profile_torch_sharded.py [--seed N] [--samples N]
         [--repo DIR]
@@ -26,16 +28,32 @@ them masked, one row with none valid).
   the step calls it (the bf16 cast of the shard included);
   `matmul_ms` the bf16 product alone.
 - `k13_local`, `k13_merge` (row 12e): K13 at k 10 over the eval step's
-  padded slice, and over the tp x k candidates of two ranks, beside
-  torch.topk.
+  padded slice beside torch.topk; and the merge of two ranks' gathered
+  top 10 (2 x 1024 x 10 values and ids) as ops/sharded.py tp_top_k runs
+  it, beside torch.topk + gather over the rank-major copy of the same
+  candidates: in a checkout without `merge_topk` the rank-major copies,
+  K13 and the gather of the ids. Its `launch_bound_ms` adds the device
+  time of an empty launch (csrc/gather_probe.cu, `empty_ms`) to the
+  bytes' bound, as PERF.md's row of K4 counts it.
+- `k17`: the fs and dt phases of the backward over the same contexts
+  and K16's weights (the sum of w fs of one rank passed straight on);
+  `library_ms` is SDPA's backward by autograd (chip_smoke.py
+  `k6_library`); `bound_ms` counts T read once and dT written once
+  (chip_smoke.py `k6_bound`), `two_read_bound_ms` T read twice; its
+  launches' device times by torch.profiler, back to back, no flush
+  (`kernel_us`, microseconds a call by kernel name; the merge's too);
+  `read_once_ms` a torch.amax of T and `write_once_ms` a zero_ of a
+  tensor of dT's size under the same timer, the phases' practical
+  floors. A checkout whose dt phase reads T (no P and Q
+  from the fs phase) is timed through its own phases.
 
 For each: the median device time over --samples runs (CUDA events, the
 50 MB L2 flushed before each; chip_smoke.py `Timer`), each pass's time
 (`pass_ms`), its launches a call (`launches`), the least time the card
 could take (`bound_ms`; chip_smoke.py's byte counts), the library call
-and the largest error against the plain version. A checkout without the
-stats pass (K15's max, sum and gradient passes; K16's scores, exp and
-combine) is timed through its own phases, so that --repo DIR times a
+and the largest error against the plain version. A checkout from
+before K17's and the merge's redesign (`new_k17`, `new_merge` false) is
+timed through its own phases and calls, so that --repo DIR times a
 parent commit unpacked beside this one with the same code on the same
 card. It prints one JSON line.
 
@@ -46,8 +64,10 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -78,12 +98,14 @@ def main() -> None:
     from code2vec_tpu_torch.kernels.select import (
         padded_width, select_topk, select_topk_plain,
     )
+    from code2vec_tpu_torch.kernels import launch as klaunch
+    from code2vec_tpu_torch.kernels import select as k13
     from code2vec_tpu_torch.models.code2vec import matmul_f32
-    from code2vec_tpu_torch.ops.sharded import tp_logits
+    from code2vec_tpu_torch.ops.sharded import _stride4, tp_logits
     assert k15.__file__.startswith(repo), k15.__file__
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all(["sharded", "cp_attention", "select"])
+    build.build_all(["sharded", "cp_attention", "select", "gather_probe"])
     fs, ft = chip_smoke.flagship(), chip_smoke.flagship_train()
     dims = chip_smoke.parallel_dims(fs)
     dev = torch.device("cuda")
@@ -96,7 +118,31 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip(), "repo": repo, "torch": torch.__version__}
     b, m, d = ft.rows, ft.contexts, fs.code_dim
-    new_api = hasattr(k15, "tp_xent_stats")
+    # this checkout's K17 and K13 merge, or its parent's (the dt phase
+    # reading T again; the merge by copies, K13's large mode and a gather)
+    new_k17 = "pq" in inspect.signature(
+        k16.cp_attention_backward_dt).parameters
+    new_merge = hasattr(k13, "merge_topk")
+    out["new_k17"], out["new_merge"] = new_k17, new_merge
+
+    def kernel_us(fn, calls=10):
+        """Device microseconds a call of `fn` spends in each kernel (and
+        memset, copy), by torch.profiler over `calls` calls after one."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                name = re.sub(r"\(anonymous namespace\)::", "", e.key)
+                name = name.split("(")[0].split("<")[0].strip() or e.key
+                name = name.replace("void ", "")
+                us[name] = us.get(name, 0.0) + e.device_time_total / calls
+        return us or None
 
     def launches(fn, names):
         before = kernels.launch_counts()
@@ -111,7 +157,7 @@ def main() -> None:
         for _ in range(5):
             run()
         ms = timer(run)
-        lib = timer(library)
+        lib = timer(library) if library is not None else None
         bms, by = bound(nbytes, flops, peak)
         return dict(ms=ms, pass_ms={k: timer(f) for k, f in passes.items()},
                     launches=launches(run, names), bound_ms=bms,
@@ -125,42 +171,19 @@ def main() -> None:
                            device=dev, dtype=torch.int32)
     valid = torch.ones(b, device=dev)
     valid[1] = 0
-    if new_api:
-        def train(stats=k15.tp_xent_stats, grad=k15.tp_xent_grad):
-            st = stats(logits, v, n_valid, labels, v)
-            return st, grad(logits, n_valid, st[0], st[1], labels, valid, v,
-                            2 * b)
+    n = logits.numel()
 
-        st = k15.tp_xent_stats(logits, v, n_valid, labels, v)
-        passes = {
-            "stats": lambda: k15.tp_xent_stats(logits, v, n_valid, labels,
-                                               v),
-            "grad": lambda: k15.tp_xent_grad(logits, n_valid, st[0], st[1],
-                                             labels, valid, v, 2 * b)}
+    def train(stats=k15.tp_xent_stats, grad=k15.tp_xent_grad):
+        st = stats(logits, v, n_valid, labels, v)
+        return st, grad(logits, n_valid, st[0], st[1], labels, valid, v,
+                        2 * b)
 
-        def plain():
-            return train(k15.tp_xent_stats_plain, k15.tp_xent_grad_plain)
-    else:
-        def train(mx_fn=k15.tp_xent_max, sum_fn=k15.tp_xent_sum,
-                  grad=k15.tp_xent_grad):
-            mx = mx_fn(logits, v, n_valid)
-            st = sum_fn(logits, v, n_valid, mx, labels, v)
-            return (torch.stack([mx, st[0], st[1]]),
-                    grad(logits, n_valid, mx, st[0], labels, valid, v,
-                         2 * b))
-
-        mx = k15.tp_xent_max(logits, v, n_valid)
-        st = k15.tp_xent_sum(logits, v, n_valid, mx, labels, v)
-        passes = {
-            "max": lambda: k15.tp_xent_max(logits, v, n_valid),
-            "sum": lambda: k15.tp_xent_sum(logits, v, n_valid, mx, labels,
+    st = k15.tp_xent_stats(logits, v, n_valid, labels, v)
+    passes = {
+        "stats": lambda: k15.tp_xent_stats(logits, v, n_valid, labels,
                                            v),
-            "grad": lambda: k15.tp_xent_grad(logits, n_valid, mx, st[0],
-                                             labels, valid, v, 2 * b)}
-
-        def plain():
-            return train(k15.tp_xent_max_plain, k15.tp_xent_sum_plain,
-                         k15.tp_xent_grad_plain)
+        "grad": lambda: k15.tp_xent_grad(logits, n_valid, st[0], st[1],
+                                         labels, valid, v, 2 * b)}
 
     def check_train(got, want):
         hi_lo = [x[1][0].float() + x[1][1].float() for x in (got, want)]
@@ -174,59 +197,81 @@ def main() -> None:
         xg.grad = None
         F.cross_entropy(xg, lab).backward()
 
-    n = logits.numel()
-    out["k15_train"] = case(train, plain, check_train, xent_library,
-                            2 * n * 4 + 2 * n * 2 + 4 * b * 4, 6.0 * n,
-                            passes, ["tp_softmax_xent"],
-                            chip_smoke.F32_FLOP_PER_S)
+    out["k15_train"] = case(
+        train, lambda: train(k15.tp_xent_stats_plain,
+                             k15.tp_xent_grad_plain),
+        check_train, xent_library, 2 * n * 4 + 2 * n * 2 + 4 * b * 4,
+        6.0 * n, passes, ["tp_softmax_xent"], chip_smoke.F32_FLOP_PER_S)
     del xg, passes, st
     # the eval step's stats: floor mode, the row stride padded for K13
     ld = padded_width(v)
     wide = torch.full((b, ld), float("-inf"), device=dev)
     wide[:, :v] = logits
     del logits
-    if new_api:
-        def stats():
-            return k15.tp_xent_stats(wide, v, n_valid, labels, v, True)
-
-        def stats_plain():
-            return k15.tp_xent_stats_plain(wide, v, n_valid, labels, v,
-                                           True)
-    else:
-        def stats():
-            mx = k15.tp_xent_max(wide, v, n_valid, True)
-            return torch.cat([mx[None], k15.tp_xent_sum(
-                wide, v, n_valid, mx, labels, v, True)])
-
-        def stats_plain():
-            mx = k15.tp_xent_max_plain(wide, v, n_valid, True)
-            return torch.cat([mx[None], k15.tp_xent_sum_plain(
-                wide, v, n_valid, mx, labels, v, True)])
-
     out["k15_eval"] = case(
-        stats, stats_plain, lambda x, y: max_err(x, y, tol)[0],
-        lambda: torch.logsumexp(wide[:, :v], dim=1), b * v * 4 + 3 * b * 4,
-        3.0 * b * v, {}, ["tp_softmax_xent"], chip_smoke.F32_FLOP_PER_S)
+        lambda: k15.tp_xent_stats(wide, v, n_valid, labels, v, True),
+        lambda: k15.tp_xent_stats_plain(wide, v, n_valid, labels, v,
+                                        True),
+        lambda x, y: max_err(x, y, tol)[0],
+        lambda: torch.logsumexp(wide[:, :v], dim=1),
+        b * v * 4 + 3 * b * 4, 3.0 * b * v, {}, ["tp_softmax_xent"],
+        chip_smoke.F32_FLOP_PER_S)
 
-    # K13 over the eval step's slice and the two ranks' candidates (12e)
+    # K13 over the eval step's slice, and its merge of two ranks'
+    # gathered candidates (12e)
     k = 10
 
-    def k13_case(scores, n_cols):
-        view = scores[:, :n_cols]
-        return case(lambda: select_topk(scores, k, n_cols),
-                    lambda: select_topk_plain(scores, k, n_cols),
-                    lambda x, y: float(not (torch.equal(x[1], y[1])
-                                            and torch.equal(x[0], y[0]))),
-                    lambda: torch.topk(view, k),
-                    b * n_cols * 4 + b * k * 8, float(b * n_cols), {},
-                    ["select_topk"])
+    def exact(x, y):
+        return float(not (torch.equal(x[1], y[1]) and torch.equal(
+            x[0].nan_to_num(), y[0].nan_to_num())))
 
-    out["k13_local"] = k13_case(wide, v)
-    cand = padded_width(2 * k)
-    merged = torch.full((b, cand), float("-inf"), device=dev)
-    merged[:, :2 * k] = torch.randn((b, 2 * k), generator=g, device=dev)
-    out["k13_merge"] = k13_case(merged, 2 * k)
-    del wide, merged
+    view = wide[:, :v]
+    out["k13_local"] = case(
+        lambda: select_topk(wide, k, v),
+        lambda: select_topk_plain(wide, k, v), exact,
+        lambda: torch.topk(view, k), b * v * 4 + b * k * 8,
+        float(b * v), {}, ["select_topk"])
+    parts = 2
+    cand = parts * k
+    all_values = torch.randn((parts, b, k), generator=g, device=dev)
+    all_ids = (torch.arange(parts, device=dev)[:, None, None] * v
+               + torch.randint(0, v, (parts, b, k), generator=g,
+                               device=dev)).int()
+    flat_values = all_values.permute(1, 0, 2).reshape(b, cand)
+    flat_ids = all_ids.permute(1, 0, 2).reshape(b, cand)
+    if new_merge:
+        def merge():
+            return k13.merge_topk(all_values, all_ids, k)
+    else:
+        def merge():  # tp_top_k's merge in the parent
+            fv = all_values.permute(1, 0, 2).reshape(b, cand)
+            fi = all_ids.permute(1, 0, 2).reshape(b, cand)
+            top_v, top_p = select_topk(
+                _stride4(fv, cand, float("-inf")), k, cand)
+            return top_v, fi.gather(1, top_p.long())
+
+    def merge_plain():
+        top_v, top_p = select_topk_plain(flat_values, k)
+        return top_v, flat_ids.gather(1, top_p.long())
+
+    def merge_library():
+        top_v, top_p = torch.topk(flat_values, k)
+        return top_v, flat_ids.gather(1, top_p)
+
+    empty = klaunch.bind("gather_probe", "c2v_empty_kernel",
+                         [klaunch.I32, klaunch.I32, klaunch.P])
+    stream = klaunch.stream(dev)
+    out["empty_ms"] = timer(lambda: klaunch.check_launch(
+        empty(1, 32, stream), "empty_kernel"))
+    r = out["k13_merge"] = case(
+        merge, merge_plain, exact, merge_library,
+        b * cand * 8 + b * k * 8, float(b * cand), {}, ["select_topk"],
+        chip_smoke.F32_FLOP_PER_S)
+    r["plain_ms"] = timer(merge_plain, spin_ms=20)
+    r["launch_bound_ms"] = r["bound_ms"] + out["empty_ms"]
+    r["kernel_us"] = kernel_us(merge)
+    del all_values, all_ids, flat_values, flat_ids
+    del wide
     torch.cuda.empty_cache()
 
     # the local product (12b): (1024 x 384) x (384 x 130,623), f32 out
@@ -245,55 +290,84 @@ def main() -> None:
     del cv, target, cv16, tgt16
     torch.cuda.empty_cache()
 
-    # K16 over the cp-2 contexts
+    # K16 and K17 over the cp-2 contexts
     mc = m // 2
     t = torch.tanh(torch.randn((b, mc, d), generator=g, device=dev)).to(
         torch.bfloat16)
     a = torch.randn((d,), generator=g, device=dev) * 0.25
     mask = (torch.rand((b, mc), generator=g, device=dev) > 0.2).float()
     mask[0] = 0.0
-    if new_api:
-        def forward(sc=k16.cp_attention_scores, co=k16.cp_attention_combine):
-            s, st = sc(t, a, mask)
-            return co(t, s, st[0], st[1])
 
-        s, st = k16.cp_attention_scores(t, a, mask)
-        passes = {
-            "scores": lambda: k16.cp_attention_scores(t, a, mask),
-            "combine": lambda: k16.cp_attention_combine(t, s, st[0], st[1])}
+    def forward(sc=k16.cp_attention_scores, co=k16.cp_attention_combine):
+        s, st = sc(t, a, mask)
+        return co(t, s, st[0], st[1])
 
-        def plain():
-            return forward(k16.scores_plain, k16.combine_plain)
-    else:
-        def forward(sc=k16.cp_attention_scores, ex=k16.cp_attention_exp,
-                    co=k16.cp_attention_combine):
-            s, mx = sc(t, a, mask)
-            u, den = ex(s, mx)
-            return co(t, u, den)
-
-        s, mx = k16.cp_attention_scores(t, a, mask)
-        u, den = k16.cp_attention_exp(s, mx)
-        passes = {
-            "scores": lambda: k16.cp_attention_scores(t, a, mask),
-            "exp": lambda: k16.cp_attention_exp(s, mx),
-            "combine": lambda: k16.cp_attention_combine(t, u, den)}
-
-        def plain():
-            return forward(k16.scores_plain, k16.exp_plain,
-                           k16.combine_plain)
-    q = a.to(torch.bfloat16).view(1, 1, 1, d).expand(b, 1, 1, d).contiguous()
+    s, st = k16.cp_attention_scores(t, a, mask)
+    passes = {
+        "scores": lambda: k16.cp_attention_scores(t, a, mask),
+        "combine": lambda: k16.cp_attention_combine(t, s, st[0], st[1])}
+    q = a.to(torch.bfloat16).view(1, 1, 1, d).expand(b, 1, 1, d
+                                                     ).contiguous()
     kv = t.view(b, 1, mc, d)
     keep = (mask > 0).view(b, 1, 1, mc)
     out["k16"] = case(
-        forward, plain, lambda x, y: max_err(x[1], y[1], tol)[0],
-        lambda: F.scaled_dot_product_attention(q, kv, kv, attn_mask=keep,
+        forward, lambda: forward(k16.scores_plain, k16.combine_plain),
+        lambda x, y: max_err(x[1], y[1], tol)[0],
+        lambda: F.scaled_dot_product_attention(q, kv, kv,
+                                               attn_mask=keep,
                                                scale=1.0),
-        2 * t.numel() * 2 + 3 * b * mc * 4 + b * d * 4, 4.0 * t.numel(),
-        passes, ["cp_attention"])
-    # what two PyTorch reads of T take under the same timer (the L2 flush
-    # leaves the cache dirty, so the first read also pays its write-back)
+        2 * t.numel() * 2 + 3 * b * mc * 4 + b * d * 4,
+        4.0 * t.numel(), passes, ["cp_attention"])
+    # what two PyTorch reads of T take under the same timer (the L2
+    # flush leaves the cache dirty, so the first read also pays its
+    # write-back)
     out["k16"]["read_twice_ms"] = timer(lambda: (t.amax(), t.amax()))
     out["k16"]["read_once_ms"] = timer(lambda: t.amax())
+    del s, st, passes, q, kv, keep
+
+    _, attn = forward()
+    dcv = torch.randn((b, d), generator=g, device=dev)
+    if new_k17:
+        def backward(fs_fn=k16.cp_attention_backward_fs,
+                     dt_fn=k16.cp_attention_backward_dt):
+            f, w, pq = fs_fn(t, attn, mask, dcv)
+            return dt_fn(a, mask, attn, f, w, dcv, pq)
+    else:
+        def backward(fs_fn=k16.cp_attention_backward_fs,
+                     dt_fn=k16.cp_attention_backward_dt):
+            f, w = fs_fn(t, attn, dcv)
+            return dt_fn(t, a, mask, attn, f, w, dcv)
+
+    def check_k17(got, want):
+        # dT against the plain version, d a against the direct sum of
+        # ds t on the kernel's own fs (one bf16 step at the largest
+        # passes)
+        f = k16.cp_attention_backward_fs(t, attn, mask, dcv)[:2] \
+            if new_k17 else k16.cp_attention_backward_fs(t, attn, dcv)
+        ds = torch.where(mask > 0, attn * (f[0] - f[1][:, None]), 0.0)
+        direct = torch.einsum("bm,bmd->d", ds, t.float())
+        return max(float((got[0].float() - want[0].float()).abs()
+                         .max()),
+                   chip_smoke.step_err(got[1], direct)[0])
+
+    r = out["k17"] = case(
+        backward,
+        lambda: backward(k16.backward_fs_plain, k16.backward_dt_plain),
+        check_k17, None,
+        2 * t.numel() * 2 + 2 * b * mc * 4 + b * d * 4 + 2 * d * 4,
+        6.0 * t.numel(), {}, ["cp_attention_backward"])
+    assert (r["bound_ms"], r["bound_by"]) == chip_smoke.k6_bound(t)
+    r["library_ms"] = chip_smoke.k6_library(torch, timer, t, a, mask,
+                                            dcv)
+    r["two_read_bound_ms"] = bound(
+        3 * t.numel() * 2 + 3 * b * mc * 4 + b * d * 4,
+        6.0 * t.numel())[0]
+    r["kernel_us"] = kernel_us(backward)
+    # what one PyTorch read of T and one write of dT's bytes take under
+    # the same timer: the practical floors of the fs and dt phases
+    sink = torch.empty_like(t)
+    r["read_once_ms"] = timer(lambda: t.amax())
+    r["write_once_ms"] = timer(lambda: sink.zero_())
     print(json.dumps(out), flush=True)
 
 

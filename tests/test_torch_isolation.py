@@ -196,8 +196,10 @@ def _cuda_calls():
 
 
 def _parallel_phase_calls():
-    """One call per wrapper of K14-K17's phases, on fake CUDA tensors."""
+    """One call per wrapper of K14-K17's phases and of K13's merge of the
+    tp x k candidates, on fake CUDA tensors."""
     from code2vec_tpu_torch.kernels import cp_attention as k16
+    from code2vec_tpu_torch.kernels import select
     from code2vec_tpu_torch.kernels import sharded as k15
 
     def t(shape, dtype=torch.float32):
@@ -221,17 +223,21 @@ def _parallel_phase_calls():
         "cp_attention_combine": lambda: k16.cp_attention_combine(
             t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2,)), t((2,))),
         "cp_attention_backward_fs": lambda: k16.cp_attention_backward_fs(
-            t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2, 384))),
+            t((2, 3, 384), torch.bfloat16), t((2, 3)), t((2, 3)),
+            t((2, 384))),
         "cp_attention_backward_dt": lambda: k16.cp_attention_backward_dt(
-            t((2, 3, 384), torch.bfloat16), t((384,)), t((2, 3)),
-            t((2, 3)), t((2, 3)), t((2,)), t((2, 384))),
+            t((384,)), t((2, 3)), t((2, 3)), t((2, 3)), t((2,)),
+            t((2, 384)), t((2, 2, 384))),
+        "merge_topk": lambda: select.merge_topk(
+            t((2, 3, 10)), t((2, 3, 10), i32), 10),
     }
 
 
 PARALLEL_PHASES = ("shard_gather", "shard_scatter_add", "shard_local_ids",
                    "tp_xent_stats", "tp_xent_grad",
                    "cp_attention_scores", "cp_attention_combine",
-                   "cp_attention_backward_fs", "cp_attention_backward_dt")
+                   "cp_attention_backward_fs", "cp_attention_backward_dt",
+                   "merge_topk")
 
 
 @pytest.mark.parametrize("name", PARALLEL_PHASES)
@@ -239,12 +245,13 @@ def test_parallel_phase_wrapper_raises_without_kernel_library(
         name, tmp_path, monkeypatch):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from code2vec_tpu_torch.kernels import cp_attention, sharded
+    from code2vec_tpu_torch.kernels import cp_attention, select, sharded
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "empty"))
     monkeypatch.setattr(build, "nvcc_path", lambda: None)
     monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(sharded, "_fns", {})
     monkeypatch.setattr(cp_attention, "_fns", {})
+    monkeypatch.setattr(select, "_fns", {})
     before = kernels.launch_counts()
     with FakeTensorMode():
         with pytest.raises(build.KernelBuildError, match="nvcc not found"):

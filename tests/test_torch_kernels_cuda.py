@@ -33,7 +33,8 @@ Tolerances, and why:
   thousand f32 rows, summed in another order (about 1e-6 relative).
 - K9: an assignment may differ only where the two nearest centroids'
   distances lie within 1e-4 (relative) of each other.
-- K13: exact (the same positions, values read back from the scores).
+- K13: exact (the same positions, values read back from the scores),
+  its small-width mode and merge entry too.
 - K12: K8's (rtol 1e-6, atol 1e-9; a bf16 mu equal or one bf16 step
   apart), on gradient rows whose duplicate sums are exact in f32 in any
   order; untouched rows and reruns bit-equal.
@@ -41,7 +42,9 @@ Tolerances, and why:
   atomics at rtol 1e-5 (a row's terms in any order). K15: the max exact,
   the sums and the gradient's hi + lo f32 (rtol 1e-5). K16/K17: the
   weights and exp at rtol 1e-6, sums at F32SUM, fs, dT and da within one
-  bf16 step (an f32 sum in another order moves a bf16 rounding).
+  bf16 step (an f32 sum in another order moves a bf16 rounding); K17's
+  d a also against the direct sum of ds t, within one bf16 step at its
+  largest.
 - The fp8 and int4 modes of K1, K3, K4 and K11: the int8 mode's
   tolerances (every fp8 and int4 value decodes exactly, to f32 and to
   bf16); all 256 fp8 codes of each format exactly.
@@ -896,6 +899,55 @@ def test_select_plan_fits_the_kernels_layout(dev):
         p = ks.plan(b, n, k, 132)
         assert p.scratch_bytes == ks._fns["scratch_bytes"](
             b, p.slices, p.slice, k, p.cap, p.sort_len)
+
+
+@pytest.mark.parametrize("b,n,k", [(1, 1, 1), (1, 7, 7), (3, 20, 10),
+                                   (1024, 20, 10), (1024, 40, 10),
+                                   (5, 77, 77), (2, 127, 33), (4, 128, 128),
+                                   (4, 128, 1), (1024, 160, 10)])
+def test_select_topk_small_width_kernel(dev, b, n, k):
+    """K13's small-width mode (rows of at most 128 columns) and its merge
+    entry, exactly against select_topk_plain and merge_topk_plain: halves
+    (ties everywhere, across ranks too), NaN, -inf, +0 and -0, a row
+    wholly -inf, B 1, k = n, widths that are no multiple of 4; one
+    launch a call, the same bits twice. The merge takes the rows split
+    over 2, 4 and 8 ranks (the last rank wholly -inf, a padded shard);
+    past 128 candidates it copies them rank-major for the large mode."""
+    from code2vec_tpu_torch.kernels.select import (
+        merge_topk, merge_topk_plain, padded_width, select_topk,
+        select_topk_plain,
+    )
+    rng = np.random.default_rng(b * n + k)
+    x = (rng.integers(-4, 5, (b, n)) * 0.5).astype(np.float32)
+    x[0, n // 2] = np.nan
+    x[-1, n - 1] = -0.0
+    if n > 2:
+        x[0, 1] = -np.inf
+    if b > 2:
+        x[2] = -np.inf
+    scores = torch.full((b, padded_width(n)), 7.0, device=dev)
+    scores[:, :n] = torch.from_numpy(x).to(dev)  # padding never selected
+    before = kernels.launch_counts()["select_topk"]
+    got = select_topk(scores, k, n=n)
+    assert kernels.launch_counts()["select_topk"] == before + 1
+    _select_close(got, select_topk_plain(scores, k, n=n))
+    _select_close(select_topk(scores, k, n=n), got)
+    for parts in (2, 4, 8):
+        if n % parts:
+            continue
+        k_local = n // parts
+        vals = torch.from_numpy(np.ascontiguousarray(
+            x.reshape(b, parts, k_local).transpose(1, 0, 2))).to(dev)
+        vals[-1] = float("-inf")
+        ids = torch.from_numpy(
+            (np.arange(parts)[:, None, None] * 100000
+             + rng.permutation(100000)[:b * k_local].reshape(1, b, k_local))
+            .astype(np.int32)).to(dev)
+        before = kernels.launch_counts()["select_topk"]
+        got = merge_topk(vals, ids, k)
+        assert kernels.launch_counts()["select_topk"] == before + 1
+        _select_close(got, merge_topk_plain(vals, ids, k))
+        _select_close(merge_topk(vals, ids, k), got)
 
 
 @pytest.mark.parametrize("f32", [False, True])
@@ -2208,18 +2260,30 @@ def test_tp_xent_passes_kernel(dev, b, v, n_valid, extra, floor):
                                              labels, valid, offset, 2 * b))
 
 
+def _direct_da(attn, mask, fs, wfs, t):
+    """K17's d a as the reference sums it, over rows and contexts of ds
+    t, on the kernel's own fs and sum of w fs (f32)."""
+    ds = torch.where(mask > 0, attn * (fs - wfs[:, None]), 0.0)
+    return torch.einsum("bm,bmd->d", ds, t.float())
+
+
 @pytest.mark.parametrize("b,m,d", [(1024, 100, 384), (64, 50, 384),
                                    (3, 1, 384), (5, 7, 128), (4, 300, 384),
                                    (2, 130, 1024)])
 def test_cp_attention_phases_kernel(dev, b, m, d):
     """K16's and K17's phases against their plain versions: an
-    all-invalid row, one context a row, long rows (300 contexts) and the
-    widest rows K16 takes (1024, four 16-byte chunks a lane); every sum in
-    a fixed order, so two runs are bit-equal."""
+    all-invalid row, one context a row, long rows (300 contexts), the
+    widest rows K16 takes (1024, four 16-byte chunks a lane) and a row
+    whose t is one vector on every context (fs equals the sum of w fs,
+    so each ds is a rounding of 0), in the batch and alone; d a also
+    against its direct sum of ds t; every sum in a fixed order, so two
+    runs are bit-equal."""
     from code2vec_tpu_torch.kernels import cp_attention as k16
     g = torch.Generator(device=dev).manual_seed(b * m + d)
     t = torch.tanh(torch.randn((b, m, d), generator=g, device=dev)).to(
         torch.bfloat16)
+    if b > 1:
+        t[1] = t[1, 0]
     a = torch.randn((d,), generator=g, device=dev) * 0.25
     mask = (torch.rand((b, m), generator=g, device=dev) > 0.2).float()
     mask[0] = 0.0
@@ -2243,17 +2307,33 @@ def test_cp_attention_phases_kernel(dev, b, m, d):
     assert cv[0].abs().max() == 0 and attn[0].abs().max() == 0
     again = k16.cp_attention_combine(t, s, st[0], st[1])
     assert torch.equal(cv, again[0]) and torch.equal(attn, again[1])
-    fs, wfs = k16.cp_attention_backward_fs(t, attn, dcv)
-    fs2, wfs2 = k16.backward_fs_plain(t, attn, dcv)
+    fs, wfs, pq = k16.cp_attention_backward_fs(t, attn, mask, dcv)
+    fs2, wfs2, _ = k16.backward_fs_plain(t, attn, mask, dcv)
     _within_step(fs, fs2)
     _close(wfs, wfs2, F32SUM)
-    dt, da = k16.cp_attention_backward_dt(t, a, mask, attn, fs, wfs, dcv)
-    dt2, da2 = k16.backward_dt_plain(t, a, mask, attn, fs, wfs, dcv)
+    # P and Q on the kernel's own fs: f32 sums in another order
+    wv = torch.where(mask > 0, attn, 0.0)
+    _close(pq, torch.stack([
+        torch.einsum("bm,bmd->bd", wv * (fs - fs[:, :1]), t.float()),
+        torch.einsum("bm,bmd->bd", wv, t.float())]), F32SUM)
+    again = k16.cp_attention_backward_fs(t, attn, mask, dcv)
+    assert all(torch.equal(x, y) for x, y in zip((fs, wfs, pq), again))
+    dt, da = k16.cp_attention_backward_dt(a, mask, attn, fs, wfs, dcv, pq)
+    dt2, da2 = k16.backward_dt_plain(a, mask, attn, fs, wfs, dcv, pq)
     _within_step(dt, dt2)
     _within_step(da, da2)
-    again = k16.cp_attention_backward_dt(t, a, mask, attn, fs, wfs, dcv)
+    _within_step(da, _direct_da(attn, mask, fs, wfs, t))
+    again = k16.cp_attention_backward_dt(a, mask, attn, fs, wfs, dcv, pq)
     assert torch.equal(dt, again[0]) and torch.equal(da, again[1])
     assert dt[0].abs().max() == 0
+    if b > 1:   # the fs = total row alone: d a is its ds's roundings
+        r = [x[1:2].contiguous() for x in (t, attn, mask, dcv)]
+        f1, w1, pq1 = k16.cp_attention_backward_fs(*r)
+        _, da1 = k16.cp_attention_backward_dt(a, r[2], r[1], f1, w1, r[3],
+                                              pq1)
+        _within_step(da1, k16.backward_dt_plain(a, r[2], r[1], f1, w1, r[3],
+                                                pq1)[1])
+        _within_step(da1, _direct_da(r[1], r[2], f1, w1, r[0]))
 
 
 def test_parallel_step_of_one_rank_matches_single_device(dev):

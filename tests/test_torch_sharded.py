@@ -14,14 +14,18 @@ with an all-invalid row and a row valid in the first ctx shard only.
 
 Tolerances, and why:
 - the gathered rows and top-k (values and ids) exact: a gather plus
-  zeros, and selections (ties by ascending id on both sides);
+  zeros, and selections (ties by ascending id on both sides); K13's
+  merge of the tp x k candidates exact against the reference's second
+  lax.top_k (NaN, ties across ranks, a wholly -inf rank);
 - f32 cross-entropy, logsumexp, logits, attention outputs and their
   gradients: rtol 1e-5, atol 1e-6 (only the order of f32 sums differs);
 - the phases against the unsplit plain versions: the same f32 bounds
   (K15's bf16 gradient planes compared as hi + lo, the f32 value they
   carry); in bf16, dT within one bf16 step of its largest value (a
   shard's sum of w fs adds in another order, which can move a rounding)
-  and d a within one step a shard (each rounds its part).
+  and d a within one step a shard (each rounds its part); a row whose
+  fs equals the sum of w fs everywhere (K17's two row sums cancel) adds
+  to d a at most one bf16 step of the larger sum a shard.
 """
 
 import dataclasses
@@ -43,6 +47,7 @@ from code2vec_tpu.parallel import mesh as jax_mesh
 from code2vec_tpu.training.step import _shard_map
 from code2vec_tpu_torch.data.reader import RowBatch
 from code2vec_tpu_torch.kernels import cp_attention as k16
+from code2vec_tpu_torch.kernels import select
 from code2vec_tpu_torch.kernels import sharded as k15
 from code2vec_tpu_torch.kernels.encoder import Dropout, dropout_plain
 from code2vec_tpu_torch.kernels.softmax_xent import softmax_xent_plain
@@ -423,13 +428,14 @@ def test_cp_attention_phases_compose_to_k2_and_k6(parts, dtype):
     torch.testing.assert_close(cv, want_cv, **F32)
     torch.testing.assert_close(attn, want_attn, **F32)
     fs = [k16.cp_attention_backward_fs(t[:, c].contiguous(),
-                                       attn[:, c].contiguous(), dcv)
+                                       attn[:, c].contiguous(),
+                                       mask[:, c].contiguous(), dcv)
           for c in shards]
-    wfs = sum(w for _, w in fs)
+    wfs = sum(w for _, w, _ in fs)
     back = [k16.cp_attention_backward_dt(
-        t[:, c].contiguous(), a, mask[:, c].contiguous(),
-        attn[:, c].contiguous(), f, wfs, dcv)
-        for c, (f, _) in zip(shards, fs)]
+        a, mask[:, c].contiguous(), attn[:, c].contiguous(), f, wfs, dcv,
+        pq, dtype)
+        for c, (f, _, pq) in zip(shards, fs)]
     want_dt, want_da = masked_single_query_attention_backward(
         t, a, mask, attn, dcv)
     # bf16: a shard's sum of w fs adds in another order, which can move a
@@ -443,6 +449,90 @@ def test_cp_attention_phases_compose_to_k2_and_k6(parts, dtype):
                                want_dt.float(), **tol(want_dt.float()))
     da = sum(d for _, d in back)
     torch.testing.assert_close(da, want_da, **tol(want_da, parts))
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_backward_where_fs_equals_total(parts, dtype):
+    """K17's d a where a row's t is one vector on every context: fs is the
+    same on each and equals the row's sum of w fs, so each ds is a
+    rounding of 0. Over the batch, d a is K6's (the phases' own
+    tolerance); the row alone gives the direct sum of ds t on the
+    phases' own fs and sum of w fs, within one bf16 step of its largest
+    a rank (each rank's part is rounded to the dtype)."""
+    x = _inputs()
+    t = torch.from_numpy(x["op_t"])
+    t[1] = t[1, 0]
+    t = t.to(dtype)
+    a = torch.from_numpy(x["op_a"])
+    mask = torch.from_numpy(x["op_mask"])
+    dcv = torch.from_numpy(x["op_dcv"])
+    _, attn = masked_single_query_attention(t, a, mask)
+    shards = _shards(M, parts)
+
+    def phases(rows):
+        fs = [k16.cp_attention_backward_fs(
+            t[rows, c].contiguous(), attn[rows, c].contiguous(),
+            mask[rows, c].contiguous(), dcv[rows]) for c in shards]
+        wfs = sum(w for _, w, _ in fs)
+        back = [k16.cp_attention_backward_dt(
+            a, mask[rows, c].contiguous(), attn[rows, c].contiguous(), f,
+            wfs, dcv[rows], pq, dtype) for c, (f, _, pq) in zip(shards, fs)]
+        direct = sum(torch.einsum(
+            "bm,bmd->d", torch.where(mask[rows, c] > 0, attn[rows, c] * (
+                f - wfs[:, None]), 0.0), t[rows, c].float())
+            for c, (f, _, _) in zip(shards, fs))
+        return (torch.cat([d for d, _ in back], 1), sum(d for _, d in back),
+                direct)
+
+    dt, da, _ = phases(slice(None))
+    want_dt, want_da = masked_single_query_attention_backward(
+        t, a, mask, attn, dcv)
+    step = 2.0 ** -8 * float(want_da.abs().max())
+    torch.testing.assert_close(da, want_da, rtol=0, atol=parts * step)
+    torch.testing.assert_close(dt.float(), want_dt.float(), rtol=0,
+                               atol=2.0 ** -8 * float(want_dt.float().abs()
+                                                      .max()))
+    _, da_row, direct = phases(slice(1, 2))
+    torch.testing.assert_close(
+        da_row, direct, rtol=0,
+        atol=parts * 2.0 ** -8 * float(direct.abs().max()))
+
+
+def _merge_candidates(parts, seed=3, b=6, k_local=10):
+    """(values (parts, b, k_local) f32, ids int32) as the all-gather of
+    each rank's top k_local stacks them: halves in [-2, 2] (many equal
+    values across ranks), NaN, the last rank's candidates all -inf (a
+    wholly padded shard); each rank's ids are its own shard's."""
+    rng = np.random.default_rng(seed + parts)
+    values = (rng.integers(-4, 5, (parts, b, k_local)) * 0.5).astype(
+        np.float32)
+    values[0, 0, 3] = np.nan
+    values[parts // 2, 2, 0] = np.nan
+    values[-1] = -np.inf
+    ids = (np.arange(parts)[:, None, None] * 1000
+           + rng.permutation(1000)[:b * k_local].reshape(1, b, k_local)
+           ).astype(np.int32)
+    return values, ids
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 10, "n"])
+def test_merge_topk_matches_reference_second_top_k(parts, k):
+    """K13's merge of the tp x k candidates against the reference's second
+    lax.top_k and take_along_axis (ops/sharded.py tp_top_k :115-116) over
+    the same rank-major candidates: values and ids exact."""
+    values, ids = _merge_candidates(parts)
+    b, n = values.shape[1], parts * values.shape[2]
+    k = n if k == "n" else k
+    flat_values = values.transpose(1, 0, 2).reshape(b, n)
+    flat_ids = ids.transpose(1, 0, 2).reshape(b, n)
+    want_v, pos = jax.lax.top_k(jnp.asarray(flat_values), k)
+    want_i = jnp.take_along_axis(jnp.asarray(flat_ids), pos, axis=1)
+    got_v, got_i = select.merge_topk(torch.from_numpy(values),
+                                     torch.from_numpy(ids), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
 
 
 # ----------------------------------------------------- K12, dropout, mesh
