@@ -32,11 +32,19 @@ a C++ compiler. Phases, each fatal on failure:
    keep rate, the same (seed, step) must draw the same mask and the next
    step another, and K5 must give exactly 0 to every dropped element.
 5. Serving path: a full-width int8 release artifact written from random
-   weights (seeded), served over HTTP by the port's server on the GPU;
-   /predict and /embed requests with Java source run through the real
-   extractor; every response checked, every serving kernel's launch count
-   must rise, and the step's outputs on one padded batch of the extracted
-   methods must agree with the same step on the CPU (plain versions).
+   weights (seeded), served over HTTP by the port's server on the GPU
+   through the serving host path (path_phase): the extractor pool must
+   come up warm (`c2v-extract --server`); the dynamic batcher and then
+   the continuous one over the same model, cache off, answer /predict
+   and /embed of every request source through the real extractor (each
+   body checked, each equal to the other batcher's) and an 8-thread
+   burst of 96 requests (p50, p99, batches, mean rows a batch, rides),
+   each serving kernel launched under each batcher; with the cache on, a
+   repeated and a re-indented request byte-equal to the first (hits +2)
+   and 100 timed hits; /metrics parsed and its request, pool, batcher
+   and cache series held to the requests sent; and the step's outputs
+   on one padded batch of the extracted methods against the same step
+   on the CPU (plain versions).
 6. Train path: a synthetic corpus at full width (a `.dict.c2v` with the
    java14m vocabulary sizes, 4 x 1024 methods whose name follows their
    tokens) trained for 2 epochs by the `train` command of the port's CLI
@@ -46,11 +54,18 @@ a C++ compiler. Phases, each fatal on failure:
    lifecycle (lifecycle_phase): the three checkpoints verify, each
    epoch-end evaluation launched each of K1-K4 once per batch, the final
    checkpoint reloads bit for bit and answers /predict from `serve
-   --load` through K1-K4, `--release` drops the optimizer state, `train
-   --load` of epoch 1's checkpoint runs epoch 2, `export` as float32 and
-   int8, whose `evaluate` gives the epoch-end evaluation exactly
-   (float32) and agrees on top-1 (int8); save, load, export seconds and
-   bytes; then the step time and examples/s of a steady step.
+   --load` through K1-K4; `serve --load --serve_mips_nprobe 16` builds
+   the MIPS head over the live target table (K9, K10) and answers
+   /predict through K11, equal to the exact head over every list and on
+   top-1 where the exact top-1 row lies in a probed list; `--release`
+   drops the optimizer state, `train --load` of epoch 1's checkpoint
+   runs epoch 2, `export` as float32 and int8, whose `evaluate` gives
+   the epoch-end evaluation exactly (float32) and agrees on top-1
+   (int8), and int8 with --serve_mips_nprobe 16, which records the
+   calibrated head crossover with an unchanged fingerprint and which a
+   ReleaseModel with --serve_mips_crossover -1 adopts; save, load,
+   export seconds and bytes; then the step time and examples/s of a
+   steady step.
 7. One train step at 64 rows with full vocabulary widths and an injected
    dropout mask, on the GPU against the same step on the CPU (plain
    versions): the loss and the five gradients within one bf16 step of
@@ -90,7 +105,8 @@ a C++ compiler. Phases, each fatal on failure:
    artifact: `embed` of a 20,000-method synthetic corpus (plus the
    request sources' methods, twice), `index-build`, then `serve
    --retrieval_index --serve_mips_nprobe 16 --serve_mips_crossover 8`
-   over HTTP: well-formed /neighbors bodies, each stored method its own
+   over HTTP (warm pool, cache off): well-formed /neighbors bodies, each
+   stored method its own
    top neighbor at cosine >= 1 - 1e-4, k 65 and k 1000 answered (each
    method still its own top neighbor), a one-method /predict on the
    MIPS head (K11) and a 12-method one on the exact head (K3), the
@@ -130,8 +146,9 @@ a C++ compiler. Phases, each fatal on failure:
    against its plain version; at B 1024 each format is timed beside a
    bf16 matmul + torch.topk and its bound (b1024_* keys of the K3
    entries).
-14. fp8 and int4 serving (run after 5): full-width artifacts of all five
-   schemes written from one set of seeded weights; the e4m3 artifact
+14. fp8 and int4 serving (run after 5; warm pool, cache off):
+   full-width artifacts of all five schemes written from one set of
+   seeded weights; the e4m3 artifact
    served over HTTP (exact head), the int4 one with the MIPS head
    (nprobe 16, crossover 8: one-method requests on K11's int4 mode, a
    12-method one on the exact head): bodies checked, the mode's kernels
@@ -793,10 +810,88 @@ def check_predict_body(body, fingerprint):
             fail(f"/predict attention paths of {m['original_name']}")
 
 
+def metric_values(text: str):
+    """{(name, sorted label pairs): value} of a Prometheus text page,
+    failing on a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        pairs = tuple(sorted(
+            tuple(kv.split("=", 1)) for kv in
+            labels.rstrip("}").replace('"', "").split(",") if kv))
+        try:
+            out[(name, pairs)] = float(value)
+        except ValueError:
+            fail(f"/metrics: unparsable line {line!r}")
+    return out
+
+
+def scrape(url: str):
+    with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+        if not r.headers["Content-Type"].startswith("text/plain"):
+            fail(f"/metrics content type {r.headers['Content-Type']}")
+        return metric_values(r.read().decode())
+
+
+def metric_delta(before, after, name, **labels):
+    key = (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+SERVING_PHASES = ("queue_wait", "extract", "batch_wait", "device")
+
+
+def phase_means(before, after):
+    """Mean ms a request of each serving phase (queue_wait for an
+    extractor worker, extract, batch_wait, device: the whole model call
+    it rode) and of the whole request (status 200), over the requests
+    between two scrapes of /metrics."""
+    out = {}
+    for phase, labels in [(p, {"phase": p}) for p in SERVING_PHASES] + [
+            ("total", {"phase": "total", "status": "200"})]:
+        n = metric_delta(before, after, "serving_request_seconds_count",
+                         **labels)
+        t = metric_delta(before, after, "serving_request_seconds_sum",
+                         **labels)
+        out[phase] = round(t / n * 1e3, 3) if n else None
+    return out
+
+
+def burst(url: str, sources, n: int, threads: int = 8):
+    """`n` /predict requests of `sources` (cycled) from `threads` client
+    threads at once: (latencies, [(source, body)])."""
+    todo = [sources[i % len(sources)] for i in range(n)]
+
+    def one(src):
+        status, body, dt = post(f"{url}/predict", src)
+        if status != 200:
+            fail(f"/predict burst: HTTP {status}")
+        return src, body, dt
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+        done = list(ex.map(one, todo))
+    return [dt for _, _, dt in done], [(s, b) for s, b, _ in done]
+
+
 def path_phase(torch, seed: int, work_dir: str, fs, weights,
-               dev: str = "cuda"):
-    """The int8 artifact of `weights` (serving_weights) served over HTTP.
-    Returns (the launch counts, (the artifact's directory, its meta))."""
+               dev: str = "cuda", n_burst: int = 96, n_hits: int = 100):
+    """The int8 artifact of `weights` (serving_weights) served over HTTP
+    through the serving host path: the warm extractor pool (required),
+    the dynamic batcher and then the continuous one over the same loaded
+    model, cache off, with every body checked and each serial body equal
+    to the other batcher's for the same source; an 8-thread burst of
+    `n_burst` requests under each (p50, p99, batches, mean rows a batch,
+    rides); then a dynamic server with the cache on: a repeated and a
+    re-indented request byte-equal to the first, `serving_cache_hits_total`
+    up by 2, and `n_hits` timed hits; /metrics parsed, its request, pool,
+    batcher and cache series against the requests sent. Returns (the
+    launch counts of both batchers' runs summed, (the artifact's
+    directory, its meta), stats)."""
+    import dataclasses
+
     from code2vec_tpu_torch import kernels
     from code2vec_tpu_torch.config import Config
     from code2vec_tpu_torch.release.artifact import write_artifact
@@ -818,54 +913,157 @@ def path_phase(torch, seed: int, work_dir: str, fs, weights,
     t0 = time.perf_counter()
     model = ReleaseModel(config)
     model.warmup()
+    fp = model.model_fingerprint()
     log(f"path: loaded and warmed the model on {model.device} in "
         f"{time.perf_counter() - t0:.1f}s")
-    server = PredictionServer(model)
-    port = server.start(port=0)
-    url = f"http://127.0.0.1:{port}"
+    t_phase = time.perf_counter()
+    srcs = list(sources.values())
+    serial, counts, stats = {}, {}, {}
+    for which in ("dynamic", "continuous"):
+        server = PredictionServer(model, dataclasses.replace(
+            config, serve_cache_entries=0,
+            serve_continuous=which == "continuous"))
+        url = f"http://127.0.0.1:{server.start(port=0)}"
+        try:
+            if not server.pool.warm:
+                fail(f"path: the {which} server's extractor pool came up "
+                     f"cold: cpp/build/c2v-extract has no --server mode")
+            kernels.reset_launch_counts()
+            bodies = {}
+            for name, src in sources.items():
+                status, body, _ = post(f"{url}/predict", src)
+                if status != 200:
+                    fail(f"/predict {name} ({which}): HTTP {status}")
+                check_predict_body(body, fp)
+                bodies[name] = body
+            status, body, _ = post(f"{url}/embed", sources["Input.java"])
+            vecs = body.get("vectors") or []
+            if status != 200 or not vecs or not all(
+                    len(v) == fs.code_dim and all(math.isfinite(x) for x in v)
+                    for v in vecs):
+                fail(f"/embed ({which}): HTTP {status}, {len(vecs)} vectors")
+            bodies["embed"] = body
+            serial[which] = bodies
+            b0 = server.batcher.batches_dispatched
+            r0 = getattr(server.batcher, "rides", 0)
+            m0 = scrape(url)
+            lat, done = burst(url, srcs, n_burst)
+            m1 = scrape(url)
+            want_names = {src: [m["original_name"]
+                                for m in bodies[name]["methods"]]
+                          for name, src in sources.items()}
+            for src, body in done:
+                check_predict_body(body, fp)
+                if [m["original_name"] for m in body["methods"]] != \
+                        want_names[src]:
+                    fail(f"/predict burst ({which}): methods "
+                         f"{[m['original_name'] for m in body['methods']]}")
+            batches = server.batcher.batches_dispatched - b0
+            rows = metric_delta(m0, m1, "serving_batch_rows_total")
+            st = dict(latency_stats(lat), batches=batches,
+                      mean_rows=rows / max(batches, 1),
+                      rides=getattr(server.batcher, "rides", 0) - r0,
+                      phases_ms=phase_means(m0, m1))
+            if metric_delta(m0, m1, "serving_batches_total") != batches or \
+                    metric_delta(m0, m1, "serving_requests_total",
+                                 endpoint="predict", status="200") \
+                    != n_burst or metric_delta(
+                        m0, m1, "extractor_pool_requests_total") != n_burst:
+                fail(f"path ({which}): /metrics deltas of the burst "
+                     f"disagree with {n_burst} requests in {batches} "
+                     f"batches")
+            counts[which] = kernels.launch_counts()
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+        finally:
+            server.shutdown()
+        if health["kernel_launches"] != counts[which]:
+            fail(f"/healthz launch counts {health['kernel_launches']} != "
+                 f"{counts[which]}")
+        if health["batcher"]["continuous"] != (which == "continuous") or \
+                not health["extractor_pool"]["warm"]:
+            fail(f"/healthz of the {which} server: {health['batcher']}, "
+                 f"{health['extractor_pool']}")
+        missing = [k for k in SERVE_KERNELS if counts[which][k] <= 0]
+        if missing:
+            fail(f"the {which} batcher launched no {missing}")
+        stats[which] = st
+        pool_size = health["extractor_pool"]["size"]
+        log(f"path: {which} batcher, warm pool ({pool_size} workers), "
+            f"cache off: {len(sources)} /predict and 1 "
+            f"/embed serial; a burst of {n_burst} /predict from 8 threads: "
+            f"p50 {st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms, max "
+            f"{st['max_ms']:.2f} ms; {st['batches']} batches, "
+            f"{st['mean_rows']:.2f} rows a batch, {st['rides']} rides; "
+            f"mean ms a request by phase {st['phases_ms']}; kernel "
+            f"launches {counts[which]}")
+    for name, body in serial["dynamic"].items():
+        if body != serial["continuous"][name]:
+            fail(f"path: the continuous batcher's {name} body differs "
+                 f"from the dynamic one's")
+    log(f"path: the {len(serial['dynamic'])} serial bodies of the two "
+        f"batchers are equal")
+
+    # the prediction cache: hits byte-equal to their miss, then timed
+    server = PredictionServer(model, config)
+    url = f"http://127.0.0.1:{server.start(port=0)}"
     try:
-        kernels.reset_launch_counts()
-        latencies = []
-        for name, src in sources.items():
-            status, body, dt = post(f"{url}/predict", src)
-            if status != 200:
-                fail(f"/predict {name}: HTTP {status}")
-            check_predict_body(body, model.model_fingerprint())
-            latencies.append(dt)
-        status, body, dt = post(f"{url}/embed", sources["Input.java"])
-        latencies.append(dt)
-        vecs = body.get("vectors") or []
-        if status != 200 or not vecs or not all(
-                len(v) == fs.code_dim and all(math.isfinite(x) for x in v)
-                for v in vecs):
-            fail(f"/embed: HTTP {status}, {len(vecs)} vectors")
-        with concurrent.futures.ThreadPoolExecutor(8) as ex:
-            burst = list(ex.map(lambda s: post(f"{url}/predict", s),
-                                list(sources.values()) * 2))
-        for status, body, dt in burst:
-            if status != 200:
-                fail(f"/predict burst: HTTP {status}")
-            check_predict_body(body, model.model_fingerprint())
-            latencies.append(dt)
-        counts = kernels.launch_counts()
-        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
-            health = json.loads(r.read())
+        m0 = scrape(url)
+        src = sources["Input.java"]
+        raw = []
+        for body in (src, src, "\n".join("    " + ln
+                                          for ln in src.splitlines())):
+            req = urllib.request.Request(f"{url}/predict",
+                                         data=body.encode(), method="POST",
+                                         headers={"Content-Type":
+                                                  "text/plain"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                raw.append(r.read())
+        m1 = scrape(url)
+        if raw[1] != raw[0] or raw[2] != raw[0]:
+            fail("path: a cache hit is not byte-equal to its miss")
+        hits = metric_delta(m0, m1, "serving_cache_hits_total")
+        misses = metric_delta(m0, m1, "serving_cache_misses_total")
+        if (hits, misses) != (2, 1):
+            fail(f"path: the cache counted {hits} hits and {misses} misses "
+                 f"for one miss and two hits")
+        hit_lat, body = timed_posts(f"{url}/predict", src, n_hits, warm=0)
+        check_predict_body(body, fp)
+        m2 = scrape(url)
+        total = metric_delta(m0, m2, "serving_requests_total",
+                             endpoint="predict", status="200")
+        if metric_delta(m0, m2, "serving_cache_hits_total") != 2 + n_hits \
+                or total != 3 + n_hits or metric_delta(
+                    m0, m2, "serving_request_seconds_count", phase="total",
+                    status="200") != total or metric_delta(
+                    m0, m2, "extractor_pool_requests_total") != 1:
+            fail(f"path: /metrics after {3 + n_hits} requests of which "
+                 f"{2 + n_hits} hits disagrees")
+        series = {name for name, _ in m2}
+        for name in ("serving_requests_total", "serving_request_seconds_count",
+                     "extractor_pool_requests_total",
+                     "extractor_pool_extract_seconds_count",
+                     "serving_batches_total", "serving_batch_rows_total",
+                     "serving_device_seconds_count",
+                     "serving_cache_hits_total", "serving_cache_entries",
+                     "serving_admission_depth",
+                     "serving_head_dispatch_total"):
+            if name not in series:
+                fail(f"path: /metrics has no {name}")
     finally:
         server.shutdown()
-    n_requests = len(latencies)
-    log(f"path: {n_requests} requests ({len(sources) + len(burst)} "
-        f"/predict, 1 /embed) in {server.batcher.batches_dispatched} device "
-        f"batches; latency p50 {statistics.median(latencies) * 1e3:.1f} ms, "
-        f"max {max(latencies) * 1e3:.1f} ms; kernel launches {counts}")
-    if health["kernel_launches"] != counts:
-        fail(f"/healthz launch counts {health['kernel_launches']} != "
-             f"{counts}")
-    missing = [k for k in SERVE_KERNELS if counts[k] <= 0]
-    if missing:
-        fail(f"the path launched no {missing}")
-
+    stats["hit"] = latency_stats(hit_lat)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    stats["launches"] = counts
+    log(f"path: cache on: a repeated and a re-indented request byte-equal "
+        f"to the first (hits +2); {n_hits} hits of Input.java: p50 "
+        f"{stats['hit']['p50_ms']:.3f} ms, p99 {stats['hit']['p99_ms']:.3f} "
+        f"ms; /metrics ({len(m2)} series) agrees with the requests sent; "
+        f"the serving host path took {stats['phase_s']:.1f}s")
     step_gpu_vs_cpu(torch, model, art_dir, extracted, fs, "path", dev)
-    return counts, (art_dir, meta)
+    summed = {k: counts["dynamic"][k] + counts["continuous"][k]
+              for k in counts["dynamic"]}
+    return summed, (art_dir, meta), stats
 
 
 def step_gpu_vs_cpu(torch, model, art_dir: str, extracted, fs, what: str,
@@ -2121,6 +2319,7 @@ def lifecycle_phase(torch, seed: int, work_dir: str, fs, ft, model, config,
     log(f"lifecycle: /predict of Input.java from --load in "
         f"{dt * 1e3:.1f} ms, launches {served}, fingerprint "
         f"{loaded.model_fingerprint()}")
+    mips_s = mips_from_load(torch, base, ctx, source, body, test, dev)
     del loaded, server, live, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -2172,19 +2371,25 @@ def lifecycle_phase(torch, seed: int, work_dir: str, fs, ft, model, config,
     shutil.rmtree(base + "_iter1")
     shutil.rmtree(rel)
 
-    # export, float32 and int8
-    arts, export_s = {}, {}
+    # export, float32 and int8, and int8 with the head crossover
+    # calibrated (--serve_mips_nprobe 16)
+    arts, export_s, metas = {}, {}, {}
     for scheme, flags in (("float32", ["--no_quantize"]),
-                          ("int8", ["--release_scheme", "int8"])):
+                          ("int8", ["--release_scheme", "int8"]),
+                          ("int8-mips", ["--release_scheme", "int8",
+                                         "--serve_mips_nprobe", "16"])):
         arts[scheme] = os.path.join(work_dir, f"export-{scheme}")
         t0 = time.perf_counter()
         meta = cli.main(["export", "--load", base, "--artifact_out",
                          arts[scheme], "--max_contexts", ctx, "--device",
                          dev] + flags)
         export_s[scheme] = time.perf_counter() - t0
+        metas[scheme] = meta
         if meta["source"] != {"checkpoint": base,
                               "step": int(model.state.step), "epoch": 2}:
             fail(f"lifecycle: export {scheme} source {meta['source']}")
+    crossover = adopt_crossover(torch, arts["int8-mips"], metas, test, dev)
+    shutil.rmtree(arts.pop("int8-mips"))
     log32 = os.path.join(work_dir, "a32_eval.log")
     kernels.reset_launch_counts()
     res = cli.main(["evaluate", "--artifact", arts["float32"], "--test",
@@ -2235,8 +2440,205 @@ def lifecycle_phase(torch, seed: int, work_dir: str, fs, ft, model, config,
     torch.cuda.empty_cache()
     return model, dict(save_s=[t for _, t in saves], ckpt_gb=ckpt_bytes / 1e9,
                        load_s=load_s, build_s=build_s, export_s=export_s,
+                       mips_s=mips_s, crossover=crossover,
+                       calibration=metas["int8-mips"]["mips_calibration"],
                        release_s=release_s, release_gb=release_bytes / 1e9,
                        eval_eps=eval_eps, int8_agreement=agree)
+
+
+def mips_from_load(torch, base: str, ctx: str, source: str, exact_body,
+                   test: str, dev: str = "cuda", rows: int = 64) -> dict:
+    """`serve --load BASE --serve_mips_nprobe 16`: the MIPS head built
+    over the live 261,245 x 384 target table (K9, K10) answers /predict
+    of Input.java through K11, checked as a /predict body beside the
+    exact head's (`exact_body`). On the code vectors of the first `rows`
+    methods of `test` (the model's own vocabulary: Input.java's words
+    are not in it, so its code vector is 0), the head over every list is
+    the exact head (mips_against_exact's precision check), and at nprobe
+    16 each row's top-1 is the exact head's unless the exact top-1 row
+    lies in no probed list or is a near-tie. Returns the head's build and
+    warm-up seconds, the top-1 agreement and the launch counts."""
+    import numpy as np
+
+    from code2vec_tpu_torch import cli, kernels
+    from code2vec_tpu_torch.model_facade import Code2VecModel
+    from code2vec_tpu_torch.serving.server import PredictionServer
+
+    _, cfg = cli.config_from_args(
+        ["serve", "--load", base, "--max_contexts", ctx, "--device", dev,
+         "--serve_mips_nprobe", "16", "--serve_cache_entries", "0"])
+    cfg.verbose_mode = 0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = Code2VecModel(cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.warmup()   # builds the head (K9, K10) and warms every bucket
+    warm_s = time.perf_counter() - t0
+    head = model.mips_head
+    server = PredictionServer(model)
+    url = f"http://127.0.0.1:{server.start(port=0)}"
+    try:
+        status, body, dt = post(f"{url}/predict", source)
+    finally:
+        server.shutdown()
+    counts = kernels.launch_counts()
+    if status != 200:
+        fail(f"lifecycle: /predict from --load with the MIPS head: HTTP "
+             f"{status}")
+    check_predict_body(body, model.model_fingerprint())
+    need = ("kmeans_assign", "kmeans_update", "ivf_search",
+            "context_encoder", "masked_attention")
+    if not all(counts[k] for k in need) or counts["blockwise_topk"] or \
+            counts["label_logits"]:
+        fail(f"lifecycle: the MIPS head from --load launched {counts}")
+    with open(test) as f:
+        corpus = [next(f) for _ in range(rows)]
+    # the facade's MIPS predict step (make_eval_step(mips_topk=)) on the
+    # test methods: its top-k is checked against the head below
+    predicted = model.predict(corpus, with_code_vectors=True)
+    cv = torch.from_numpy(np.stack([r.code_vector for r in predicted])
+                          ).to(dev)
+    if not bool((cv.abs().amax(1) > 0).all()):
+        fail("lifecycle: a test method's code vector is 0")
+    table = model.state.params["target_embedding"].detach()
+    real = model.dims.real_target_vocab_size
+    fs = flagship()
+    same, bad, tol = mips_against_exact(torch, head, cv, table, None, real,
+                                        fs)
+    if bad:
+        fail(f"lifecycle: the MIPS head from --load at nprobe = nlist: "
+             f"{bad} indices differ from the exact head away from "
+             f"near-ties")
+    # nprobe 16: top-1 against the exact head's, unless that row was in
+    # no probed list (the approximation, not an error)
+    from code2vec_tpu_torch.kernels import topk
+    from code2vec_tpu_torch.kernels.ivf import top_positions
+    exact = topk.blockwise_topk(cv, table, 2, fs.block, valid_rows=real)
+    vals, ids = head.topk_fn(fs.topk, 16)(cv)
+    # the predict step's answers are the head's at nprobe 16 on the same
+    # code vectors, word for word (the head at nprobe = nlist was held
+    # to the exact head above)
+    lookup = model.vocabs.target_vocab.lookup_word
+    wired = [[lookup(int(j)) for j in row] for row in ids.cpu().tolist()]
+    off = [i for i, r in enumerate(predicted)
+           if list(r.topk_predicted_words) != wired[i]]
+    if off:
+        i = off[0]
+        fail(f"lifecycle: model.predict with the MIPS head from --load "
+             f"differs from head.topk_fn(k, 16) on {len(off)} of "
+             f"{len(predicted)} methods; method {i}: "
+             f"{predicted[i].topk_predicted_words[:4]} against "
+             f"{wired[i][:4]}")
+    _, probe = top_positions(cv @ head._centroids.T, 16)
+    agree = missed = 0
+    for i in range(cv.shape[0]):
+        want = int(exact.indices[i, 0])
+        if int(ids[i, 0]) == want:
+            agree += 1
+            continue
+        lists = probe[i].tolist()
+        members = torch.cat([head._global_ids[head._offsets[c]:
+                                              head._offsets[c + 1]]
+                             for c in lists])
+        near = float(exact.values[i, 0] - exact.values[i, 1]) <= tol
+        if bool((members == want).any()) and not near:
+            fail(f"lifecycle: method {i}: the MIPS head's top-1 "
+                 f"{int(ids[i, 0])} at nprobe 16 is not the exact head's "
+                 f"{want}, which lies in a probed list")
+        missed += 1
+    names = [(m["predictions"] or [{}])[0].get("name") for m in
+             body["methods"]]
+    exact_names = [(m["predictions"] or [{}])[0].get("name") for m in
+                   exact_body["methods"]]
+    log(f"lifecycle: `serve --load --serve_mips_nprobe 16` built its model "
+        f"in {load_s:.2f}s and the MIPS head (nlist {head.nlist}, K9/K10 "
+        f"over {real} x {table.shape[1]}, {head.build_seconds}s) and warmed "
+        f"in {warm_s:.2f}s; /predict of Input.java in {dt * 1e3:.1f} ms, "
+        f"launches kmeans_assign {counts['kmeans_assign']}, kmeans_update "
+        f"{counts['kmeans_update']}, ivf_search {counts['ivf_search']}; "
+        f"its top-1 names equal to the exact /predict's on "
+        f"{sum(a == b for a, b in zip(names, exact_names))}/{len(names)} "
+        f"methods; model.predict's top-{fs.topk} words equal to "
+        f"head.topk_fn(k, 16)'s on all {len(predicted)} test methods; "
+        f"on {cv.shape[0]} test methods over every list equal "
+        f"to the exact head on {same} of {cv.shape[0] * fs.topk} indices "
+        f"(the rest near-ties within {tol:.3g}); at nprobe 16 top-1 equal "
+        f"to the exact head's on {agree} ({missed} where the exact top-1 "
+        f"lies in no probed list or is a near-tie)")
+    del model
+    return dict(load_s=load_s, build_s=head.build_seconds, warm_s=warm_s,
+                top1_agree=agree, methods=int(cv.shape[0]), launches=counts)
+
+
+def adopt_crossover(torch, art: str, metas, test: str,
+                    dev: str = "cuda") -> int:
+    """`export --serve_mips_nprobe 16` recorded `mips_crossover` and
+    `mips_calibration` (medians and [min, max] over the rows grid, the
+    crossover the last row count of the table's leading MIPS wins) and
+    kept the uncalibrated export's fingerprint; a ReleaseModel with
+    --serve_mips_crossover -1 adopts the crossover and sends batches of
+    at most that many live rows to the MIPS head, none where it is 0
+    (MIPS lost at one row)."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.release.runtime import (CALIBRATION_SAMPLES,
+                                                    ReleaseModel)
+
+    meta, plain = metas["int8-mips"], metas["int8"]
+    crossover, table = meta.get("mips_crossover"), \
+        meta.get("mips_calibration")
+    if not isinstance(crossover, int) or not table:
+        fail(f"lifecycle: export --serve_mips_nprobe 16 recorded crossover "
+             f"{crossover!r}, calibration {table!r}")
+    if meta["fingerprint"] != plain["fingerprint"]:
+        fail("lifecycle: the calibrated export's fingerprint differs from "
+             "the uncalibrated one's")
+    keys = [int(r) for r in table]
+    wins = [r for r in keys if table[str(r)]["mips"] < table[str(r)]["exact"]]
+    if wins != keys[:len(wins)] or crossover != (wins[-1] if wins else 0) \
+            or any(not (t[f"{h}_range"][0] <= t[h] <= t[f"{h}_range"][1])
+                   for t in table.values() for h in ("exact", "mips")):
+        fail(f"lifecycle: crossover {crossover} does not follow its "
+             f"calibration table {table}")
+    model = ReleaseModel(Config(serve_artifact=art, device=dev,
+                                verbose_mode=0, serve=True,
+                                serve_mips_nprobe=16,
+                                serve_mips_crossover=-1))
+    bs = int(model.config.serve_batch_size)
+    with open(test) as f:
+        lines = [next(f) for _ in range(bs)]
+    if 0 < crossover < bs:
+        if model.mips_rows != crossover or model._mips_all:
+            fail(f"lifecycle: crossover {crossover} adopted as "
+                 f"{model.mips_rows} rows")
+        model.predict(lines[:crossover])
+        model.predict(lines[:crossover + 1])
+        want = {"exact": 1, "mips": 1}
+    elif crossover == 0:
+        if model.mips_head is not None or model.mips_nprobe:
+            fail("lifecycle: crossover 0 not adopted as exact-only")
+        model.predict(lines)
+        want = {"exact": 1, "mips": 0}
+    else:
+        if not model._mips_all:
+            fail(f"lifecycle: crossover {crossover} not adopted as "
+                 f"all-MIPS")
+        model.predict(lines)
+        want = {"exact": 0, "mips": 1}
+    if model.head_dispatches != want:
+        fail(f"lifecycle: with crossover {crossover} the heads ran "
+             f"{model.head_dispatches}, expected {want}")
+    spread = "; ".join(
+        f"{r}: exact {t['exact']} {t['exact_range']} mips {t['mips']} "
+        f"{t['mips_range']}" for r, t in table.items())
+    log(f"lifecycle: export --serve_mips_nprobe 16 calibrated crossover "
+        f"{crossover} (rows: us median [min, max] of "
+        f"{CALIBRATION_SAMPLES} samples: {spread}), fingerprint unchanged; "
+        f"--serve_mips_crossover -1 adopted it: heads {model.head_dispatches}")
+    del model
+    torch.cuda.empty_cache()
+    return crossover
 
 
 def train_step_check(torch, seed: int, fs, ft, rows: int = 64,
@@ -3140,7 +3542,7 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
     _, config = cli.config_from_args(
         ["serve", "--artifact", art, "--retrieval_index", idx,
          "--serve_mips_nprobe", "16", "--serve_mips_crossover", "8",
-         "--device", dev])
+         "--serve_cache_entries", "0", "--device", dev])
     config.verbose_mode = 0
     t0 = time.perf_counter()
     model = ReleaseModel(config)   # what `cli.main(argv)` runs
@@ -3153,6 +3555,8 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
         f"{time.perf_counter() - t0:.1f}s")
     fp = model.model_fingerprint()
     try:
+        if not server.pool.warm:
+            fail("retrieval: the server's extractor pool came up cold")
         own = 0
         for name, src in sources.items():
             status, body, _ = post_json(f"{url}/neighbors", {"code": src})
@@ -3207,12 +3611,14 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
         src = sources["Max.java"]
         for _ in range(10):
             post_json(f"{url}/neighbors", {"code": src})
+        m0 = scrape(url)
         latencies = []
         for _ in range(n_timed):
             status, body, dt = post_json(f"{url}/neighbors", {"code": src})
             if status != 200:
                 fail(f"/neighbors (timed): HTTP {status}")
             latencies.append(dt)
+        neighbor_phases = phase_means(m0, scrape(url))
         check_neighbors_body(body, fp, config.retrieval_topk)
         # the same at k 1000 (K11's large-k mode, then K13), over enough
         # lists to hold 1000 rows
@@ -3226,11 +3632,14 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
                 fail(f"/neighbors k 1000 (timed): HTTP {status}")
             latencies_1000.append(dt)
         check_neighbors_body(body, fp, 1000)
-        extract = []
+        extract, extract_warm = [], []
         for _ in range(50):
             t0 = time.perf_counter()
             extractor.extract_source(src)
             extract.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            server.pool.extract_source(src)
+            extract_warm.append(time.perf_counter() - t0)
         vecs = VectorStore.open(store).load()
         recall = measure_recall(server.retrieval.index,
                                 vecs[:: max(1, len(vecs) // fs.rows)][:fs.rows],
@@ -3250,15 +3659,20 @@ def retrieval_path_phase(torch, seed: int, work_dir: str, fs, ft,
                  max_ms=lat[-1] * 1e3,
                  k1000_p50_ms=statistics.median(lat_1000) * 1e3,
                  k1000_p99_ms=lat_1000[int(0.99 * (len(lat_1000) - 1))] * 1e3,
-                 extract_p50_ms=statistics.median(extract) * 1e3)
+                 extract_p50_ms=statistics.median(extract) * 1e3,
+                 extract_warm_p50_ms=statistics.median(extract_warm) * 1e3,
+                 phases_ms=neighbor_phases)
     log(f"retrieval: {len(lat)} /neighbors requests of Max.java (1 method, "
         f"k {config.retrieval_topk}) after 10 warm-up: p50 "
         f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms, max "
-        f"{stats['max_ms']:.2f} ms; at k 1000 (nprobe 32), "
+        f"{stats['max_ms']:.2f} ms (mean ms by phase "
+        f"{stats['phases_ms']}); at k 1000 (nprobe 32), "
         f"{len(lat_1000)} requests: "
         f"p50 {stats['k1000_p50_ms']:.2f} ms, p99 "
-        f"{stats['k1000_p99_ms']:.2f} ms; the extractor alone on it p50 "
-        f"{stats['extract_p50_ms']:.2f} ms over {len(extract)} calls; "
+        f"{stats['k1000_p99_ms']:.2f} ms (warm pool, cache off); the "
+        f"extractor alone on it p50 {stats['extract_p50_ms']:.2f} ms cold "
+        f"(one process a call), {stats['extract_warm_p50_ms']:.3f} ms "
+        f"through the warm pool, over {len(extract)} calls each; "
         f"{own} methods found themselves first; recall@10 of IVF (nprobe "
         f"{meta['nprobe']}) against brute force {recall:.4f}; kernel "
         f"launches {counts}")
@@ -3902,9 +4316,11 @@ def quant_path_phase(torch, seed: int, work_dir: str, fs, weights,
                          ("fp8_e5m2", False)):
         art, _ = arts[scheme]
         mode = SCHEME_MODES[scheme]
+        # cache off: the timed loops repeat one body and must time the
+        # miss path (warm pool, batcher, kernels)
         config = Config(serve_artifact=art, device=dev, verbose_mode=0,
                         serve=True, serve_mips_nprobe=16,
-                        serve_mips_crossover=8)
+                        serve_mips_crossover=8, serve_cache_entries=0)
         t0 = time.perf_counter()
         model = ReleaseModel(config)
         model.warmup()
@@ -3915,28 +4331,40 @@ def quant_path_phase(torch, seed: int, work_dir: str, fs, weights,
         kernels.reset_launch_counts()
         if http:
             server = PredictionServer(model)
-            url = f"http://127.0.0.1:{server.start(port=0)}/predict"
+            root = f"http://127.0.0.1:{server.start(port=0)}"
+            url = f"{root}/predict"
             fp = model.model_fingerprint()
             try:
+                if not server.pool.warm:
+                    fail(f"quant path: the {scheme} server's extractor "
+                         f"pool came up cold")
                 for src in list(sources.values()) + [many]:
                     status, body, _ = post(url, src)
                     if status != 200:
                         fail(f"/predict on the {scheme} artifact: HTTP "
                              f"{status}")
                     check_predict_body(body, fp)
+                m0 = scrape(root)
                 one, body = timed_posts(url, sources["Max.java"], n_one)
                 check_predict_body(body, fp)
+                m1 = scrape(root)
                 twelve, body = timed_posts(url, many, n_many)
                 check_predict_body(body, fp)
+                m2 = scrape(root)
                 counts = kernels.launch_counts()
             finally:
                 server.shutdown()
-            latency[scheme] = {"mips": latency_stats(one),
-                               "exact": latency_stats(twelve)}
+            latency[scheme] = {
+                "mips": dict(latency_stats(one),
+                             phases_ms=phase_means(m0, m1)),
+                "exact": dict(latency_stats(twelve),
+                              phases_ms=phase_means(m1, m2))}
             log(f"quant path: {scheme}: " + "; ".join(
                 f"{st['requests']} /predict requests of {what} ({head} "
-                f"head) after 10 warm-up: p50 {st['p50_ms']:.2f} ms, p99 "
-                f"{st['p99_ms']:.2f}, max {st['max_ms']:.2f}"
+                f"head, warm pool, cache off) after 10 warm-up: p50 "
+                f"{st['p50_ms']:.2f} ms, p99 "
+                f"{st['p99_ms']:.2f}, max {st['max_ms']:.2f} (mean ms by "
+                f"phase, warm-up included {st['phases_ms']})"
                 for head, what, st in (("mips", "1 method",
                                         latency[scheme]["mips"]),
                                        ("exact", "12 methods",
@@ -5876,15 +6304,25 @@ def main() -> None:
     log(f"build: done in {time.perf_counter() - t0:.1f}s (extractor and "
         f"libc2vdata.so {'built' if make is not None else 'present'})")
     require_native("build")
+    # each phase's seconds, for the budget of the whole run
+    phase_s, lap_t = {"build": time.perf_counter() - t_start}, \
+        [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - lap_t[0]
+        lap_t[0] = now
 
     timer = Timer(torch, args.samples)
     fs = flagship()
     ft = flagship_train()
     report = kernel_phase(torch, args.seed, timer, fs)
     torch.cuda.empty_cache()
+    lap("kernels")
     report.update(quant_kernel_phase(torch, args.seed, timer,
                                      Timer(torch, 5), fs))
     torch.cuda.empty_cache()
+    lap("fp8/int4 kernels")
     from code2vec_tpu_torch.config import Config
     eval_batch_ms, k1_eval = eval_shape_phase(torch, args.seed, timer, fs,
                                               Config().test_batch_size)
@@ -5893,6 +6331,7 @@ def main() -> None:
     # e4m3's (e5m2's) as b1024_* (e5m2_b1024_*) of blockwise_topk_fp8,
     # int4's as b1024_* of blockwise_topk_int4
     grid = topk_grid_phase(torch, args.seed, timer, fs)
+    lap("evaluate shape and K3 grid")
     for fmt, key, prefix in (
             ("int8", "blockwise_topk", "b1024"),
             ("float32", "blockwise_topk", "b1024_float32"),
@@ -5902,10 +6341,13 @@ def main() -> None:
         report[key].update({f"{prefix}_{n}": x for n, x in grid[fmt].items()})
     report.update(train_kernel_phase(torch, args.seed, timer, fs, ft))
     torch.cuda.empty_cache()
+    lap("train kernels")
     report.update(sparse_kernel_phase(torch, args.seed, timer, fs, ft))
     torch.cuda.empty_cache()
+    lap("sparse kernels")
     report.update(parallel_kernel_phase(torch, args.seed, timer, fs, ft))
     torch.cuda.empty_cache()
+    lap("parallel kernels")
     work_dir = os.path.join(REPO, ".smoke")
     shutil.rmtree(work_dir, ignore_errors=True)
     os.makedirs(work_dir)
@@ -5918,9 +6360,11 @@ def main() -> None:
         report["select_topk"].update(report.pop("select_topk_merge"))
         del timer
         torch.cuda.empty_cache()
+        lap("retrieval kernels")
         weights = serving_weights(args.seed, fs)
-        counts, int8_art = path_phase(torch, args.seed, work_dir, fs,
-                                      weights)
+        counts, int8_art, host_stats = path_phase(
+            torch, args.seed, work_dir, fs, weights)
+        lap("serving path")
         t0 = time.perf_counter()
         arts = write_scheme_artifacts(work_dir, weights[0], weights[1], fs,
                                       ("fp8_e4m3", "fp8_e5m2", "int4",
@@ -5932,28 +6376,37 @@ def main() -> None:
                         for k, (_, m) in arts.items()))
         quant_runs, quant_latency = quant_path_phase(
             torch, args.seed, work_dir, fs, weights, arts)
+        lap("fp8/int4 serving")
         eval_runs, eval_stats = evaluate_phase(torch, args.seed, work_dir,
                                                fs, weights, arts,
                                                eval_batch_ms)
+        lap("evaluate")
         del weights
         for scheme, (art, _) in arts.items():
             if scheme != "int8":   # the retrieval path serves that one
                 shutil.rmtree(art)
         train_counts, train_stats = train_path_phase(
             torch, args.seed, work_dir, fs, ft, lifecycle=True)
+        lap("train path and lifecycle")
         sparse_counts, sparse_stats = train_path_phase(
             torch, args.seed, work_dir, fs, ft, sparse=True)
+        lap("sparse train path")
         parallel_counts, parallel_stats = parallel_phase(
             torch, args.seed, work_dir, fs, ft)
+        lap("parallel")
         retrieval_counts, retrieval_stats = retrieval_path_phase(
             torch, args.seed, work_dir, fs, ft)
+        lap("retrieval path")
         data_counts, data_stats = data_path_phase(torch, args.seed, work_dir,
                                                   fs, ft)
+        lap("data path")
         capstone_counts, capstone_stats = capstone_phase(torch, work_dir)
+        lap("capstone")
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     train_step_check(torch, args.seed, fs, ft)
     sparse_step_check(torch, args.seed, fs, ft)
+    lap("step checks")
 
     sources = {
         "context_encoder": ("encoder.cu",
@@ -6047,6 +6500,14 @@ def main() -> None:
                           for k, x in r.items()})
         if name in SERVE_KERNELS:
             entry["retrieval_launches"] = retrieval_counts[name]
+            # the serving host path's runs, each batcher on its own
+            entry.update({f"{k}_launches": host_stats["launches"][k][name]
+                          for k in ("dynamic", "continuous")})
+        if name in ("kmeans_assign", "kmeans_update", "ivf_search"):
+            # the MIPS head from `serve --load` (built, warmed, one
+            # /predict)
+            entry["load_mips_launches"] = \
+                train_stats["mips_s"]["launches"][name]
         if name not in parallel_only and parallel_counts[name]:
             # the parallel phase's plans, every rank
             entry["parallel_launches"] = parallel_counts[name]
@@ -6097,6 +6558,14 @@ def main() -> None:
                 entry.update(e4m3_launches=per_scheme["fp8_e4m3"],
                              e5m2_launches=per_scheme["fp8_e5m2"])
             entries.append(entry)
+    log("serving host path (warm pool): " + "; ".join(
+        f"{k} burst p50 {host_stats[k]['p50_ms']:.2f} ms p99 "
+        f"{host_stats[k]['p99_ms']:.2f} ms, {host_stats[k]['batches']} "
+        f"batches of {host_stats[k]['mean_rows']:.2f} rows, "
+        f"{host_stats[k]['rides']} rides" for k in ("dynamic", "continuous"))
+        + f"; cache hits p50 {host_stats['hit']['p50_ms']:.3f} ms p99 "
+        f"{host_stats['hit']['p99_ms']:.3f} ms; the phase "
+        f"{host_stats['phase_s']:.1f}s")
     for scheme, heads in quant_latency.items():
         log(f"serving {scheme}: " + "; ".join(
             f"{head} head p50 {st['p50_ms']:.2f} ms, p99 "
@@ -6127,7 +6596,14 @@ def main() -> None:
         f"GB; export float32 {train_stats['export_s']['float32']:.2f} s, "
         f"int8 {train_stats['export_s']['int8']:.2f} s; evaluation during "
         f"training {[round(x) for x in train_stats['eval_eps']]} examples/s; "
-        f"int8 top-1 agreement {train_stats['int8_agreement']:.4f}")
+        f"int8 top-1 agreement {train_stats['int8_agreement']:.4f}; MIPS "
+        f"head from --load built in {train_stats['mips_s']['build_s']}s "
+        f"(warm-up {train_stats['mips_s']['warm_s']:.2f}s), top-1 equal "
+        f"to the exact head's on {train_stats['mips_s']['top1_agree']}/"
+        f"{train_stats['mips_s']['methods']} methods; export "
+        f"--serve_mips_nprobe 16 {train_stats['export_s']['int8-mips']:.2f}"
+        f" s, crossover {train_stats['crossover']} "
+        f"(calibration {train_stats['calibration']})")
     log("parallel: " + "; ".join(
         f"{k} {v['step_ms']:.1f} ms a step over {v['ranks']} ranks (loss "
         f"rel err {v['loss_err']:.2e}, parameters max err "
@@ -6166,6 +6642,8 @@ def main() -> None:
         f"{capstone_stats['preprocess_s']:.1f}s, compile "
         f"{capstone_stats['compile_s']:.1f}s; the phase "
         f"{capstone_stats['phase_s']:.1f}s")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

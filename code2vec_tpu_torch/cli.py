@@ -18,15 +18,21 @@ code2vec_tpu_torch.data.preprocess` (data/preprocess.py).
          [--dist_init file://PATH]]
     python -m code2vec_tpu_torch export --load M --artifact_out DIR
         [--release_scheme int8|fp8_e4m3|fp8_e5m2|int4|float32]
-        [--no_quantize]
+        [--no_quantize] [--serve_mips_nprobe P (calibrates the head
+         crossover into the meta)]
     python -m code2vec_tpu_torch export-embeddings --load M
         --embeddings_out DIR
     python -m code2vec_tpu_torch evaluate --load M --release
-    python -m code2vec_tpu_torch serve --artifact DIR [--serve_port P]
+    python -m code2vec_tpu_torch serve (--artifact DIR | --load M)
+        [--serve_port P] [--serve_continuous [--serve_inflight_steps N]]
+        [--serve_cache_entries N] [--extractor_pool_size N]
+        [--extractor_retries N] [--serve_deadline_ms MS]
+        [--serve_deadline_max_ms MS] [--serve_queue_depth N]
+        [--serve_debug_trace] [--metrics_file F] [--metrics_port P]
+        [--trace_export F]
         [--retrieval_index IDX [--retrieval_topk K]]
         [--serve_mips_nprobe P [--serve_mips_nlist N]
          [--serve_mips_crossover R]]
-    python -m code2vec_tpu_torch serve --load M [--serve_port P]
     python -m code2vec_tpu_torch predict (--artifact DIR | --load M)
     python -m code2vec_tpu_torch evaluate (--artifact DIR | --load M)
         --test FILE [--test_batch_size N] [--eval_log FILE]
@@ -51,6 +57,12 @@ train --data P --tp 2 ...` (N = dp x tp x cp); each rank takes
 `cuda:$LOCAL_RANK` unless --device pins one, and `--dist_backend gloo`
 lets ranks share one card. `--gspmd` is accepted and runs the same
 explicit-collective steps (torch has no GSPMD).
+
+`serve` answers POST /predict, /embed (and /neighbors with an index)
+through the prediction cache, the admission gate, the warm extractor
+pool and the batcher, and GET /healthz and /metrics (serving/server.py).
+Every command takes --compute_dtype, --serve_buckets, --topk_block and
+-v/--verbose as the reference does.
 
 `train --save M` saves `M_iter<N>` at the end of every
 `save_every_epochs`-th epoch and of the last (keeping `max_to_keep`) and
@@ -198,10 +210,78 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve_batch_size", type=int, default=None,
                    metavar="ROWS", help="rows per device batch (default 64)")
     p.add_argument("--serve_max_delay_ms", type=float, default=None,
-                   help="longest wait for batch-mates (default 10)")
+                   metavar="MS",
+                   help="longest wait for batch-mates (default 10; 0 = no "
+                        "coalescing)")
+    p.add_argument("--serve_continuous", action="store_true", default=None,
+                   help="continuous batching: arriving rows join the next "
+                        "device step of an already-forming slot (parsed "
+                        "straight into the slot's buffer); a row arriving "
+                        "while a step is in flight rides the next step")
+    p.add_argument("--serve_inflight_steps", type=int, default=None,
+                   metavar="N",
+                   help="device steps the continuous batcher keeps in "
+                        "flight at once (default 2)")
+    p.add_argument("--serve_buckets", default=None, metavar="LIST",
+                   help="padded context-count buckets of the predict path "
+                        "(default '32,64,128'; max_contexts is always "
+                        "appended)")
+    p.add_argument("--serve_cache_entries", type=int, default=None,
+                   metavar="N",
+                   help="LRU prediction-cache capacity keyed by the "
+                        "normalized source (default 4096; 0 disables)")
+    p.add_argument("--extractor_pool_size", type=int, default=None,
+                   metavar="N",
+                   help="warm extractor worker processes kept resident by "
+                        "the serving pool (default 2)")
+    p.add_argument("--serve_deadline_ms", type=float, default=None,
+                   metavar="MS",
+                   help="default end-to-end deadline of a request "
+                        "(default 2000; the X-Deadline-Ms header "
+                        "overrides it; 0 = none); expiry is a 504")
+    p.add_argument("--serve_deadline_max_ms", type=float, default=None,
+                   metavar="MS",
+                   help="ceiling on any request's deadline, the header's "
+                        "included (default 30000; 0 = none)")
+    p.add_argument("--serve_queue_depth", type=int, default=None,
+                   metavar="N",
+                   help="admission bound: requests in the cache-miss "
+                        "pipeline before more are shed with 503 + "
+                        "Retry-After (default 64)")
+    p.add_argument("--serve_debug_trace", action="store_true", default=None,
+                   help="honour ?debug=trace: the response gains the "
+                        "request's span tree")
     p.add_argument("--extractor_timeout", dest="extractor_timeout_s",
                    type=float, default=None, metavar="SECONDS",
-                   help="kill a hung extractor after this (default 120)")
+                   help="kill a hung extractor after this (default 120; "
+                        "0 disables)")
+    p.add_argument("--extractor_retries", type=int, default=None,
+                   metavar="N",
+                   help="requeue a request whose extractor worker "
+                        "crashed or failed to launch onto a fresh one, up "
+                        "to N times (default 2; timeouts and ERR frames "
+                        "are never retried)")
+    p.add_argument("--metrics_file", metavar="FILE", default=None,
+                   help="`serve`: write a Prometheus text snapshot here, "
+                        "rewritten atomically while serving and at exit")
+    p.add_argument("--metrics_port", type=int, default=0, metavar="PORT",
+                   help="`serve`: also serve the snapshot at "
+                        "http://127.0.0.1:PORT/metrics (0 disables)")
+    p.add_argument("--trace_export", metavar="FILE", default=None,
+                   help="`serve`: record every request's and batch's "
+                        "host spans and write them here as Chrome "
+                        "trace-event JSON (Perfetto-loadable), rewritten "
+                        "while serving and at exit")
+    p.add_argument("--compute_dtype", choices=["bfloat16", "float32"],
+                   default="bfloat16",
+                   help="dtype of the kernels' products (default "
+                        "bfloat16; an artifact records its own)")
+    p.add_argument("--topk_block", dest="topk_block_size", type=int,
+                   default=None, metavar="ROWS",
+                   help="target-table rows per block of the blockwise "
+                        "top-k head (default 4096; 0 = one block)")
+    p.add_argument("-v", "--verbose", dest="verbose_mode", type=int,
+                   default=1, help="verbose mode in {0,1,2}")
     p.add_argument("--export_code_vectors", action="store_true",
                    help="include code vectors in /predict responses")
     p.add_argument("--predict_file", default="Input.java",
@@ -340,7 +420,12 @@ def config_from_args(argv):
                     corpus_create=args.corpus_create,
                     corpus_add=args.corpus_add,
                     corpus_validate=bool(args.corpus_validate),
-                    serve=cmd == "serve", predict=cmd == "predict")
+                    serve=cmd == "serve", predict=cmd == "predict",
+                    compute_dtype=args.compute_dtype,
+                    verbose_mode=args.verbose_mode,
+                    metrics_file=args.metrics_file,
+                    metrics_port=args.metrics_port,
+                    trace_export=args.trace_export)
     explicit = []
     # --batch_size sets the test batch too, unless --test_batch_size
     # does (code2vec_tpu/cli.py:1058-1062)
@@ -354,7 +439,13 @@ def config_from_args(argv):
                 setattr(config, field, value)
                 explicit.append(field)
     for name in ("serve_port", "serve_host", "serve_batch_size",
-                 "serve_max_delay_ms", "extractor_timeout_s",
+                 "serve_max_delay_ms", "serve_continuous",
+                 "serve_inflight_steps", "serve_buckets",
+                 "serve_cache_entries", "extractor_pool_size",
+                 "serve_deadline_ms", "serve_deadline_max_ms",
+                 "serve_queue_depth", "serve_debug_trace",
+                 "extractor_timeout_s", "extractor_retries",
+                 "topk_block_size",
                  "serve_mips_nprobe", "serve_mips_nlist",
                  "serve_mips_crossover", "test_data_path", "test_batch_size",
                  "embed_out", "embed_dtype", "embed_shard_rows",
@@ -485,7 +576,5 @@ def main(argv=None):
         from code2vec_tpu_torch.serving.server import serve_main
         model.warmup()
         sys.exit(serve_main(config, model))
-    from code2vec_tpu_torch.serving.extractor_bridge import PathExtractor
-    from code2vec_tpu_torch.serving.interactive import interactive_predict
-    interactive_predict(config, model, PathExtractor(config),
-                        args.predict_file)
+    from code2vec_tpu_torch.serving.interactive import InteractivePredictor
+    InteractivePredictor(config, model).predict(args.predict_file)

@@ -99,14 +99,35 @@ class Config:
     serve_mips_nprobe: int = 0
     serve_mips_nlist: int = 0
     serve_mips_crossover: int = -1
-    # serving (code2vec_tpu/config.py:229-266)
+    # serving (code2vec_tpu/config.py:57, :229-340): the batcher
+    # (collect-then-dispatch, or continuous with --serve_continuous and
+    # `serve_inflight_steps` device steps in flight), the prediction
+    # cache (0 entries: off), the warm extractor pool and its crash
+    # retries, the default and largest request deadline (0: none) and the
+    # admission bound; `serve_debug_trace` honours ?debug=trace
     serve_port: int = 8800
     serve_host: str = "127.0.0.1"
     serve_batch_size: int = 64
     serve_max_delay_ms: float = 10.0
+    serve_continuous: bool = False
+    serve_inflight_steps: int = 2
     serve_buckets: str = "32,64,128"
+    serve_cache_entries: int = 4096
+    extractor_pool_size: int = 2
     extractor_timeout_s: float = 120.0
+    extractor_retries: int = 2
+    serve_deadline_ms: float = 2000.0
+    serve_deadline_max_ms: float = 30000.0
+    serve_queue_depth: int = 64
+    serve_debug_trace: bool = False
     export_code_vectors: bool = False
+    # observability (code2vec_tpu/config.py:210-222): a Prometheus text
+    # snapshot rewritten atomically while serving and at its end, a
+    # localhost /metrics port (0: off), and the serving span ring's
+    # Chrome trace-event file
+    metrics_file: Optional[str] = None
+    metrics_port: int = 0
+    trace_export: Optional[str] = None
     # retrieval (code2vec_tpu/config.py:548-600)
     embed_out: Optional[str] = None
     embed_dtype: str = "float32"
@@ -240,6 +261,7 @@ class Config:
                 "release_scheme must be one of int8, fp8_e4m3, "
                 "fp8_e5m2, int4, float32.")
         self._verify_mesh()
+        self._verify_serving()
         self._verify_mips()
         self._verify_exports()
         self._verify_retrieval()
@@ -273,6 +295,60 @@ class Config:
                 "a mesh (dp x tp x cp > 1) runs `train` (with --test) "
                 "only: serving, predict, embed, evaluate and the exports "
                 "run on one device.")
+
+    def _verify_serving(self) -> None:
+        # code2vec_tpu/config.py:836-892, :1147-1150
+        if self.extractor_timeout_s < 0:
+            raise ValueError(
+                "extractor_timeout_s must be >= 0 (0 disables).")
+        if self.extractor_retries < 0:
+            raise ValueError(
+                "extractor_retries must be >= 0 (0 disables retries).")
+        if not (0 <= self.metrics_port <= 65535):
+            raise ValueError(
+                "metrics_port must be in [0, 65535] (0 disables).")
+        if not (0 <= self.serve_port <= 65535):
+            raise ValueError(
+                "serve_port must be in [0, 65535] (0 picks a free port).")
+        if self.serve_batch_size < 1:
+            raise ValueError("serve_batch_size must be >= 1.")
+        if self.serve_max_delay_ms < 0:
+            raise ValueError(
+                "serve_max_delay_ms must be >= 0 (0 = dispatch "
+                "immediately, no coalescing).")
+        if self.serve_cache_entries < 0:
+            raise ValueError(
+                "serve_cache_entries must be >= 0 (0 disables the "
+                "prediction cache).")
+        if self.extractor_pool_size < 1:
+            raise ValueError("extractor_pool_size must be >= 1.")
+        try:
+            from code2vec_tpu_torch.serving.batcher import parse_buckets
+            parse_buckets(self.serve_buckets, self.max_contexts, cp=self.cp)
+        except ValueError:
+            raise ValueError(
+                f"serve_buckets must be a comma-separated list of ints "
+                f"(got {self.serve_buckets!r}).")
+        if self.serve_deadline_ms < 0:
+            raise ValueError(
+                "serve_deadline_ms must be >= 0 (0 = no default "
+                "deadline).")
+        if self.serve_deadline_max_ms < 0:
+            raise ValueError(
+                "serve_deadline_max_ms must be >= 0 (0 = no ceiling).")
+        if (self.serve_deadline_ms > 0 and self.serve_deadline_max_ms > 0
+                and self.serve_deadline_ms > self.serve_deadline_max_ms):
+            raise ValueError(
+                "serve_deadline_ms must not exceed serve_deadline_max_ms "
+                "(the default deadline would be clamped below itself).")
+        if self.serve_queue_depth < 1:
+            raise ValueError(
+                "serve_queue_depth must be >= 1 (the admission gate "
+                "needs room for at least one request).")
+        if self.serve_inflight_steps < 1:
+            raise ValueError(
+                "serve_inflight_steps must be >= 1 (device steps the "
+                "continuous batcher may keep in flight).")
 
     def _verify_exports(self) -> None:
         if self.export_artifact_path and not self.is_loading:
@@ -336,12 +412,14 @@ class Config:
             raise ValueError(
                 "serve_mips_nlist must be >= 0 (0 = sqrt(vocab) auto).")
         if self.serve_mips_nprobe > 0:
-            if not (self.serve or self.predict):
+            if not (self.serve or self.predict
+                    or self.export_artifact_path):
                 raise ValueError(
                     "serve_mips_nprobe applies to serve/predict (the "
-                    "prediction head); embed always uses the exact "
-                    "blockwise path, so the knob would be a silent no-op "
-                    "here.")
+                    "prediction head) and export (which calibrates and "
+                    "records the exact/MIPS crossover in the artifact "
+                    "meta); eval/embed always use the exact blockwise "
+                    "path, so the knob would be a silent no-op here.")
             if self.is_testing:
                 raise ValueError(
                     "--serve_mips_nprobe cannot be combined with --test: "
@@ -357,12 +435,6 @@ class Config:
                 "serve_mips_crossover > 0 requires serve_mips_nprobe > 0: "
                 "there is no MIPS head to dispatch small batches to "
                 "without an IVF probe budget.")
-        if self.serve_mips_nprobe > 0 and self.is_loading:
-            raise ValueError(
-                "--serve_mips_nprobe takes a release artifact here: the "
-                "port builds the MIPS head over an artifact's tables "
-                "(--artifact DIR), not over a --load'ed checkpoint; "
-                "`export` the checkpoint first.")
 
     def _verify_retrieval(self) -> None:
         if self.embed_dtype not in ("float32", "float16"):

@@ -11,11 +11,11 @@ permutation keyed by (seed, absolute epoch); with `--no_packed_data`
 the text reader), `train` with the epoch saves and their rotation
 (:690-870), `evaluate` / `_evaluate_with_params` with `--release` and
 the code-vector outputs (:877-940), predict over the live params with
-the exact head (the port's MIPS head serves an artifact only), the
-model fingerprint, the final `save` and the word2vec exports
-(:1010-1062). Left out: the async committer, preemption and mid-epoch
-cursors (nothing sets `iter_batches`' `skip_rows` yet) and the `obs`
-metrics.
+the exact head or, with --serve_mips_nprobe, the MIPS head built over
+the live target table (`_get_mips_topk` :945-998), the model
+fingerprint, the final `save` and the word2vec exports (:1010-1062).
+Left out: the async committer, preemption and mid-epoch cursors (nothing
+sets `iter_batches`' `skip_rows` yet) and the training `obs` metrics.
 
 On a dp x tp x cp mesh (config.mesh_size > 1; the reference's mesh parts
 :458-469, :536, :565) each process is one rank: it joins the runtime
@@ -30,7 +30,12 @@ refused (config.py).
 
 The predict part is the counterpart of BucketedPredictMixin (:66-395):
 line parsing, context bucketing, row padding, the (rows, bucket) step
-cache and the host-side assembly of results; with the eval-batch
+cache, the host-side assembly of results, the zero-copy slot surface of
+the continuous batcher (`alloc_predict_batch`, `parse_lines_into`,
+`predict_parsed` :290-341) and `serving_head_dispatch_total{head}`
+(:56-63). The serving batchers call it from several threads at once, so
+the step cache, the head counts and the lazy MIPS head build hold a
+lock; with the eval-batch
 plumbing that ReleaseModel shares (`_count_examples` :88-107, the
 memoised `_packed_dataset` :109-128, which packs a `.c2v` once beside
 itself, and `_eval_batches` :167-190, packed or text). Each device batch
@@ -45,18 +50,20 @@ import glob
 import itertools
 import os
 import shutil
+import threading
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.common import count_lines_in_file, save_word2vec_file
 from code2vec_tpu_torch.data.packed import (
     PackedDataset, ShardedCorpus, pack_c2v,
 )
 from code2vec_tpu_torch.data.reader import (
     EstimatorAction, PathContextReader, RowBatch, _pad_rows,
-    parse_context_lines, slice_contexts, truncate_rows,
+    empty_predict_batch, parse_context_lines, slice_contexts, truncate_rows,
 )
 from code2vec_tpu_torch.models.code2vec import Code2VecModule, ModelDims
 from code2vec_tpu_torch.serving.batcher import bucket_for, parse_buckets
@@ -77,10 +84,25 @@ class ModelPredictionResults(NamedTuple):
     code_vector: Optional[np.ndarray] = None
 
 
+def _head_dispatch_counter(head: str):
+    return obs.counter(
+        "serving_head_dispatch_total",
+        "device predict batches routed per retrieval head "
+        "(head=exact|mips; batch-shape-aware dispatch)", head=head)
+
+
 class BucketedPredictMixin:
     """Requires on the host class: config, log, vocabs, device,
     context_buckets, _predict_steps (dict), `_make_predict_step(rows, m)`
     and `_call_predict_step(step, arrays)`."""
+
+    @property
+    def _predict_lock(self) -> threading.RLock:
+        """Guards the step cache, the head counts and the lazy MIPS head
+        build against the batchers' concurrent device calls (dict
+        setdefault is atomic, so the first use creates exactly one)."""
+        return self.__dict__.setdefault("_predict_lock_obj",
+                                        threading.RLock())
 
     def _make_predict_step(self, batch_rows: int, m: int):
         raise NotImplementedError
@@ -95,11 +117,15 @@ class BucketedPredictMixin:
         key = (batch_rows, m)
         step = self._predict_steps.get(key)
         if step is None:
-            step = self._predict_steps[key] = \
-                self._make_predict_step(batch_rows, m)
-            self.log(f"Built predict step for shape (rows={batch_rows}, "
-                     f"contexts={m}) [{len(self._predict_steps)} of <= "
-                     f"{len(self.context_buckets)} buckets]")
+            with self._predict_lock:
+                step = self._predict_steps.get(key)
+                if step is None:
+                    step = self._make_predict_step(batch_rows, m)
+                    self._predict_steps[key] = step
+                    self.log(f"Built predict step for shape (rows="
+                             f"{batch_rows}, contexts={m}) "
+                             f"[{len(self._predict_steps)} of <= "
+                             f"{len(self.context_buckets)} buckets]")
         return step
 
     def predict_compile_count(self) -> int:
@@ -184,6 +210,32 @@ class BucketedPredictMixin:
                                     self.config.max_contexts)
         return self._predict_parsed(chunk, len(lines), bs, with_code_vectors)
 
+    def alloc_predict_batch(self, batch_size: int) -> RowBatch:
+        """A reusable PAD-filled slot buffer for the continuous batcher:
+        requests parse into disjoint row ranges of it with
+        `parse_lines_into`, and the whole buffer goes to
+        `predict_parsed`."""
+        return empty_predict_batch(batch_size, self.config.max_contexts,
+                                   self.vocabs)
+
+    def parse_lines_into(self, lines: List[str], out: RowBatch,
+                         row_offset: int) -> None:
+        """Parse extractor lines into `out`'s rows from `row_offset` on
+        (no per-request RowBatch in between)."""
+        parse_context_lines(lines, self.vocabs, self.config.max_contexts,
+                            out=out, row_offset=row_offset)
+
+    def predict_parsed(self, chunk: RowBatch, n: int,
+                       batch_size: Optional[int] = None,
+                       with_code_vectors: Optional[bool] = None
+                       ) -> List[ModelPredictionResults]:
+        """Predict over an already-parsed RowBatch whose first `n` rows
+        are live (a slot buffer, rows past its claimed ones invalid)."""
+        bs = int(batch_size or self._default_predict_batch_size())
+        if with_code_vectors is None:
+            with_code_vectors = self.config.export_code_vectors
+        return self._predict_parsed(chunk, n, bs, with_code_vectors)
+
     def _to_device(self, batch: RowBatch):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in batch.model_arrays())
@@ -235,7 +287,8 @@ class BucketedPredictMixin:
                         with_code_vectors: bool
                         ) -> List[ModelPredictionResults]:
         m = self.context_bucket(chunk)
-        step, rows, _ = self._dispatch_predict_step(n, bs, m)
+        step, rows, head = self._dispatch_predict_step(n, bs, m)
+        _head_dispatch_counter(head).inc()
         chunk = self.bucketed_batch(chunk, rows)
         out = self._call_predict_step(step, self._to_device(chunk))
         topk_idx = out.topk_indices[:n].cpu().numpy()
@@ -313,6 +366,7 @@ class Code2VecModel(BucketedPredictMixin):
         self.trainer = None
         self._eval_step = None
         self._predict_steps: Dict[Tuple[int, int], object] = {}
+        self.mips_head = self._mips_topk = None
         self.context_buckets: Tuple[int, ...] = parse_buckets(
             config.serve_buckets, config.max_contexts)
         if config.is_loading:
@@ -636,7 +690,45 @@ class Code2VecModel(BucketedPredictMixin):
 
     def _make_predict_step(self, batch_rows: int, m: int):
         # one step for every shape: the kernels take any (rows, m)
-        return self._get_eval_step()
+        mips = self._get_mips_topk()
+        if mips is None:
+            return self._get_eval_step()
+        # the approximate-MIPS head (--serve_mips_nprobe): encode
+        # exactly, then search nprobe lists of the target table (K11)
+        # instead of all of it; predict and serve only, evaluation keeps
+        # the exact head
+        return self.builder.make_eval_step(mips_topk=mips)
+
+    def _get_mips_topk(self):
+        """The MIPS head's top-k closure, built on first use over the
+        live target table with the config's nlist, nprobe and seed
+        (K9, K10), or None when the knob is off (reference :960-998)."""
+        nprobe = int(self.config.serve_mips_nprobe or 0)
+        if nprobe <= 0:
+            return None
+        cached = self._mips_topk
+        if cached is None:
+            with self._predict_lock:
+                cached = self._mips_topk
+                if cached is None:
+                    from code2vec_tpu_torch.retrieval.mips import MipsHead
+                    real = self.dims.real_target_vocab_size
+                    self.mips_head = MipsHead.build(
+                        self.state.params["target_embedding"].detach(),
+                        None, real_vocab=real,
+                        nlist=int(self.config.serve_mips_nlist or 0),
+                        nprobe=nprobe, seed=int(self.config.seed),
+                        log=self.log, device=self.device)
+                    k = min(self.config
+                            .top_k_words_considered_during_prediction, real)
+                    cached = self._mips_topk = self.mips_head.topk_fn(
+                        k, nprobe)
+        return cached
+
+    def _dispatch_predict_step(self, n: int, bs: int, m: int):
+        """One head for every shape: MIPS when the knob is on."""
+        head = "exact" if self._get_mips_topk() is None else "mips"
+        return self._get_bucketed_predict_step(bs, m), bs, head
 
     @torch.no_grad()
     def _call_predict_step(self, step, arrays):

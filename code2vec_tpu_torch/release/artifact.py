@@ -18,8 +18,11 @@ for the tables token_embedding, path_embedding and target_embedding.
 naming the offending field. Every scheme the reference writes is written
 and served: int8, fp8 e4m3 and e5m2, packed int4 and float32.
 `export_artifact` writes one from a live training facade (the `export`
-command), without the reference's AOT lowerings and MIPS crossover
-calibration.
+command), without the reference's AOT lowerings; with
+`--serve_mips_nprobe` it also calibrates the exact/MIPS head crossover
+and records `mips_crossover` and `mips_calibration` in the meta
+(reference :254-273), after the fingerprint is fixed: the fingerprint
+never covers them.
 """
 
 from __future__ import annotations
@@ -230,6 +233,19 @@ def export_artifact(model, out_dir: str, *, quantize: Optional[bool] = None,
                                if config.model_load_path else None),
                 "step": int(model.state.step),
                 "epoch": model.initial_epoch})
+    if (int(config.serve_mips_nprobe or 0) > 0
+            and int(config.serve_mips_crossover) != 0):
+        # runs on the written bundle, loaded as a replica loads it
+        from code2vec_tpu_torch.release.runtime import (
+            calibrate_mips_crossover,
+        )
+        crossover, table = calibrate_mips_crossover(out_dir, config,
+                                                    log=log)
+        meta["mips_crossover"] = crossover
+        meta["mips_calibration"] = table
+        with open(os.path.join(out_dir, META_NAME), "w") as f:
+            json.dump(meta, f, indent=2, sort_keys=True)
+            f.write("\n")
     log(f"Release artifact written to {out_dir}: scheme {scheme}, "
         f"{meta['table_bytes']['artifact'] / 1e6:.1f} MB of tables "
         f"({meta['table_bytes']['fp32'] / 1e6:.1f} MB as float32), "

@@ -16,13 +16,18 @@ format:
 
 With `serve_mips_nprobe` > 0 an approximate-MIPS head (retrieval/mips.py,
 kernel K11) replaces K3 and K4 for small batches, dispatched per batch
-shape as code2vec_tpu/release/runtime.py:315-403 and :467-490 do. The
-AOT lowerings and the export-time crossover calibration of the reference
-(`calibrate_mips_crossover`) are not ported, nor its `obs` counters.
+shape as code2vec_tpu/release/runtime.py:315-403 and :467-490 do; every
+device batch counts in `serving_head_dispatch_total{head}`.
+`calibrate_mips_crossover` (reference :556-602) times both heads over a
+rows grid at export, and `--serve_mips_crossover -1` adopts what it
+recorded. The reference's AOT lowerings are not ported (the kernels take
+any shape).
 """
 
 from __future__ import annotations
 
+import statistics
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -143,7 +148,10 @@ class ReleaseModel(BucketedPredictMixin):
         """Batch-shape head dispatch: batches with <= mips_rows live rows
         take the MIPS head. Crossover -1 adopts the artifact's calibrated
         `mips_crossover`, or all-MIPS when it has none; 0 means exact
-        only; a crossover at or above the serve batch is all-MIPS."""
+        only; a crossover at or above the serve batch is all-MIPS. A
+        calibrated 0 (MIPS lost at one row already) is exact-only too:
+        the reference adopts it as all-MIPS (reference runtime.py:332-336),
+        the slower and approximate head where the exact one won."""
         config = self.config
         self.mips_nprobe = int(config.serve_mips_nprobe or 0)
         crossover = int(config.serve_mips_crossover)
@@ -155,11 +163,14 @@ class ReleaseModel(BucketedPredictMixin):
             self.mips_nprobe = 0
             return
         if crossover < 0:
-            calibrated = int(self.meta.get("mips_crossover", 0) or 0)
-            if calibrated > 0:
-                self.mips_rows = calibrated
-            else:
+            calibrated = self.meta.get("mips_crossover")
+            if calibrated is None:
                 self._mips_all = True
+            elif int(calibrated) <= 0:
+                self.mips_nprobe = 0
+                return
+            else:
+                self.mips_rows = int(calibrated)
         else:
             self.mips_rows = crossover
         if self.mips_rows >= int(config.serve_batch_size):
@@ -220,7 +231,8 @@ class ReleaseModel(BucketedPredictMixin):
             head = "exact"
             step, rows = self._get_bucketed_predict_step(batch_rows, m), \
                 batch_rows
-        self.head_dispatches[head] += 1
+        with self._predict_lock:
+            self.head_dispatches[head] += 1
         return step, rows, head
 
     @torch.no_grad()
@@ -265,3 +277,82 @@ class ReleaseModel(BucketedPredictMixin):
         if self.mips_rows > 0:
             self._call_predict_step(self._mips_step,
                                     self.dummy_batch(self.mips_rows, m))
+
+
+def _timed_call(model: ReleaseModel, step, batch) -> float:
+    """Seconds of one predict step on `batch`: CUDA events around the
+    call on the card (the stream drained after), the host clock on the
+    CPU."""
+    if model.device.type != "cuda":
+        t0 = time.perf_counter()
+        model._call_predict_step(step, batch)
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    model._call_predict_step(step, batch)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
+CALIBRATION_WARMUP = 3
+CALIBRATION_SAMPLES = 15
+
+
+def calibrate_mips_crossover(artifact_dir: str, config, log=print):
+    """Export-time head crossover (reference runtime.py:556-602): load the
+    just-written artifact with both heads live, time the exact head (K1,
+    K2, K3, K4) against the MIPS head (K1, K2, K11) on all-padding batches
+    over the rows grid {1, 2, 4, 8, 16, serve_batch_size} at the first
+    context bucket (the crossover is a property of the row count), and
+    return (crossover, table): the largest row count at which MIPS still
+    wins, scanning up to the first row count where the exact head wins (0
+    if MIPS loses at one row already, which the port's ReleaseModel
+    serves exact-only), and {rows: {"exact": us, "mips": us,
+    "exact_range": [lo, hi], "mips_range": [lo, hi]}}.
+
+    The reference warms each head once at each row count and takes the
+    median of 3 host-timed calls; on the card that left the first shape
+    cold and the crossover noise (16 and 1 on one tree). Here every
+    (rows, head) of the grid is warmed CALIBRATION_WARMUP times before
+    any is timed, then each row count takes the median of
+    CALIBRATION_SAMPLES calls a head, the heads alternating, timed with
+    CUDA events; the range is the samples' min and max."""
+    import dataclasses
+
+    nprobe = int(config.serve_mips_nprobe or 0) or 8
+    # crossover 1: hybrid, so both heads and both tables are live
+    cfg = dataclasses.replace(config, serve_artifact=artifact_dir,
+                              serve_mips_nprobe=nprobe,
+                              serve_mips_crossover=1)
+    model = ReleaseModel(cfg, log=log)
+    bs = int(cfg.serve_batch_size)
+    grid = sorted({r for r in (1, 2, 4, 8, 16, bs) if 1 <= r <= bs})
+    m = model.context_buckets[0]
+    heads = (("exact", model._step_fn), ("mips", model._mips_step))
+    batches = {rows: model.dummy_batch(rows, m) for rows in grid}
+    for rows in grid:
+        for _, step in heads:
+            for _ in range(CALIBRATION_WARMUP):
+                _timed_call(model, step, batches[rows])
+    table, crossover = {}, 0
+    for rows in grid:
+        samples = {head: [] for head, _ in heads}
+        for _ in range(CALIBRATION_SAMPLES):
+            for head, step in heads:
+                samples[head].append(_timed_call(model, step, batches[rows]))
+        timing = {head: statistics.median(v) for head, v in samples.items()}
+        entry = {head: round(v * 1e6, 1) for head, v in timing.items()}
+        for head, v in samples.items():
+            entry[f"{head}_range"] = [round(min(v) * 1e6, 1),
+                                      round(max(v) * 1e6, 1)]
+        table[str(rows)] = entry
+        if timing["mips"] < timing["exact"]:
+            crossover = rows
+        else:
+            break
+    log(f"MIPS crossover calibration (nprobe {nprobe}, bucket {m}): "
+        f"crossover={crossover} over rows grid {grid} "
+        f"(us medians of {CALIBRATION_SAMPLES}, [min, max]: {table})")
+    return crossover, table

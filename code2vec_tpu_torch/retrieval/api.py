@@ -18,18 +18,26 @@ Embedding-space safety is the handle's job:
 Search limits: k and nprobe are bucketed to powers of two, as the
 reference does, and k is clamped to the index rows; the search kernels
 (K3's float32 mode, K11) take any such k (above 64 through K13). The
-reference's `obs` metrics (retrieval_search_seconds,
-serving_retrieval_detached_total) and trace spans are not ported.
+reference's metrics `retrieval_search_seconds` and
+`serving_retrieval_detached_total` are recorded; its trace spans are
+not ported.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.retrieval.index import NeighborIndex, load_index
+
+_H_SEARCH = obs.histogram(
+    "retrieval_search_seconds",
+    "ANN search latency per /neighbors batch (device matmul + host "
+    "id resolution)")
 
 
 def _pow2_ceil(n: int) -> int:
@@ -86,6 +94,9 @@ class RetrievalHandle:
                 return
             self._attached = False
             self._detach_reason = reason
+        obs.counter("serving_retrieval_detached_total",
+                    "retrieval indexes detached from a live server",
+                    reason="fingerprint_mismatch").inc()
 
     def status(self) -> dict:
         with self._lock:
@@ -123,6 +134,7 @@ class RetrievalHandle:
         computed by the model identified by `result_fingerprint`. The
         fingerprint check is per response: the vectors only turn into
         neighbors if they came out of the index's own embedding space."""
+        t0 = time.perf_counter()
         self.require_attached()
         if result_fingerprint != self.index.fingerprint:
             raise EmbeddingSpaceMismatch(
@@ -154,4 +166,5 @@ class RetrievalHandle:
                             "score": float(s),
                             "distance": float(d)})
             out.append(row)
+        _H_SEARCH.observe(time.perf_counter() - t0)
         return out

@@ -16,8 +16,8 @@ of any scheme: f32, int8, fp8 (e4m3, e5m2) or packed int4.
   blockwise head's sentinel.
 
 Scores of returned candidates are exact; only the candidate set is
-approximate. nprobe = nlist searches every row. The reference's
-`serving_mips_nlist` gauge is not ported: the port has no `obs` yet.
+approximate. nprobe = nlist searches every row. A built head sets the
+reference's `serving_mips_nlist` gauge.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.kernels.ivf import ivf_search
 from code2vec_tpu_torch.ops.quant import decode_rows
 from code2vec_tpu_torch.retrieval.index import _on, ivf_lists
@@ -56,6 +57,9 @@ class MipsHead:
         self.nlist = int(centroids.shape[0])
         self.nprobe = max(1, min(int(nprobe), self.nlist))
         self.build_seconds = build_seconds
+        obs.gauge("serving_mips_nlist",
+                  "coarse-quantizer size of the approximate-MIPS "
+                  "prediction head (0 = head not built)").set(self.nlist)
 
     @classmethod
     def build(cls, table, scales, *, real_vocab: int, nlist: int = 0,

@@ -182,17 +182,19 @@ class TrainStepBuilder:
 
         return train_step
 
-    def make_eval_step(self, k: Optional[int] = None) -> Callable:
+    def make_eval_step(self, k: Optional[int] = None,
+                       mips_topk=None) -> Callable:
         """The eval step over the module's live f32 parameters in its
         compute dtype: top-k with k from the config (clamped to the
-        vocabulary, reference: tensorflow_model.py:298-299)."""
+        vocabulary, reference: tensorflow_model.py:298-299); `mips_topk`
+        as in `make_eval_step`."""
         dims = self.module.dims
         return make_eval_step(
             real_target_vocab_size=dims.real_target_vocab_size,
             target_oov_floor=dims.target_oov_floor,
             compute_dtype=self.module.compute_dtype,
             topk=k or self.config.top_k_words_considered_during_prediction,
-            block_size=int(self.config.topk_block_size))
+            block_size=int(self.config.topk_block_size), mips_topk=mips_topk)
 
     def _adam_kwargs(self) -> dict:
         """K12's hyper-parameters: those of the dense subtree's Adam, so

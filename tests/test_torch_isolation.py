@@ -66,6 +66,34 @@ def test_every_module_imports_without_jax():
     assert r.stdout.startswith("ok")
 
 
+HOST_PATH_MODULES = ("code2vec_tpu_torch.obs", "code2vec_tpu_torch.obs.metrics",
+                     "code2vec_tpu_torch.obs.tracer",
+                     "code2vec_tpu_torch.obs.reqtrace",
+                     "code2vec_tpu_torch.obs.exporters",
+                     "code2vec_tpu_torch.serving.admission",
+                     "code2vec_tpu_torch.serving.extractor_pool",
+                     "code2vec_tpu_torch.serving.cache")
+
+
+@pytest.mark.parametrize("module", HOST_PATH_MODULES)
+def test_serving_host_module_imports_alone_without_jax(module):
+    """The serving host path's stdlib-only modules are the port's own
+    copies: each imports, on its own, nothing of JAX or code2vec_tpu."""
+    assert module in _modules() + ["code2vec_tpu_torch.obs"]
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       env=_clean_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_forbidden_import_in_source(path):

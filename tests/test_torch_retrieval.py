@@ -565,10 +565,11 @@ def test_neighbors_errors_and_healthz(neighbor_servers, monkeypatch):
         health = json.loads(r.read())
     assert health["retrieval"]["status"] == "attached"
     assert health["retrieval"]["fingerprint"] == tserver.fingerprint
-    # zero extracted methods: an empty answer, not a search
-    monkeypatch.setattr(tserver.extractor, "extract_source",
-                        lambda code: ([], {}))
-    status, body = _post(f"{url}/neighbors", SOURCE)
+    # zero extracted methods: an empty answer, not a search (a source
+    # not asked before, so the prediction cache cannot answer it)
+    monkeypatch.setattr(tserver.pool, "extract_source",
+                        lambda code, **kw: ([], {}))
+    status, body = _post(f"{url}/neighbors", "interface Empty { }")
     assert status == 200 and json.loads(body)["methods"] == []
 
 
@@ -592,12 +593,12 @@ def test_neighbors_refuses_other_embedding_spaces(neighbor_servers,
         handle.neighbors(np.zeros((1, 384), np.float32), tserver.fingerprint)
     # a server over the artifact serves /neighbors only with a mount
     plain = PredictionServer(ReleaseModel(_torch_config(art)))
-    status, body = plain.handle_request("neighbors", SOURCE)
+    status, body, _ = plain.handle_request("neighbors", SOURCE)
     assert status == 404 and b"retrieval_index" in body
-    plain.batcher.drain()
+    plain.shutdown()
     tserver.retrieval = handle  # detached: 503
     try:
-        status, _ = tserver.handle_request("neighbors", SOURCE)
+        status, _, _ = tserver.handle_request("neighbors", SOURCE)
         assert status == 503
     finally:
         tserver.retrieval = RetrievalHandle.mount(idx, tserver.fingerprint,
@@ -634,9 +635,11 @@ def test_mips_head_dispatch(f32_artifact):
 
 @pytest.mark.parametrize("crossover,calibrated,mode", [
     (-1, None, "all"), (-1, 3, "split"), (0, 3, "exact"), (4, None, "all"),
-    (3, None, "split")])
+    (3, None, "split"), (-1, 0, "exact")])
 def test_mips_crossover_resolution(f32_artifact, tmp_path, crossover,
                                    calibrated, mode):
+    """A calibrated 0 (MIPS lost at one row) serves exact-only, where
+    the JAX runtime goes all-MIPS (ROADMAP Queue 3)."""
     _, art, _ = f32_artifact
     if calibrated is not None:  # the meta field export calibration writes
         shutil.copytree(art, tmp_path / "art")
