@@ -65,7 +65,21 @@ a C++ compiler. Phases, each fatal on failure:
    calibrated head crossover with an unchanged fingerprint and which a
    ReleaseModel with --serve_mips_crossover -1 adopts; save, load,
    export seconds and bytes; then the step time and examples/s of a
-   steady step.
+   steady step. Then the loop's operations (ops_phase) on the same
+   corpus and test file: `train --save B2 --test --async_checkpointing
+   --checkpoint_hash_content --heartbeat_file --metrics_file` with a
+   mid-epoch evaluation every 3 batches, SIGTERM sent from the step at
+   step 6 (epoch 2 cut after 2 of its 4 batches): B2_iter1 verifies with
+   its content hashes, B2_iter1_preempt holds the cursor (epoch 1, row
+   2048), the heartbeat reads preempted, the metrics file counts the
+   steps; `train --load B2` resumes exactly and trains the epoch-2
+   permutation's rows 2048-4095 (id checksums against the host's
+   gather) to step 8, its losses within OPS_LOSS_RTOL and its state within
+   OPS_STATE_RTOL of the lifecycle run's step 8, each async artifact bit
+   for bit the state at its save call, heartbeat done; K1, K2 and K5-K8
+   once a step; the
+   epoch-1 save's stall, synchronous (the lifecycle run) against async,
+   and the state's host copy by route.
 7. One train step at 64 rows with full vocabulary widths and an injected
    dropout mask, on the GPU against the same step on the CPU (plain
    versions): the loss and the five gradients within one bf16 step of
@@ -178,7 +192,11 @@ a C++ compiler. Phases, each fatal on failure:
    each epoch, test F1 >= 0.62 and top-1 >= 0.42 (the reference: 0.660 /
    0.467 dense, 0.654 / 0.464 sparse), each stage's seconds, train
    examples/s; compile_corpus on 4 workers row for row against the pack
-   of the serial preprocess's text.
+   of the serial preprocess's text. The dense run also takes
+   --profile_dir, --tensorboard, --heartbeat_file, --metrics_file and
+   --trace_export (capstone_exports): the profiler's trace names K1, K2
+   and K5-K8 by their CUDA symbols, the event file decodes to train/loss
+   and eval/* scalars, the heartbeat reads done.
 18. Parallel kernels (run after 10): K14 (gather, scatter-add, local ids
    of the tp-2 token shard, 409,600 ids), K15 (its stats and gradient
    passes over the 1024 x 130,623 tp-2 slice of the logits, beside
@@ -2048,8 +2066,10 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     the epochs' losses, one launch per step of each kernel of the step,
     then a steady step's time, examples/s and peak device memory. With
     `lifecycle`, the run also saves and evaluates (--save, --test), and
-    lifecycle_phase checks what it left before the steady step. Returns
-    (the launch counts of the run, its stats)."""
+    lifecycle_phase checks what it left before the steady step; its
+    stats then carry the first save's stall (save_stall) and the steps'
+    losses, for ops_phase. Returns (the launch counts of the run, its
+    stats)."""
     import numpy as np
 
     from code2vec_tpu_torch import cli, kernels
@@ -2102,8 +2122,9 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
     if lifecycle:
         timed_pack(model, test, what)
     # the saves' and the evaluations' host seconds, and each evaluation's
-    # launches
-    saves, evals = [], []
+    # launches; each step's start (the save stall: save start to the next
+    # step's start, less the evaluation between)
+    saves, evals, step_starts, spans = [], [], [], []
     save_model, evaluate = ckpt.save_model, model._evaluate_with_params
 
     def timed_save(*args, **kw):
@@ -2111,6 +2132,7 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
         t1 = time.perf_counter()
         out = save_model(*args, **kw)
         saves.append((out, time.perf_counter() - t1))
+        spans.append(("save", t1, time.perf_counter()))
         return out
 
     def timed_eval(params):
@@ -2122,9 +2144,11 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
         after = kernels.launch_counts()
         evals.append((res, time.perf_counter() - t1,
                       {k: after[k] - before[k] for k in after}))
+        spans.append(("eval", t1, time.perf_counter()))
         return res
 
     ckpt.save_model, model._evaluate_with_params = timed_save, timed_eval
+    marked_steps(model, step_starts)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -2171,8 +2195,13 @@ def train_path_phase(torch, seed: int, work_dir: str, fs, ft,
 
     stats = {}
     if lifecycle:
+        # the first epoch-end save's stall and the steps' losses, for the
+        # operations phase
+        stall = save_stall(spans, step_starts)
+        step_losses = [list(e) for e in losses]
         model, stats = lifecycle_phase(torch, seed, work_dir, fs, ft, model,
                                        config, base, test, saves, evals, dev)
+        stats.update(stall_s=stall, losses=step_losses)
     # a steady step on one batch: host clock around synchronised steps
     arrays = batch_to_device(model._train_corpus().gather(
         np.arange(ft.rows)), model.device)
@@ -2235,7 +2264,8 @@ def lifecycle_phase(torch, seed: int, work_dir: str, fs, ft, model, config,
     same kernels on the same tables), the int8 one's top-1 agrees with it
     on at least INT8_AGREEMENT_BAR of the rows. Save, load and export
     seconds (host clock, warm page cache), bytes and eval examples/s are
-    printed. Returns (model, stats)."""
+    printed. BASE (step 8) is left for ops_phase, as stats["step8"].
+    Returns (model, stats)."""
     import numpy as np
 
     from code2vec_tpu_torch import cli, kernels
@@ -2435,7 +2465,7 @@ def lifecycle_phase(torch, seed: int, work_dir: str, fs, ft, model, config,
     del models
     for a in arts.values():
         shutil.rmtree(a)
-    shutil.rmtree(base)
+    # BASE (step 8) stays for ops_phase's resumed state, which removes it
     gc.collect()
     torch.cuda.empty_cache()
     return model, dict(save_s=[t for _, t in saves], ckpt_gb=ckpt_bytes / 1e9,
@@ -2443,7 +2473,8 @@ def lifecycle_phase(torch, seed: int, work_dir: str, fs, ft, model, config,
                        mips_s=mips_s, crossover=crossover,
                        calibration=metas["int8-mips"]["mips_calibration"],
                        release_s=release_s, release_gb=release_bytes / 1e9,
-                       eval_eps=eval_eps, int8_agreement=agree)
+                       eval_eps=eval_eps, int8_agreement=agree,
+                       step8=base)
 
 
 def mips_from_load(torch, base: str, ctx: str, source: str, exact_body,
@@ -2639,6 +2670,467 @@ def adopt_crossover(torch, art: str, metas, test: str,
     del model
     torch.cuda.empty_cache()
     return crossover
+
+
+# ------------------------------------------------ the training loop's operations
+
+# The operations phase's preempted run: SIGTERM from the step at this
+# consumed step, so epoch 2 (4 steps of 1024) is cut after 2 batches
+OPS_PREEMPT_STEP = 6
+# a mid-epoch evaluation every 3 batches (config.num_train_batches_to_evaluate)
+OPS_EVAL_EVERY = 3
+# The resumed steps 7-8 against the lifecycle run's (the same seed,
+# corpus and step numbers, so the same dropout masks). The two runs' losses
+# were bit-equal in every call of PR 18 (rel err 0); K5 adds table
+# gradients with f32 atomics, whose order may move last bits, so the bar
+# leaves ~100 f32 ulps of a ~12-nat loss. A resume that dropped or zeroed
+# the Adam moments or restarted the bias correction moves them by far more.
+OPS_LOSS_RTOL = 1e-5
+# The resumed state at step 8 against the lifecycle run's step-8 artifact,
+# leaf by leaf: |resumed - lifecycle| / |lifecycle - step 6| (L2 norms), so
+# the error is held against what steps 7-8 changed. Zeroed moments, moments
+# not restored or a wrong bias correction give ~0.1-1; last-bit atomics,
+# which Adam can turn into a sign for an element whose gradient nearly
+# cancels, a few such elements in millions.
+OPS_STATE_RTOL = 1e-2
+# the CUDA symbols of the dense train step's kernels, as torch.profiler's
+# trace names them (kernels/csrc)
+TRACE_SYMBOLS = {"context_encoder": "context_encoder_kernel",
+                 "masked_attention": "masked_attention_kernel",
+                 "encoder_backward": "dctx_pass",
+                 "masked_attention_backward": "attention_backward_kernel",
+                 "softmax_xent": "softmax_xent_",
+                 "adam": "adam_kernel"}
+
+
+def marked_steps(model, starts, after=None):
+    """Wrap the model's train step: each step's start on the host clock
+    goes to `starts`, and `after(arrays, loss)` runs after it."""
+    make = model.builder.make_train_step
+
+    def make_marked(state):
+        step = make(state)
+
+        def run(state, *arrays):
+            starts.append(time.perf_counter())
+            state, loss = step(state, *arrays)
+            if after is not None:
+                after(arrays, loss)
+            return state, loss
+        return run
+
+    model.builder.make_train_step = make_marked
+
+
+def save_stall(spans, step_starts) -> dict:
+    """The first save's stall of the step loop: its own seconds (the
+    save call, from a synchronised device), and from its start to the
+    next step's start less the evaluation between (the epoch-end
+    evaluation follows the save)."""
+    saves = [(t0, t1) for what, t0, t1 in spans if what == "save"]
+    if not saves:
+        fail("save stall: no save was made")
+    s0, s1 = saves[0]
+    after = [t for t in step_starts if t > s1]
+    if not after:
+        fail("save stall: no step followed the first save")
+    evals = sum(t1 - t0 for what, t0, t1 in spans
+                if what == "eval" and s0 <= t0 < after[0])
+    return dict(save_s=s1 - s0, to_next_step_s=after[0] - s0 - evals,
+                eval_s=evals)
+
+
+def snapshot_routes(torch, state) -> dict:
+    """The host copy an async save makes of the state's tensors, by
+    route, host clock around synchronised copies: into fresh pageable
+    memory (`Tensor.to("cpu")`), and checkpoint._snapshot's copies into
+    pinned memory, twice (the second reuses the buffers the first freed,
+    from PyTorch's caching host allocator)."""
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    leaves = {k: v for k, v in ckpt.state_leaves(state).items()
+              if isinstance(v, torch.Tensor)}
+    nbytes = sum(v.numel() * v.element_size() for v in leaves.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    copies = {k: v.to("cpu", copy=True) for k, v in leaves.items()}
+    pageable = time.perf_counter() - t0
+    del copies
+    pinned = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        snap = ckpt._snapshot(leaves)
+        pinned.append(time.perf_counter() - t0)
+        del snap
+    return dict(gb=nbytes / 1e9, pageable_s=pageable, pinned_s=pinned)
+
+
+def read_heartbeat(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def held_state(torch, state) -> dict:
+    """A device copy of every leaf of `state`, as it stands on the current
+    stream: what an artifact saved now must hold."""
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    return {k: v.detach().clone() if isinstance(v, torch.Tensor) else int(v)
+            for k, v in ckpt.state_leaves(state).items()}
+
+
+def artifact_mismatch(torch, path: str, held: dict) -> list:
+    """The leaves where the artifact at `path` differs, bit for bit (bf16
+    leaves widened to f32 on both sides), from `held` (held_state)."""
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    arrays = ckpt.load_state_arrays(path)
+    if set(arrays) != set(held):
+        return sorted(set(arrays) ^ set(held))
+    bad = []
+    for k, want in held.items():
+        if isinstance(want, int):
+            same = int(arrays[k]) == want
+        else:
+            got = torch.from_numpy(arrays[k]).to(want.device)
+            same = torch.equal(got, want.float())
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def resumed_state_err(torch, state, ref_path: str, start: dict) -> dict:
+    """{leaf: |state - ref| / |ref - start|} (L2 norms, on the card) of
+    `state` against the artifact at `ref_path`, where `start` holds the
+    leaves (load_state_arrays) of the state both runs went on from; an
+    integer leaf (the step) must be equal (its entry 0 or inf)."""
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    ref = ckpt.load_state_arrays(ref_path)
+    errs = {}
+    for k, v in ckpt.state_leaves(state).items():
+        if not isinstance(v, torch.Tensor):
+            errs[k] = 0.0 if int(v) == int(ref[k]) else float("inf")
+            continue
+        a = v.detach().float()
+        b = torch.from_numpy(ref[k]).to(a.device)
+        s0 = torch.from_numpy(start[k]).to(a.device)
+        num = float(torch.linalg.vector_norm(a - b))
+        den = float(torch.linalg.vector_norm(b - s0))
+        errs[k] = num / den if den else (0.0 if num == 0 else float("inf"))
+        del a, b, s0
+    return errs
+
+
+def ops_phase(torch, seed: int, work_dir: str, fs, ft, lifecycle: dict,
+              dev: str = "cuda") -> dict:
+    """The training loop's operations at full width, on the lifecycle
+    phase's corpus and test file: `train --save B2 --test T
+    --async_checkpointing --checkpoint_hash_content` for 2 epochs with a
+    mid-epoch evaluation every OPS_EVAL_EVERY batches, the heartbeat and
+    the metrics file, SIGTERM sent from the step at step OPS_PREEMPT_STEP;
+    then `train --load B2 --epochs 2`. Checks: the mid-epoch evaluation
+    at batch 3 (K1-K4 once a test batch); B2_iter1 verifies with the
+    content hashes of every file; B2_iter1_preempt holds the cursor
+    (epoch 1, row 2048); the resume takes B2_iter1_preempt, skips 2048
+    rows and trains exactly the epoch-2 permutation's rows 2048-4095
+    (the batches' id checksums against the host's gather), to step 8,
+    its losses within OPS_LOSS_RTOL of the lifecycle run's steps 7-8 and
+    its state at step 8 (parameters, moments, step) within OPS_STATE_RTOL
+    of the lifecycle run's step-8 artifact, relative to what steps 7-8
+    changed from B2_iter1_preempt; each async artifact (B2_iter1, B2_iter2)
+    holds, bit for bit, a device copy of the state taken as its save was
+    called, though K8 went on updating the state in place; the
+    heartbeat reads preempted, then done (with the resume report); the
+    metrics file counts the steps; each run launched K1, K2 and K5-K8
+    once a step beside its evaluations. The async save's stall against
+    the lifecycle run's synchronous one, in one call. Returns stats."""
+    import signal
+
+    import numpy as np
+
+    from code2vec_tpu_torch import cli, kernels, obs
+    from code2vec_tpu_torch.data.packed import _epoch_rng
+    from code2vec_tpu_torch.data.reader import EstimatorAction
+    from code2vec_tpu_torch.model_facade import Code2VecModel
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work_dir, "ops")
+    os.makedirs(root)
+    base = os.path.join(root, "B2")
+    hb = os.path.join(root, "heartbeat.json")
+    metrics_file = os.path.join(root, "metrics.prom")
+    prefix = os.path.join(work_dir, "corpus")
+    test = os.path.join(work_dir, "test.train.c2v")
+    argv = ["train", "--data", prefix, "--epochs", "2", "--seed", str(seed),
+            "--batch_size", str(ft.rows), "--max_contexts", str(ft.contexts),
+            "--device", dev, "--save", base, "--test", test,
+            "--async_checkpointing", "--checkpoint_hash_content",
+            "--heartbeat_file", hb, "--metrics_file", metrics_file]
+    weights = (torch.arange(ft.rows * ft.contexts, dtype=torch.int64,
+                            device=dev) % 65521 + 1)
+    np_weights = np.arange(ft.rows * ft.contexts, dtype=np.int64) % 65521 + 1
+    batches_total = ("train_batches_total", ())
+
+    def metric(name):
+        """The process registry's unlabelled `name` without registering
+        it: a counter's value, a histogram's (count, sum)."""
+        child = obs.default_registry().collect().get(name, {}).get(())
+        if isinstance(child, obs.Histogram):
+            return child.count, child.sum
+        if child is None:
+            return 0.0 if name.endswith("_total") else (0, 0.0)
+        return child.value
+
+    def run(argv, preempt_at=None):
+        _, config = cli.config_from_args(argv)
+        config.shuffle_buffer_size = max(ft.rows // 16, 1)
+        config.verbose_mode = 0
+        config.num_train_batches_to_evaluate = OPS_EVAL_EVERY
+        logs = []
+        config.log = logs.append
+        t0 = time.perf_counter()
+        model = Code2VecModel(config)
+        build_s = time.perf_counter() - t0
+        starts, spans, sums, losses, evals, saved = [], [], [], [], [], []
+        held = []
+
+        def after(arrays, loss):
+            sums.append(id_checksum(arrays, weights))
+            losses.append(loss)
+            if len(losses) == preempt_at:
+                # from the consumer side, as a scheduler's notice lands
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        marked_steps(model, starts, after)
+        save_model, evaluate = ckpt.save_model, model._evaluate_with_params
+
+        def timed_save(*args, **kw):
+            copy = None
+            if kw.get("committer") is not None:
+                # the state as this call finds it: the steps after it
+                # update the same tensors in place (K8) while the commit
+                # thread writes the artifact
+                copy = held_state(torch, args[1])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = save_model(*args, **kw)
+            spans.append(("save", t1, time.perf_counter()))
+            saved.append((os.path.basename(out), spans[-1][2] - t1))
+            if copy is not None:
+                held.append((out, copy))
+            return out
+
+        def timed_eval(params):
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            t1 = time.perf_counter()
+            res = evaluate(params)
+            torch.cuda.synchronize()
+            after_ = kernels.launch_counts()
+            spans.append(("eval", t1, time.perf_counter()))
+            evals.append({k: after_[k] - before[k] for k in after_})
+            return res
+
+        ckpt.save_model, model._evaluate_with_params = timed_save, timed_eval
+        hist0 = metric("checkpoint_save_seconds")
+        snap0 = metric("checkpoint_snapshot_seconds")
+        steps0 = metric("train_batches_total")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            model.train()
+            torch.cuda.synchronize()
+        finally:
+            ckpt.save_model = save_model
+            del model._evaluate_with_params
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        # train() drained and closed the committer: every async artifact
+        # is on disk
+        if not held:
+            fail("operations: the run made no async save")
+        for path, copy in held:
+            bad = artifact_mismatch(torch, path, copy)
+            if bad:
+                fail(f"operations: the async artifact {path} differs from "
+                     f"the state at its save call in {bad[:8]}")
+        async_checked = [os.path.basename(p) for p, _ in held]
+        held.clear()
+        del copy
+        eval_launches = {k: sum(e[k] for e in evals) for k in counts}
+        n = len(losses)
+        got = {k: counts[k] - eval_launches[k] for k in kernels.TRAIN_KERNELS}
+        if got != dict.fromkeys(kernels.TRAIN_KERNELS, n):
+            fail(f"operations: a run of {n} steps launched {got}")
+        for e in evals:
+            if {k: e[k] for k in SERVE_KERNELS} != dict.fromkeys(
+                    SERVE_KERNELS, LIFECYCLE_TEST_ROWS // 1024):
+                fail(f"operations: an evaluation launched {e}")
+        with open(metrics_file) as f:
+            exported = metric_values(f.read())
+        if exported.get(batches_total) != steps0 + n:
+            fail(f"operations: the metrics file counts "
+                 f"{exported.get(batches_total)} train batches, expected "
+                 f"{steps0} + {n}")
+        hist1, snap1 = (metric("checkpoint_save_seconds"),
+                        metric("checkpoint_snapshot_seconds"))
+        return model, dict(
+            async_checked=async_checked,
+            logs=logs, spans=spans, starts=starts, build_s=build_s,
+            wall_s=wall, sums=torch.stack(sums).cpu().tolist(),
+            losses=torch.stack(losses).float().cpu().tolist(),
+            counts=counts, evals=len(evals), saved=saved,
+            # the registry's checkpoint_save_seconds and, of the async
+            # saves, checkpoint_snapshot_seconds over the run
+            save_hist=(hist1[0] - hist0[0], hist1[1] - hist0[1]),
+            snap_hist=(snap1[0] - snap0[0], snap1[1] - snap0[1]))
+
+    # 1. preempted at step 6
+    model, first = run(argv, preempt_at=OPS_PREEMPT_STEP)
+    trainer = model.trainer
+    beat = read_heartbeat(hb)
+    if not trainer.preempted or len(first["losses"]) != OPS_PREEMPT_STEP \
+            or beat["status"] != "preempted" or beat["step"] != \
+            OPS_PREEMPT_STEP or beat["resume_mode"] != "fresh":
+        fail(f"operations: the SIGTERM at step {OPS_PREEMPT_STEP} gave "
+             f"preempted={trainer.preempted} after {len(first['losses'])} "
+             f"steps, heartbeat {beat}")
+    if [b for b, _ in trainer.mid_epoch_results] != [OPS_EVAL_EVERY] or \
+            not any(m.startswith(f"Mid-epoch (batch {OPS_EVAL_EVERY}) "
+                                 f"evaluation -- ") for m in first["logs"]):
+        fail(f"operations: mid-epoch evaluations after batches "
+             f"{[b for b, _ in trainer.mid_epoch_results]}")
+    if os.path.exists(base) or os.path.exists(base + "_iter2"):
+        fail("operations: the preempted run made its final save")
+    t0 = time.perf_counter()
+    manifest = ckpt.load_manifest(base + "_iter1")
+    ckpt.verify_checkpoint(base + "_iter1", check_content=True)
+    verify_s = time.perf_counter() - t0
+    files = manifest["files"]
+    if not manifest.get("content_hashed") or not all(
+            "content_sha256" in e for e in files.values()):
+        fail(f"operations: {base}_iter1 lacks content hashes")
+    cursor = ckpt.load_manifest(base + "_iter1_preempt")["data_cursor"]
+    want_cursor = {"epoch": 1, "global_row_ordinal": 2 * ft.rows,
+                   "global_batch_size": ft.rows}
+    if cursor != want_cursor:
+        fail(f"operations: the preemption cursor {cursor}, expected "
+             f"{want_cursor}")
+    stall_async = save_stall(first["spans"], first["starts"])
+    ds = model._train_corpus()
+    rows = ds._global_filtered_row_ids(EstimatorAction.Train)
+    seq = _epoch_rng(seed, 1).permutation(rows)[:4 * ft.rows]
+    want_sums = [host_checksum(np, ds.gather(seq[i:i + ft.rows]),
+                               np_weights)
+                 for i in range(0, 4 * ft.rows, ft.rows)]
+    if first["sums"][4:] != want_sums[:2]:
+        fail("operations: the preempted run's epoch-2 batches are not the "
+             "permutation's rows 0-2047")
+    # the state both runs go on from at step 6
+    step6 = ckpt.load_state_arrays(base + "_iter1_preempt")
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. train --load B2 --epochs 2: the rest of epoch 2
+    resumed, second = run(argv[:argv.index("--save")] + [
+        "--load", base, "--save", base] + argv[argv.index("--save") + 2:])
+    beat = read_heartbeat(hb)
+    report = resumed.resume_report
+    if resumed.config.model_load_path != base + "_iter1_preempt" or \
+            report["resume_mode"] != "exact" or \
+            report["restored_step"] != OPS_PREEMPT_STEP:
+        fail(f"operations: --load {base} resolved to "
+             f"{resumed.config.model_load_path}, report {report}")
+    if int(resumed.state.step) != 8 or second["sums"] != want_sums[2:]:
+        fail(f"operations: the resumed run reached step "
+             f"{int(resumed.state.step)}; its batches equal the "
+             f"permutation's rows {2 * ft.rows}-{4 * ft.rows - 1}: "
+             f"{second['sums'] == want_sums[2:]}")
+    if beat["status"] != "done" or beat["restored_step"] != OPS_PREEMPT_STEP:
+        fail(f"operations: the resumed run's heartbeat {beat}")
+    want = lifecycle["losses"][1][2:]
+    err = max(abs(a - b) / abs(b) for a, b in zip(second["losses"], want))
+    if len(second["losses"]) != 2 or err > OPS_LOSS_RTOL:
+        fail(f"operations: the resumed losses {second['losses']} against "
+             f"the lifecycle run's {want} (rel err {err:.3g} > "
+             f"{OPS_LOSS_RTOL})")
+    state_errs = resumed_state_err(torch, resumed.state, lifecycle["step8"],
+                                   step6)
+    del step6
+    shutil.rmtree(lifecycle["step8"])
+    worst = max(state_errs, key=state_errs.get)
+    if state_errs[worst] > OPS_STATE_RTOL:
+        fail(f"operations: the resumed state at step 8 against the "
+             f"lifecycle run's: {worst} off by {state_errs[worst]:.3g} of "
+             f"what steps 7-8 changed (bar {OPS_STATE_RTOL}); "
+             + ", ".join(f"{k} {v:.2e}" for k, v in sorted(
+                 state_errs.items(), key=lambda kv: -kv[1])[:6]))
+    for p in (base + "_iter2", base):
+        ckpt.verify_checkpoint(p, check_content=True)
+    if os.path.exists(base + "_iter1_preempt"):
+        fail("operations: the clean _iter2 did not supersede _iter1_preempt")
+    routes = snapshot_routes(torch, resumed.state)
+    # the steady state: one more async save of the resumed model, whose
+    # vocabularies its saves pickled and whose pinned buffers they freed
+    committer = ckpt.AsyncCommitter(max_in_flight=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steady = ckpt.save_model(os.path.join(root, "steady"), resumed.state,
+                             resumed.vocabs, resumed.config, epoch=2,
+                             committer=committer)
+    steady_s = time.perf_counter() - t0
+    committer.close()
+    ckpt.verify_checkpoint(steady, check_content=True)
+    stall_sync = lifecycle["stall_s"]
+    names = kernels.TRAIN_KERNELS
+    launches = [first["counts"], second["counts"]]
+    log(f"operations: SIGTERM at step {OPS_PREEMPT_STEP} -> "
+        f"{os.path.basename(base)}_iter1_preempt (cursor {cursor}), "
+        f"heartbeat preempted; mid-epoch evaluation at batch "
+        f"{OPS_EVAL_EVERY}; {os.path.basename(base)}_iter1 content hashes "
+        f"verified in {verify_s:.2f}s; `train --load` resumed exactly "
+        f"(step {OPS_PREEMPT_STEP}), trained the permutation's rows "
+        f"{2 * ft.rows}-{4 * ft.rows - 1} to step 8, losses "
+        f"{[round(x, 5) for x in second['losses']]} against the lifecycle "
+        f"run's {[round(x, 5) for x in want]} (rel err {err:.2e}), the "
+        f"step-8 state against the lifecycle run's: largest {worst} "
+        f"{state_errs[worst]:.2e} of what steps 7-8 changed; the async "
+        f"artifacts {first['async_checked'] + second['async_checked']} "
+        f"hold the state at their save calls bit for bit; heartbeat done; "
+        f"launches (steps and evaluations) "
+        f"{[{k: c[k] for k in names} for c in launches]}")
+    log(f"operations: the epoch-1 save's stall, synchronous "
+        f"{stall_sync['save_s']:.3f}s (save start to the next step's start, "
+        f"less the evaluation: {stall_sync['to_next_step_s']:.3f}s) against "
+        f"--async_checkpointing {stall_async['save_s']:.3f}s "
+        f"({stall_async['to_next_step_s']:.3f}s); the preempted run's "
+        f"saves {[(p, round(t, 3)) for p, t in first['saved']]} s, "
+        f"checkpoint_save_seconds count {first['save_hist'][0]} sum "
+        f"{first['save_hist'][1]:.3f}s, of which the async save's host "
+        f"snapshot (checkpoint_snapshot_seconds) {first['snap_hist'][1]:.3f}"
+        f"s; the resumed run's "
+        f"{[(p, round(t, 3)) for p, t in second['saved']]} s")
+    log(f"operations: a later async save (the vocabularies' bytes and "
+        f"the pinned buffers reused) {steady_s:.3f}s")
+    log(f"operations: the state's host copy ({routes['gb']:.3f} GB): into "
+        f"fresh pageable memory {routes['pageable_s']:.3f}s; the async "
+        f"save's snapshot into pinned memory {routes['pinned_s'][0]:.3f}s,"
+        f" again {routes['pinned_s'][1]:.3f}s")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    phase_s = time.perf_counter() - t_phase
+    return dict(stall_sync=stall_sync, stall_async=stall_async,
+                saves=[first["saved"], second["saved"]],
+                save_hist=first["save_hist"], snap_hist=first["snap_hist"],
+                routes=routes, steady_s=steady_s, verify_s=verify_s,
+                loss_err=err, state_err=state_errs[worst],
+                launches={k: sum(c[k] for c in launches) for k in names},
+                phase_s=phase_s)
 
 
 def train_step_check(torch, seed: int, fs, ft, rows: int = 64,
@@ -5044,7 +5536,11 @@ def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
     dense and then with --sparse_embedding_update, each followed by
     `evaluate --load M --test P.test.c2v`: the val F1 of every epoch, the
     test F1 and top-1 (held to CAPSTONE_FLOOR), each stage's wall seconds
-    and the train examples/s. Also compile_corpus on 4 workers over the
+    and the train examples/s. The dense run also takes --profile_dir,
+    --tensorboard, --heartbeat_file, --metrics_file and --trace_export
+    (capstone_exports), so its examples/s includes torch.profiler over
+    batches 10-20 and the exports; the sparse run's does not. Also
+    compile_corpus on 4 workers over the
     same raw files: its `.c2vb` rows equal the pack of the serial
     preprocess's text (under the compile's vocabularies) wherever a
     method holds at most 200 contexts; the over-budget ones, which the
@@ -5128,7 +5624,7 @@ def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
                     for r, (n, o) in compared.items()))
     shutil.rmtree(os.path.dirname(cprefix))
 
-    results, all_counts = {}, {}
+    results, all_counts, exports = {}, {}, {}
     for mode in ("dense", "sparse"):
         save = os.path.join(root, mode, "model")
         os.makedirs(os.path.dirname(save))
@@ -5138,7 +5634,17 @@ def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
                 os.path.join(root, mode, "val.log"), "--device", dev]
         if mode == "sparse":
             argv.append("--sparse_embedding_update")
+        else:
+            # the loop's exports on the dense run (capstone_exports)
+            argv += ["--profile_dir", os.path.join(root, mode, "profile"),
+                     "--tensorboard", "--heartbeat_file",
+                     os.path.join(root, mode, "heartbeat.json"),
+                     "--metrics_file", os.path.join(root, mode, "m.prom"),
+                     "--trace_export", os.path.join(root, mode, "spans.json")]
         model, st = traced_train(torch, argv, f"capstone {mode}")
+        if mode == "dense":
+            exports = capstone_exports(os.path.join(root, mode), save,
+                                       int(model.state.step))
         curve = [float(r.subtoken_f1) for _, r in model.trainer.eval_results]
         n_steps = int(model.state.step)
         examples = n_steps * 1024
@@ -5162,6 +5668,8 @@ def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
         missing = [k for k in names if counts[k] <= 0]
         f1, top1 = float(res.subtoken_f1), float(res.topk_acc[0])
         train_s = st["wall_s"]
+        with_exports = ("" if mode == "sparse" else ", and the profiler "
+                        "over batches 10-20 and the exports on")
         results[mode] = dict(val_f1=curve, test_f1=f1, test_top1=top1,
                              train_s=train_s, evaluate_s=eval_s,
                              steps=n_steps,
@@ -5173,7 +5681,7 @@ def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
             f"{ref[1]:.3f}; floor {CAPSTONE_FLOOR[0]} / {CAPSTONE_FLOOR[1]});"
             f" train {train_s:.1f}s for {CAPSTONE_EPOCHS} epochs, "
             f"{n_steps} steps ({examples / train_s:.0f} examples/s with the "
-            f"epoch-end evaluations and saves; median step "
+            f"epoch-end evaluations and saves{with_exports}; median step "
             f"{results[mode]['step_ms']:.2f} ms by CUDA events), evaluate "
             f"{eval_s:.1f}s")
         if missing or len(curve) != CAPSTONE_EPOCHS:
@@ -5186,7 +5694,66 @@ def capstone_phase(torch, work_dir: str, dev: str = "cuda"):
     shutil.rmtree(root)
     stages["phase_s"] = time.perf_counter() - t_phase
     log(f"capstone: the phase in {stages['phase_s']:.1f}s")
-    return all_counts, dict(stages, **results)
+    return all_counts, dict(stages, exports=exports, **results)
+
+
+def capstone_exports(run_dir: str, save: str, steps: int) -> dict:
+    """What the capstone's dense `train --profile_dir --tensorboard
+    --heartbeat_file --metrics_file --trace_export` wrote: a
+    torch.profiler Chrome trace of batches 10-20 that names K1, K2 and
+    K5-K8 by their CUDA symbols (TRACE_SYMBOLS), an event file under
+    `<save>_tb` that decodes (every record's CRC) to train/loss and eval/*
+    scalars, the heartbeat `done` at the last step, the metrics file, and
+    the host spans of the step loop. Returns their sizes and counts."""
+    import glob
+
+    from code2vec_tpu_torch.utils.tb import read_scalars
+
+    traces = glob.glob(os.path.join(run_dir, "profile", "*.json"))
+    if len(traces) != 1:
+        fail(f"capstone: profiler traces {traces}, expected one")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_names = {e.get("name", "") for e in events
+                    if str(e.get("cat", "")).lower() == "kernel"}
+    missing = [k for k, sym in TRACE_SYMBOLS.items()
+               if not any(sym in name for name in kernel_names)]
+    if missing:
+        fail(f"capstone: the profiler trace names no kernel of {missing} "
+             f"({len(kernel_names)} kernel names, e.g. "
+             f"{sorted(kernel_names)[:8]})")
+    files = glob.glob(save + "_tb/events.out.tfevents.*")
+    if len(files) != 1:
+        fail(f"capstone: event files {files}, expected one")
+    scalars = read_scalars(files[0])
+    tags = {t for t, _, _ in scalars}
+    if "train/loss" not in tags or not any(t.startswith("eval/")
+                                           for t in tags):
+        fail(f"capstone: the event file's tags {sorted(tags)[:20]} lack "
+             f"train/loss or eval/*")
+    beat = read_heartbeat(os.path.join(run_dir, "heartbeat.json"))
+    if beat["status"] != "done" or beat["step"] != steps:
+        fail(f"capstone: heartbeat {beat}, expected done at step {steps}")
+    with open(os.path.join(run_dir, "m.prom")) as f:
+        exported = metric_values(f.read())
+    if exported.get(("train_batches_total", ()), 0) < steps:
+        fail("capstone: the metrics file lacks the run's train batches")
+    with open(os.path.join(run_dir, "spans.json")) as f:
+        spans = {e.get("name") for e in json.load(f)["traceEvents"]}
+    if not {"data_wait", "step_dispatch", "loss_sync"} <= spans:
+        fail(f"capstone: the host spans {sorted(spans)[:20]}")
+    stats = dict(trace_mb=os.path.getsize(traces[0]) / 1e6,
+                 kernel_names=len(kernel_names), scalars=len(scalars),
+                 train_loss_points=sum(t == "train/loss"
+                                       for t, _, _ in scalars))
+    log(f"capstone: the dense run's exports: profiler trace "
+        f"{stats['trace_mb']:.1f} MB naming K1, K2, K5-K8 ("
+        + ", ".join(sorted({next(n for n in kernel_names if sym in n)
+                            for sym in TRACE_SYMBOLS.values()}))
+        + f"); {stats['scalars']} TensorBoard scalars "
+        f"({stats['train_loss_points']} train/loss); heartbeat done at "
+        f"step {steps}; metrics file and host spans written")
+    return stats
 
 
 # ------------------------------------------------------- the parallel steps
@@ -6388,6 +6955,9 @@ def main() -> None:
         train_counts, train_stats = train_path_phase(
             torch, args.seed, work_dir, fs, ft, lifecycle=True)
         lap("train path and lifecycle")
+        ops_stats = ops_phase(torch, args.seed, work_dir, fs, ft,
+                              train_stats)
+        lap("operations")
         sparse_counts, sparse_stats = train_path_phase(
             torch, args.seed, work_dir, fs, ft, sparse=True)
         lap("sparse train path")
@@ -6604,6 +7174,17 @@ def main() -> None:
         f"--serve_mips_nprobe 16 {train_stats['export_s']['int8-mips']:.2f}"
         f" s, crossover {train_stats['crossover']} "
         f"(calibration {train_stats['calibration']})")
+    stall = {k: ops_stats[f"stall_{k}"] for k in ("sync", "async")}
+    log(f"operations: the epoch-1 save (3.145 GB at full width) stalls "
+        f"the step loop {stall['sync']['to_next_step_s']:.3f}s synchronous"
+        f", {stall['async']['to_next_step_s']:.3f}s with "
+        f"--async_checkpointing (save start to the next step's start, "
+        f"less the evaluation; the save call alone "
+        f"{stall['sync']['save_s']:.3f}s / {stall['async']['save_s']:.3f}"
+        f"s; a later async save {ops_stats['steady_s']:.3f}s); resumed "
+        f"loss rel err {ops_stats['loss_err']:.2e}, state "
+        f"{ops_stats['state_err']:.2e}; launches "
+        f"{ops_stats['launches']}; the phase {ops_stats['phase_s']:.1f}s")
     log("parallel: " + "; ".join(
         f"{k} {v['step_ms']:.1f} ms a step over {v['ranks']} ranks (loss "
         f"rel err {v['loss_err']:.2e}, parameters max err "

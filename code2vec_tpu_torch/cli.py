@@ -14,6 +14,11 @@ code2vec_tpu_torch.data.preprocess` (data/preprocess.py).
         [--sparse_embedding_update] [--save_w2v F] [--save_t2v F]
         [--no_packed_data | --train_corpus_manifest MANIFEST]
         [--preprocess_workers N] [--prefetch_double_buffer]
+        [--async_checkpointing] [--checkpoint_hash_content]
+        [--no_cursor_resume] [--rss_limit_gb G]
+        [--on_nonfinite_loss halt|warn] [--tensorboard]
+        [--profile_dir DIR] [--heartbeat_file F] [--metrics_file F]
+        [--metrics_port P] [--trace_export F]
         [--dp N --tp N --cp N [--dist_backend nccl|gloo]
          [--dist_init file://PATH]]
     python -m code2vec_tpu_torch export --load M --artifact_out DIR
@@ -68,8 +73,10 @@ Every command takes --compute_dtype, --serve_buckets, --topk_block and
 `save_every_epochs`-th epoch and of the last (keeping `max_to_keep`) and
 `M` when it ends; with `--test T` it evaluates T after each of those
 saves. `--load` takes an artifact directory or a save base (its newest
-valid `_iter<N>`); a resumed run numbers its epochs on from the loaded
-one. `evaluate` prints the top-k accuracy, subtoken precision, recall
+valid `_iter<N>`, or the `_iter<N>_preempt` a SIGTERM or the RSS limit
+left mid-epoch N+1, which resumes after the rows it had consumed); a
+resumed run numbers its epochs on from the loaded one. A NaN or Inf loss
+halts with an `_iter<N>_nanhalt` artifact that resume never picks. `evaluate` prints the top-k accuracy, subtoken precision, recall
 and F1 and the loss, and writes each example's outcome to `--eval_log`
 (default log.txt). `evaluate --load M --release` writes `M.release`, the
 model without its optimizer state (the reference's `--load M
@@ -262,16 +269,57 @@ def build_parser() -> argparse.ArgumentParser:
                         "to N times (default 2; timeouts and ERR frames "
                         "are never retried)")
     p.add_argument("--metrics_file", metavar="FILE", default=None,
-                   help="`serve`: write a Prometheus text snapshot here, "
-                        "rewritten atomically while serving and at exit")
+                   help="`serve`, `train`: write a Prometheus text "
+                        "snapshot here, rewritten atomically while serving "
+                        "(at every log boundary while training) and at "
+                        "exit")
     p.add_argument("--metrics_port", type=int, default=0, metavar="PORT",
-                   help="`serve`: also serve the snapshot at "
+                   help="`serve`, `train`: also serve the snapshot at "
                         "http://127.0.0.1:PORT/metrics (0 disables)")
     p.add_argument("--trace_export", metavar="FILE", default=None,
                    help="`serve`: record every request's and batch's "
                         "host spans and write them here as Chrome "
                         "trace-event JSON (Perfetto-loadable), rewritten "
-                        "while serving and at exit")
+                        "while serving and at exit; `train`: the host "
+                        "spans (data wait, dispatch, loss sync, saves, "
+                        "evaluations), written when training ends")
+    # the training loop's operations (code2vec_tpu/cli.py:596, :655-743)
+    p.add_argument("--tensorboard", dest="use_tensorboard",
+                   action="store_true",
+                   help="`train`: write TensorBoard scalars (train loss/"
+                        "throughput, eval metrics, every registry metric) "
+                        "to <save>_tb")
+    p.add_argument("--rss_limit_gb", type=float, default=0.0,
+                   help="`train`: checkpoint-and-stop (like SIGTERM "
+                        "preemption) when the process's resident memory "
+                        "crosses this many GB; 0 disables")
+    p.add_argument("--on_nonfinite_loss", choices=["halt", "warn"],
+                   default=None,
+                   help="`train`: on a NaN/Inf batch loss, halt (default; "
+                        "save <save>_iter<N>_nanhalt and exit nonzero) or "
+                        "warn (log and continue)")
+    p.add_argument("--async_checkpointing", action="store_true",
+                   help="`train`: the epoch saves copy the state to host "
+                        "memory and commit it (state files, manifest, "
+                        "rename) on a background thread, at most 2 in "
+                        "flight; crash-atomicity is unchanged")
+    p.add_argument("--no_cursor_resume", action="store_true",
+                   help="`train --load`: ignore the checkpoint's data "
+                        "cursor and re-run an interrupted epoch from its "
+                        "start instead of skipping the rows it consumed")
+    p.add_argument("--checkpoint_hash_content", action="store_true",
+                   help="`train`: record the sha256 of every checkpoint "
+                        "file into its manifest after the commit; resume "
+                        "verifies them")
+    p.add_argument("--profile_dir", metavar="DIR",
+                   help="`train`: write a torch.profiler trace (CPU and "
+                        "CUDA) of train batches 10-20 to DIR (Chrome trace "
+                        "JSON, Perfetto-viewable)")
+    p.add_argument("--heartbeat_file", metavar="FILE",
+                   help="`train`: atomically rewrite a JSON heartbeat "
+                        "{status, step, epoch, last_loss, wall_time, ...} "
+                        "here each log window, so a watchdog can detect a "
+                        "hang by staleness")
     p.add_argument("--compute_dtype", choices=["bfloat16", "float32"],
                    default="bfloat16",
                    help="dtype of the kernels' products (default "
@@ -425,7 +473,14 @@ def config_from_args(argv):
                     verbose_mode=args.verbose_mode,
                     metrics_file=args.metrics_file,
                     metrics_port=args.metrics_port,
-                    trace_export=args.trace_export)
+                    trace_export=args.trace_export,
+                    use_tensorboard=args.use_tensorboard,
+                    rss_limit_gb=args.rss_limit_gb,
+                    async_checkpointing=args.async_checkpointing,
+                    cursor_resume=not args.no_cursor_resume,
+                    checkpoint_hash_content=args.checkpoint_hash_content,
+                    profile_dir=args.profile_dir,
+                    heartbeat_file=args.heartbeat_file)
     explicit = []
     # --batch_size sets the test batch too, unless --test_batch_size
     # does (code2vec_tpu/cli.py:1058-1062)
@@ -455,7 +510,7 @@ def config_from_args(argv):
                  "embeddings_out", "adam_mu_dtype", "adam_nu_dtype",
                  "train_corpus_manifest", "preprocess_workers",
                  "prefetch_double_buffer", "dp", "tp", "cp", "dist_backend",
-                 "dist_init_method"):
+                 "dist_init_method", "on_nonfinite_loss"):
         value = getattr(args, name)
         if value is not None:
             setattr(config, name, value)

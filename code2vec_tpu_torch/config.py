@@ -19,13 +19,26 @@ from typing import Optional, Tuple
 @dataclasses.dataclass
 class Config:
     # training schedule (code2vec_tpu/config.py:27-28, :43, :83, :86,
-    # :91)
+    # :87, :91): a mid-epoch evaluation every num_train_batches_to_evaluate
+    # batches (0: none) besides the epoch-end ones
     num_train_epochs: int = 20
     save_every_epochs: int = 1
     max_to_keep: int = 10
     on_nonfinite_loss: str = "halt"
     train_batch_size: int = 1024
     num_batches_to_log_progress: int = 100
+    num_train_batches_to_evaluate: int = 1800
+    # the training loop's operations (code2vec_tpu/config.py:28-82,
+    # :691): checkpoint-and-stop on SIGTERM, and when the process's
+    # current RSS passes rss_limit_gb (0: off); the epoch saves' commit
+    # on a background thread; resume from a checkpoint's data cursor
+    # (False re-runs an interrupted epoch from its start); a post-commit
+    # sha256 of every checkpoint file, verified on resume
+    save_on_preemption: bool = True
+    rss_limit_gb: float = 0.0
+    async_checkpointing: bool = False
+    cursor_resume: bool = True
+    checkpoint_hash_content: bool = False
     shuffle_buffer_size: int = 10000
     csv_buffer_size: int = 100 * 1024 * 1024
     train_data_path_prefix: Optional[str] = None
@@ -128,6 +141,12 @@ class Config:
     metrics_file: Optional[str] = None
     metrics_port: int = 0
     trace_export: Optional[str] = None
+    # training's exports (code2vec_tpu/config.py:122, :205-217): the
+    # TensorBoard scalars under `tensorboard_dir`, a torch.profiler trace
+    # of train batches 10-20 under profile_dir, the JSON heartbeat
+    use_tensorboard: bool = False
+    profile_dir: Optional[str] = None
+    heartbeat_file: Optional[str] = None
     # retrieval (code2vec_tpu/config.py:548-600)
     embed_out: Optional[str] = None
     embed_dtype: str = "float32"
@@ -196,6 +215,12 @@ class Config:
         return self.dp * self.tp * self.cp
 
     @property
+    def tensorboard_dir(self) -> str:
+        # beside the model artifacts (code2vec_tpu/config.py:786-791)
+        base = self.model_save_path or self.model_load_path or "code2vec"
+        return base + "_tb"
+
+    @property
     def code_vector_size(self) -> int:
         return self.path_embeddings_size + 2 * self.token_embeddings_size
 
@@ -241,6 +266,8 @@ class Config:
                 raise ValueError(f"{name} must be bfloat16 or float32.")
         if self.on_nonfinite_loss not in ("halt", "warn"):
             raise ValueError("on_nonfinite_loss must be halt or warn.")
+        if self.rss_limit_gb < 0:
+            raise ValueError("rss_limit_gb must be >= 0 (0 disables).")
         if not 0.0 < self.dropout_keep_rate <= 1.0:
             raise ValueError("dropout_keep_rate must be in (0, 1].")
         if self.save_every_epochs < 1:

@@ -15,8 +15,11 @@ external_shuffle :737 and the command line `main` :831:
 
 Every output is byte-identical to the reference's for the same inputs,
 and the fused compile's at any worker count. Host-side work only: it
-imports no torch. The reference's `obs` phase counters and its
-C2V_METRICS_FILE export are not ported.
+imports no torch. The reference's phase metrics are recorded
+(`preprocess_phase_seconds`, `preprocess_rows_total` and
+`preprocess_rows_per_sec` by phase, :278-285, :523-535), and `main`
+writes them to the Prometheus text file `C2V_METRICS_FILE` names, where
+set (:932-938).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import tempfile
 import time
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
+
+from code2vec_tpu_torch import obs
 
 # ------------------------------------------------------------ parallelism
 #
@@ -258,6 +263,7 @@ def build_histograms(raw_path: str,
     result equals the serial loop's for any worker count.
     """
     if num_workers >= 1:
+        t0 = time.perf_counter()
         ranges = line_aligned_ranges(raw_path, num_workers)
         tasks = [(raw_path, s, e) for s, e in ranges]
         if len(tasks) == 1:
@@ -272,6 +278,15 @@ def build_histograms(raw_path: str,
             tokens.update(tok)
             paths.update(pth)
             targets.update(tgt)
+        dur = time.perf_counter() - t0
+        obs.histogram("preprocess_phase_seconds",
+                      "wall time of one offline-pipeline phase",
+                      phase="histograms").observe(dur)
+        n_lines = sum(targets.values())
+        obs.counter("preprocess_rows_total", "raw lines consumed per phase",
+                    phase="histograms").inc(n_lines)
+        obs.gauge("preprocess_rows_per_sec", "phase throughput",
+                  phase="histograms").set(n_lines / max(dur, 1e-9))
         return (_decode_counter(tokens), _decode_counter(paths),
                 _decode_counter(targets))
 
@@ -512,12 +527,19 @@ def compile_corpus(train_raw: str, val_raw: str, test_raw: str,
             file_path, out_path, vocabs, word_to_count, path_to_count,
             max_contexts, seed=seed, num_workers=workers, c2v_out=c2v_out,
             log=log)
+        obs.counter("preprocess_rows_total", "raw lines consumed per phase",
+                    phase=f"pack_{role}").inc(rows)
         total_rows += rows
         if role == "train":
             num_training_examples = rows
     dur = time.perf_counter() - t2
     stats["pack_s"] = round(dur, 2)
     stats["rows"] = total_rows
+    obs.histogram("preprocess_phase_seconds",
+                  "wall time of one offline-pipeline phase",
+                  phase="fused_pack").observe(dur)
+    obs.gauge("preprocess_rows_per_sec", "phase throughput",
+              phase="fused_pack").set(total_rows / max(dur, 1e-9))
 
     save_dictionaries(output_name, word_to_count, path_to_count,
                       target_to_count, num_training_examples, log=log)
@@ -914,6 +936,13 @@ def main(argv=None) -> None:
                    word_vocab_size=args.word_vocab_size,
                    path_vocab_size=args.path_vocab_size,
                    target_vocab_size=args.target_vocab_size, seed=args.seed)
+
+    # a CI runner pointing C2V_METRICS_FILE at a node-exporter textfile
+    # directory gets the phase timings and throughput Prometheus-side
+    metrics_file = os.environ.get("C2V_METRICS_FILE")
+    if metrics_file:
+        from code2vec_tpu_torch.obs import exporters
+        exporters.write_prometheus(metrics_file)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,11 @@ same file and seed:
 
 The packed `.c2vb` reader (data/packed.py) is the default train and
 evaluate path; this text reader serves `--no_packed_data` and the pack
-itself goes through `parse_context_lines`.
+itself goes through `parse_context_lines`. A resumed train stream skips
+the rows its checkpoint's data cursor says the interrupted epoch
+consumed (`skip_rows`, :434-491, :577-600), and every parsed chunk is
+counted as the reference counts it (`data_parse_seconds`,
+`data_rows_read_total`, `data_rows_dropped_total`, :40-50, :528-537).
 """
 
 from __future__ import annotations
@@ -33,11 +37,24 @@ import enum
 import hashlib
 import random
 import struct
+import time
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.vocab import Code2VecVocabs
+
+# Handles cached at module scope: _parse_chunk is the reader's hot path.
+_H_PARSE = obs.histogram(
+    "data_parse_seconds",
+    "parse+filter of one reader chunk (parse_chunk_lines raw lines)")
+_C_ROWS_READ = obs.counter("data_rows_read_total",
+                           "raw .c2v lines parsed")
+_C_ROWS_DROPPED = obs.counter(
+    "data_rows_dropped_total",
+    "parsed rows removed by the reference row filter (OOV target / no "
+    "valid context)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -326,7 +343,13 @@ class PathContextReader:
     `with_target_strings` keeps each row's method name (the embed job's
     ids). `start_epoch` is the absolute index of the first epoch (a
     resumed run's completed epochs): the shuffle is keyed by the absolute
-    epoch, so a resumed run orders epoch N as an unbroken one does. Rows are parsed in chunks of `parse_chunk_lines` and filtered.
+    epoch, so a resumed run orders epoch N as an unbroken one does.
+    `skip_rows` (train only) drops the first epoch's first `skip_rows`
+    post-filter rows, the rows a preempted run already trained on: the
+    resumed stream is the uninterrupted one without them, and later
+    epochs are untouched (the facade rounds the cursor down to a batch
+    multiple). Rows are parsed in chunks of `parse_chunk_lines` and
+    filtered.
     Chunks are parsed in order on the calling thread (the reference
     parses them on a worker pool, which yields the same order)."""
 
@@ -338,7 +361,7 @@ class PathContextReader:
                  num_epochs: Optional[int] = None,
                  yield_epoch_markers: bool = False,
                  with_target_strings: bool = False,
-                 start_epoch: int = 0):
+                 start_epoch: int = 0, skip_rows: int = 0):
         if estimator_action.is_predict:
             raise ValueError("the reader streams the Train and Evaluate "
                              "actions; predict parses its lines directly")
@@ -358,13 +381,15 @@ class PathContextReader:
                            else num_epochs)
         self.yield_epoch_markers = yield_epoch_markers
         self.start_epoch = start_epoch
+        self.skip_rows = skip_rows
 
     def __iter__(self) -> Iterator:
         if self.estimator_action.is_train:
             lines = self._shuffled_lines(self.num_epochs)
-        else:
-            lines = _iter_file_lines(self.data_path,
-                                     self.config.csv_buffer_size)
+            yield from self._batched(lines, self.batch_size,
+                                     skip_rows=self.skip_rows)
+            return
+        lines = _iter_file_lines(self.data_path, self.config.csv_buffer_size)
         yield from self._batched(lines, self.batch_size)
 
     def _shuffled_lines(self, epochs: int) -> Iterator:
@@ -393,11 +418,18 @@ class PathContextReader:
             yield EpochEnd(epoch)
 
     def _parse_chunk(self, chunk: List[str]) -> RowBatch:
+        t0 = time.perf_counter()
         raw = parse_context_lines(
             chunk, self.vocabs, self.config.max_contexts,
             keep_strings=False, with_target_strings=self.with_target_strings)
         keep = row_filter_mask(raw, self.vocabs, self.estimator_action)
-        return _select_rows(raw, np.nonzero(keep)[0])
+        out = _select_rows(raw, np.nonzero(keep)[0])
+        dur = time.perf_counter() - t0
+        _H_PARSE.observe(dur)
+        _C_ROWS_READ.inc(len(chunk))
+        _C_ROWS_DROPPED.inc(len(chunk) - out.target_index.shape[0])
+        obs.default_tracer().maybe_record("data_parse_chunk", t0, dur)
+        return out
 
     def _parsed_chunks(self, line_iter: Iterator) -> Iterator:
         chunk: List[str] = []
@@ -415,9 +447,13 @@ class PathContextReader:
         if chunk:
             yield self._parse_chunk(chunk)
 
-    def _batched(self, line_iter: Iterator, batch_size: int) -> Iterator:
+    def _batched(self, line_iter: Iterator, batch_size: int,
+                 skip_rows: int = 0) -> Iterator:
         pending: List[RowBatch] = []
         pending_rows = 0
+        # the first epoch's consumed rows; its EpochEnd clears what is
+        # left, so a stale over-long cursor never eats the next epoch
+        remaining_skip = max(int(skip_rows), 0)
 
         def pop_batches() -> Iterator[RowBatch]:
             nonlocal pending, pending_rows
@@ -435,10 +471,18 @@ class PathContextReader:
 
         for item in self._parsed_chunks(line_iter):
             if isinstance(item, EpochEnd):
+                remaining_skip = 0
                 yield from pop_batches()
                 if self.yield_epoch_markers:
                     yield item
                 continue
+            if remaining_skip:
+                n = item.target_index.shape[0]
+                if n <= remaining_skip:
+                    remaining_skip -= n
+                    continue
+                item = _select_rows(item, np.arange(remaining_skip, n))
+                remaining_skip = 0
             if item.target_index.shape[0]:
                 pending.append(item)
                 pending_rows += item.target_index.shape[0]

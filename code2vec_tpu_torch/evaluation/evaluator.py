@@ -18,8 +18,11 @@ The code vectors of the valid rows go, in eval order, to a text file
 (`code_vectors_path`: one space-joined vector a line, the reference's
 `.vectors` layout) or to a sink (`code_vectors_sink(vectors, names)`,
 e.g. a retrieval/store.py VectorStoreWriter's `append`), as the
-reference's do (:54-55, :124-132). Left out of the reference's: the `obs`
-spans, counters and gauges.
+reference's do (:54-55, :124-132). Each pass is recorded as the
+reference records it (:65-75, :189): the `evaluate` span with its
+`eval_seconds` histogram, `eval_runs_total`, the `eval_<name>` gauges of
+the last result's scalars and `eval_examples_total` (the rows this
+process scored).
 
 On a mesh (`mesh`, parallel/mesh.py) every rank runs the eval step on
 its part of each batch; the ranks of model and ctx coordinate 0 score
@@ -38,6 +41,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.evaluation.metrics import (
     ModelEvaluationResults, SubtokensEvaluationMetric, TargetWordTables,
     TopKAccuracyEvaluationMetric, batch_prediction_info,
@@ -97,6 +101,23 @@ class Evaluator:
                  ) -> ModelEvaluationResults:
         """Pipelined (`prefetch`) or serial evaluation; both give the same
         results."""
+        with obs.span("evaluate",
+                      hist=obs.histogram("eval_seconds",
+                                         "one full evaluation pass")):
+            results = self._evaluate_inner(params, batches, prefetch,
+                                           code_vectors_path,
+                                           code_vectors_sink)
+        obs.counter("eval_runs_total", "completed evaluation passes").inc()
+        # the last result's scalars, as the TensorBoard eval/ tags carry
+        # them, for a scrape between TensorBoard flushes
+        for name, value in results.tb_scalars():
+            obs.gauge(f"eval_{name}", "latest evaluation result").set(value)
+        return results
+
+    def _evaluate_inner(self, params, batches: Iterable, prefetch: bool,
+                        code_vectors_path: Optional[str],
+                        code_vectors_sink: Optional[Callable]
+                        ) -> ModelEvaluationResults:
         config = self.config
         topk_metric = TopKAccuracyEvaluationMetric(
             config.top_k_words_considered_during_prediction, self.tables)
@@ -168,6 +189,9 @@ class Evaluator:
             else:
                 for batch in batches:
                     consume(batch, step(batch_to_device(batch, self.device)))
+            obs.counter("eval_examples_total",
+                        "examples scored across evaluation passes "
+                        "(host-local rows)").inc(totals["predictions"])
             if self.mesh is not None:
                 self._sum_over_mesh(totals, topk_metric, subtoken_metric)
             if log_file is not None:

@@ -14,8 +14,15 @@ the code-vector outputs (:877-940), predict over the live params with
 the exact head or, with --serve_mips_nprobe, the MIPS head built over
 the live target table (`_get_mips_topk` :945-998), the model
 fingerprint, the final `save` and the word2vec exports (:1010-1062).
-Left out: the async committer, preemption and mid-epoch cursors (nothing
-sets `iter_batches`' `skip_rows` yet) and the training `obs` metrics.
+The loop's operations: the resume report (`resume_report`, `resume_mode`
+exact or fresh, :408-513) with its metrics; the data cursor of a
+`_preempt` checkpoint (`_resume_cursor`, `_cursor_skip_rows` :645-688),
+which both readers skip at resume; `_make_save_fn` with `suffix`,
+`cursor_rows` and the correction for a second preemption inside a
+resumed epoch (:739-790); the async committer's life in `train`, which
+skips the final save after a preemption (:690-737); rotation that keeps
+`_preempt` artifacts out of the quota and removes those a newer clean
+save supersedes (:802-870).
 
 On a dp x tp x cp mesh (config.mesh_size > 1; the reference's mesh parts
 :458-469, :536, :565) each process is one rank: it joins the runtime
@@ -50,6 +57,7 @@ import glob
 import itertools
 import os
 import shutil
+import sys
 import threading
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
@@ -73,6 +81,7 @@ from code2vec_tpu_torch.training.state import (
     DTYPES, create_train_state, make_optimizer, num_params,
 )
 from code2vec_tpu_torch.training.step import TrainStepBuilder, dropout_seed
+from code2vec_tpu_torch.utils.faults import fault_point
 from code2vec_tpu_torch.vocab import Code2VecVocabs, VocabType
 
 
@@ -332,6 +341,22 @@ class Code2VecModel(BucketedPredictMixin):
         self.log = config.log
         self.device = resolve_device(config.device)
         self.initial_epoch = 0
+        # where the run started from, for the heartbeat, the registry and
+        # the log (a rejected artifact must never silently become a fresh
+        # start)
+        self.resume_report: Dict = {"resume_mode": "fresh",
+                                    "restored_step": None,
+                                    "restored_epoch": None,
+                                    "rejected": []}
+        self._resume_cursor: Optional[Dict] = None
+        # the epoch a cursor skip applied to and the rows it skipped (a
+        # save inside that epoch adds them back)
+        self._applied_skip_rows = 0
+        self._applied_skip_epoch: Optional[int] = None
+        self._steps_per_epoch: Optional[int] = None
+        # the async commit pipeline: made by _make_save_fn, closed when
+        # training ends
+        self._committer: Optional[ckpt.AsyncCommitter] = None
         self.mesh = self._join_mesh() if config.mesh_size > 1 else None
         if config.is_loading:
             self._resolve_load_path()
@@ -373,12 +398,32 @@ class Code2VecModel(BucketedPredictMixin):
             # --release and export read the params alone, whatever the
             # saved optimizer state's layout (reference :480-487)
             params_only = config.release or bool(config.export_artifact_path)
+            report: Dict = {}
             ckpt.load_model(config.model_load_path, self.state, config=config,
-                            params_only=params_only)
+                            params_only=params_only, report=report)
             self.initial_epoch = int(ckpt.load_model_meta(
                 config.model_load_path).get("epoch", 0))
+            mode = report["resume_mode"]
+            self.resume_report.update(
+                resume_mode=mode, restored_step=report["restored_step"],
+                restored_epoch=self.initial_epoch)
+            cursor = report.get("data_cursor")
+            # a cursor applies only to the epoch it was recorded in
+            if (isinstance(cursor, dict)
+                    and int(cursor.get("epoch", -1)) == self.initial_epoch):
+                self._resume_cursor = cursor
+            obs.counter("resume_total",
+                        "model restores by topology relationship",
+                        mode=mode).inc()
+            obs.gauge("resume_restored_step",
+                      "global step of the restored artifact"
+                      ).set(report["restored_step"])
+            obs.gauge("resume_restored_epoch",
+                      "epoch recorded in the restored artifact"
+                      ).set(self.initial_epoch)
             self.log(f"Loaded model weights from {config.model_load_path} "
-                     f"(epoch {self.initial_epoch}, step {self.state.step})")
+                     f"(epoch {self.initial_epoch}, step {self.state.step}, "
+                     f"resume mode: {mode})")
         update = ("sparse (touched-rows)"
                   if config.use_sparse_embedding_update else "dense")
         where = (self.device if self.mesh is None else
@@ -476,6 +521,7 @@ class Code2VecModel(BucketedPredictMixin):
         resolved = ckpt.resolve_load_path(config.model_load_path,
                                           log=self.log, trail=trail)
         rejected = [t for t in trail if t["outcome"] == "rejected"]
+        self.resume_report["rejected"] = rejected
         for t in rejected:
             self.log(f"Resume REJECTED candidate {t['path']}: {t['reason']}")
         if rejected:
@@ -510,58 +556,159 @@ class Code2VecModel(BucketedPredictMixin):
         `num_train_epochs` after the loaded ones, keyed by their absolute
         index (reference :557-640); a full permutation of the packed rows
         per epoch, or the text reader's shuffle buffer with
-        --no_packed_data."""
+        --no_packed_data; the first epoch without the rows the loaded
+        checkpoint's cursor says it consumed. Sets `_steps_per_epoch`
+        (the packed reader's full epoch; None for the text reader)."""
         config = self.config
         epochs = max(config.num_train_epochs - self.initial_epoch, 0)
         if config.is_loading and epochs == 0:
             self.log(f"Loaded model already trained {self.initial_epoch} "
                      f"epochs (budget {config.num_train_epochs}); nothing "
                      f"to train. Raise --epochs to continue.")
+        skip_rows = self._cursor_skip_rows()
+        # a second preemption inside the resumed epoch records the
+        # skipped rows plus its own (the trainer counts from 0)
+        self._applied_skip_rows = skip_rows
+        self._applied_skip_epoch = self.initial_epoch if skip_rows else None
+        self._steps_per_epoch = None
         if config.use_packed_data:
-            return self._train_corpus().iter_batches(
+            ds = self._train_corpus()
+            self._steps_per_epoch = ds.steps_per_epoch(
+                config.train_batch_size, EstimatorAction.Train)
+            return ds.iter_batches(
                 config.train_batch_size, EstimatorAction.Train,
                 num_epochs=epochs, seed=config.seed,
-                yield_epoch_markers=True, start_epoch=self.initial_epoch)
+                yield_epoch_markers=True, start_epoch=self.initial_epoch,
+                skip_rows=skip_rows)
         return PathContextReader(self.vocabs, config, EstimatorAction.Train,
                                  batch_size=config.train_batch_size,
                                  num_epochs=epochs, yield_epoch_markers=True,
-                                 start_epoch=self.initial_epoch)
+                                 start_epoch=self.initial_epoch,
+                                 skip_rows=skip_rows)
+
+    def _cursor_skip_rows(self) -> int:
+        """The rows of the resumed epoch that the restored checkpoint's
+        data cursor says were consumed, rounded down to a multiple of the
+        current batch (re-reading a few rows is safe, skipping unseen
+        ones is not); 0 without a cursor, with --no_cursor_resume, or for
+        a save at an epoch boundary (reference :645-688)."""
+        config = self.config
+        cursor = self._resume_cursor
+        if not cursor or not config.cursor_resume:
+            if cursor and cursor.get("global_row_ordinal"):
+                self.log("cursor_resume disabled: re-running the "
+                         "interrupted epoch from its start")
+            return 0
+        skip = int(cursor.get("global_row_ordinal", 0) or 0)
+        if skip <= 0:
+            return 0
+        fault_point("cursor_remap")
+        batch = config.train_batch_size
+        if skip % batch:
+            adjusted = (skip // batch) * batch
+            self.log(f"Data cursor {skip} (saved at global batch size "
+                     f"{cursor.get('global_batch_size', '?')}) is not a "
+                     f"multiple of the current global batch {batch}; "
+                     f"rounding down to {adjusted} (re-reads "
+                     f"{skip - adjusted} row(s))")
+            skip = adjusted
+        self.log(f"Cursor resume: epoch {self.initial_epoch + 1} "
+                 f"continues after {skip} already-consumed global rows")
+        obs.gauge("resume_cursor_skip_rows",
+                  "global rows the resumed epoch skipped as "
+                  "already-consumed").set(skip)
+        return skip
 
     def train(self) -> None:
         """Train for the epochs left; at each scheduled epoch end save
         `<save>_iter<N>` (with rotation) and evaluate on --test; then
-        save `<save>` (reference :690-737)."""
+        save `<save>`, unless a preemption checkpoint ended the run
+        (reference :690-737)."""
         config = self.config
         step = self.builder.make_train_step(self.state)
+        save_fn = self._make_save_fn() if config.is_saving else None
+        batches = self._rank_batches(self._train_batches())
+        committer = self._committer
         self.trainer = Trainer(
             config, step, self.device,
             evaluate_fn=((lambda state: self._evaluate_with_params(
                 state.params)) if config.is_testing else None),
-            save_fn=self._make_save_fn() if config.is_saving else None,
+            save_fn=save_fn, profile_dir=config.profile_dir,
             initial_epoch=self.initial_epoch,
+            steps_per_epoch_hint=self._steps_per_epoch,
+            commit_drain_fn=committer.drain if committer else None,
+            heartbeat_extra={
+                "resume_mode": self.resume_report["resume_mode"],
+                "restored_step": self.resume_report["restored_step"]},
             host_group=None if self.mesh is None else self.mesh.host_group)
         try:
-            self.state = self.trainer.train(
-                self.state, self._rank_batches(self._train_batches()),
-                dropout_seed(config))
+            self.state = self.trainer.train(self.state, batches,
+                                            dropout_seed(config))
         finally:
             # the callbacks hold this model: without them a dropped model
             # frees its device memory at once, not at the next gc pass
             self.trainer.evaluate_fn = self.trainer.save_fn = None
+            self.trainer.commit_drain_fn = None
+            if committer is not None:
+                # the trainer drained already; this stops the thread and
+                # raises a failure its drain left, unless another
+                # exception is in flight
+                exc_in_flight = sys.exc_info()[0] is not None
+                try:
+                    committer.close()
+                except Exception:
+                    if not exc_in_flight:
+                        raise
+                finally:
+                    self._committer = None
         self.initial_epoch = self.trainer.final_epoch
-        if config.is_saving:
+        if self.trainer.preempted:
+            # the preemption checkpoint is on disk; a second full save
+            # could outlive the scheduler's grace window
+            self.log("Preempted: skipping final save (checkpoint already "
+                     "written by the preemption handler)")
+        elif config.is_saving:
             self.save()
             self.log(f"Model saved in: {config.model_save_path}")
 
     def _make_save_fn(self):
         config = self.config
+        if config.async_checkpointing:
+            self._committer = ckpt.AsyncCommitter(max_in_flight=2,
+                                                  log=self.log)
+            self.log("Async checkpointing on: the state files, manifest "
+                     "and rename run on a background commit thread")
+        else:
+            self._committer = None
 
-        def save_fn(state, epoch):
-            path = f"{config.model_save_path}_iter{epoch}"
-            ckpt.save_model(path, state, self.vocabs, config, epoch=epoch,
-                            data_cursor=self._cursor(epoch))
-            self.log(f"Saved after {epoch} epochs in: {path}")
-            self._rotate_epoch_checkpoints()
+        def save_fn(state, epoch, suffix="", cursor_rows=0):
+            # suffix "_preempt" or "_nanhalt": never the clean epoch
+            # artifact the eval log refers to; cursor_rows: the rows the
+            # in-flight epoch consumed (0 at an epoch's end)
+            path = f"{config.model_save_path}_iter{epoch}{suffix}"
+            ordinal = int(cursor_rows)
+            if epoch == self._applied_skip_epoch:
+                # still inside the epoch this run resumed mid-pass: the
+                # trainer counted from 0, past the rows skipped at resume
+                ordinal += self._applied_skip_rows
+            cursor = {"epoch": epoch, "global_row_ordinal": ordinal,
+                      "global_batch_size": config.train_batch_size}
+            if suffix or self._committer is None:
+                # preemption and NaN-halt saves are synchronous even in
+                # async mode: the process exits after them
+                ckpt.save_model(path, state, self.vocabs, config,
+                                epoch=epoch, data_cursor=cursor)
+                self.log(f"Saved after {epoch} epochs in: {path}")
+                if not suffix:
+                    self._rotate_epoch_checkpoints()
+            else:
+                # rotation follows the rename, on the commit thread
+                ckpt.save_model(path, state, self.vocabs, config,
+                                epoch=epoch, committer=self._committer,
+                                on_committed=self._rotate_epoch_checkpoints,
+                                data_cursor=cursor)
+                self.log(f"Save after {epoch} epochs dispatched to the "
+                         f"async commit pipeline: {path}")
 
         return save_fn
 
@@ -571,10 +718,19 @@ class Code2VecModel(BucketedPredictMixin):
                 "global_batch_size": self.config.train_batch_size}
 
     def _rotate_epoch_checkpoints(self) -> None:
+        with obs.span("checkpoint_rotate",
+                      hist=obs.histogram(
+                          "checkpoint_rotate_seconds",
+                          "orphan sweep + max_to_keep rotation after a "
+                          "clean save")):
+            self._rotate_epoch_checkpoints_inner()
+
+    def _rotate_epoch_checkpoints_inner(self) -> None:
         """Sweep the commit directories of killed saves (promoting a
         complete one whose slot is empty), then keep the newest
-        `max_to_keep` epoch checkpoints, never deleting the only one that
-        verifies (reference :802-870)."""
+        `max_to_keep` clean epoch checkpoints, never deleting the only
+        one that verifies, and remove the `_preempt` checkpoints of that
+        epoch or older once a clean one verifies (reference :802-870)."""
         config = self.config
         pattern = f"{config.model_save_path}_iter*"
         # `.tmp-` first, so the newer state wins an empty slot over its
@@ -583,7 +739,11 @@ class Code2VecModel(BucketedPredictMixin):
                    and not ckpt.staging_owner_alive(p)]
         for p in sorted(orphans,
                         key=lambda p: ckpt.BACKUP_INFIX in os.path.basename(p)):
-            if ckpt.reclaim_orphan(p, log=self.log) == "removed":
+            outcome = ckpt.reclaim_orphan(p, log=self.log)
+            obs.counter("checkpoint_orphans_reclaimed_total",
+                        "orphaned commit-protocol dirs swept or promoted "
+                        "by rotation", outcome=outcome).inc()
+            if outcome == "removed":
                 self.log(f"Swept orphaned checkpoint staging dir {p}")
         parsed = {p: ckpt.parse_iter_name(p) for p in glob.glob(pattern)}
         valid: Dict[str, bool] = {}
@@ -597,8 +757,9 @@ class Code2VecModel(BucketedPredictMixin):
                     valid[p] = False
             return valid[p]
 
-        clean = sorted((p for p, v in parsed.items() if v is not None),
-                       key=lambda p: parsed[p])
+        clean = sorted((p for p, v in parsed.items()
+                        if v is not None and not v[1]),
+                       key=lambda p: parsed[p][0])
         victims = clean[:-config.max_to_keep] if config.max_to_keep else []
         retained = clean[len(victims):]
         if victims and not any(is_valid(p) for p in retained):
@@ -610,6 +771,14 @@ class Code2VecModel(BucketedPredictMixin):
                     break
         for stale in victims:
             shutil.rmtree(stale, ignore_errors=True)
+        # a clean save that verifies supersedes the preemption
+        # checkpoints of its epoch and older (a corrupt one does not)
+        newest_valid_clean = next(
+            (parsed[p][0] for p in reversed(clean) if is_valid(p)), None)
+        if newest_valid_clean is not None:
+            for p, v in parsed.items():
+                if v is not None and v[1] and v[0] <= newest_valid_clean:
+                    shutil.rmtree(p, ignore_errors=True)
 
     def save(self, model_save_path: Optional[str] = None) -> str:
         path = model_save_path or self.config.model_save_path

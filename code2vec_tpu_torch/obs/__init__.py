@@ -17,11 +17,12 @@ the server's `GET /metrics` renders the reference's series:
   into a ring buffer, Chrome trace-event JSON export, and the span tree
   of one serving request with W3C `traceparent` ids.
 - Exporters (`obs.exporters`): atomic Prometheus snapshot file
-  (`--metrics_file`) and localhost HTTP `/metrics` (`--metrics_port`).
+  (`--metrics_file`), localhost HTTP `/metrics` (`--metrics_port`), the
+  trainer's JSON heartbeat (`--heartbeat_file`) and the registry's
+  TensorBoard scalars (`--tensorboard`).
 
 Stdlib only. The reference's flight recorder, SLO, time-series and trace
-stitching modules, its heartbeat file and its TensorBoard export are not
-ported.
+stitching modules are not ported.
 """
 
 from __future__ import annotations

@@ -2,25 +2,35 @@
 
 The port's copy of code2vec_tpu/obs/exporters.py.
 
-One sink, crash-tolerant: a Prometheus textfile snapshot
-(`write_prometheus`, `--metrics_file`), the node-exporter
-textfile-collector pattern — a text-format snapshot written atomically
-(tmp + rename), so a scraper never reads a torn file. Plus an optional
-localhost HTTP endpoint (`start_metrics_server`, `--metrics_port`)
-serving the same text at `/metrics` for a direct Prometheus scrape. The
-reference's heartbeat JSON and TensorBoard export have no caller in the
-port (the supervisor and trainer that read them are not ported) and
-are left out.
+Three sinks, all crash-tolerant:
+
+- Prometheus textfile snapshot (`write_prometheus`, `--metrics_file`):
+  the node-exporter textfile-collector pattern — a text-format snapshot
+  written atomically (tmp + rename), so a scraper never reads a torn
+  file. Plus an optional localhost HTTP endpoint
+  (`start_metrics_server`, `--metrics_port`) serving the same text at
+  `/metrics` for a direct Prometheus scrape.
+- Heartbeat JSON (`write_heartbeat`, `--heartbeat_file`, :62-75): one
+  small file rewritten atomically each log window with {step, epoch,
+  last_loss, wall clock, ...}. An external watchdog detects a hung
+  trainer by the file's `wall_time` going stale.
+- TensorBoard (`tb_export`, :77-88): every registered metric through the
+  ScalarWriter (utils/tb.py) at log boundaries, so registry metrics and
+  the trainer's loss/throughput curves live in one TB run.
 """
 
 from __future__ import annotations
 
 import http.server
+import json
 import os
 import threading
+import time
 from typing import Optional
 
 from code2vec_tpu_torch.obs import metrics as _metrics
+
+HEARTBEAT_SCHEMA_VERSION = 1
 
 
 def _atomic_write(path: str, data: str) -> None:
@@ -49,6 +59,31 @@ def write_prometheus(path: str,
     reg = registry if registry is not None else _metrics.default_registry()
     _atomic_write(path, reg.render_prometheus())
     return path
+
+
+def write_heartbeat(path: str, **fields) -> str:
+    """Atomically (re)write the JSON heartbeat file. `wall_time` (unix
+    seconds) and `pid` are stamped automatically; callers add step/epoch/
+    last_loss/whatever else a watchdog should see (the trainer's fields:
+    training/loop.py `Trainer.train`'s write_heartbeat)."""
+    payload = {
+        "schema_version": HEARTBEAT_SCHEMA_VERSION,
+        "wall_time": time.time(),
+        "pid": os.getpid(),
+    }
+    payload.update(fields)
+    _atomic_write(path, json.dumps(payload, indent=2) + "\n")
+    return path
+
+
+def tb_export(writer, step: int,
+              registry: Optional[_metrics.MetricsRegistry] = None,
+              prefix: str = "obs/") -> None:
+    """Write every registered metric as a TB scalar (utils/tb.py
+    ScalarWriter, or anything with a `.scalar(tag, value, step)`)."""
+    reg = registry if registry is not None else _metrics.default_registry()
+    for tag, value in reg.tb_scalars():
+        writer.scalar(prefix + tag, value, step)
 
 
 # ------------------------------------------------------------- http server

@@ -20,9 +20,9 @@ Design notes:
   plus the implicit +Inf bucket; `sum` and `count` ride along. Fixed
   buckets keep `observe()` to one bisect + a few increments — cheap
   enough for per-batch step-phase timings.
-- Export surface: `render_prometheus()` (node-exporter textfile / HTTP
-  scrape format). The reference's `tb_scalars()` has no reader in the
-  port (it has no TensorBoard writer) and is not ported.
+- Export surfaces: `render_prometheus()` (node-exporter textfile / HTTP
+  scrape format) and `tb_scalars()` (flat (tag, value) pairs for the
+  TensorBoard ScalarWriter; histograms flatten to _count/_sum/_mean).
 """
 
 from __future__ import annotations
@@ -250,6 +250,26 @@ class MetricsRegistry:
                     lines.append(f"{name}{_format_labels(key)} "
                                  f"{_format_value(child.value)}")
         return "\n".join(lines) + "\n"
+
+    def tb_scalars(self) -> List[Tuple[str, float]]:
+        """Flat (tag, value) pairs for the TensorBoard ScalarWriter.
+        Labels flatten into the tag path; histograms export count, sum
+        and mean (TB has no native histogram in our scalar writer)."""
+        with self._lock:
+            families = [(f.name, f.kind, dict(f.children))
+                        for f in self._families.values()]
+        out: List[Tuple[str, float]] = []
+        for name, kind, children in sorted(families):
+            for key in sorted(children):
+                child = children[key]
+                tag = name + "".join(f".{k}.{v}" for k, v in key)
+                if kind == "histogram":
+                    out.append((f"{tag}/count", float(child.count)))
+                    out.append((f"{tag}/sum", float(child.sum)))
+                    out.append((f"{tag}/mean", float(child.mean)))
+                else:
+                    out.append((tag, float(child.value)))
+        return out
 
     def collect(self) -> Dict[str, Dict[LabelsKey, object]]:
         """Raw {name: {labels_key: metric}} view (tests, debugging)."""

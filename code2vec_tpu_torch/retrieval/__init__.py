@@ -12,6 +12,8 @@ code2vec_tpu/retrieval/.
                  target table).
 - `api.py`       the /neighbors mount of `serve --retrieval_index`.
 
-The reference's `obs` counters, gauges and histograms of these modules
-are not ported: the port has no `obs` yet.
+Each module records the reference's `obs` metrics: the embed job's
+`retrieval_embed_*`, the index's `retrieval_searches_total` and
+`retrieval_index_rows`, the MIPS head's `serving_mips_nlist` and the
+/neighbors mount's serving series.
 """

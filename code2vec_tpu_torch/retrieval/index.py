@@ -21,8 +21,8 @@ artifact: `index_meta.json`, `centroids.npy`, `list_offsets.npy`,
 
 Similarity is cosine by default (vectors L2-normalised at build, queries
 at search; distance = 1 - score) or raw dot (distance = -score). The
-reference's `obs` counters and gauges (retrieval_searches_total,
-retrieval_index_rows) are not ported: the port has no `obs` yet.
+reference's metrics (:296, :451): `retrieval_searches_total{backend}`
+and the loaded index's `retrieval_index_rows`.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.kernels.ivf import ivf_search
 from code2vec_tpu_torch.kernels.kmeans import kmeans_assign, kmeans_update
 from code2vec_tpu_torch.kernels.topk import blockwise_topk
@@ -240,16 +241,20 @@ class NeighborIndex:
         k = max(1, min(int(k), self.rows))
         qd = _on(q, self.device)
         if exact or self.backend == BACKEND_BRUTE:
+            backend = "brute"
             out = blockwise_topk(qd, self._vectors, k,
                                  min(_TOPK_BLOCK, self.rows),
                                  compute_dtype=torch.float32)
             vals, pos = out.values, out.indices
         else:
+            backend = "ivf"
             np_probe = self.nprobe if nprobe is None else \
                 max(1, min(int(nprobe), self.nlist))
             vals, pos = ivf_search(qd, self._centroids, self._vectors,
                                    self._offsets, np_probe, k,
                                    max_len=self._max_len)
+        obs.counter("retrieval_searches_total",
+                    "ANN searches by backend", backend=backend).inc()
         vals = vals.cpu().numpy()
         pos = pos.cpu().numpy()
         # candidate shortfall surfaces as -inf scores; normalise to
@@ -357,6 +362,8 @@ def load_index(path: str, expect_fingerprint: Optional[str] = None,
                 f"expected ({nlist + 1},) ending at {rows}, file holds "
                 f"{tuple(offsets.shape)} ending at "
                 f"{int(offsets[-1]) if len(offsets) else 'nothing'}")
+    obs.gauge("retrieval_index_rows",
+              "rows in the mounted/loaded retrieval index").set(rows)
     return NeighborIndex(base, meta, np.asarray(vectors), ids, store_rows,
                          centroids, offsets, device=device)
 

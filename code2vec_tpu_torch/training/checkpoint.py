@@ -1,12 +1,20 @@
 """Checkpoints: trainable and released artifacts with a crash-atomic commit.
 
 The counterpart of code2vec_tpu/training/checkpoint.py for one process on
-one device: the commit (`_save_model_inner` :916), the integrity check
-(`verify_checkpoint`, `latest_valid_checkpoint` :678, `resolve_load_path`,
-`reclaim_orphan`), the restore (`load_model` :1106, with `params_only`
-and the reference's mismatch messages :1166-1197) and `release_model`
-(:1213). The multi-host barriers, the async committer, resharded
-restores, the opt-in content hash and mid-epoch cursors are not ported.
+one device: the commit (`_save_model_inner` :916), the async committer
+(`AsyncCommitter` :770-872, `save_model(committer=, on_committed=)`
+:875-1082), the opt-in content hash (`hash_artifact_content` :229-262,
+`verify_checkpoint(check_content=)` :496), the integrity check
+(`verify_checkpoint`, `latest_valid_checkpoint` :678 with the preference
+of a `_preempt` artifact over the clean one of its epoch, `_candidate_key`
+:631, `resolve_load_path`, `reclaim_orphan`), the data cursor the
+manifest records, the restore (`load_model` :1106, with `params_only`,
+`report` and the reference's mismatch messages :1166-1197) and
+`release_model` (:1213), with the reference's spans and metrics
+(`checkpoint_save_seconds`, `checkpoint_async_*`,
+`checkpoint_saves_total`, `checkpoint_last_save_*`, `checkpoint_verify_*`,
+`checkpoint_content_hash_seconds`). The multi-host barriers and the
+resharded restore are not ported (a mesh run refuses --save and --load).
 
 An artifact is a directory:
 
@@ -34,7 +42,18 @@ artifact or the new one, never a blend). Every staged file and directory
 is flushed to the disk before the manifest is written, then the manifest
 and the renames, so this holds across a power loss too, not only a
 killed process. `fault_point("save")` sits at the five places the
-reference marks, for the crash tests.
+reference marks, `async_commit` where the deferred work begins and
+`callback_crash` after the rename, for the crash tests.
+
+Async commits (`config.async_checkpointing`): `save_model(committer=)`
+writes the two small files and copies every state leaf to host memory
+before it returns (the port's K8 and K12 update the parameters and
+moments in place, so the next step would change what a later copy
+reads; the copy waits for the device's work queued before it), then
+hands the state files, their flush, the manifest, the rename, the
+content hash and `on_committed` (rotation) to the committer's one
+thread. At most `max_in_flight` commits are pending: each holds its host
+copy of the state (3.145 GB at the flagship width) until it commits.
 """
 
 from __future__ import annotations
@@ -44,11 +63,13 @@ import hashlib
 import json
 import os
 import shutil
+import threading
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.training.sparse_adam import HybridOptState
 from code2vec_tpu_torch.training.state import TrainState
 from code2vec_tpu_torch.utils.faults import fault_point
@@ -64,7 +85,7 @@ RELEASED_SUFFIX = ".release"
 STAGING_INFIX = ".tmp-"
 BACKUP_INFIX = ".old-"
 # the small files whose content the manifest hashes; the state files are
-# checked by size
+# checked by size, and by content only after `hash_artifact_content`
 _HASHED_FILES = (DICT_NAME, META_NAME)
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
@@ -110,13 +131,19 @@ def staging_owner_alive(path: str) -> bool:
         return True  # exists, owned by another user
 
 
-def parse_iter_name(path: str) -> Optional[int]:
-    """The epoch N of a `<base>_iter<N>` path, or None (staging
-    directories parse as None)."""
+def parse_iter_name(path: str):
+    """(epoch, is_preempt) of a `<base>_iter<N>[_preempt]` path, or None
+    (reference :202-218). Staging directories and the post-mortem
+    `_iter<N>_nanhalt` artifacts parse as None, so resume and rotation
+    never see them."""
     if "_iter" not in path:
         return None
+    tail = path.rsplit("_iter", 1)[1]
+    preempt = tail.endswith("_preempt")
+    if preempt:
+        tail = tail[: -len("_preempt")]
     try:
-        return int(path.rsplit("_iter", 1)[1])
+        return int(tail), preempt
     except ValueError:
         return None
 
@@ -127,6 +154,38 @@ def _sha256_file(path: str) -> str:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+def hash_artifact_content(base: str, max_threads: int = 4) -> dict:
+    """Record a full-content sha256 of every manifest-listed file (the
+    state files included, which the manifest otherwise only size-checks)
+    and rewrite the manifest atomically (reference :229-262). Runs after
+    the commit (`config.checkpoint_hash_content`), so a kill mid-hash
+    leaves a valid artifact without content hashes. Returns the updated
+    manifest."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with obs.span("checkpoint_content_hash",
+                  hist=obs.histogram(
+                      "checkpoint_content_hash_seconds",
+                      "post-commit full-content sha256 of one artifact")):
+        manifest_path = os.path.join(base, MANIFEST_NAME)
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        rels = sorted(manifest["files"])
+        with ThreadPoolExecutor(max_workers=max_threads) as pool:
+            digests = pool.map(
+                lambda rel: _sha256_file(os.path.join(base, rel)), rels)
+        for rel, digest in zip(rels, digests):
+            manifest["files"][rel]["content_sha256"] = digest
+        manifest["content_hashed"] = True
+        tmp = manifest_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=2)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, manifest_path)
+        return manifest
 
 
 def _fsync_dir(path: str) -> None:
@@ -209,6 +268,34 @@ def _to_numpy(x) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _snapshot(leaves: Dict[str, object]) -> Dict[str, np.ndarray]:
+    """`_to_numpy` of every leaf into host memory of its own: what an
+    async save writes after the device has moved on. A device tensor is
+    copied into pinned memory (a DMA copy, several times the rate of a
+    copy to pageable memory; PyTorch's caching host allocator keeps the
+    freed buffers for the next save), the copies queued after the work
+    already on the current stream, and the call returns once they are
+    done."""
+    out: Dict[str, np.ndarray] = {}
+    devices = set()
+    for key, x in leaves.items():
+        if not isinstance(x, torch.Tensor):
+            out[key] = np.asarray(x, dtype=np.int32)
+            continue
+        t = x.detach()
+        bits = t.dtype == torch.bfloat16
+        if bits:
+            t = t.view(torch.int16)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        host.copy_(t, non_blocking=t.is_cuda)
+        if t.is_cuda:
+            devices.add(t.device)
+        out[key] = host.numpy().view(np.uint16) if bits else host.numpy()
+    for device in devices:
+        torch.cuda.synchronize(device)
+    return out
+
+
 def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     if dtype == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
@@ -281,12 +368,130 @@ def _commit_staging(staging: str, base: str) -> None:
     _fsync_dir(os.path.dirname(base) or ".")
 
 
+class AsyncCommitter:
+    """Bounded background pipeline for the deferred half of a save
+    (reference :770-872): one commit thread; `submit` blocks once
+    `max_in_flight` commits are pending (back-pressure: a slow disk never
+    queues unbounded host copies of the state); the first failure
+    re-raises on the next `submit` or `drain`; `drain` completes every
+    pending commit (the trainer drains before a preemption save and in
+    its `finally`); `close` drains and stops the thread."""
+
+    def __init__(self, max_in_flight: int = 2,
+                 log: Optional[Callable[[str], None]] = None):
+        from concurrent.futures import ThreadPoolExecutor
+        self._executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="c2v-ckpt-commit")
+        self._slots = threading.Semaphore(max(1, int(max_in_flight)))
+        self._lock = threading.Lock()
+        self._futures = []
+        self._errors = []
+        self._depth = 0
+        self._log = log
+        self._g_depth = obs.gauge(
+            "checkpoint_async_inflight",
+            "async checkpoint commits currently pending")
+
+    @property
+    def in_flight(self) -> int:
+        with self._lock:
+            return self._depth
+
+    def raise_pending(self) -> None:
+        """Re-raise the first recorded commit failure (the original
+        exception object) and forget it."""
+        with self._lock:
+            if not self._errors:
+                return
+            _label, err = self._errors.pop(0)
+        raise err
+
+    def submit(self, job: Callable[[], object], label: str) -> None:
+        self.raise_pending()
+        with obs.span("checkpoint_async_backpressure",
+                      hist=obs.histogram(
+                          "checkpoint_async_backpressure_seconds",
+                          "save stalled waiting for an in-flight async "
+                          "commit slot")):
+            self._slots.acquire()  # back-pressure at max_in_flight
+
+        def run():
+            try:
+                with obs.span("checkpoint_async_commit",
+                              hist=obs.histogram(
+                                  "checkpoint_async_commit_seconds",
+                                  "deferred commit: state files + flush + "
+                                  "manifest + rename")):
+                    job()
+            except BaseException as e:  # noqa: BLE001 (surfaced on drain)
+                with self._lock:
+                    self._errors.append((label, e))
+                obs.counter("checkpoint_async_errors_total",
+                            "async checkpoint commits that failed").inc()
+                if self._log is not None:
+                    self._log(f"Async checkpoint commit {label} FAILED: "
+                              f"{type(e).__name__}: {e}")
+            finally:
+                with self._lock:
+                    self._depth -= 1
+                    self._g_depth.set(self._depth)
+                self._slots.release()
+
+        with self._lock:
+            self._futures = [f for f in self._futures if not f.done()]
+            self._futures.append(self._executor.submit(run))
+            self._depth += 1
+            self._g_depth.set(self._depth)
+
+    def drain(self) -> None:
+        """Block until every pending commit finished; re-raise the first
+        failure. Idempotent."""
+        from concurrent.futures import wait
+        with self._lock:
+            pending = list(self._futures)
+        if pending:
+            wait(pending)
+        self.raise_pending()
+
+    def close(self) -> None:
+        """Drain (surfacing errors) and stop the commit thread."""
+        try:
+            self.drain()
+        finally:
+            self._executor.shutdown(wait=True)
+
+
 def save_model(model_save_path: str, state: TrainState, vocabs, config,
                epoch: int = 0, released: bool = False,
+               committer: Optional[AsyncCommitter] = None,
+               on_committed: Optional[Callable[[], None]] = None,
                data_cursor: Optional[dict] = None) -> str:
     """Save a standalone artifact at `model_save_path` (plus `.release`
     when `released`, which leaves the optimizer state out); returns its
-    path. Crash-atomic: staged, manifest last, renamed into place."""
+    path. Crash-atomic: staged, manifest last, renamed into place.
+
+    With `committer` the call returns once the small files are staged
+    and the state is copied to host memory; the state files, the
+    manifest and the rename run on the commit thread, then
+    `on_committed` (rotation). The returned path is where the artifact
+    WILL commit: drain the committer before relying on it. `data_cursor`
+    ({"epoch", "global_row_ordinal", "global_batch_size"}) goes into the
+    manifest as it is."""
+    with obs.span("checkpoint_save",
+                  hist=obs.histogram(
+                      "checkpoint_save_seconds",
+                      "step-loop save stall: stage + write + commit (sync) "
+                      "or stage + host snapshot (async)")):
+        return _save_model_inner(model_save_path, state, vocabs, config,
+                                 epoch, released, committer, on_committed,
+                                 data_cursor)
+
+
+def _save_model_inner(model_save_path: str, state: TrainState, vocabs,
+                      config, epoch: int, released: bool,
+                      committer: Optional[AsyncCommitter],
+                      on_committed: Optional[Callable[[], None]],
+                      data_cursor: Optional[dict]) -> str:
     base = _abs(model_save_path) + (RELEASED_SUFFIX if released else "")
     staging = f"{base}{STAGING_INFIX}{os.getpid()}"
     if os.path.isdir(staging):
@@ -314,18 +519,60 @@ def save_model(model_save_path: str, state: TrainState, vocabs, config,
         }, f, indent=2)
     fault_point("save")   # 3: meta written, state missing
     leaves = state_leaves(state, with_opt_state=not released)
-    for key, x in leaves.items():
-        path = _leaf_path(staging, key)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        np.save(path, _to_numpy(x))
-    fault_point("save")   # 4: state written, manifest missing
-    _fsync_tree(staging)
     topology = {"param_tree": tree_summary(leaves)}
     if data_cursor is not None:
         topology["data_cursor"] = dict(data_cursor)
-    _write_manifest(staging, epoch, released, topology)
-    fault_point("save")   # 5: fully staged, not yet committed
-    _commit_staging(staging, base)
+    if committer is not None:
+        # the state as it is now: the steps after this return update it
+        # in place
+        with obs.span("checkpoint_snapshot",
+                      hist=obs.histogram(
+                          "checkpoint_snapshot_seconds",
+                          "async save: the state's copy to host memory")):
+            leaves = _snapshot(leaves)
+
+    def commit_job():
+        with obs.span("checkpoint_state_write",
+                      hist=obs.histogram(
+                          "checkpoint_state_write_seconds",
+                          "the state files written and flushed to disk")):
+            for key, x in leaves.items():
+                path = _leaf_path(staging, key)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                np.save(path, x if isinstance(x, np.ndarray)
+                        else _to_numpy(x))
+            fault_point("save")   # 4: state written, manifest missing
+            fault_point("async_commit")  # the deferred commit work begins
+            _fsync_tree(staging)
+        _write_manifest(staging, epoch, released, topology)
+        fault_point("save")   # 5: fully staged, not yet committed
+        _commit_staging(staging, base)
+        fault_point("callback_crash")  # committed, completion pending
+        if config.checkpoint_hash_content:
+            # after the commit: the artifact is durable, a kill mid-hash
+            # leaves it valid without content hashes
+            hash_artifact_content(base)
+        obs.counter("checkpoint_saves_total",
+                    "committed checkpoint artifacts").inc()
+        obs.gauge("checkpoint_last_save_unixtime",
+                  "wall clock of the last committed save"
+                  ).set_to_current_time()
+        obs.gauge("checkpoint_last_save_epoch",
+                  "epoch recorded in the last committed save").set(epoch)
+        if on_committed is not None:
+            on_committed()
+        return base
+
+    if committer is None:
+        commit_job()
+    else:
+        try:
+            committer.submit(commit_job, label=os.path.basename(base))
+        except BaseException:
+            # an earlier commit's failure surfaced before this job was
+            # taken: nothing writes into this staging directory
+            shutil.rmtree(staging, ignore_errors=True)
+            raise
     return base
 
 
@@ -360,10 +607,27 @@ def reclaim_orphan(path: str,
 
 # ---------------------------------------------------------------- verify
 
-def verify_checkpoint(model_path: str) -> dict:
+def verify_checkpoint(model_path: str, check_content: bool = False) -> dict:
     """Check an artifact against its manifest (a stat per file, a hash of
     the two small ones); returns its meta, or raises
-    CheckpointIntegrityError naming the first offending file."""
+    CheckpointIntegrityError naming the first offending file.
+    `check_content` also re-hashes every file that carries a post-commit
+    `content_sha256` (saves made with `checkpoint_hash_content`): the
+    resume path's deep probe; rotation and the fallback walk keep the
+    cheap default."""
+    with obs.span("checkpoint_verify",
+                  hist=obs.histogram("checkpoint_verify_seconds",
+                                     "manifest probe of one artifact")):
+        try:
+            return _verify_checkpoint_inner(model_path, check_content)
+        except CheckpointIntegrityError:
+            obs.counter("checkpoint_verify_failures_total",
+                        "artifacts that failed their integrity check "
+                        "(resume fallback walked past them)").inc()
+            raise
+
+
+def _verify_checkpoint_inner(model_path: str, check_content: bool) -> dict:
     base = _abs(model_path)
     if not os.path.isdir(base):
         raise CheckpointIntegrityError(f"{base}: not a directory")
@@ -397,9 +661,18 @@ def verify_checkpoint(model_path: str) -> dict:
                 raise CheckpointIntegrityError(
                     f"{p}: size {size} != manifest size {entry.get('size')} "
                     f"(truncated or partially written)")
-            if entry.get("sha256") and _sha256_file(p) != entry["sha256"]:
-                raise CheckpointIntegrityError(
-                    f"{p}: sha256 mismatch against manifest (corrupt)")
+            want_hash = entry.get("sha256")
+            content_hash = (entry.get("content_sha256") if check_content
+                            else None)
+            if want_hash or content_hash:
+                digest = _sha256_file(p)  # one pass serves both checks
+                if want_hash and digest != want_hash:
+                    raise CheckpointIntegrityError(
+                        f"{p}: sha256 mismatch against manifest (corrupt)")
+                if content_hash and digest != content_hash:
+                    raise CheckpointIntegrityError(
+                        f"{p}: content sha256 mismatch against manifest "
+                        f"(bit-rot or size-preserving corruption)")
         except OSError as e:
             raise CheckpointIntegrityError(
                 f"{p}: vanished or became unreadable mid-probe ({e})")
@@ -412,23 +685,35 @@ def verify_checkpoint(model_path: str) -> dict:
             f"{meta_path}: unreadable or corrupt meta ({e})")
 
 
+def _candidate_key(parsed) -> int:
+    """(epoch, is_preempt) as one integer in the resume preference order
+    (reference :631-636): the newer epoch wins, and at equal epoch the
+    preemption artifact (written mid-epoch N+1, so more trained than the
+    clean end-of-epoch-N save)."""
+    epoch, preempt = parsed
+    return epoch * 2 + (1 if preempt else 0)
+
+
 def latest_valid_checkpoint(save_base: str,
                             log: Optional[Callable[[str], None]] = None,
                             trail: Optional[List[dict]] = None
                             ) -> Optional[str]:
-    """The newest `<save_base>_iter<N>` artifact that passes
+    """The newest `<save_base>_iter<N>[_preempt]` artifact that passes
     `verify_checkpoint` (None if none does), walking newest to oldest
-    past corrupt or partial ones; `trail` collects one record per
-    candidate considered."""
+    past corrupt or partial ones; at equal N the `_preempt` one first.
+    `trail` collects one record per candidate considered."""
     candidates = []
     for p in glob.glob(save_base + "_iter*"):
-        epoch = parse_iter_name(p)
-        if epoch is not None:
-            candidates.append((epoch, p))
-    for _epoch, path in sorted(candidates, reverse=True):
+        parsed = parse_iter_name(p)
+        if parsed is not None:
+            candidates.append((_candidate_key(parsed), p))
+    for _key, path in sorted(candidates, reverse=True):
         try:
             verify_checkpoint(path)
         except CheckpointIntegrityError as e:
+            obs.counter(
+                "resume_artifacts_rejected_total",
+                "resume candidates the fallback walk rejected").inc()
             if trail is not None:
                 trail.append({"path": path, "outcome": "rejected",
                               "reason": str(e)})
@@ -538,16 +823,24 @@ def _set_counter(state: TrainState, key: str, value: int) -> None:
 
 
 def load_model(model_load_path: str, state_like: TrainState, config=None,
-               params_only: bool = False) -> TrainState:
+               params_only: bool = False,
+               report: Optional[dict] = None) -> TrainState:
     """Restore an artifact of `save_model` into `state_like`, in place
     (its tensors keep their identity and device), and return it. A
     released artifact, or `params_only`, restores the params and the
     step and keeps `state_like`'s optimizer state; `params_only` skips
     the optimizer checks (the `--release` and export paths). The
-    artifact is verified first, so a truncated file fails with its name."""
+    artifact is verified first, with its content hashes where the save
+    recorded them, so a truncated or corrupt file fails with its name.
+    `report` (an out-parameter) receives `resume_mode` ("exact": one
+    device saved it and one restores it), the path, the data cursor and
+    `restored_step` (reference :1130-1140, :1205)."""
     base = _abs(model_load_path)
-    meta = verify_checkpoint(base)
+    meta = verify_checkpoint(base, check_content=True)
     manifest = load_manifest(base)
+    if report is not None:
+        report.update(resume_mode="exact", path=base,
+                      data_cursor=manifest.get("data_cursor"))
     released = bool(meta.get("released", False))
     if config is not None and not released and not params_only:
         _check_optimizer_layout(meta, config, base)
@@ -567,6 +860,8 @@ def load_model(model_load_path: str, state_like: TrainState, config=None,
                 target.copy_(src)
             else:
                 _set_counter(state_like, key, int(arr))
+    if report is not None:
+        report["restored_step"] = int(state_like.step)
     return state_like
 
 

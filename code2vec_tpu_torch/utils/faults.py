@@ -1,8 +1,9 @@
 """Fault-injection hook points for crash tests.
 
-The port's copy of code2vec_tpu/utils/faults.py (:101-187), without its
-`obs` counter of fired faults. Code calls `fault_point("name")` where a
-crash is interesting (between the files of a checkpoint save). The hooks
+The port's copy of code2vec_tpu/utils/faults.py (:101-187), with its
+`fault_injected_total{point,action}` counter of fired faults (:182).
+Code calls `fault_point("name")` where a crash is interesting (between
+the files of a checkpoint save). The hooks
 do nothing beyond one dict check unless the `C2V_FAULTS` environment
 variable, or an explicit `reset(spec)` in-process, arms them.
 
@@ -27,8 +28,22 @@ Fault points of the checkpoint commit (training/checkpoint.py):
 - `save` (x5)         between the staged files (1 staging created, 2
                       vocabularies, 3 meta, 4 state written, 5 manifest
                       written, not yet renamed)
+- `async_commit`      start of the deferred commit work (state written,
+                      manifest missing); on the commit thread in async
+                      mode
 - `checkpoint_commit` staged, rename pending
 - `checkpoint_swap`   mid overwrite swap (the empty-slot window)
+- `callback_crash`    committed, the content-hash pass and the
+                      completion callback (rotation) still pending
+
+Fault point of the resume path (model_facade._cursor_skip_rows):
+
+- `cursor_remap`      the saved data cursor is being applied before the
+                      resumed epoch's first batch; a kill here must leave
+                      the artifact untouched and re-restorable
+
+Serving (serving/admission.py): `admission_enqueue`, crossed on every
+admission-gate admit.
 """
 
 from __future__ import annotations
@@ -108,6 +123,13 @@ def fault_point(name: str) -> None:
     n, action = armed
     if _hits[name] != n:
         return
+    # counted so `raise`-action drills can read from the registry which
+    # fault fired; an `exit` dies with the process before any export.
+    # Imported here: the unarmed path stays one dict check.
+    from code2vec_tpu_torch import obs
+    obs.counter("fault_injected_total",
+                "armed fault points that fired",
+                point=name, action=action).inc()
     if action == "exit":
         os._exit(FAULT_EXIT_CODE)
     raise FaultInjected(f"injected fault at point {name!r} (hit {n})")

@@ -20,18 +20,41 @@ pinned. EpochEnd markers pass through in order, bare. An error on the
 worker is raised in the consumer. `double_buffer` holds one staged batch
 back, as the reference does: batch N+1's copy is issued before batch N
 is handed to the step loop.
+
+The reference's metrics (:19-32, :92, :140): `prefetch_pack_seconds`
+(the worker's copy of a batch into its pinned slot; on the CPU its
+contiguous arrays), `prefetch_device_put_seconds` (the consumer's issue
+of the copies), `prefetch_batches_total` and `prefetch_queue_depth`.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import obs
 from code2vec_tpu_torch.data.reader import EpochEnd
+
+# Module-scope handles: these fire once per batch on the worker and
+# consumer threads (registry metrics are thread-safe).
+_H_PACK = obs.histogram(
+    "prefetch_pack_seconds",
+    "host packing of one batch's fused transfer buffer (worker thread)")
+_H_DEVICE_PUT = obs.histogram(
+    "prefetch_device_put_seconds",
+    "host-side cost of dispatching one batch's device transfer "
+    "(consumer thread; the transfer itself is async)")
+_C_BATCHES = obs.counter("prefetch_batches_total",
+                         "batches staged by the prefetch worker")
+_G_DEPTH = obs.gauge(
+    "prefetch_queue_depth",
+    "ready batches queued ahead of the consumer at its last take "
+    "(0 every step = the pipeline is feed-bound)")
 
 
 def _arrays(batch):
@@ -114,17 +137,28 @@ class DevicePrefetcher:
                     slot = self._free_slot()
                     if slot is None:
                         return
+                    t0 = time.perf_counter()
                     slot.fill(_arrays(batch))
+                    self._packed(t0)
                     item = (batch, None, slot)
                 else:
+                    t0 = time.perf_counter()
                     item = (batch, [np.ascontiguousarray(a)
                                     for a in _arrays(batch)], None)
+                    self._packed(t0)
                 if not self._put(item):
                     return
         except BaseException as e:  # noqa: BLE001 - raised in __iter__
             self._error = e
         finally:
             self._put(self._END)
+
+    @staticmethod
+    def _packed(t0: float) -> None:
+        dur = time.perf_counter() - t0
+        _H_PACK.observe(dur)
+        obs.default_tracer().maybe_record("prefetch_pack", t0, dur)
+        _C_BATCHES.inc()
 
     def _stage(self, item, copy_stream):
         """The batch's arrays on the device: on the CPU the host arrays
@@ -166,7 +200,13 @@ class DevicePrefetcher:
                         yield out
                     yield item
                     continue
+                _G_DEPTH.set(self._ready.qsize())
+                t0 = time.perf_counter()
                 staged = self._stage(item, copy_stream)
+                dur = time.perf_counter() - t0
+                _H_DEVICE_PUT.observe(dur)
+                obs.default_tracer().maybe_record("prefetch_device_put",
+                                                  t0, dur)
                 if not self.double_buffer:
                     yield staged
                 elif pending is None:

@@ -516,6 +516,28 @@ def _argv(args, paths):
       "--adam_nu_dtype", "float32"],
      ["--data", "P", "--adam_mu_dtype", "float32", "--adam_nu_dtype",
       "float32"], ["adam_mu_dtype", "adam_nu_dtype"]),
+    # the training loop's operations
+    (["train", "--data", "P", "--tensorboard", "--rss_limit_gb", "2.5",
+      "--on_nonfinite_loss", "warn"],
+     ["--data", "P", "--tensorboard", "--rss_limit_gb", "2.5",
+      "--on_nonfinite_loss", "warn"],
+     ["use_tensorboard", "rss_limit_gb", "on_nonfinite_loss"]),
+    (["train", "--data", "P", "--async_checkpointing", "--no_cursor_resume",
+      "--checkpoint_hash_content"],
+     ["--data", "P", "--async_checkpointing", "--no_cursor_resume",
+      "--checkpoint_hash_content"],
+     ["async_checkpointing", "cursor_resume", "checkpoint_hash_content"]),
+    (["train", "--data", "P", "--profile_dir", "D", "--heartbeat_file", "W",
+      "--metrics_file", "E", "--metrics_port", "9", "--trace_export", "O"],
+     ["--data", "P", "--profile_dir", "D", "--heartbeat_file", "W",
+      "--metrics_file", "E", "--metrics_port", "9", "--trace_export", "O"],
+     ["profile_dir", "heartbeat_file", "metrics_file", "metrics_port",
+      "trace_export"]),
+    (["train", "--data", "P"], ["--data", "P"],
+     ["use_tensorboard", "rss_limit_gb", "on_nonfinite_loss",
+      "async_checkpointing", "cursor_resume", "checkpoint_hash_content",
+      "profile_dir", "heartbeat_file", "save_on_preemption",
+      "num_train_batches_to_evaluate"]),
 ])
 def test_flags_parse_as_reference(paths, port_argv, ref_argv, fields):
     _, config = cli.config_from_args(_argv(port_argv, paths))

@@ -421,16 +421,27 @@ def test_nonfinite_loss_halts_or_warns():
     (batch.source_token_indices, batch.path_indices,
      batch.target_token_indices, batch.context_valid_mask,
      batch.target_index, batch.example_valid) = _batch(0)
-    logs = []
-    config = Config(num_batches_to_log_progress=1, verbose_mode=0)
+    logs, saves = [], []
+    config = Config(num_batches_to_log_progress=1, verbose_mode=0,
+                    train_batch_size=4)
     config.log = logs.append
+
+    def save_fn(state, epoch, suffix="", cursor_rows=0):
+        saves.append((epoch, suffix, cursor_rows))
+
+    # halt: the poisoned state is saved under `_nanhalt` (the reference's
+    # preemption-path save), then the run raises
+    trainer = Trainer(config, step, "cpu", save_fn=save_fn)
     with pytest.raises(NonFiniteLossError):
-        Trainer(config, step, "cpu").train(None, [batch, EpochEnd(1)], 0)
+        trainer.train(None, [batch, EpochEnd(1)], 0)
+    assert saves == [(0, "_nanhalt", 4)] and trainer.preempted
     config.on_nonfinite_loss = "warn"
-    trainer = Trainer(config, step, "cpu")
+    saves.clear()
+    trainer = Trainer(config, step, "cpu", save_fn=save_fn)
     trainer.train(None, [batch, batch, EpochEnd(1)], 0)
     assert len(trainer.epoch_losses[0]) == 2
-    assert any("Non-finite loss" in m for m in logs)
+    assert saves == [(1, "", 0)] and not trainer.preempted
+    assert any("Non-finite average loss" in m for m in logs)
 
 
 # ----------------------------------------- vocab, reader, facade, CLI
@@ -579,9 +590,11 @@ def test_cli_train_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,message", [
     (["train"], "needs --data"),
-    # --save is a `train` flag now: an unknown one is refused (the ids
-    # keep their names from when argparse did not know --save and --test)
-    pytest.param(["train", "--data", "x", "--profile_dir", "p"],
+    # --save and --profile_dir are `train` flags now: an unknown one is
+    # refused (--save_barrier_timeout belongs to the mesh's checkpoints;
+    # the ids keep their names from when argparse did not know --save and
+    # --test)
+    pytest.param(["train", "--data", "x", "--save_barrier_timeout", "5"],
                  "unrecognized", id="argv1-unrecognized"),
     # --test is train's, evaluate's and embed's corpus, refused for serve
     pytest.param(["serve", "--artifact", "a", "--test", "t.c2v"],
